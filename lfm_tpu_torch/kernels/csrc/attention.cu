@@ -1,0 +1,16 @@
+// C entry point of K1, the port of lfm_tpu/kernels/flash_attention.py::
+// attention_small. The kernel itself is in attention.cuh.
+#include "attention.cuh"
+
+// q, k, v, o: bf16 (N, T, H*D) slabs with row strides ldq/ldk/ldv/ldo
+// (elements) and batch stride T*ld. Launches on `stream`, allocates
+// nothing, returns cudaGetLastError().
+extern "C" int lfm_attention_small(const void* q, const void* k, const void* v, void* o,
+                                   int N, int T, int H, int D, int ldq, int ldk, int ldv,
+                                   int ldo, void* stream) {
+  using lfm::bf16;
+  return static_cast<int>(lfm::launch_attention<false>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), N, T, H, D, ldq, ldk, ldv, ldo,
+      static_cast<cudaStream_t>(stream)));
+}

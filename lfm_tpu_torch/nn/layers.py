@@ -1,0 +1,158 @@
+"""Shared DiT building blocks (port of lfm_tpu/nn/layers.py).
+
+Parameters are float32 masters; each module computes in its ``dtype`` and
+casts the weights to it on use, as flax's ``Dense(dtype=...)`` does. The
+LayerNorm statistics and the softmax stay float32. Module and parameter
+names follow the reference's timm / models/DiT.py layout, so a reference
+``state_dict`` loads as it is.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from lfm_tpu_torch.kernels.flash_attention import fused_attention, reference_attention
+
+
+def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """``layer(x)`` computed in ``dtype`` (flax Dense with dtype=...)."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """No-affine LayerNorm in float32 with flax's fast variance,
+    max(E[x^2] - E[x]^2, 0); returns float32."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp(xf.square().mean(dim=-1, keepdim=True) - mu.square(), min=0.0)
+    return (xf - mu) * torch.rsqrt(var + eps)
+
+
+def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """adaLN modulation (models/DiT.py:20-21): x * (1 + scale) + shift."""
+    return x * (1.0 + scale[:, None, :]) + shift[:, None, :]
+
+
+def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10_000.0) -> torch.Tensor:
+    """Sinusoidal embedding, cos first (models/DiT.py:53-62). t: (N,)."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+    args = t.float()[:, None] * freqs[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+    return emb
+
+
+def get_2d_sincos_pos_embed(embed_dim: int, grid_size: int) -> np.ndarray:
+    """Fixed 2D sin-cos position table (models/DiT.py:299-346), (g*g, D)
+    float32; the same numpy arithmetic as the JAX package."""
+
+    def embed_1d(pos: np.ndarray) -> np.ndarray:
+        omega = np.arange(embed_dim // 4, dtype=np.float64) / (embed_dim / 4.0)
+        omega = 1.0 / 10_000 ** omega
+        out = np.einsum("m,d->md", pos.reshape(-1), omega)
+        return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+    grid_h = np.arange(grid_size, dtype=np.float32)
+    grid_w = np.arange(grid_size, dtype=np.float32)
+    gx, gy = np.meshgrid(grid_w, grid_h)
+    emb = np.concatenate([embed_1d(gx), embed_1d(gy)], axis=1)
+    return emb.astype(np.float32)
+
+
+class TimestepEmbedder(nn.Module):
+    """freq embedding -> Linear -> SiLU -> Linear (models/DiT.py:29-69)."""
+
+    def __init__(self, hidden_size: int, freq_size: int = 256):
+        super().__init__()
+        self.freq_size = freq_size
+        self.mlp = nn.Sequential(nn.Linear(freq_size, hidden_size), nn.SiLU(),
+                                 nn.Linear(hidden_size, hidden_size))
+
+    def forward(self, t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        x = timestep_embedding(t, self.freq_size).to(dtype)
+        x = F.silu(linear(x, self.mlp[0], dtype))
+        return linear(x, self.mlp[2], dtype)
+
+
+class LabelEmbedder(nn.Module):
+    """Class embedding table with a null row when dropout > 0
+    (models/DiT.py:72-104). Evaluation only: label dropout belongs to the
+    training slice."""
+
+    def __init__(self, num_classes: int, hidden_size: int, dropout_prob: float = 0.0):
+        super().__init__()
+        self.num_classes = num_classes
+        self.dropout_prob = dropout_prob
+        self.embedding_table = nn.Embedding(num_classes + int(dropout_prob > 0), hidden_size)
+
+    def forward(self, labels: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return self.embedding_table.weight[labels].to(dtype)
+
+
+class PatchEmbed(nn.Module):
+    """Non-overlapping patchify (timm PatchEmbed; models/DiT.py:179).
+    NHWC (N, H, W, C) -> tokens (N, H/p * W/p, D), row-major. The weight
+    keeps the reference's conv layout (D, C, p, p); the stride-p conv is
+    computed as reshape + matmul over (ph, pw, c)-ordered patches."""
+
+    def __init__(self, patch_size: int, in_channels: int, hidden_size: int):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = nn.Conv2d(in_channels, hidden_size, patch_size, stride=patch_size)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        p = self.patch_size
+        n, h, w, c = x.shape
+        x = x.reshape(n, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
+        x = x.reshape(n, (h // p) * (w // p), p * p * c)
+        wt = self.proj.weight.permute(0, 2, 3, 1).reshape(self.proj.weight.shape[0], -1)
+        return F.linear(x.to(dtype), wt.to(dtype), self.proj.bias.to(dtype))
+
+
+class Attention(nn.Module):
+    """Fused-qkv multi-head self-attention (timm layout). With ``use_flash``
+    every attention goes through kernels.flash_attention.fused_attention,
+    which launches the ``attention_small`` kernel on a CUDA tensor."""
+
+    def __init__(self, hidden_size: int, num_heads: int, qkv_bias: bool = True,
+                 use_flash: bool = False):
+        super().__init__()
+        self.num_heads = num_heads
+        self.use_flash = use_flash
+        self.qkv = nn.Linear(hidden_size, 3 * hidden_size, bias=qkv_bias)
+        self.proj = nn.Linear(hidden_size, hidden_size)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        n, t, d = x.shape
+        h = self.num_heads
+        hd = d // h
+        qkv = linear(x, self.qkv, dtype)
+        # views into qkv: the kernel reads the (T, H*D) rows in place
+        q, k, v = (a.view(n, t, h, hd) for a in qkv.split(d, dim=-1))
+        if self.use_flash:
+            out = fused_attention(q, k, v)
+        else:
+            out = reference_attention(q, k, v)
+        return linear(out.reshape(n, t, d), self.proj, dtype)
+
+
+class Mlp(nn.Module):
+    """Linear -> GELU(tanh) -> Linear (timm Mlp; models/DiT.py:122-124)."""
+
+    def __init__(self, in_features: int, hidden_features: int):
+        super().__init__()
+        self.fc1 = nn.Linear(in_features, hidden_features)
+        self.fc2 = nn.Linear(hidden_features, in_features)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        x = F.gelu(linear(x, self.fc1, dtype), approximate="tanh")
+        return linear(x, self.fc2, dtype)

@@ -1,0 +1,127 @@
+"""Single-device sampling pipeline: noise -> ODE integrate -> VAE decode
+(port of lfm_tpu/sample/sample.py; reference test_flow_latent.py:161-194).
+
+``make_sampler`` returns ``fn(noise, y) -> SampleOutput``: per-sample latent
+noise (core/rng.py), optional CFG as one doubled batch (ode/cfg.py), the
+ODE from t=1 to t=0 (ode/solvers.py), the latent unscale, the VAE decode and
+the [0, 1] clamp. With ``use_fused_dit`` a bf16 DiT evaluates every block
+through the fused block kernel (nn/dit_fused.py); otherwise the module
+path runs, whose attention goes through the ``attention_small`` kernel when
+the model has ``use_flash``. int8, the sequence- and pipeline-parallel
+paths, Karras samplers and the ``eval_noise`` floor are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import torch
+
+from lfm_tpu_torch.core.config import Config
+from lfm_tpu_torch.core.device import DeviceLike, resolve_device
+from lfm_tpu_torch.core.rng import SampleRNG
+from lfm_tpu_torch.ode.cfg import cfg_velocity, plain_velocity
+from lfm_tpu_torch.ode.solvers import ADAPTIVE_SOLVERS, odeint
+
+
+class SampleOutput(NamedTuple):
+    images: torch.Tensor  # (N, H, W, 3) in [0, 1]
+    latents: torch.Tensor
+    nfe: float
+
+
+def build_velocity(model, y: Optional[torch.Tensor], cfg_scale: float, *,
+                   use_fused_dit: bool = False) -> Callable:
+    """v(t, x), CFG-fused when cfg_scale > 1 (test_flow_latent.py:55-59).
+
+    With ``use_fused_dit`` and ``fused_applicable``, the model evaluates
+    through ``dit_fused_apply`` on a bf16 copy of its parameters made once,
+    at the first call."""
+    apply = model
+    if use_fused_dit:
+        from lfm_tpu_torch.nn.dit_fused import (cast_params_bf16, dit_fused_apply,
+                                                fused_applicable)
+        bf16_params = None
+
+        def apply(t, x, yy):
+            nonlocal bf16_params
+            if not fused_applicable(model, x):
+                return model(t, x, yy)
+            if bf16_params is None:
+                bf16_params = cast_params_bf16(model.state_dict())
+            return dit_fused_apply(model, bf16_params, t, x, yy)
+
+    if y is not None and cfg_scale > 1.0:
+        y_null = torch.full_like(y, getattr(model, "null_label", -1))
+        return cfg_velocity(apply, y, y_null, cfg_scale)
+    return plain_velocity(apply, y)
+
+
+def sample_latents(velocity: Callable, x_noise: torch.Tensor, *, method: str = "dopri5",
+                   atol: float = 1e-5, rtol: float = 1e-5, num_steps: int = 40,
+                   step_size: float = 0.01, use_karras: bool = False,
+                   eval_noise=0.0) -> Tuple[torch.Tensor, float]:
+    """Integrate t: 1 -> 0. Returns (z_0, nfe)."""
+    if use_karras:
+        raise NotImplementedError("Karras samplers are not ported yet")
+    if eval_noise not in (None, 0, 0.0):
+        raise NotImplementedError("the eval_noise floor is not ported yet")
+    if method in ADAPTIVE_SOLVERS:
+        res = odeint(velocity, x_noise, 1.0, 0.0, method=method, atol=atol, rtol=rtol)
+    else:
+        res = odeint(velocity, x_noise, 1.0, 0.0, method=method, num_steps=num_steps,
+                     step_size=step_size)
+    return res.y, res.nfe
+
+
+def make_sampler(config: Config, model, params=None, vae=None, vae_params=None,
+                 device: DeviceLike = None) -> Callable:
+    """Returns ``fn(noise, y=None) -> SampleOutput``.
+
+    ``model`` and ``vae`` are this package's modules; ``params`` and
+    ``vae_params``, where given, are state dicts loaded into them. Both are
+    moved to ``device`` (the card unless ``device="cpu"``). Without a VAE the
+    latents are returned as the images."""
+    device = resolve_device(device)
+    sc = config.sample
+    if sc.use_int8_dit:
+        raise NotImplementedError("int8 DiT sampling is not ported yet")
+    if params is not None:
+        model.load_state_dict(params)
+    model.to(device).eval()
+    if vae is not None:
+        if vae_params is not None:
+            vae.load_state_dict(vae_params)
+        vae.to(device).eval()
+
+    @torch.no_grad()
+    def fn(noise: torch.Tensor, y: Optional[torch.Tensor] = None) -> SampleOutput:
+        noise = noise.to(device=device, dtype=torch.float32)
+        y = None if y is None else y.to(device)
+        velocity = build_velocity(model, y, sc.cfg_scale, use_fused_dit=sc.use_fused_dit)
+        z0, nfe = sample_latents(velocity, noise, method=sc.method, atol=sc.atol,
+                                 rtol=sc.rtol, num_steps=sc.num_steps,
+                                 step_size=sc.step_size,
+                                 use_karras=sc.use_karras_samplers,
+                                 eval_noise=sc.eval_noise)
+        if vae is None:
+            return SampleOutput(images=z0, latents=z0, nfe=nfe)
+        img = vae.decode(z0 / config.scale_factor)
+        img = torch.clamp((img + 1.0) / 2.0, 0.0, 1.0)  # test_flow_latent.py:128,266
+        return SampleOutput(images=img, latents=z0, nfe=nfe)
+
+    return fn
+
+
+def noise_and_labels(config: Config, rng: SampleRNG, indices,
+                     device: DeviceLike = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Per-sample-index latent noise (N, s, s, C) and labels
+    (test_flow_latent.py:162-169)."""
+    device = resolve_device(device)
+    s = config.model.latent_size
+    noise = rng.randn(indices, (s, s, config.model.num_in_channels), device=device)
+    y = None
+    nc = config.model.num_classes
+    if nc is not None and nc > 1:
+        y = rng.randint(indices, 0, nc, device=device)
+    return noise, y

@@ -1,0 +1,113 @@
+"""lfm_tpu_torch stands alone: no module of it and not chip_smoke.py imports
+jax, jaxlib, flax, optax or lfm_tpu; every entry point runs on the card
+unless the caller passes device="cpu"; chip_smoke.py fails without CUDA or
+without the package beside it, printing no result."""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+from tests.torch_parity import leaves_process_as_found  # noqa: F401
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_ISOLATED = textwrap.dedent("""
+    import importlib, importlib.abc, json, pkgutil, sys
+
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "lfm_tpu")
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import lfm_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(lfm_tpu_torch.__path__, "lfm_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    with open("chip_smoke.py") as f:
+        compile(f.read(), "chip_smoke.py", "exec")
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    print(json.dumps({"modules": names, "leaked": leaked}))
+""")
+
+
+def test_port_imports_nothing_of_jax_or_lfm_tpu():
+    res = subprocess.run([sys.executable, "-c", _ISOLATED], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["leaked"] == []
+    for mod in ("lfm_tpu_torch.sample.sample", "lfm_tpu_torch.kernels.dit_block",
+                "lfm_tpu_torch.kernels.flash_attention", "lfm_tpu_torch.cli.main",
+                "lfm_tpu_torch.vae.autoencoder_kl", "lfm_tpu_torch.ode.solvers"):
+        assert mod in out["modules"]
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_refuse_the_cpu_unless_asked(no_cuda):
+    from lfm_tpu_torch.cli import main as cli
+    from lfm_tpu_torch.core.config import get_preset
+    from lfm_tpu_torch.core.rng import SampleRNG
+    from lfm_tpu_torch.nn.dit import DiT, create_dit
+    from lfm_tpu_torch.nn.factory import create_network
+    from lfm_tpu_torch.sample.sample import make_sampler, noise_and_labels
+    from lfm_tpu_torch.vae.autoencoder_kl import create_vae
+
+    cfg = get_preset("celeb256_dit")
+    tiny = DiT(img_resolution=8, patch_size=2, hidden_size=32, depth=1, num_heads=2)
+    calls = [
+        lambda: create_dit("DiT-S/8", img_resolution=32),
+        lambda: create_network(cfg.model),
+        lambda: create_vae((32, 32)),
+        lambda: make_sampler(cfg, tiny),
+        lambda: noise_and_labels(cfg, SampleRNG(0), [0]),
+        lambda: SampleRNG(0).randn([0], (2,)),
+        lambda: SampleRNG(0).randint([0], 0, 2),
+        lambda: cli.main(["sample", "--preset", "celeb256_dit"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    # asked for, the CPU is used
+    assert create_vae((32, 32), device="cpu").decoder.conv_in.weight.device.type == "cpu"
+    assert SampleRNG(0).randn([0], (2,), device="cpu").shape == (1, 2)
+
+
+def test_kernel_wrappers_take_no_other_device():
+    """A wrapper computes the plain version only for a CPU tensor; for any
+    other device it launches its kernel or raises (here: a meta tensor)."""
+    from lfm_tpu_torch.kernels.dit_block import fused_dit_block
+    from lfm_tpu_torch.kernels.flash_attention import attention_small
+
+    q = torch.empty(1, 16, 2, 32, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        attention_small(q, q, q)
+    x = torch.empty(1, 16, 128, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_dit_block(x, *([x] * 9), num_heads=4)
+
+
+def test_chip_smoke_fails_without_cuda_or_the_package(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    res = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0 and '"ok"' not in res.stdout
+    # alone in a directory: no package beside it
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    res = subprocess.run([sys.executable, str(tmp_path / "chip_smoke.py")], cwd=tmp_path,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0 and '"ok"' not in res.stdout
