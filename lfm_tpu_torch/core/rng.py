@@ -31,8 +31,10 @@ def _mix(*words: int) -> int:
     return h & ((1 << 63) - 1)
 
 
-def _generator(*words: int) -> torch.Generator:
-    g = torch.Generator(device="cpu")
+def seeded_generator(device: torch.device, *words: int) -> torch.Generator:
+    """A generator on ``device`` seeded from the words (such as a seed and
+    a step number)."""
+    g = torch.Generator(device=device)
     g.manual_seed(_mix(*words))
     return g
 
@@ -49,8 +51,8 @@ class SampleRNG:
               device: DeviceLike = None) -> torch.Tensor:
         """N(0, 1) of shape ``(len(indices), *sample_shape)``."""
         device = resolve_device(device)
-        rows = [torch.randn(tuple(sample_shape), generator=_generator(self.seed, i),
-                            dtype=torch.float32)
+        rows = [torch.randn(tuple(sample_shape), dtype=torch.float32,
+                            generator=seeded_generator("cpu", self.seed, i))
                 for i in _as_list(indices)]
         return torch.stack(rows).to(device=device, dtype=dtype)
 
@@ -58,8 +60,8 @@ class SampleRNG:
                 device: DeviceLike = None) -> torch.Tensor:
         """Per-sample class labels (reference test_flow_latent.py:167)."""
         device = resolve_device(device)
-        vals = [int(torch.randint(low, high, (), generator=_generator(
-            self.seed, i, _LABEL_STREAM))) for i in _as_list(indices)]
+        vals = [int(torch.randint(low, high, (), generator=seeded_generator(
+            "cpu", self.seed, i, _LABEL_STREAM))) for i in _as_list(indices)]
         return torch.tensor(vals, dtype=torch.int64, device=device)
 
     def batch_indices(self, done: int, batch: int, rank: int = 0,

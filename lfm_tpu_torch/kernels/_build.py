@@ -31,7 +31,8 @@ BUILD_TIMEOUT_S = 900
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: every pointer and the stream are c_void_p, every size c_int
 SIGNATURES = {
-    "lfm_attention_small": [_P] * 4 + [_I] * 8 + [_P],
+    "lfm_attention_small": [_P] * 4 + [_I] * 9 + [_P],
+    "lfm_attention_small_bwd": [_P] * 8 + [_I] * 10 + [_P],
     "lfm_dit_block": [_P] * 16 + [_I] * 5 + [_P],
 }
 

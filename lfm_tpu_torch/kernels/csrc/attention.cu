@@ -2,15 +2,19 @@
 // attention_small. The kernel itself is in attention.cuh.
 #include "attention.cuh"
 
-// q, k, v, o: bf16 (N, T, H*D) slabs with row strides ldq/ldk/ldv/ldo
-// (elements) and batch stride T*ld. Launches on `stream`, allocates
-// nothing, returns cudaGetLastError().
+// q, k, v, o: (N, T, H*D) slabs with row strides ldq/ldk/ldv/ldo
+// (elements) and batch stride T*ld; bf16 when f32 == 0, float otherwise.
+// Launches on `stream`, allocates nothing, returns cudaGetLastError().
 extern "C" int lfm_attention_small(const void* q, const void* k, const void* v, void* o,
                                    int N, int T, int H, int D, int ldq, int ldk, int ldv,
-                                   int ldo, void* stream) {
+                                   int ldo, int f32, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (f32)
+    return static_cast<int>(lfm::launch_attention<false, float>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), N, T, H, D, ldq, ldk, ldv, ldo, s));
   using lfm::bf16;
-  return static_cast<int>(lfm::launch_attention<false>(
+  return static_cast<int>(lfm::launch_attention<false, bf16>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), N, T, H, D, ldq, ldk, ldv, ldo,
-      static_cast<cudaStream_t>(stream)));
+      static_cast<bf16*>(o), N, T, H, D, ldq, ldk, ldv, ldo, s));
 }

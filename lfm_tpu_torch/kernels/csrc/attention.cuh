@@ -1,5 +1,7 @@
 // Whole-sequence softmax attention for small T (the port of
-// lfm_tpu/kernels/flash_attention.py::attention_small, `_attn_small_kernel`).
+// lfm_tpu/kernels/flash_attention.py::attention_small, `_attn_small_kernel`),
+// and the warp-tile products that it shares with the backward (K3,
+// attention_bwd.cuh).
 //
 // q, k, v are read in place from (N, T, row) slabs: token t of sample n,
 // head h starts at ptr[(n*T + t)*ld + h*D]. So the kernel takes the
@@ -8,14 +10,18 @@
 //
 // One block of 4 warps takes 64 query rows of one (sample, head); each warp
 // owns 16 rows. Key and value tiles of 64 rows stream through shared memory.
-// Pass 1 computes S = scale * Q K^T tile by tile (WMMA bf16 -> f32) and keeps
+// Pass 1 computes S = scale * Q K^T tile by tile (f32 accumulation) and keeps
 // each row's running max m and sum l = sum exp(s - m) in f32. Pass 2
-// recomputes S, forms p = exp(s - m) in f32, rounds p to bf16 and
-// accumulates P V in f32 WMMA fragments. NORM_P = false divides the f32
-// result by l at the end (the rounding of `_attn_small_kernel`, K1);
-// NORM_P = true rounds p / l before the PV product instead (the rounding of
-// `_dit_block_kernel`, the attention inside K2). The (T, T) scores never
-// reach device memory. The head dim is zero-padded to DP, a multiple of 16.
+// recomputes S, forms p = exp(s - m) in f32, rounds p to the input type and
+// accumulates P V in f32. NORM_P = false divides the f32 result by l at the
+// end (the rounding of `_attn_small_kernel`, K1); NORM_P = true rounds p / l
+// before the PV product instead (the rounding of `_dit_block_kernel`, the
+// attention inside K2). The (T, T) scores never reach device memory. The
+// head dim is zero-padded to DP, a multiple of 16.
+//
+// Element types: bf16 runs its products on the tensor cores (WMMA bf16 ->
+// f32); f32 runs them as f32 FMA on the CUDA cores, so an f32 model is f32
+// throughout (no TF32 anywhere). WarpTile<T, DP> below holds both.
 //
 // What bounds it on the H100: at T=256, D=64 the bytes it must move are
 // 4*T*H*D*2 per sample against 4*T*T*H*D flops, about 128 flops per byte,
@@ -29,100 +35,193 @@
 
 namespace lfm {
 
-constexpr int ATT_BQ = 64;       // query rows per block
-constexpr int ATT_BK = 64;       // key rows per tile
+constexpr int ATT_BQ = 64;        // query rows per block
+constexpr int ATT_BK = 64;        // key rows per tile
 constexpr int ATT_THREADS = 128;  // 4 warps x 16 query rows
-constexpr int ATT_LDP = ATT_BK + 8;
 
-template <int DP>
+template <typename T, int DP>
 struct AttnLayout {
-  static constexpr int LDT = DP + 8;                         // bf16 tile row
+  static constexpr int PAD = 16 / int(sizeof(T));            // one 16-byte chunk
+  static constexpr int LDT = DP + PAD;                       // tile row (elements)
+  static constexpr int LDP = ATT_BK + PAD;                   // P / dS row (elements)
   static constexpr int LDS = (DP > ATT_BK ? DP : ATT_BK) + 4;  // f32 staging row
-  static constexpr size_t TILE = size_t(ATT_BQ) * LDT * 2;
+  static constexpr size_t TILE = size_t(ATT_BQ) * LDT * sizeof(T);
   static constexpr size_t STAGE = size_t(16) * LDS * 4;      // per warp
-  static constexpr size_t PBUF = size_t(16) * ATT_LDP * 2;   // per warp
-  static constexpr size_t BYTES = 3 * TILE + 4 * STAGE + 4 * PBUF;
+  static constexpr size_t PBUF = size_t(16) * LDP * sizeof(T);  // per warp
 };
 
-// rows [row0, row0+64) x cols [col, col+DP) of a slab into a bf16 tile;
-// rows >= T and cols >= D are zero-filled. D % 8 == 0.
-template <int DP>
-__device__ __forceinline__ void attn_load_tile(bf16* tile, const bf16* base, long ld,
-                                               int row0, int T, int D) {
-  constexpr int CHUNKS = DP / 8;
+// rows [row0, row0+64) x cols [0, DP) of a slab into a tile; rows >= T and
+// cols >= D are zero-filled. D * sizeof(T) % 16 == 0.
+template <typename T, int DP>
+__device__ __forceinline__ void attn_load_tile(T* tile, const T* base, long ld, int row0,
+                                               int T_len, int D) {
+  constexpr int PAD = AttnLayout<T, DP>::PAD;
+  constexpr int CHUNKS = DP / PAD;
   for (int id = threadIdx.x; id < ATT_BQ * CHUNKS; id += ATT_THREADS) {
-    int r = id / CHUNKS, c = (id % CHUNKS) * 8;
-    bool ok = (row0 + r < T) && (c < D);
-    const bf16* src = ok ? base + long(row0 + r) * ld + c : base;
-    cp_async16(tile + r * AttnLayout<DP>::LDT + c, src, ok);
+    int r = id / CHUNKS, c = (id % CHUNKS) * PAD;
+    bool ok = (row0 + r < T_len) && (c < D);
+    const T* src = ok ? base + long(row0 + r) * ld + c : base;
+    cp_async16(tile + r * AttnLayout<T, DP>::LDT + c, src, ok);
   }
   cp_async_commit();
 }
 
-// this warp's 16 x 64 score tile S = Q_w K^T (unscaled) into stage (f32)
-template <int DP>
-__device__ __forceinline__ void attn_scores(const bf16* qw, const bf16* ks, float* stage) {
-  using namespace nvcuda;
-  constexpr int LDT = AttnLayout<DP>::LDT;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[ATT_BK / 16];
-#pragma unroll
-  for (int j = 0; j < ATT_BK / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, qw + kk * 16, LDT);
-#pragma unroll
-    for (int j = 0; j < ATT_BK / 16; ++j) {
-      // K^T as a column-major (D x keys) operand: element (d, key) at key*LDT + d
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(b, ks + j * 16 * LDT + kk * 16, LDT);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < ATT_BK / 16; ++j)
-    wmma::store_matrix_sync(stage + j * 16, acc[j], AttnLayout<DP>::LDS, wmma::mem_row_major);
-  __syncwarp();
-}
+// The two per-warp products of the attention kernels, forward and backward.
+// Lane layout of the f32 results: lane L owns row L / 2 and the half L % 2
+// of the columns.
+//   nt:  stage (16 x 64, f32) = A (16 x DP) . B (64 x DP)^T
+//   Acc: acc (16 x DP, f32)  += P (16 x 64) . B (64 x DP); store() writes
+//        it to stage as 16 x DP.
+// A, B are tiles with row stride LDT; P has row stride LDP.
+template <typename T, int DP>
+struct WarpTile;
 
-template <int DP, bool NORM_P>
+template <int DP>
+struct WarpTile<bf16, DP> {
+  using L = AttnLayout<bf16, DP>;
+
+  static __device__ __forceinline__ void nt(const bf16* a, const bf16* b, float* stage) {
+    using namespace nvcuda;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[ATT_BK / 16];
+#pragma unroll
+    for (int j = 0; j < ATT_BK / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+      wmma::load_matrix_sync(fa, a + kk * 16, L::LDT);
+#pragma unroll
+      for (int j = 0; j < ATT_BK / 16; ++j) {
+        // B^T as a column-major (DP x 64) operand: element (d, r) at r*LDT + d
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
+        wmma::load_matrix_sync(fb, b + j * 16 * L::LDT + kk * 16, L::LDT);
+        wmma::mma_sync(acc[j], fa, fb, acc[j]);
+      }
+    }
+    __syncwarp();  // every lane has read what it needed of the last stage
+#pragma unroll
+    for (int j = 0; j < ATT_BK / 16; ++j)
+      wmma::store_matrix_sync(stage + j * 16, acc[j], L::LDS, wmma::mem_row_major);
+    __syncwarp();
+  }
+
+  struct Acc {
+    nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> f[DP / 16];
+
+    __device__ __forceinline__ void zero() {
+#pragma unroll
+      for (int j = 0; j < DP / 16; ++j) nvcuda::wmma::fill_fragment(f[j], 0.0f);
+    }
+    __device__ __forceinline__ void nn(const bf16* p, const bf16* b) {
+      using namespace nvcuda;
+#pragma unroll
+      for (int kk = 0; kk < ATT_BK / 16; ++kk) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+        wmma::load_matrix_sync(fa, p + kk * 16, L::LDP);
+#pragma unroll
+        for (int j = 0; j < DP / 16; ++j) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+          wmma::load_matrix_sync(fb, b + kk * 16 * L::LDT + j * 16, L::LDT);
+          wmma::mma_sync(f[j], fa, fb, f[j]);
+        }
+      }
+    }
+    __device__ __forceinline__ void store(float* stage) {
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < DP / 16; ++j)
+        nvcuda::wmma::store_matrix_sync(stage + j * 16, f[j], L::LDS, nvcuda::wmma::mem_row_major);
+      __syncwarp();
+    }
+  };
+};
+
+template <int DP>
+struct WarpTile<float, DP> {
+  using L = AttnLayout<float, DP>;
+  static constexpr int HALF = DP / 2;
+
+  static __device__ __forceinline__ void nt(const float* a, const float* b, float* stage) {
+    const int lane = threadIdx.x % 32, row = lane >> 1, half = lane & 1;
+    const float* ar = a + row * L::LDT;
+    float s[ATT_BK / 2];
+#pragma unroll
+    for (int c = 0; c < ATT_BK / 2; ++c) s[c] = 0.0f;
+    for (int d = 0; d < DP; ++d) {
+      const float av = ar[d];
+#pragma unroll
+      for (int c = 0; c < ATT_BK / 2; ++c)
+        s[c] = fmaf(av, b[(half * (ATT_BK / 2) + c) * L::LDT + d], s[c]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int c = 0; c < ATT_BK / 2; ++c) stage[row * L::LDS + half * (ATT_BK / 2) + c] = s[c];
+    __syncwarp();
+  }
+
+  struct Acc {
+    float f[HALF];
+
+    __device__ __forceinline__ void zero() {
+#pragma unroll
+      for (int c = 0; c < HALF; ++c) f[c] = 0.0f;
+    }
+    __device__ __forceinline__ void nn(const float* p, const float* b) {
+      const int lane = threadIdx.x % 32, row = lane >> 1, half = lane & 1;
+      for (int k = 0; k < ATT_BK; ++k) {
+        const float pk = p[row * L::LDP + k];
+        const float* br = b + k * L::LDT + half * HALF;
+#pragma unroll
+        for (int c = 0; c < HALF; ++c) f[c] = fmaf(pk, br[c], f[c]);
+      }
+    }
+    __device__ __forceinline__ void store(float* stage) {
+      const int lane = threadIdx.x % 32, row = lane >> 1, half = lane & 1;
+      __syncwarp();
+#pragma unroll
+      for (int c = 0; c < HALF; ++c) stage[row * L::LDS + half * HALF + c] = f[c];
+      __syncwarp();
+    }
+  };
+};
+
+template <typename T, int DP, bool NORM_P>
 __global__ void __launch_bounds__(ATT_THREADS)
-attn_small_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o, int T, int D,
-                  long ldq, long ldk, long ldv, long ldo, float scale) {
-  using namespace nvcuda;
-  using L = AttnLayout<DP>;
+attn_small_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                  T* __restrict__ o, int T_len, int D, long ldq, long ldk, long ldv, long ldo,
+                  float scale) {
+  using L = AttnLayout<T, DP>;
+  using W = WarpTile<T, DP>;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = reinterpret_cast<bf16*>(smem + L::TILE);
-  bf16* vs = reinterpret_cast<bf16*>(smem + 2 * L::TILE);
+  T* qs = reinterpret_cast<T*>(smem);
+  T* ks = reinterpret_cast<T*>(smem + L::TILE);
+  T* vs = reinterpret_cast<T*>(smem + 2 * L::TILE);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* stage = reinterpret_cast<float*>(smem + 3 * L::TILE + warp * L::STAGE);
-  bf16* pbuf = reinterpret_cast<bf16*>(smem + 3 * L::TILE + 4 * L::STAGE + warp * L::PBUF);
+  T* pbuf = reinterpret_cast<T*>(smem + 3 * L::TILE + 4 * L::STAGE + warp * L::PBUF);
 
   const int n = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ATT_BQ;
-  const bf16* qb = q + long(n) * T * ldq + long(h) * D;
-  const bf16* kb = k + long(n) * T * ldk + long(h) * D;
-  const bf16* vb = v + long(n) * T * ldv + long(h) * D;
-  const bf16* qw = qs + warp * 16 * L::LDT;
+  const T* qb = q + long(n) * T_len * ldq + long(h) * D;
+  const T* kb = k + long(n) * T_len * ldk + long(h) * D;
+  const T* vb = v + long(n) * T_len * ldv + long(h) * D;
+  const T* qw = qs + warp * 16 * L::LDT;
   const int row = lane >> 1, half = lane & 1;  // two lanes per query row
-  const int n_tiles = (T + ATT_BK - 1) / ATT_BK;
+  const int n_tiles = (T_len + ATT_BK - 1) / ATT_BK;
 
-  attn_load_tile<DP>(qs, qb, ldq, q0, T, D);
+  attn_load_tile<T, DP>(qs, qb, ldq, q0, T_len, D);
 
   // pass 1: row max and sum of exp, online over key tiles
   float m_run = -INFINITY, l_run = 0.0f;
   for (int kt = 0; kt < n_tiles; ++kt) {
-    attn_load_tile<DP>(ks, kb, ldk, kt * ATT_BK, T, D);
+    attn_load_tile<T, DP>(ks, kb, ldk, kt * ATT_BK, T_len, D);
     cp_async_wait<0>();
     __syncthreads();
-    attn_scores<DP>(qw, ks, stage);
+    W::nt(qw, ks, stage);
     float s[32];
     float mt = -INFINITY;
 #pragma unroll
     for (int c = 0; c < 32; ++c) {
       int col = half * 32 + c;
-      s[c] = (kt * ATT_BK + col < T) ? scale * stage[row * L::LDS + col] : -INFINITY;
+      s[c] = (kt * ATT_BK + col < T_len) ? scale * stage[row * L::LDS + col] : -INFINITY;
       mt = fmaxf(mt, s[c]);
     }
     mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
@@ -138,63 +237,50 @@ attn_small_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float inv_l = 1.0f / l;
 
   // pass 2: P V with the final row max
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc[DP / 16];
-#pragma unroll
-  for (int j = 0; j < DP / 16; ++j) wmma::fill_fragment(oacc[j], 0.0f);
+  typename W::Acc oacc;
+  oacc.zero();
   for (int kt = 0; kt < n_tiles; ++kt) {
-    attn_load_tile<DP>(ks, kb, ldk, kt * ATT_BK, T, D);
-    attn_load_tile<DP>(vs, vb, ldv, kt * ATT_BK, T, D);
+    attn_load_tile<T, DP>(ks, kb, ldk, kt * ATT_BK, T_len, D);
+    attn_load_tile<T, DP>(vs, vb, ldv, kt * ATT_BK, T_len, D);
     cp_async_wait<0>();
     __syncthreads();
-    attn_scores<DP>(qw, ks, stage);
+    W::nt(qw, ks, stage);
 #pragma unroll
     for (int c = 0; c < 32; ++c) {
       int col = half * 32 + c;
       float p = 0.0f;
-      if (kt * ATT_BK + col < T) {
+      if (kt * ATT_BK + col < T_len) {
         p = expf(scale * stage[row * L::LDS + col] - m_run);
         if (NORM_P) p = p / l;
       }
-      pbuf[row * ATT_LDP + col] = from_f<bf16>(p);
+      pbuf[row * L::LDP + col] = from_f<T>(p);
     }
     __syncwarp();
-#pragma unroll
-    for (int kk = 0; kk < ATT_BK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, pbuf + kk * 16, ATT_LDP);
-#pragma unroll
-      for (int j = 0; j < DP / 16; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, vs + kk * 16 * L::LDT + j * 16, L::LDT);
-        wmma::mma_sync(oacc[j], a, b, oacc[j]);
-      }
-    }
+    oacc.nn(pbuf, vs);
     __syncthreads();
   }
-#pragma unroll
-  for (int j = 0; j < DP / 16; ++j)
-    wmma::store_matrix_sync(stage + j * 16, oacc[j], L::LDS, wmma::mem_row_major);
-  __syncwarp();
+  oacc.store(stage);
   const int qrow = q0 + warp * 16 + row;
-  if (qrow < T) {
-    bf16* orow = o + (long(n) * T + qrow) * ldo + long(h) * D;
+  if (qrow < T_len) {
+    T* orow = o + (long(n) * T_len + qrow) * ldo + long(h) * D;
     for (int d = half * (DP / 2); d < (half + 1) * (DP / 2) && d < D; ++d) {
       float val = stage[row * L::LDS + d];
-      orow[d] = from_f<bf16>(NORM_P ? val : val * inv_l);
+      orow[d] = from_f<T>(NORM_P ? val : val * inv_l);
     }
   }
 }
 
-template <int DP, bool NORM_P>
-static cudaError_t launch_attn_dp(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-                                  int N, int T, int H, int D, long ldq, long ldk, long ldv,
-                                  long ldo, cudaStream_t stream) {
-  auto kernel = attn_small_kernel<DP, NORM_P>;
-  const int bytes = int(AttnLayout<DP>::BYTES);
+template <typename T, int DP, bool NORM_P>
+static cudaError_t launch_attn_dp(const T* q, const T* k, const T* v, T* o, int N, int T_len,
+                                  int H, int D, long ldq, long ldk, long ldv, long ldo,
+                                  cudaStream_t stream) {
+  using L = AttnLayout<T, DP>;
+  auto kernel = attn_small_kernel<T, DP, NORM_P>;
+  const int bytes = int(3 * L::TILE + 4 * L::STAGE + 4 * L::PBUF);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((T + ATT_BQ - 1) / ATT_BQ, H, N);
-  kernel<<<grid, ATT_THREADS, bytes, stream>>>(q, k, v, o, T, D, ldq, ldk, ldv, ldo,
+  dim3 grid((T_len + ATT_BQ - 1) / ATT_BQ, H, N);
+  kernel<<<grid, ATT_THREADS, bytes, stream>>>(q, k, v, o, T_len, D, ldq, ldk, ldv, ldo,
                                                1.0f / sqrtf(float(D)));
   return cudaGetLastError();
 }
@@ -202,13 +288,13 @@ static cudaError_t launch_attn_dp(const bf16* q, const bf16* k, const bf16* v, b
 // D in {56, 64, 72, 80} (checked by the Python wrapper): the head dims of
 // the DiT configs, 64 (S, B, L) and 72 (XL). Add a padded size here when a
 // config needs it.
-template <bool NORM_P>
-static cudaError_t launch_attention(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-                                    int N, int T, int H, int D, long ldq, long ldk, long ldv,
-                                    long ldo, cudaStream_t s) {
+template <bool NORM_P, typename T = bf16>
+static cudaError_t launch_attention(const T* q, const T* k, const T* v, T* o, int N, int T_len,
+                                    int H, int D, long ldq, long ldk, long ldv, long ldo,
+                                    cudaStream_t s) {
   switch ((D + 15) / 16) {
-    case 4: return launch_attn_dp<64, NORM_P>(q, k, v, o, N, T, H, D, ldq, ldk, ldv, ldo, s);
-    case 5: return launch_attn_dp<80, NORM_P>(q, k, v, o, N, T, H, D, ldq, ldk, ldv, ldo, s);
+    case 4: return launch_attn_dp<T, 64, NORM_P>(q, k, v, o, N, T_len, H, D, ldq, ldk, ldv, ldo, s);
+    case 5: return launch_attn_dp<T, 80, NORM_P>(q, k, v, o, N, T_len, H, D, ldq, ldk, ldv, ldo, s);
     default: return cudaErrorInvalidValue;
   }
 }

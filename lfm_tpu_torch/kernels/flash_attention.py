@@ -1,28 +1,38 @@
-"""Small-T attention: the CUDA kernel K1 and its plain version.
+"""Small-T attention: the CUDA kernels K1 (forward) and K3 (backward), their
+plain versions, and the differentiable ``fused_attention``.
 
-Port of lfm_tpu/kernels/flash_attention.py::attention_small (the Pallas
+K1 ports lfm_tpu/kernels/flash_attention.py::attention_small (the Pallas
 kernel `_attn_small_kernel`): whole-sequence, non-causal softmax attention
 per head, scale 1/sqrt(D), f32 max / sum / accumulation, p rounded to the
-input type before the PV product. The kernel is
-``csrc/attention.cuh``; what bounds it is noted there.
+input type before the PV product. K3 ports ``attention_small_bwd``
+(`_attn_small_bwd_kernel`): dq, dk, dv with the probs recomputed, p and ds
+rounded to the input type before their products. The kernels are
+``csrc/attention.cuh`` and ``csrc/attention_bwd.cuh``; what bounds them is
+noted there. Both take bf16 or f32; f32 runs its products as f32 FMA.
 
-On a CPU tensor ``attention_small`` computes the plain version; on a CUDA
-tensor it launches the kernel or raises. The long-T ``flash_attention``
-(K4) and the backward (K3) are later slices. There is no autograd here:
-sampling runs under ``torch.no_grad``.
+On a CPU tensor each wrapper computes its plain version; on a CUDA tensor
+it launches its kernel or raises. ``fused_attention_qkv`` is a
+``torch.autograd.Function`` over a fused qkv row, the port of the
+``fused_attention`` custom_vjp (``fused_attention`` packs separate q, k, v
+into one): K1 forward (qkv saved, not p), K3 backward within the small-T
+gate. Past the gate the long-T kernel (K4) is
+not ported: the CPU recomputes the plain version, CUDA raises.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
 from lfm_tpu_torch.kernels._build import LaunchCounter, check_rc, load_library
 
 ATTENTION_SMALL = LaunchCounter()
-# head dims the kernel is built for: DiT-S/B/L use 64, DiT-XL 72
+ATTENTION_SMALL_BWD = LaunchCounter()
+# head dims the kernels are built for: DiT-S/B/L use 64, DiT-XL 72
 HEAD_DIMS = (56, 64, 72, 80)
+DTYPES = (torch.bfloat16, torch.float32)
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -34,55 +44,108 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     return torch.einsum("nhqk,nkhd->nqhd", p.float(), v.float()).to(q.dtype)
 
 
+def reference_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            do: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K3 (`_attn_small_bwd_kernel`): f32 scores, softmax
+    and ds correction; p and ds rounded to q's type before their products,
+    which accumulate in f32. Returns (dq, dk, dv) in q's type."""
+    dt = q.dtype
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, dof = (a.float() for a in (q, k, v, do))
+    s = scale * torch.einsum("nqhd,nkhd->nhqk", qf, kf)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    dv = torch.einsum("nhqk,nqhd->nkhd", p.to(dt).float(), dof)
+    dp = torch.einsum("nqhd,nkhd->nhqk", dof, vf)
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(dt).float()
+    dq = scale * torch.einsum("nhqk,nkhd->nqhd", ds, kf)
+    dk = scale * torch.einsum("nhqk,nqhd->nkhd", ds, qf)
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
 def _small_shape_ok(q: torch.Tensor) -> bool:
-    """The JAX package's gate for the whole-sequence kernel."""
+    """The JAX package's gate for the whole-sequence kernels."""
     n, t, h, d = q.shape
     return t <= 1024 and (3 * t * h * d * 4 + t * t * 4) < 96 * 1024 * 1024
 
 
 def _check_slab(name: str, a: torch.Tensor, ref: torch.Tensor) -> None:
     n, t, h, d = ref.shape
-    if a.device != ref.device or a.dtype != torch.bfloat16 or a.shape != ref.shape:
-        raise ValueError(f"attention_small: {name} must be bf16 {tuple(ref.shape)} on "
-                         f"{ref.device}, got {a.dtype} {tuple(a.shape)} on {a.device}")
+    if a.device != ref.device or a.dtype != ref.dtype or a.shape != ref.shape:
+        raise ValueError(f"{name} must be {ref.dtype} {tuple(ref.shape)} on {ref.device}, "
+                         f"got {a.dtype} {tuple(a.shape)} on {a.device}")
     ld = a.stride(1)
-    if a.stride(3) != 1 or a.stride(2) != d or a.stride(0) != t * ld or ld % 8:
-        raise ValueError(f"attention_small: {name} needs (T, H*D) rows with unit stride "
-                         f"inside a row and a row stride that is a multiple of 8; "
-                         f"got strides {a.stride()}")
+    if (a.stride(3) != 1 or a.stride(2) != d or a.stride(0) != t * ld
+            or (ld * a.element_size()) % 16):
+        raise ValueError(f"{name} needs (T, H*D) rows with unit stride inside a row and a "
+                         f"row stride of whole 16-byte chunks; got strides {a.stride()}")
     if a.data_ptr() % 16:
-        raise ValueError(f"attention_small: {name} is not 16-byte aligned")
+        raise ValueError(f"{name} is not 16-byte aligned")
+
+
+def _check_launch(fn: str, q: torch.Tensor, slabs) -> None:
+    """Raise unless the kernel ``fn`` takes these (N, T, H, D) CUDA tensors."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {q.device}")
+    n, t, h, d = q.shape
+    if not _small_shape_ok(q):
+        raise ValueError(f"{fn}: T={t} is past the small-T gate")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{fn}: head dim {d} is not one of {HEAD_DIMS}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"{fn}: dtype {q.dtype} is not one of {DTYPES}")
+    for name, a in slabs:
+        _check_slab(f"{fn}: {name}", a, q)
 
 
 def attention_small(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """q, k, v: (N, T, H, D) -> (N, T, H, D), T <= 1024, scale 1/sqrt(D).
 
-    On CUDA: bf16, D in HEAD_DIMS; each of q, k, v may be a view
+    On CUDA: bf16 or f32, D in HEAD_DIMS; each of q, k, v may be a view
     whose (T, H*D) rows have any row stride (such as the thirds of a fused
     qkv tensor), and is read in place."""
     if q.device.type == "cpu":
         return reference_attention(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"attention_small: unsupported device {q.device}")
+    _check_launch("attention_small", q, (("q", q), ("k", k), ("v", v)))
     n, t, h, d = q.shape
-    if not _small_shape_ok(q):
-        raise ValueError(f"attention_small: T={t} is past the small-T gate")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"attention_small: head dim {d} is not one of {HEAD_DIMS}")
-    for name, a in (("q", q), ("k", k), ("v", v)):
-        _check_slab(name, a, q)
     out = torch.empty((n, t, h, d), dtype=q.dtype, device=q.device)
-    lib = load_library()
-    rc = lib.lfm_attention_small(
+    rc = load_library().lfm_attention_small(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), n, t, h, d,
-        q.stride(1), k.stride(1), v.stride(1), h * d,
+        q.stride(1), k.stride(1), v.stride(1), h * d, int(q.dtype == torch.float32),
         torch.cuda.current_stream(q.device).cuda_stream)
     check_rc("attention_small", rc)
     ATTENTION_SMALL.count += 1
     return out
 
 
-def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _attention_small_bwd_packed(q, k, v, do) -> torch.Tensor:
+    """dq, dk, dv stacked in one (N, T, 3, H, D) tensor: its (N, T, 3C) view
+    is the gradient of a fused qkv row."""
+    if q.device.type == "cpu":
+        return torch.stack(reference_attention_bwd(q, k, v, do), dim=2)
+    _check_launch("attention_small_bwd", q, (("q", q), ("k", k), ("v", v), ("do", do)))
+    n, t, h, d = q.shape
+    g = torch.empty((n, t, 3, h, d), dtype=q.dtype, device=q.device)
+    stats = torch.empty((3, n, h, t), dtype=torch.float32, device=q.device)
+    rc = load_library().lfm_attention_small_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        g[:, :, 0].data_ptr(), g[:, :, 1].data_ptr(), g[:, :, 2].data_ptr(), stats.data_ptr(),
+        n, t, h, d, q.stride(1), k.stride(1), v.stride(1), do.stride(1), 3 * h * d,
+        int(q.dtype == torch.float32), torch.cuda.current_stream(q.device).cuda_stream)
+    check_rc("attention_small_bwd", rc)
+    ATTENTION_SMALL_BWD.count += 1
+    return g
+
+
+def attention_small_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``attention_small``; all operands (N, T, H, D), read
+    in place as the forward reads them. On CUDA the three are views of one
+    (N, T, 3, H, D) buffer."""
+    return tuple(_attention_small_bwd_packed(q, k, v, do).unbind(2))
+
+
+def _forward(q, k, v) -> torch.Tensor:
     """Dispatch as ``_dispatch_attention`` does: the small-T kernel within
     its gate; past it the plain version on the CPU, and on CUDA an error
     until the long-T kernel (K4) is ported."""
@@ -93,3 +156,55 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     raise NotImplementedError(
         f"attention at T={q.shape[1]} needs the long-T flash_attention kernel, "
         "which is not ported yet")
+
+
+def _backward_packed(q, k, v, do) -> torch.Tensor:
+    """``_fused_attention_bwd``: K3 within the gate; past it the plain
+    recompute on the CPU, and on CUDA the same error as the forward."""
+    do = do.contiguous()
+    if _small_shape_ok(q):
+        return _attention_small_bwd_packed(q, k, v, do)
+    if q.device.type == "cpu":
+        with torch.enable_grad():
+            qkv = [a.detach().requires_grad_(True) for a in (q, k, v)]
+            grads = torch.autograd.grad(reference_attention(*qkv), qkv, do)
+        return torch.stack(grads, dim=2)
+    raise NotImplementedError(
+        f"attention backward at T={q.shape[1]} needs the long-T flash_attention kernel, "
+        "which is not ported yet")
+
+
+class _FusedAttentionQKV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, num_heads: int):
+        ctx.save_for_backward(qkv)
+        ctx.num_heads = num_heads
+        return _forward(*split_qkv(qkv, num_heads))
+
+    @staticmethod
+    def backward(ctx, do):
+        (qkv,) = ctx.saved_tensors
+        g = _backward_packed(*split_qkv(qkv, ctx.num_heads), do)
+        return g.reshape(qkv.shape), None
+
+
+def split_qkv(qkv: torch.Tensor, num_heads: int):
+    """Views q, k, v (N, T, H, D) of a fused (N, T, 3C) qkv row."""
+    n, t, c3 = qkv.shape
+    c = c3 // 3
+    return tuple(a.view(n, t, num_heads, c // num_heads) for a in qkv.split(c, dim=-1))
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Differentiable attention over (N, T, H, D) tensors (the JAX
+    ``fused_attention`` custom_vjp): ``fused_attention_qkv`` over the three
+    packed into one qkv row."""
+    n, t, h, d = q.shape
+    return fused_attention_qkv(torch.cat([a.reshape(n, t, h * d) for a in (q, k, v)], dim=-1), h)
+
+
+def fused_attention_qkv(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """``fused_attention`` over the thirds of a fused (N, T, 3C) qkv row,
+    read in place. Its backward writes dq, dk, dv into one (N, T, 3C)
+    gradient, so the qkv Linear gets it with no concatenation."""
+    return _FusedAttentionQKV.apply(qkv, num_heads)

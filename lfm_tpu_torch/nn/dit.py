@@ -4,7 +4,10 @@ Reference models/DiT.py:112-415. Latents are NHWC at the public interface,
 as in the JAX package. The blocks are a plain ``nn.ModuleList`` (the JAX
 package's ``nn.scan`` exists for XLA's compile time); the JAX converter's
 scan-stacked block params map onto ``blocks.{i}`` (nn/convert_dit.py).
-``forward`` is the eval-mode forward of ``DiT.__call__``.
+``forward`` is ``DiT.__call__``: ``train=True`` turns on label dropout, and
+with ``remat`` every block is recomputed in backward
+(``torch.utils.checkpoint``, the full-block ``nn.remat`` of the JAX package,
+reference models/DiT.py:265-269).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from lfm_tpu_torch.core.device import DeviceLike, resolve_device
 from lfm_tpu_torch.nn.layers import (
@@ -42,7 +46,13 @@ DIT_CONFIGS = {
     "DiT-S/2": (12, 384, 2, 6),
     "DiT-S/4": (12, 384, 4, 6),
     "DiT-S/8": (12, 384, 8, 6),
+    # the JAX package's test-scale configs (lfm_tpu/nn/dit.py:77,80)
+    "DiT-T/2": (2, 64, 2, 4),
+    "DiT-T4/2": (4, 64, 2, 4),
 }
+# the JAX package's selective remat policies; only the full-block recompute
+# (None) is ported
+REMAT_POLICIES = (None,)
 
 
 class DiTBlock(nn.Module):
@@ -90,8 +100,13 @@ class DiT(nn.Module):
                  num_heads: int = 16, mlp_ratio: float = 4.0,
                  label_dropout: float = 0.0, num_classes: int = 1,
                  learn_sigma: bool = False, dtype: torch.dtype = torch.float32,
-                 use_flash: bool = False):
+                 use_flash: bool = False, remat: bool = False,
+                 remat_policy: Optional[str] = None):
         super().__init__()
+        if remat_policy not in REMAT_POLICIES:
+            raise NotImplementedError(
+                f"remat_policy {remat_policy!r} is not ported; only the full-block "
+                "recompute (None) is")
         self.img_resolution = img_resolution
         self.patch_size = patch_size
         self.in_channels = in_channels
@@ -104,6 +119,7 @@ class DiT(nn.Module):
         self.learn_sigma = learn_sigma
         self.dtype = dtype
         self.use_flash = use_flash
+        self.remat = remat
 
         self.x_embedder = PatchEmbed(patch_size, in_channels, hidden_size)
         self.t_embedder = TimestepEmbedder(hidden_size)
@@ -128,7 +144,9 @@ class DiT(nn.Module):
         # y=None falls back to the last table row (models/DiT.py:259-260)
         return self.num_classes + int(self.label_dropout > 0) - 1
 
-    def embed(self, t: torch.Tensor, x: torch.Tensor, y: Optional[torch.Tensor]):
+    def embed(self, t: torch.Tensor, x: torch.Tensor, y: Optional[torch.Tensor],
+              train: bool = False, generator: Optional[torch.Generator] = None,
+              force_drop_ids: Optional[torch.Tensor] = None):
         """Tokens (N, T, D) and conditioning c (N, D), both in ``dtype``."""
         n, hh, _, cc = x.shape
         if hh != self.img_resolution or cc != self.in_channels:
@@ -139,14 +157,21 @@ class DiT(nn.Module):
             y = torch.full((n,), self.null_label, dtype=torch.int64, device=x.device)
         dt = self.dtype
         tok = self.x_embedder(x.to(dt), dt) + self.pos_embed.to(dt)
-        c = self.t_embedder(t, dt) + self.y_embedder(y, dt)
+        c = self.t_embedder(t, dt) + self.y_embedder(y, dt, train, generator, force_drop_ids)
         return tok, c
 
-    def forward(self, t: torch.Tensor, x: torch.Tensor,
-                y: Optional[torch.Tensor] = None) -> torch.Tensor:
-        tok, c = self.embed(t, x, y)
+    def forward(self, t: torch.Tensor, x: torch.Tensor, y: Optional[torch.Tensor] = None,
+                train: bool = False, generator: Optional[torch.Generator] = None,
+                force_drop_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """v(t, x, y). ``train`` turns on label dropout, drawn from
+        ``generator``; ``force_drop_ids`` pins its mask."""
+        tok, c = self.embed(t, x, y, train, generator, force_drop_ids)
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            tok = block(tok, c, self.dtype)
+            if remat:
+                tok = checkpoint(block, tok, c, self.dtype, use_reentrant=False)
+            else:
+                tok = block(tok, c, self.dtype)
         tok = self.final_layer(tok, c, self.dtype)
         return self.unpatchify(tok).float()
 
@@ -176,6 +201,7 @@ class DiT(nn.Module):
 def create_dit(model_type: str, *, img_resolution: int, in_channels: int = 4,
                label_dropout: float = 0.0, num_classes: Optional[int] = None,
                dtype: torch.dtype = torch.float32, use_flash: bool = False,
+               remat: bool = False, remat_policy: Optional[str] = None,
                device: DeviceLike = None) -> DiT:
     """Factory matching the reference dispatch (models/__init__.py:12-17).
     The model is built on ``device`` (the card unless ``device="cpu"``)."""
@@ -186,5 +212,6 @@ def create_dit(model_type: str, *, img_resolution: int, in_channels: int = 4,
                     in_channels=in_channels, hidden_size=hidden, depth=depth,
                     num_heads=heads, label_dropout=label_dropout,
                     num_classes=num_classes if num_classes is not None else 1,
-                    dtype=dtype, use_flash=use_flash)
+                    dtype=dtype, use_flash=use_flash, remat=remat,
+                    remat_policy=remat_policy)
     return model.to(device)

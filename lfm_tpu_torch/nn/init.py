@@ -1,11 +1,15 @@
-"""Seeded random weights with every tensor non-zero.
+"""Weight initialisation: the DiT's training init, and seeded random weights
+with every tensor non-zero.
 
-The repository holds no trained checkpoint. adaLN-Zero's zero init makes
-every DiT block an identity, so a wrong attention or MLP would still pass a
-check; these weights give every tensor signal instead: weights
-N(0, 1/fan_in), biases and embedding tables N(0, 0.02^2), norm scales
-1 + N(0, 0.02^2). The draws come from a generator on the module's device,
-so the same seed gives other numbers on the CPU than on the card.
+``dit_init_`` gives a fresh DiT the JAX package's initializers (those of the
+reference DiT, models/DiT.py:197-229), with other draws. The repository
+holds no trained checkpoint, so the checks use ``seeded_init_``:
+adaLN-Zero's zero init makes every DiT block an identity, so a wrong
+attention or MLP would still pass a check; these weights give every tensor
+signal instead: weights N(0, 1/fan_in), biases and embedding tables
+N(0, 0.02^2), norm scales 1 + N(0, 0.02^2). The draws come from a generator
+on the module's device, so the same seed gives other numbers on the CPU
+than on the card.
 """
 
 from __future__ import annotations
@@ -37,3 +41,26 @@ def seeded_init_(module: nn.Module, seed: int) -> nn.Module:
             value = 0.02 * noise
         p.copy_(value.to(p.dtype))
     return module
+
+
+@torch.no_grad()
+def dit_init_(model: nn.Module, seed: int) -> nn.Module:
+    """The initializers of lfm_tpu/nn/{layers,dit}.py: Xavier-uniform
+    attention, MLP and patch-embedding weights (the patch conv as its
+    (D, C*p*p) matrix), N(0, 0.02^2) timestep-MLP weights and label table,
+    zero biases, and the adaLN-Zero modulations and final linear at zero."""
+    params = dict(model.named_parameters())
+    if not params:
+        return model
+    gen = torch.Generator(device=next(iter(params.values())).device)
+    gen.manual_seed(int(seed))
+    for name, p in sorted(params.items()):
+        if name.endswith(".bias") or "adaLN_modulation" in name or name.startswith("final_layer"):
+            p.zero_()
+        elif name.startswith("t_embedder") or name.endswith("embedding_table.weight"):
+            p.copy_(0.02 * torch.randn(p.shape, generator=gen, device=p.device))
+        else:
+            fan_out, fan_in = p.shape[0], p[0].numel()
+            bound = math.sqrt(6.0 / (fan_in + fan_out))
+            p.copy_((2.0 * torch.rand(p.shape, generator=gen, device=p.device) - 1.0) * bound)
+    return model

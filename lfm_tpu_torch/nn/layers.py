@@ -10,19 +10,29 @@ names follow the reference's timm / models/DiT.py layout, so a reference
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lfm_tpu_torch.kernels.flash_attention import fused_attention, reference_attention
+from lfm_tpu_torch.kernels.flash_attention import (fused_attention_qkv, reference_attention,
+                                                   split_qkv)
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+          dtype: torch.dtype) -> torch.Tensor:
+    """flax ``Dense(dtype=...)``: x and the f32 weight cast to ``dtype``,
+    the product rounded to ``dtype``, then the bias added in ``dtype`` (a
+    second rounding, which a fused bias would skip)."""
+    y = F.linear(x.to(dtype), weight.to(dtype))
+    return y if bias is None else y + bias.to(dtype)
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     """``layer(x)`` computed in ``dtype`` (flax Dense with dtype=...)."""
-    bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    return dense(x, layer.weight, layer.bias, dtype)
 
 
 def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -85,8 +95,9 @@ class TimestepEmbedder(nn.Module):
 
 class LabelEmbedder(nn.Module):
     """Class embedding table with a null row when dropout > 0
-    (models/DiT.py:72-104). Evaluation only: label dropout belongs to the
-    training slice."""
+    (models/DiT.py:72-104). In train mode each label drops to the null row
+    with probability ``dropout_prob``, drawn from ``generator``;
+    ``force_drop_ids`` (1 = drop) pins the mask instead, in any mode."""
 
     def __init__(self, num_classes: int, hidden_size: int, dropout_prob: float = 0.0):
         super().__init__()
@@ -94,7 +105,16 @@ class LabelEmbedder(nn.Module):
         self.dropout_prob = dropout_prob
         self.embedding_table = nn.Embedding(num_classes + int(dropout_prob > 0), hidden_size)
 
-    def forward(self, labels: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, labels: torch.Tensor, dtype: torch.dtype, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                force_drop_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if (train and self.dropout_prob > 0) or force_drop_ids is not None:
+            if force_drop_ids is None:
+                drop = torch.rand(labels.shape, generator=generator,
+                                  device=labels.device) < self.dropout_prob
+            else:
+                drop = force_drop_ids == 1
+            labels = torch.where(drop, self.num_classes, labels)
         return self.embedding_table.weight[labels].to(dtype)
 
 
@@ -115,13 +135,14 @@ class PatchEmbed(nn.Module):
         x = x.reshape(n, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
         x = x.reshape(n, (h // p) * (w // p), p * p * c)
         wt = self.proj.weight.permute(0, 2, 3, 1).reshape(self.proj.weight.shape[0], -1)
-        return F.linear(x.to(dtype), wt.to(dtype), self.proj.bias.to(dtype))
+        return dense(x, wt, self.proj.bias, dtype)
 
 
 class Attention(nn.Module):
     """Fused-qkv multi-head self-attention (timm layout). With ``use_flash``
-    every attention goes through kernels.flash_attention.fused_attention,
-    which launches the ``attention_small`` kernel on a CUDA tensor."""
+    every attention goes through kernels.flash_attention.fused_attention_qkv,
+    which launches ``attention_small`` (K1) forward and
+    ``attention_small_bwd`` (K3) backward on a CUDA tensor."""
 
     def __init__(self, hidden_size: int, num_heads: int, qkv_bias: bool = True,
                  use_flash: bool = False):
@@ -134,14 +155,12 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         n, t, d = x.shape
         h = self.num_heads
-        hd = d // h
         qkv = linear(x, self.qkv, dtype)
-        # views into qkv: the kernel reads the (T, H*D) rows in place
-        q, k, v = (a.view(n, t, h, hd) for a in qkv.split(d, dim=-1))
+        # the kernels read the (T, H*D) rows of q, k, v in place
         if self.use_flash:
-            out = fused_attention(q, k, v)
+            out = fused_attention_qkv(qkv, h)
         else:
-            out = reference_attention(q, k, v)
+            out = reference_attention(*split_qkv(qkv, h))
         return linear(out.reshape(n, t, d), self.proj, dtype)
 
 

@@ -1,26 +1,28 @@
-"""First-stage AutoencoderKL decoder (port of lfm_tpu/vae/autoencoder_kl.py).
+"""First-stage AutoencoderKL (port of lfm_tpu/vae/autoencoder_kl.py).
 
-The SD VAE (f=8, ``block_out`` (128, 256, 512, 512), 3 decoder resnets per
-level, mid-block attention) that the reference loads from
-``stabilityai/sd-vae-ft-mse``. Module and parameter names follow diffusers
-(``decoder.up_blocks.{i}.resnets.{j}.conv1``, ``mid_block.attentions.0.to_q``,
-``post_quant_conv``), so a diffusers state dict's decoder part loads as it
-is. The encoder waits for the training slice.
+The SD VAE (f=8, ``block_out`` (128, 256, 512, 512), 2 encoder / 3 decoder
+resnets per level, mid-block attention, a diagonal Gaussian latent of 4
+channels) that the reference loads from ``stabilityai/sd-vae-ft-mse``.
+Module and parameter names follow diffusers
+(``encoder.down_blocks.{i}.resnets.{j}.conv1``,
+``decoder.up_blocks.{i}.resnets.{j}.conv1``, ``mid_block.attentions.0.to_q``,
+``quant_conv``, ``post_quant_conv``), so a diffusers state dict loads through
+``vae/convert.py::load_vae_state_dict``.
 
-The public ``decode`` takes and returns NHWC, as in the JAX package;
-inside, the convolutions are ``torch.nn.functional.conv2d`` on NCHW (the
-JAX package leaves them to XLA). GroupNorm runs in f32 with flax's
-statistics (E[x^2] - E[x]^2), eps 1e-6. ``decode`` turns TF32 off for its
-own duration, for both cuDNN convolutions and matmuls
-(``torch.backends.cudnn.allow_tf32`` and
-``torch.backends.cuda.matmul.allow_tf32``), so an f32 decode is f32 on the
-card; a bf16 decode is unaffected.
+The public ``encode_*`` and ``decode`` take and return NHWC, as in the JAX
+package; inside, the convolutions are ``torch.nn.functional.conv2d`` on
+NCHW (the JAX package leaves them to XLA; cuDNN here). GroupNorm runs in
+f32 with flax's statistics (E[x^2] - E[x]^2), eps 1e-6. Encode and decode
+turn TF32 off for their own duration, for both cuDNN convolutions and
+matmuls (``torch.backends.cudnn.allow_tf32`` and
+``torch.backends.cuda.matmul.allow_tf32``), so an f32 VAE is f32 on the
+card; bf16 is unaffected.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -93,6 +95,18 @@ class AttnBlock(nn.Module):
         return x.to(dtype) + o.transpose(1, 2).reshape(n, c, h, w)
 
 
+class Downsample(nn.Module):
+    """Stride-2 conv with the SD VAE's asymmetric (0, 1, 0, 1) padding."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.conv = nn.Conv2d(ch, ch, 3, stride=2)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        x = F.pad(x.to(dtype), (0, 1, 0, 1))
+        return F.conv2d(x, self.conv.weight.to(dtype), self.conv.bias.to(dtype), stride=2)
+
+
 class Upsample(nn.Module):
     """Nearest 2x + conv."""
 
@@ -116,6 +130,21 @@ class _MidBlock(nn.Module):
         return self.resnets[1](x, dtype)
 
 
+class _DownBlock(nn.Module):
+    def __init__(self, in_ch: int, out_ch: int, layers: int, downsample: bool):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            ResnetBlock(in_ch if j == 0 else out_ch, out_ch) for j in range(layers))
+        self.downsamplers = nn.ModuleList([Downsample(out_ch)]) if downsample else None
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        for r in self.resnets:
+            x = r(x, dtype)
+        if self.downsamplers is not None:
+            x = self.downsamplers[0](x, dtype)
+        return x
+
+
 class _UpBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, layers: int, upsample: bool):
         super().__init__()
@@ -129,6 +158,28 @@ class _UpBlock(nn.Module):
         if self.upsamplers is not None:
             x = self.upsamplers[0](x, dtype)
         return x
+
+
+class Encoder(nn.Module):
+    def __init__(self, block_out: Sequence[int] = (128, 256, 512, 512),
+                 layers_per_block: int = 2, in_ch: int = 3, latent_ch: int = 4):
+        super().__init__()
+        self.conv_in = nn.Conv2d(in_ch, block_out[0], 3, padding=1)
+        self.down_blocks = nn.ModuleList(
+            _DownBlock(block_out[max(i - 1, 0)], ch, layers_per_block, i < len(block_out) - 1)
+            for i, ch in enumerate(block_out))
+        self.mid_block = _MidBlock(block_out[-1])
+        self.conv_norm_out = nn.GroupNorm(32, block_out[-1], eps=_GN_EPS)
+        self.conv_out = nn.Conv2d(block_out[-1], 2 * latent_ch, 3, padding=1)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """x: NCHW images -> NCHW moments (mean ++ logvar), in ``dtype``."""
+        h = _conv(x, self.conv_in, dtype)
+        for down in self.down_blocks:
+            h = down(h, dtype)
+        h = self.mid_block(h, dtype)
+        h = F.silu(group_norm(h, self.conv_norm_out).to(dtype))
+        return _conv(h, self.conv_out, dtype)
 
 
 class Decoder(nn.Module):
@@ -166,16 +217,40 @@ def _no_tf32():
 
 
 class AutoencoderKL(nn.Module):
-    """Decoder half of the frozen first-stage model; f = 2^(len(block_out)-1).
-    Parameters are f32 masters; ``dtype`` is the compute type."""
+    """The frozen first-stage model; f = 2^(len(block_out)-1). Parameters
+    are f32 masters; ``dtype`` is the compute type."""
 
     def __init__(self, block_out: Tuple[int, ...] = (128, 256, 512, 512),
                  latent_ch: int = 4, out_ch: int = 3, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.block_out = tuple(block_out)
         self.dtype = dtype
+        self.encoder = Encoder(block_out, 2, out_ch, latent_ch)
         self.decoder = Decoder(block_out, 3, latent_ch, out_ch)
+        self.quant_conv = nn.Conv2d(2 * latent_ch, 2 * latent_ch, 1)
         self.post_quant_conv = nn.Conv2d(latent_ch, latent_ch, 1)
+
+    def encode_moments(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x: (N, H, W, 3) in [-1, 1] -> (mean, logvar), each (N, H/8, W/8, 4)
+        f32; logvar clipped to [-30, 20]."""
+        with _no_tf32():
+            m = self.encoder(x.permute(0, 3, 1, 2), self.dtype)
+            m = _conv(m, self.quant_conv, self.dtype).permute(0, 2, 3, 1)
+        mean, logvar = m.chunk(2, dim=-1)
+        return mean.float(), torch.clamp(logvar, -30.0, 20.0).float()
+
+    def encode_sample(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                      eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A draw of the diagonal Gaussian (reference
+        train_flow_latent.py:143): mean + exp(logvar / 2) * eps, with eps
+        N(0, 1) from ``generator`` unless given."""
+        mean, logvar = self.encode_moments(x)
+        if eps is None:
+            eps = torch.randn(mean.shape, generator=generator, device=mean.device)
+        return mean + torch.exp(0.5 * logvar) * eps
+
+    def encode_mode(self, x: torch.Tensor) -> torch.Tensor:
+        return self.encode_moments(x)[0]
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """z: (N, h, w, 4) UNSCALED latents -> (N, 8h, 8w, 3), f32, in [-1, 1]-ish."""
@@ -188,7 +263,7 @@ class AutoencoderKL(nn.Module):
 
 def create_vae(block_out: Tuple[int, ...] = (128, 256, 512, 512), *,
                dtype: torch.dtype = torch.float32, device: DeviceLike = None) -> AutoencoderKL:
-    """The decoder on ``device`` (the card unless ``device="cpu"``)."""
+    """The VAE on ``device`` (the card unless ``device="cpu"``)."""
     device = resolve_device(device)
     with device:
         vae = AutoencoderKL(block_out, dtype=dtype)

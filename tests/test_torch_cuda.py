@@ -9,6 +9,12 @@ Tolerances: bf16 outputs, max abs error within 2e-2 of unit-scale
 attention outputs (a few bf16 ulps), and within 2e-2 of the block's largest
 update |plain - x| (rounding that falls the other way in the two GEMM
 chains; measured against the update, so the residual x cannot hide it).
+The backward (K3) is held to 2e-2 of the largest plain gradient in bf16
+(p and ds round to bf16 on both sides, and a rounding that falls the other
+way moves a term by 2^-8), and every f32 case to 1e-4 of the largest plain
+value (f32 sums in another order). The small DiT's parameter gradients
+through K1/K3 are held to 5e-2 of the largest plain gradient of each
+tensor, the bf16 tolerance of the CPU parity tests.
 """
 
 import importlib.util
@@ -82,6 +88,90 @@ def test_fused_dit_block_kernel_matches_plain(cuda, n, t, c, heads):
     assert float((out.float() - ref).abs().max()) <= 2e-2 * update
     with pytest.raises(ValueError):
         fused_dit_block(**{**args, "x": args["x"].float()}, num_heads=heads)
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) / float(want.float().abs().max())
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 4, 64), (1, 1024, 2, 72), (1, 100, 3, 56)])
+def test_attention_small_f32_matches_plain(cuda, shape):
+    from lfm_tpu_torch.kernels.flash_attention import attention_small, reference_attention
+
+    q, k, v = (torch.randn(*shape, generator=cuda, device="cuda") for _ in range(3))
+    out = attention_small(q, k, v)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    assert _rel(out, reference_attention(q, k, v)) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t,d", [(256, 64), (1024, 64), (256, 72), (1024, 72), (100, 56)])
+def test_attention_small_bwd_kernel_matches_plain(cuda, dtype, t, d):
+    from lfm_tpu_torch.kernels.flash_attention import (ATTENTION_SMALL_BWD, attention_small_bwd,
+                                                       reference_attention_bwd)
+
+    n, h = 2, 2
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    q, k, v, do = (torch.randn(n, t, h, d, generator=cuda, device="cuda").to(dtype)
+                   for _ in range(4))
+    before = ATTENTION_SMALL_BWD.count
+    got = attention_small_bwd(q, k, v, do)
+    torch.cuda.synchronize()
+    assert ATTENTION_SMALL_BWD.count == before + 1
+    for name, g, w in zip("qkv", got, reference_attention_bwd(q, k, v, do)):
+        assert g.dtype == dtype and g.shape == (n, t, h, d)
+        assert _rel(g, w) <= tol, f"d{name}"
+    # the thirds of a fused qkv row, read in place
+    qkv = torch.randn(n, t, 3 * h * d, generator=cuda, device="cuda").to(dtype)
+    qq, kk, vv = (a.view(n, t, h, d) for a in qkv.split(h * d, dim=-1))
+    for g, w in zip(attention_small_bwd(qq, kk, vv, do), reference_attention_bwd(qq, kk, vv, do)):
+        assert _rel(g, w) <= tol
+
+
+def test_fused_attention_autograd_launches_k1_and_k3(cuda):
+    from lfm_tpu_torch.kernels.flash_attention import (ATTENTION_SMALL, ATTENTION_SMALL_BWD,
+                                                       fused_attention_qkv, reference_attention,
+                                                       split_qkv)
+
+    n, t, h, d = 2, 256, 4, 64
+    qkv = torch.randn(n, t, 3 * h * d, generator=cuda, device="cuda").bfloat16()
+    do = torch.randn(n, t, h, d, generator=cuda, device="cuda").bfloat16()
+    a = qkv.clone().requires_grad_(True)
+    k1, k3 = ATTENTION_SMALL.count, ATTENTION_SMALL_BWD.count
+    fused_attention_qkv(a, h).backward(do)
+    torch.cuda.synchronize()
+    assert (ATTENTION_SMALL.count, ATTENTION_SMALL_BWD.count) == (k1 + 1, k3 + 1)
+    assert a.grad.is_contiguous() and a.grad.shape == qkv.shape
+    b = qkv.clone().requires_grad_(True)
+    reference_attention(*split_qkv(b, h)).backward(do)
+    assert _rel(a.grad, b.grad) <= 2e-2
+
+
+def test_small_dit_grads_through_kernels_match_plain(cuda):
+    """A 2-block DiT at DiT-L width (C = 1024, 16 heads, T = 256), batch 4,
+    bf16 compute on f32 masters: the FM loss's parameter gradients with
+    attention through K1/K3 against plain autograd of reference_attention."""
+    from lfm_tpu_torch.nn.dit import DiT
+    from lfm_tpu_torch.nn.init import seeded_init_
+    from lfm_tpu_torch.ode.flow import interpolate
+
+    grads = []
+    for use_flash in (True, False):
+        model = DiT(img_resolution=32, patch_size=2, hidden_size=1024, depth=2, num_heads=16,
+                    dtype=torch.bfloat16, use_flash=use_flash).to("cuda")
+        seeded_init_(model, 0)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(1)
+        z0 = torch.randn(4, 32, 32, 4, generator=g, device="cuda")
+        z1 = torch.randn(4, 32, 32, 4, generator=g, device="cuda")
+        t = torch.rand(4, generator=g, device="cuda")
+        z_t, u = interpolate(z0, z1, t)
+        loss = torch.mean(torch.square(model(t, z_t, train=True) - u))
+        loss.backward()
+        grads.append({k: p.grad.float() for k, p in model.named_parameters()})
+    for name, want in grads[1].items():
+        assert _rel(grads[0][name], want) <= 5e-2, name
 
 
 def test_attention_small_refuses_unbuilt_head_dim(cuda):

@@ -1,7 +1,8 @@
 """lfm_tpu_torch stands alone: no module of it and not chip_smoke.py imports
 jax, jaxlib, flax, optax or lfm_tpu; every entry point runs on the card
-unless the caller passes device="cpu"; chip_smoke.py fails without CUDA or
-without the package beside it, printing no result."""
+unless the caller passes device="cpu" (sampling and training alike); the
+kernel wrappers take no device other than the CPU and CUDA; chip_smoke.py
+fails without CUDA or without the package beside it, printing no result."""
 
 import json
 import os
@@ -12,6 +13,10 @@ import textwrap
 
 import pytest
 import torch
+# meta tensors' torch.cat imports torch._dynamo, which sets an environment
+# variable when first imported; import it with the module, before the state
+# guard looks
+import torch._dynamo  # noqa: F401
 
 from tests.torch_parity import leaves_process_as_found  # noqa: F401
 
@@ -48,7 +53,11 @@ def test_port_imports_nothing_of_jax_or_lfm_tpu():
     assert out["leaked"] == []
     for mod in ("lfm_tpu_torch.sample.sample", "lfm_tpu_torch.kernels.dit_block",
                 "lfm_tpu_torch.kernels.flash_attention", "lfm_tpu_torch.cli.main",
-                "lfm_tpu_torch.vae.autoencoder_kl", "lfm_tpu_torch.ode.solvers"):
+                "lfm_tpu_torch.vae.autoencoder_kl", "lfm_tpu_torch.vae.convert",
+                "lfm_tpu_torch.ode.solvers", "lfm_tpu_torch.train.loop",
+                "lfm_tpu_torch.train.train", "lfm_tpu_torch.train.state",
+                "lfm_tpu_torch.core.checkpoint", "lfm_tpu_torch.core.preemption",
+                "lfm_tpu_torch.data.datasets", "lfm_tpu_torch.data.loader"):
         assert mod in out["modules"]
 
 
@@ -86,15 +95,32 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_cuda):
     assert SampleRNG(0).randn([0], (2,), device="cpu").shape == (1, 2)
 
 
+def test_train_refuses_the_cpu_unless_asked(no_cuda, tmp_path):
+    from lfm_tpu_torch.cli import main as cli
+    from lfm_tpu_torch.core.config import get_preset
+    from lfm_tpu_torch.train.loop import train
+
+    cfg = get_preset("celeb256_dit").replace(output_dir=str(tmp_path))
+    for call in (lambda: train(cfg),
+                 lambda: cli.main(["train", "--preset", "celeb256_dit", "--dataset",
+                                   "synthetic_latent", "--max_steps", "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not os.listdir(tmp_path)
+
+
 def test_kernel_wrappers_take_no_other_device():
     """A wrapper computes the plain version only for a CPU tensor; for any
     other device it launches its kernel or raises (here: a meta tensor)."""
     from lfm_tpu_torch.kernels.dit_block import fused_dit_block
-    from lfm_tpu_torch.kernels.flash_attention import attention_small
+    from lfm_tpu_torch.kernels.flash_attention import (attention_small, attention_small_bwd,
+                                                       fused_attention)
 
     q = torch.empty(1, 16, 2, 32, dtype=torch.bfloat16, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        attention_small(q, q, q)
+    for call in (lambda: attention_small(q, q, q), lambda: attention_small_bwd(q, q, q, q),
+                 lambda: fused_attention(q, q, q)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
     x = torch.empty(1, 16, 128, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fused_dit_block(x, *([x] * 9), num_heads=4)
