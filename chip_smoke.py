@@ -14,14 +14,23 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    library call computing the same function:
    - attention_small (K1), bf16 at (8, 256, 16, 64), (2, 1024, 16, 64),
      (32, 256, 16, 64) (the train step's shape) and (N, 256, 16, 64), and
-     f32 at (8, 256, 16, 64); library: scaled_dot_product_attention;
+     f32 at (8, 256, 16, 64) and at the origin ADM's heads, (N, 16, 4, 128)
+     (celeb256_adm's path), (16, 64, 4, 128) and (16, 16, 4, 256); library:
+     scaled_dot_product_attention;
    - fused_dit_block (K2) at T=256, C=1024, hidden 4096, 16 heads, N=8 and
      N, every weight non-zero; library: the same block composed of cuBLAS
      bf16 matmuls and scaled_dot_product_attention;
    - attention_small_bwd (K3), bf16 at (32, 256, 16, 64) and
      (8, 1024, 16, 64), f32 at (8, 256, 16, 64); library: the backward of
      scaled_dot_product_attention through autograd (its saved forward
-     graph, backward alone).
+     graph, backward alone);
+   - flash_attention (K4), bf16 at (2, 4096, 16, 64) (DiT-L/2 at 1024 px,
+     the long_t path) and (4, 2048, 16, 64), f32 at (1, 4096, 4, 128);
+     library: scaled_dot_product_attention;
+   - groupnorm_silu (K6), bf16 at (N, 32, 32, 256), (N, 32, 32, 768) (the
+     largest in-norm input of celeb256_adm), (N, 4, 4, 1024) and
+     (N, 32, 32, 256) offset by +8, f32 at (8, 32, 32, 256); library:
+     silu(group_norm) on an f32 channels-last view.
    N is the preset's sampling batch (200), the sampling path's batch.
 3. grad: a 2-block DiT at DiT-L width (C = 1024, 16 heads, T = 256), batch
    8, bf16 compute on f32 masters; the flow-matching loss's parameter
@@ -34,7 +43,20 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
 5. main_module: the same model with use_fused_dit=False, euler at 4 steps;
    attention_small must launch 24 x NFE times. The fused and module
    velocities at one (t, x) must agree.
-6. train: ``train(...)`` on the celeb256_dit preset (DiT-L/2 at full width
+6. adm_main: ``make_sampler`` on the celeb256_adm preset, a bf16 origin-ADM
+   UNet at full width (nf 256, ch_mult 1 2 2 2, 2 ResBlocks per level, 4
+   heads, attention through K1) with seeded non-zero weights, dopri5 at
+   the preset's tolerances, full-size VAE decode of N samples;
+   attention_small must launch (attention layers) x NFE times and
+   groupnorm_silu never, both counts from ``build_unet_plan``.
+7. adm_fused_gn: the same weights with use_fused_gn, euler at 4 steps;
+   groupnorm_silu must launch (ResBlocks) x 4 times, and the velocity at
+   one (t, x) must agree with the unfused model's.
+8. long_t: ``make_sampler`` on celeb256_dit at image_size 1024 (DiT-L/2 at
+   full width and depth, T = 4096 tokens, past the fused block's gate),
+   euler at 2 steps, batch 2, VAE decode to 1024^2; flash_attention must
+   launch 24 x 2 times and attention_small never.
+9. train: ``train(...)`` on the celeb256_dit preset (DiT-L/2 at full width
    and depth, batch 32, bf16 on f32 masters, grad checkpointing, EMA), from
    seeded non-zero weights given as a ``model_0.pth``, with a full-width
    seeded VAE encoder over synthetic 256^2 images in [-1, 1], below one
@@ -45,8 +67,11 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    recompute). The loop logs, and so waits for the loss, after step 1;
    the time from that log call to the end of the run, after a sync, over
    TRAIN_STEPS - 1 is the seconds per step.
-7. a ``kernels`` line with every ported kernel, then the card's name and
+10. a ``kernels`` line with every ported kernel, then the card's name and
    power limit, then the last line ``{"ok": true, "device": {...}}``.
+
+Every path resets all launch counts just before it runs and reads them
+just after.
 
 Any failed check raises, so the exit code is not 0. Without CUDA, or
 without the package beside it, the script exits non-zero before printing
@@ -85,13 +110,23 @@ K2_TOL = 2e-2
 # round to bf16 on both sides, and a rounding that falls the other way moves
 # a term by 2^-8
 K3_TOL = 2e-2
-# f32 kernels (K1, K3): f32 sums in another order
+# K4: max abs error / max |plain| in bf16, as K1 (its plain version takes
+# the same key blocks)
+K4_TOL = 2e-2
+# K6: max abs error / max |plain| in bf16: one rounding of the output on
+# both sides, which may fall the other way after f32 sums in another order
+K6_TOL = 2e-2
+# f32 kernels (K1, K3, K4, K6): f32 sums in another order
 F32_TOL = 1e-4
-VEL_TOL = 5e-2  # fused vs module velocity, max abs / max |module| (as tests/test_dit_fused.py)
+# fused vs module velocity (DiT), fused vs plain GroupNorm + SiLU (ADM):
+# max abs / max |reference| (as tests/test_dit_fused.py)
+VEL_TOL = 5e-2
 # DiT parameter gradients through K1/K3 vs plain autograd: max abs error /
 # max |plain| per tensor, the bf16 tolerance of the CPU parity tests
 GRAD_TOL = 5e-2
 TRAIN_STEPS = 12  # the first step is not timed
+ADM_FUSED_STEPS = 4  # euler steps of the adm_fused_gn path
+LONG_T_SIZE = 1024  # image size of the long_t path: T = (1024 / 8 / 2)^2 = 4096
 
 
 def emit(obj) -> None:
@@ -159,9 +194,14 @@ def run(torch, work: str) -> int:
     from lfm_tpu_torch.kernels import _build
     from lfm_tpu_torch.kernels.dit_block import FUSED_DIT_BLOCK, fused_dit_block, reference_block
     from lfm_tpu_torch.kernels.flash_attention import (ATTENTION_SMALL, ATTENTION_SMALL_BWD,
-                                                       attention_small, attention_small_bwd,
+                                                       FLASH_ATTENTION, attention_small,
+                                                       attention_small_bwd, flash_attention,
                                                        reference_attention,
-                                                       reference_attention_bwd)
+                                                       reference_attention_bwd,
+                                                       reference_flash_attention)
+    from lfm_tpu_torch.kernels.groupnorm_silu import (GROUPNORM_SILU, groupnorm_silu,
+                                                      reference_groupnorm_silu)
+    from lfm_tpu_torch.nn.adm_unet import plan_layers
     from lfm_tpu_torch.nn.dit import DiT
     from lfm_tpu_torch.nn.dit_fused import cast_params_bf16, dit_fused_apply
     from lfm_tpu_torch.nn.factory import create_network
@@ -172,9 +212,19 @@ def run(torch, work: str) -> int:
     from lfm_tpu_torch.vae.autoencoder_kl import create_vae
 
     dev = torch.device("cuda")
-    bf = torch.bfloat16
+    bf, f32 = torch.bfloat16, torch.float32
     t_all = time.time()
     config = get_preset("celeb256_dit")
+    counters = {"attention_small": ATTENTION_SMALL, "fused_dit_block": FUSED_DIT_BLOCK,
+                "attention_small_bwd": ATTENTION_SMALL_BWD, "flash_attention": FLASH_ATTENTION,
+                "groupnorm_silu": GROUPNORM_SILU}
+
+    def reset_counts():
+        for c in counters.values():
+            c.count = 0
+
+    def counts():
+        return {name: c.count for name, c in counters.items()}
 
     # 1. build, in a thread, while the DiT-L/2 of the main path is made and
     # saved as the model_0.pth that the train phase starts from
@@ -215,10 +265,13 @@ def run(torch, work: str) -> int:
 
     batch = config.sample.batch_size
     train_batch = config.train.batch_size
-    k1_rows, k2_rows, k3_rows = {}, {}, {}
+    k1_rows, k2_rows, k3_rows, k4_rows, k6_rows = {}, {}, {}, {}, {}
     k1_cases = sorted({(8, 256, 16, 64, bf), (2, 1024, 16, 64, bf), (train_batch, 256, 16, 64, bf),
                        (batch, 256, 16, 64, bf)}, key=lambda c: c[:4])
-    for n, t, h, d, dt in k1_cases + [(8, 256, 16, 64, torch.float32)]:
+    # f32: the DiT's head, then the origin ADM's (celeb256_adm's path first)
+    k1_f32 = [(8, 256, 16, 64, f32), (batch, 16, 4, 128, f32), (16, 64, 4, 128, f32),
+              (16, 16, 4, 256, f32)]
+    for n, t, h, d, dt in k1_cases + k1_f32:
         t_case = time.time()
         q, k, v = rn(n, t, h, d, dtype=dt), rn(n, t, h, d, dtype=dt), rn(n, t, h, d, dtype=dt)
         out = attention_small(q, k, v)
@@ -238,7 +291,7 @@ def run(torch, work: str) -> int:
                "plain_ms": time_ms(torch, lambda: reference_attention(q, k, v)),
                "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh)),
                "bound_ms": bms, "bound_by": by, "seconds": time.time() - t_case}
-        k1_rows[(n, t, dt)] = row
+        k1_rows[(n, t, h, d, dt)] = row
         emit({"phase": "kernel", "name": "attention_small", **row})
         del q, k, v, qh, kh, vh, out, ref
 
@@ -305,6 +358,57 @@ def run(torch, work: str) -> int:
         k3_rows[(n, t, dt)] = row
         emit({"phase": "kernel", "name": "attention_small_bwd", **row})
         del q, k, v, do, got, want, qh, kh, vh, doh, oh
+
+    for n, t, h, d, dt in ((2, 4096, 16, 64, bf), (4, 2048, 16, 64, bf), (1, 4096, 4, 128, f32)):
+        t_case = time.time()
+        q, k, v = (rn(n, t, h, d, dtype=dt) for _ in range(3))
+        out = flash_attention(q, k, v)
+        ref = reference_flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        err, rel = rel_err(out, ref)
+        tol = K4_TOL if dt == bf else F32_TOL
+        if not rel <= tol:
+            raise AssertionError(f"flash_attention {(n, t, h, d, dt)}: max abs err {err} is {rel} "
+                                 f"of max |plain| > {tol}")
+        qh, kh, vh = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        bms, by = bound_ms(4 * n * t * h * d * q.element_size(), 4 * n * h * t * t * d,
+                           BF16_FLOPS if dt == bf else F32_FLOPS)
+        row = {"shape": [n, t, h, d], "dtype": str(dt), "max_abs_err": err, "rel_err": rel,
+               "tol": tol, "ms": time_ms(torch, lambda: flash_attention(q, k, v)),
+               "plain_ms": time_ms(torch, lambda: reference_flash_attention(q, k, v)),
+               "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh)),
+               "bound_ms": bms, "bound_by": by, "seconds": time.time() - t_case}
+        k4_rows[(n, t, h, d, dt)] = row
+        emit({"phase": "kernel", "name": "flash_attention", **row})
+        del q, k, v, qh, kh, vh, out, ref
+
+    for n, hh, ww, c, dt, offset in ((batch, 32, 32, 256, bf, 0.0), (batch, 32, 32, 768, bf, 0.0),
+                                     (batch, 4, 4, 1024, bf, 0.0), (batch, 32, 32, 256, bf, 8.0),
+                                     (8, 32, 32, 256, f32, 0.0)):
+        t_case = time.time()
+        x = (rn(n, hh, ww, c, dtype=f32) + offset).to(dt)
+        scale, bias = 1.0 + rn(c, scale=0.1, dtype=f32), rn(c, scale=0.1, dtype=f32)
+        out = groupnorm_silu(x, scale, bias)
+        ref = reference_groupnorm_silu(x, scale, bias)
+        torch.cuda.synchronize()
+        err, rel = rel_err(out, ref)
+        tol = K6_TOL if dt == bf else F32_TOL
+        if not rel <= tol:
+            raise AssertionError(f"groupnorm_silu {(n, hh, ww, c, dt, offset)}: max abs err {err} "
+                                 f"is {rel} of max |plain| > {tol}")
+        xl = x.float().permute(0, 3, 1, 2)  # f32, channels-last
+        bms, by = bound_ms(2 * x.numel() * x.element_size() + 2 * c * 4, 10 * x.numel(),
+                           F32_FLOPS)
+        row = {"shape": [n, hh, ww, c], "dtype": str(dt), "offset": offset, "max_abs_err": err,
+               "rel_err": rel, "tol": tol,
+               "ms": time_ms(torch, lambda: groupnorm_silu(x, scale, bias)),
+               "plain_ms": time_ms(torch, lambda: reference_groupnorm_silu(x, scale, bias)),
+               "library_ms": time_ms(torch, lambda: F.silu(F.group_norm(xl, 32, scale, bias,
+                                                                        1e-5))),
+               "bound_ms": bms, "bound_by": by, "seconds": time.time() - t_case}
+        k6_rows[(n, hh, ww, c, dt, offset)] = row
+        emit({"phase": "kernel", "name": "groupnorm_silu", **row})
+        del x, xl, out, ref
     emit({"phase": "kernels_vs_plain", "seconds": time.time() - t0})
 
     # 3. gradients of a small full-width DiT through K1/K3 against plain autograd
@@ -336,19 +440,19 @@ def run(torch, work: str) -> int:
     noise, y = noise_and_labels(config, SampleRNG(config.sample.seed), range(batch),
                                 device=dev)
     sampler = make_sampler(config, model, None, vae, None, device=dev)
-    ATTENTION_SMALL.count = FUSED_DIT_BLOCK.count = ATTENTION_SMALL_BWD.count = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.time()
     res = sampler(noise, y)
     torch.cuda.synchronize()
     secs = time.time() - t0
-    k2_launches, k1_in_fused = FUSED_DIT_BLOCK.count, ATTENTION_SMALL.count
+    fused_counts = counts()
+    k2_launches = FUSED_DIT_BLOCK.count
     img = res.images
     emit({"phase": "main_fused", "seconds": secs, "method": config.sample.method,
           "atol": config.sample.atol, "rtol": config.sample.rtol, "nfe": res.nfe,
-          "images": list(img.shape), "fused_dit_block_launches": k2_launches,
-          "attention_small_launches": k1_in_fused,
+          "images": list(img.shape), "launches": fused_counts,
           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
           "image_mean": float(img.float().mean()), "image_std": float(img.float().std())})
     if tuple(img.shape) != (batch, 256, 256, 3):
@@ -357,21 +461,22 @@ def run(torch, work: str) -> int:
         raise AssertionError("images are not finite values in [0, 1]")
     if not bool(torch.isfinite(res.latents).all()):
         raise AssertionError("latents are not finite")
-    if k2_launches != depth * res.nfe or k1_in_fused != 0:
+    if k2_launches != depth * res.nfe or sum(fused_counts.values()) != k2_launches:
         raise AssertionError(f"fused path: {k2_launches} fused_dit_block launches for NFE "
-                             f"{res.nfe} x depth {depth}; {k1_in_fused} attention_small")
+                             f"{res.nfe} x depth {depth}; launches {fused_counts}")
 
     # 5. main path, module blocks: attention through attention_small
     mconfig = dataclasses.replace(config, sample=dataclasses.replace(
         config.sample, use_fused_dit=False, method="euler", num_steps=4))
     msampler = make_sampler(mconfig, model, None, vae, None, device=dev)
-    ATTENTION_SMALL.count = FUSED_DIT_BLOCK.count = ATTENTION_SMALL_BWD.count = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.time()
     mres = msampler(noise, y)
     torch.cuda.synchronize()
     msecs = time.time() - t0
-    k1_module, k2_in_module = ATTENTION_SMALL.count, FUSED_DIT_BLOCK.count
+    module_counts = counts()
+    k1_module = ATTENTION_SMALL.count
     mimg = mres.images
     with torch.no_grad():
         tt = torch.full((batch,), 0.5, device=dev)
@@ -379,19 +484,128 @@ def run(torch, work: str) -> int:
         v_module = model(tt, noise)
     vel_err = float((v_fused - v_module).abs().max()) / float(v_module.abs().max())
     emit({"phase": "main_module", "seconds": msecs, "method": "euler", "nfe": mres.nfe,
-          "images": list(mimg.shape), "attention_small_launches": k1_module,
-          "fused_dit_block_launches": k2_in_module, "velocity_rel_err": vel_err,
+          "images": list(mimg.shape), "launches": module_counts, "velocity_rel_err": vel_err,
           "velocity_tol": VEL_TOL})
     if not (bool(torch.isfinite(mimg).all()) and tuple(mimg.shape) == tuple(img.shape)):
         raise AssertionError("module path images are not finite or have the wrong shape")
-    if k1_module != depth * mres.nfe or k2_in_module != 0:
-        raise AssertionError(f"module path: {k1_module} attention_small launches for NFE "
-                             f"{mres.nfe} x depth {depth}; {k2_in_module} fused_dit_block")
+    if k1_module != depth * mres.nfe or sum(module_counts.values()) != k1_module:
+        raise AssertionError(f"module path: {module_counts} launches for NFE {mres.nfe} x "
+                             f"depth {depth}")
     if not vel_err <= VEL_TOL:
         raise AssertionError(f"fused vs module velocity: {vel_err} > {VEL_TOL}")
     del sampler, msampler, res, mres, img, mimg, noise, v_fused, v_module
 
-    # 6. train: celeb256_dit through train(...), from the seeded weights above
+    # 6. adm_main: celeb256_adm, bf16 origin-ADM UNet, dopri5, VAE decode
+    t_adm = time.time()
+    aconfig = get_preset("celeb256_adm")
+    am = aconfig.model
+    adm = create_network(am, dtype=bf, use_flash=am.use_flash_attention, device=dev)
+    seeded_init_(adm, SEED)
+    layers = list(plan_layers(adm.plan))
+    n_attn = sum(spec.kind == "attn" for spec in layers)
+    n_res = sum(spec.kind.startswith("res") for spec in layers)
+    # _GNSiLU: every ResBlock's in-norm, and its out-norm without scale-shift
+    gn_per_eval = n_res * (1 if am.use_scale_shift_norm else 2)
+    anoise, ay = noise_and_labels(aconfig, SampleRNG(aconfig.sample.seed), range(batch),
+                                  device=dev)
+    asampler = make_sampler(aconfig, adm, None, vae, None, device=dev)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ares = asampler(anoise, ay)
+    torch.cuda.synchronize()
+    asecs = time.time() - t0
+    adm_counts = counts()
+    aimg = ares.images
+    emit({"phase": "adm_main", "preset": "celeb256_adm", "seconds": asecs,
+          "method": aconfig.sample.method, "atol": aconfig.sample.atol,
+          "rtol": aconfig.sample.rtol, "nfe": ares.nfe, "images": list(aimg.shape),
+          "params": sum(p.numel() for p in adm.parameters()), "attention_layers": n_attn,
+          "resblocks": n_res, "launches": adm_counts,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "image_mean": float(aimg.float().mean()), "image_std": float(aimg.float().std()),
+          "phase_seconds": time.time() - t_adm})
+    if tuple(aimg.shape) != (batch, 256, 256, 3):
+        raise AssertionError(f"adm image shape {tuple(aimg.shape)}")
+    if not (bool(torch.isfinite(aimg).all()) and float(aimg.min()) >= 0.0
+            and float(aimg.max()) <= 1.0 and bool(torch.isfinite(ares.latents).all())):
+        raise AssertionError("adm images are not finite values in [0, 1]")
+    k1_adm = adm_counts["attention_small"]
+    if k1_adm != n_attn * ares.nfe or sum(adm_counts.values()) != k1_adm:
+        raise AssertionError(f"adm path: {adm_counts} launches for NFE {ares.nfe} x "
+                             f"{n_attn} attention layers")
+
+    # 7. adm_fused_gn: the same weights, GroupNorm + SiLU through K6, euler
+    t_fgn = time.time()
+    fconfig = dataclasses.replace(aconfig, sample=dataclasses.replace(
+        aconfig.sample, method="euler", num_steps=ADM_FUSED_STEPS))
+    adm_fused = create_network(am, dtype=bf, use_flash=am.use_flash_attention,
+                               use_fused_gn=True, device=dev)
+    adm_fused.load_state_dict(adm.state_dict())
+    fsampler = make_sampler(fconfig, adm_fused, None, vae, None, device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fres = fsampler(anoise, ay)
+    torch.cuda.synchronize()
+    fsecs = time.time() - t0
+    fgn_counts = counts()
+    with torch.no_grad():
+        tt = torch.full((batch,), 0.5, device=dev)
+        v_fgn, v_plain = adm_fused(tt, anoise), adm(tt, anoise)
+    fgn_err = float((v_fgn - v_plain).abs().max()) / float(v_plain.abs().max())
+    emit({"phase": "adm_fused_gn", "seconds": fsecs, "method": "euler", "nfe": fres.nfe,
+          "images": list(fres.images.shape), "launches": fgn_counts,
+          "groupnorm_silu_per_eval": gn_per_eval, "velocity_rel_err": fgn_err,
+          "velocity_tol": VEL_TOL, "phase_seconds": time.time() - t_fgn})
+    if not (bool(torch.isfinite(fres.images).all())
+            and tuple(fres.images.shape) == tuple(aimg.shape)):
+        raise AssertionError("adm_fused_gn images are not finite or have the wrong shape")
+    k6_fgn, k1_fgn = fgn_counts["groupnorm_silu"], fgn_counts["attention_small"]
+    if (k6_fgn != gn_per_eval * fres.nfe or k1_fgn != n_attn * fres.nfe
+            or sum(fgn_counts.values()) != k6_fgn + k1_fgn):
+        raise AssertionError(f"adm_fused_gn: {fgn_counts} launches for NFE {fres.nfe}, "
+                             f"{gn_per_eval} GroupNorm + SiLU and {n_attn} attention per eval")
+    if not fgn_err <= VEL_TOL:
+        raise AssertionError(f"fused vs plain GroupNorm + SiLU velocity: {fgn_err} > {VEL_TOL}")
+    del adm, adm_fused, asampler, fsampler, ares, fres, aimg, anoise, v_fgn, v_plain
+    torch.cuda.empty_cache()
+
+    # 8. long_t: DiT-L/2 at 1024 px (T = 4096), module path through K4
+    t_long = time.time()
+    lconfig = dataclasses.replace(
+        config, model=dataclasses.replace(config.model, image_size=LONG_T_SIZE),
+        sample=dataclasses.replace(config.sample, method="euler", num_steps=2, batch_size=2))
+    long_model = create_network(lconfig.model, dtype=bf,
+                                use_flash=lconfig.model.use_flash_attention, device=dev)
+    long_model.load_state_dict(model.state_dict())
+    tokens = (long_model.img_resolution // long_model.patch_size) ** 2
+    lnoise, ly = noise_and_labels(lconfig, SampleRNG(lconfig.sample.seed),
+                                  range(lconfig.sample.batch_size), device=dev)
+    lsampler = make_sampler(lconfig, long_model, None, vae, None, device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    lres = lsampler(lnoise, ly)
+    torch.cuda.synchronize()
+    lsecs = time.time() - t0
+    long_counts = counts()
+    limg = lres.images
+    emit({"phase": "long_t", "image_size": LONG_T_SIZE, "tokens": tokens, "seconds": lsecs,
+          "method": "euler", "nfe": lres.nfe, "images": list(limg.shape),
+          "launches": long_counts, "image_mean": float(limg.float().mean()),
+          "phase_seconds": time.time() - t_long})
+    if tuple(limg.shape) != (2, LONG_T_SIZE, LONG_T_SIZE, 3) or not bool(
+            torch.isfinite(limg).all()):
+        raise AssertionError(f"long_t images {tuple(limg.shape)} are not finite or mis-shaped")
+    k4_long = long_counts["flash_attention"]
+    if k4_long != depth * lres.nfe or sum(long_counts.values()) != k4_long:
+        raise AssertionError(f"long_t: {long_counts} launches for NFE {lres.nfe} x depth {depth}")
+    del long_model, lsampler, lres, limg, lnoise
+    torch.cuda.empty_cache()
+
+    # 9. train: celeb256_dit through train(...), from the seeded weights above
     t_train = time.time()
     del model
     torch.cuda.empty_cache()
@@ -404,7 +618,7 @@ def run(torch, work: str) -> int:
 
     def train_run(max_steps):
         logs = []
-        ATTENTION_SMALL.count = FUSED_DIT_BLOCK.count = ATTENTION_SMALL_BWD.count = 0
+        reset_counts()
         torch.cuda.reset_peak_memory_stats()
         t_run = time.time()
         state = train(tconfig, dataset=dataset, vae=vae, device=dev, max_steps=max_steps,
@@ -426,8 +640,8 @@ def run(torch, work: str) -> int:
     del state1, p1, ema1
     torch.cuda.empty_cache()
     state, loss_again, (t_log, line), t_end, run_s = train_run(TRAIN_STEPS)
-    k1_train, k3_train, k2_train = (ATTENTION_SMALL.count, ATTENTION_SMALL_BWD.count,
-                                    FUSED_DIT_BLOCK.count)
+    train_counts = counts()
+    k1_train, k3_train = ATTENTION_SMALL.count, ATTENTION_SMALL_BWD.count
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     tdepth = len([name for name in state.names if name.endswith("attn.qkv.weight")])
     finite = all(bool(torch.isfinite(p).all()) for p in state.params)
@@ -436,8 +650,7 @@ def run(torch, work: str) -> int:
           "batch": train_batch, "steps": state.step, "seconds_per_step": sec_per_step,
           "images_per_s": train_batch / sec_per_step, "peak_gib": peak,
           "loss_step1": loss1, "loss_step1_again": loss_again, "log": line,
-          "run_seconds": [run1_s, run_s], "attention_small_launches": k1_train,
-          "attention_small_bwd_launches": k3_train, "fused_dit_block_launches": k2_train,
+          "run_seconds": [run1_s, run_s], "launches": train_counts,
           "ema_max_abs_err": ema_err, "param_max_change_step1": moved,
           "params_finite": finite, "seconds": time.time() - t_train})
     if not (math.isfinite(loss1) and math.isfinite(loss_again) and finite):
@@ -448,37 +661,34 @@ def run(torch, work: str) -> int:
     if not ema_err <= 1e-6 * float(p0.abs().max()):
         raise AssertionError(f"train: EMA is off decay * p0 + (1 - decay) * p1 by {ema_err}")
     if (state.step != TRAIN_STEPS or k3_train != tdepth * TRAIN_STEPS
-            or k1_train != 2 * tdepth * TRAIN_STEPS or k2_train != 0):
+            or k1_train != 2 * tdepth * TRAIN_STEPS
+            or sum(train_counts.values()) != k1_train + k3_train):
         raise AssertionError(f"train: {state.step} steps, {k3_train} attention_small_bwd and "
                              f"{k1_train} attention_small launches for depth {tdepth}")
     del state
 
-    # 7. the kernels line, the card, the last line
-    k1 = k1_rows[(train_batch, 256, bf)]
-    k2_row = k2_rows[batch]
-    k3 = k3_rows[(train_batch, 256, bf)]
+    # 10. the kernels line, the card, the last line
+    by_path = {"main_fused": fused_counts, "main_module": module_counts, "adm_main": adm_counts,
+               "adm_fused_gn": fgn_counts, "long_t": long_counts, "train": train_counts}
+    # name, source, TPU kernel, the path whose count is "launches", the row
+    kernels = (
+        ("attention_small", "attention.cuh", "flash_attention.py:163", "train",
+         k1_rows[(train_batch, 256, 16, 64, bf)]),
+        ("fused_dit_block", "dit_block.cu", "dit_block.py:135", "main_fused", k2_rows[batch]),
+        ("attention_small_bwd", "attention_bwd.cuh", "flash_attention.py:233", "train",
+         k3_rows[(train_batch, 256, bf)]),
+        ("flash_attention", "flash_attention.cuh", "flash_attention.py:74", "long_t",
+         k4_rows[(2, 4096, 16, 64, bf)]),
+        ("groupnorm_silu", "groupnorm_silu.cu", "groupnorm_silu.py:68", "adm_fused_gn",
+         k6_rows[(batch, 32, 32, 256, bf, 0.0)]),
+    )
     emit({"kernels": [
-        {"name": "attention_small", "route": "cuda",
-         "source": "lfm_tpu_torch/kernels/csrc/attention.cuh",
-         "replaces": "lfm_tpu/kernels/flash_attention.py:163", "launches": k1_train,
-         "launches_by_path": {"main_module": k1_module, "train": k1_train},
-         "shape": k1["shape"], "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
-         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-         "library_ms": k1["library_ms"]},
-        {"name": "fused_dit_block", "route": "cuda",
-         "source": "lfm_tpu_torch/kernels/csrc/dit_block.cu",
-         "replaces": "lfm_tpu/kernels/dit_block.py:135", "launches": k2_launches,
-         "launches_by_path": {"main_fused": k2_launches, "train": k2_train},
-         "shape": k2_row["shape"], "max_abs_err": k2_row["max_abs_err"], "ms": k2_row["ms"],
-         "plain_ms": k2_row["plain_ms"], "bound_ms": k2_row["bound_ms"],
-         "bound_by": k2_row["bound_by"], "library_ms": k2_row["library_ms"]},
-        {"name": "attention_small_bwd", "route": "cuda",
-         "source": "lfm_tpu_torch/kernels/csrc/attention_bwd.cuh",
-         "replaces": "lfm_tpu/kernels/flash_attention.py:233", "launches": k3_train,
-         "launches_by_path": {"train": k3_train},
-         "shape": k3["shape"], "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
-         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
-         "library_ms": k3["library_ms"]},
+        {"name": name, "route": "cuda", "source": f"lfm_tpu_torch/kernels/csrc/{src}",
+         "replaces": f"lfm_tpu/kernels/{tpu}", "launches": by_path[path][name],
+         "launches_by_path": {p: c[name] for p, c in by_path.items()},
+         **{key: row[key] for key in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}}
+        for name, src, tpu, path, row in kernels
     ], "seconds_total": time.time() - t_all})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)

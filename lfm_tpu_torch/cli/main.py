@@ -2,16 +2,22 @@
 subcommands.
 
     python -m lfm_tpu_torch.cli.main sample --preset celeb256_dit
+    python -m lfm_tpu_torch.cli.main sample --preset celeb256_adm
     python -m lfm_tpu_torch.cli.main train --preset celeb256_dit --dataset synthetic
 
-``sample`` builds a bf16 DiT with attention through the ``attention_small``
-kernel, as ``lfm_tpu.cli.main sample`` does, samples one batch (fused DiT
-blocks unless ``--no_fused_dit``) and writes the images in [0, 1] as a
-``.npy`` (N, H, W, 3) float32 file. ``--ckpt`` takes a reference
-``model_{E}.pth`` (with or without the DDP ``module.`` prefix and its fixed
+``sample`` builds the preset's network in bf16 with attention through the
+attention kernels, as ``lfm_tpu.cli.main sample`` does: a DiT (fused DiT
+blocks unless ``--no_fused_dit``) or, with ``use_origin_adm``, the ADM UNet.
+It samples one batch and writes the images in [0, 1] as a ``.npy``
+(N, H, W, 3) float32 file. ``--ckpt`` takes a reference ``model_{E}.pth``
+(with or without the DDP ``module.`` prefix, and a DiT's fixed
 ``pos_embed``), ``--vae_ckpt`` a diffusers AutoencoderKL checkpoint
 (``.bin`` / ``.pth`` / ``.safetensors``, either attention naming). Without
-them it warns and uses seeded random weights (every tensor non-zero).
+them it warns and uses seeded random weights (every tensor non-zero). Both
+subcommands take the JAX CLI's model overrides (``--model_type
+--image_size --nf --ch_mult --attn_resolutions --num_res_blocks
+--use_origin_adm --num_classes --label_dropout --scale_factor --dataset
+--exp``), on top of ``--preset`` or ``--argfile``.
 
 ``train`` runs ``train/loop.py::train`` on one card with the JAX CLI's
 single-device flags; mesh flags other than 1 raise. Images are encoded by
@@ -43,13 +49,24 @@ from lfm_tpu_torch.vae.autoencoder_kl import create_vae
 from lfm_tpu_torch.vae.convert import load_vae_state_dict
 
 
+def _model_flags(p: argparse.ArgumentParser) -> None:
+    """The config flags both subcommands share (lfm_tpu/cli/main.py:33-50)."""
+    for name, typ in (("preset", str), ("argfile", str), ("exp", str), ("dataset", str),
+                      ("model_type", str), ("image_size", int), ("num_classes", int),
+                      ("label_dropout", float), ("nf", int), ("num_res_blocks", int),
+                      ("scale_factor", float)):
+        p.add_argument(f"--{name}", type=typ, default=None)
+    p.add_argument("--ch_mult", nargs="+", type=int, default=None)
+    p.add_argument("--attn_resolutions", nargs="+", type=int, default=None)
+    p.add_argument("--use_origin_adm", action="store_true", default=None)
+
+
 def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="lfm_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     _train_parser(sub.add_parser("train"))
     s = sub.add_parser("sample")
-    s.add_argument("--preset", type=str, default=None)
-    s.add_argument("--argfile", type=str, default=None)
+    _model_flags(s)
     s.add_argument("--ckpt", type=str, default=None)
     s.add_argument("--vae_ckpt", type=str, default=None)
     s.add_argument("--method", type=str, default=None)
@@ -70,10 +87,8 @@ def _build_parser() -> argparse.ArgumentParser:
 def _train_parser(t: argparse.ArgumentParser) -> None:
     """The flags of ``lfm_tpu.cli.main train`` that one device honours
     (lfm_tpu/cli/main.py:33-102)."""
-    for name, typ in (("preset", str), ("argfile", str), ("exp", str), ("dataset", str),
-                      ("datadir", str), ("model_type", str), ("image_size", int),
-                      ("num_classes", int), ("label_dropout", float),
-                      ("scale_factor", float), ("batch_size", int), ("seed", int),
+    _model_flags(t)
+    for name, typ in (("datadir", str), ("batch_size", int), ("seed", int),
                       ("vae_ckpt", str), ("lr", float), ("num_epoch", int),
                       ("ema_decay", float), ("save_content_every", int),
                       ("save_ckpt_every", int), ("plot_every", int), ("model_ckpt", str),
@@ -95,15 +110,24 @@ def _over(dc, **kw):
 
 
 def _base_config(args) -> Config:
+    """The preset or argfile with the model overrides applied, and ``--exp``,
+    ``--dataset`` and ``--scale_factor`` (lfm_tpu/cli/main.py:187-265)."""
     if args.preset:
-        return get_preset(args.preset)
-    return load_argfile(args.argfile) if args.argfile else Config()
+        config = get_preset(args.preset)
+    else:
+        config = load_argfile(args.argfile) if args.argfile else Config()
+    model = _over(config.model, model_type=args.model_type, image_size=args.image_size,
+                  num_classes=args.num_classes, label_dropout=args.label_dropout, nf=args.nf,
+                  ch_mult=tuple(args.ch_mult) if args.ch_mult else None,
+                  attn_resolutions=tuple(args.attn_resolutions) if args.attn_resolutions
+                  else None,
+                  num_res_blocks=args.num_res_blocks, use_origin_adm=args.use_origin_adm)
+    config = dataclasses.replace(config, model=model)
+    return _over(config, exp=args.exp, dataset=args.dataset, scale_factor=args.scale_factor)
 
 
 def _resolve_train_config(args) -> Config:
     config = _base_config(args)
-    model = _over(config.model, model_type=args.model_type, image_size=args.image_size,
-                  num_classes=args.num_classes, label_dropout=args.label_dropout)
     train_cfg = _over(
         config.train, lr=args.lr, num_epoch=args.num_epoch, no_lr_decay=args.no_lr_decay,
         use_ema=args.use_ema, ema_decay=args.ema_decay,
@@ -115,8 +139,7 @@ def _resolve_train_config(args) -> Config:
     data = _over(config.data, dataset=args.dataset, datadir=args.datadir)
     mesh = _over(config.mesh, dp=args.dp, fsdp=args.fsdp, tp=args.tp, sp=args.sp, pp=args.pp,
                  pp_chunks=args.pp_chunks)
-    config = dataclasses.replace(config, model=model, train=train_cfg, data=data, mesh=mesh)
-    return _over(config, exp=args.exp, dataset=args.dataset, scale_factor=args.scale_factor)
+    return dataclasses.replace(config, train=train_cfg, data=data, mesh=mesh)
 
 
 def _load_vae(path: Optional[str], device: torch.device):
@@ -160,7 +183,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[str]:
     if args.ckpt:
         params = reference_state_dict(args.ckpt)
     else:
-        print("[warn] no --ckpt; using seeded random DiT weights", file=sys.stderr)
+        name = "origin-ADM UNet" if config.model.use_origin_adm else config.model.model_type
+        print(f"[warn] no --ckpt; using seeded random {name} weights", file=sys.stderr)
         seeded_init_(model, seed=0)
 
     sc = config.sample

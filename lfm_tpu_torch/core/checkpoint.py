@@ -39,9 +39,10 @@ def strip_ddp_prefix(sd: Mapping) -> Dict:
 
 
 def reference_state_dict(src: Union[str, Mapping]) -> Dict[str, torch.Tensor]:
-    """A reference ``model_{E}.pth`` (a path or the loaded dict) ready for a
-    strict ``load_state_dict``: the DDP ``module.`` prefix stripped and the
-    fixed ``pos_embed`` dropped (lfm_tpu/nn/convert_dit.py:3-9,27)."""
+    """A reference ``model_{E}.pth`` (a path or the loaded dict) of a DiT or
+    an origin-ADM UNet, ready for a strict ``load_state_dict``: the DDP
+    ``module.`` prefix stripped and a DiT's fixed ``pos_embed`` dropped
+    (lfm_tpu/nn/convert_dit.py:3-9,27)."""
     if isinstance(src, str):
         src = torch.load(src, map_location="cpu", weights_only=True)
     sd = strip_ddp_prefix(src)
@@ -51,7 +52,7 @@ def reference_state_dict(src: Union[str, Mapping]) -> Dict[str, torch.Tensor]:
 
 def reference_model_dict(model: nn.Module,
                          values: Optional[List[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
-    """The model's ``state_dict`` as the reference DiT holds it: the fixed
+    """The model's ``state_dict`` as the reference holds it: a DiT's fixed
     ``pos_embed`` first, then every parameter (or ``values`` in their place,
     such as the EMA weights), on the CPU."""
     sd = {}

@@ -7,8 +7,10 @@ The preset registry mirrors every released configuration 1:1 (same MODEL_TYPE /
 METHOD / STEPS / CH_MULT / ATTN_RES / CFG knobs) so a reference user can address
 experiments by the same names (celeb_f8_dit, imnet_f8_ditb2, ...).
 
-The port keeps its own copy so that it never imports ``lfm_tpu``. Only the
-DiT-family presets are here; the ADM/EDM presets arrive with their networks.
+The port keeps its own copy so that it never imports ``lfm_tpu``. The DiT
+and ADM presets are here; of the ADM ones, the port builds the origin-ADM
+UNet (``use_origin_adm``: celeb256_adm, celeb512_adm, church_adm), and EDM's
+DhariwalUNet (ffhq_adm, bed_adm, imnet_adm) is not ported yet.
 """
 
 from __future__ import annotations
@@ -192,6 +194,16 @@ def _dit(model_type: str, **kw) -> ModelConfig:
     return ModelConfig(model_type=model_type, **kw)
 
 
+def _adm(ch_mult, attn_res, origin=True, **kw) -> ModelConfig:
+    return ModelConfig(
+        model_type="adm",
+        use_origin_adm=origin,
+        ch_mult=tuple(ch_mult),
+        attn_resolutions=tuple(attn_res),
+        **kw,
+    )
+
+
 # ---------------------------------------------------------------------------
 # Preset registry — one entry per released configuration
 # (reference test_args/*.txt + readme.md:101-185 checkpoint table).
@@ -242,6 +254,52 @@ PRESETS: dict[str, Config] = {
             batch_size=160, num_epoch=1000, lr=1e-4, no_lr_decay=True,
             use_grad_checkpointing=True, use_ema=True,
         ),
+    ),
+    # --- ADM family -------------------------------------------------------
+    "celeb256_adm": Config(
+        exp="celeb256_f8_adm",
+        dataset="celeba_256",
+        model=_adm((1, 2, 2, 2), (16, 8), origin=True, image_size=256),
+        sample=SampleConfig(epoch_id=450),
+        train=TrainConfig(batch_size=112, num_epoch=500, lr=2e-5, use_ema=True),
+    ),
+    "celeb512_adm": Config(
+        exp="celeb512_f8_adm",
+        dataset="celeba_512",
+        model=_adm((1, 2, 2, 2, 4), (16, 8), origin=True, image_size=512),
+        sample=SampleConfig(epoch_id=425, batch_size=16),
+        train=TrainConfig(batch_size=24, num_epoch=500, lr=2e-5, use_ema=True, precision="bf16"),
+    ),
+    "ffhq_adm": Config(
+        exp="ffhq_f8_adm",
+        dataset="ffhq_256",
+        model=_adm((1, 2, 3, 4), (16, 8, 4), origin=False, image_size=256),
+        sample=SampleConfig(epoch_id=400),
+        train=TrainConfig(batch_size=128, num_epoch=500, lr=2e-5, use_ema=True),
+    ),
+    "bed_adm": Config(
+        exp="bed_f8_adm",
+        dataset="lsun_bedroom",
+        model=_adm((1, 2, 3, 4), (16, 8, 4), origin=False, image_size=256),
+        sample=SampleConfig(epoch_id=425),
+        train=TrainConfig(batch_size=128, num_epoch=500, lr=1e-5, no_lr_decay=True, use_ema=True),
+    ),
+    "church_adm": Config(
+        exp="church_f8_adm",
+        dataset="lsun_church",
+        model=_adm((1, 2, 3, 4), (16, 8), origin=True, image_size=256),
+        sample=SampleConfig(epoch_id=425),
+        train=TrainConfig(batch_size=128, num_epoch=500, lr=2e-5, use_ema=True),
+    ),
+    "imnet_adm": Config(
+        exp="imnet_f8_adm",
+        dataset="imagenet_256",
+        model=_adm(
+            (1, 2, 3, 4), (16, 8, 4), origin=False, image_size=256,
+            num_classes=1000, label_dim=1000,
+        ),
+        sample=SampleConfig(epoch_id=1125, cfg_scale=1.25),
+        train=TrainConfig(batch_size=96, num_epoch=1200, lr=1e-4, no_lr_decay=True, use_ema=True),
     ),
 }
 

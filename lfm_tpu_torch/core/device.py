@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -18,3 +19,17 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
                 "CUDA is not available; pass device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """TF32 off for cuDNN convolutions and matmuls within the block, so that
+    an f32 model is f32 on the card (both are on for convolutions by
+    default); bf16 is unaffected."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

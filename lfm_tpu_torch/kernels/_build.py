@@ -28,12 +28,14 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 BUILD_TIMEOUT_S = 900
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: every pointer and the stream are c_void_p, every size c_int
 SIGNATURES = {
     "lfm_attention_small": [_P] * 4 + [_I] * 9 + [_P],
     "lfm_attention_small_bwd": [_P] * 8 + [_I] * 10 + [_P],
     "lfm_dit_block": [_P] * 16 + [_I] * 5 + [_P],
+    "lfm_flash_attention": [_P] * 4 + [_I] * 10 + [_P],
+    "lfm_groupnorm_silu": [_P] * 4 + [_I] * 4 + [_F, _I, _P],
 }
 
 

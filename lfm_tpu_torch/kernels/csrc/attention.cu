@@ -4,11 +4,16 @@
 
 // q, k, v, o: (N, T, H*D) slabs with row strides ldq/ldk/ldv/ldo
 // (elements) and batch stride T*ld; bf16 when f32 == 0, float otherwise.
+// D: 56-80 in both types, 128 and 256 in float.
 // Launches on `stream`, allocates nothing, returns cudaGetLastError().
 extern "C" int lfm_attention_small(const void* q, const void* k, const void* v, void* o,
                                    int N, int T, int H, int D, int ldq, int ldk, int ldv,
                                    int ldo, int f32, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (f32 && D > 80)
+    return static_cast<int>(lfm::launch_attention_wide_f32(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), N, T, H, D, ldq, ldk, ldv, ldo, s));
   if (f32)
     return static_cast<int>(lfm::launch_attention<false, float>(
         static_cast<const float*>(q), static_cast<const float*>(k),

@@ -29,6 +29,14 @@
 // principle; this simple design recomputes QK^T once (1.5x the flops), uses
 // WMMA (mma.sync) rather than wgmma, and does not overlap loads with math,
 // so in practice it is bound by its own latency. TMA + wgmma is later work.
+//
+// Wide heads: the origin ADM runs its attention in f32 at D = 128
+// (celeb256_adm) and 256 (celeb512_adm, church_adm), at T = 16 or 64. At f32
+// and DP 256 the q, k and v tiles and the stages would take 277 KB, past the
+// 227 KB a block may have, so there v follows k through one tile buffer
+// (AttnLayout::KV_SHARE): one more barrier and a serial load per key tile.
+// T = 16 fills a quarter of one tile; the rows past T are zero-filled and
+// their columns masked.
 #pragma once
 
 #include "common.cuh"
@@ -38,6 +46,7 @@ namespace lfm {
 constexpr int ATT_BQ = 64;        // query rows per block
 constexpr int ATT_BK = 64;        // key rows per tile
 constexpr int ATT_THREADS = 128;  // 4 warps x 16 query rows
+constexpr int ATT_MAX_SMEM = 232448;  // dynamic shared memory a block may use on the H100
 
 template <typename T, int DP>
 struct AttnLayout {
@@ -48,6 +57,13 @@ struct AttnLayout {
   static constexpr size_t TILE = size_t(ATT_BQ) * LDT * sizeof(T);
   static constexpr size_t STAGE = size_t(16) * LDS * 4;      // per warp
   static constexpr size_t PBUF = size_t(16) * LDP * sizeof(T);  // per warp
+  // the forward's shared memory: q, k and v tiles, then 4 stages and 4 P
+  // buffers. Where that is past the card's limit (f32 at DP 256), v
+  // follows k through one tile buffer: KV_SHARE.
+  static constexpr size_t FWD_ALL = 3 * TILE + 4 * STAGE + 4 * PBUF;
+  static constexpr bool KV_SHARE = FWD_ALL > size_t(ATT_MAX_SMEM);
+  static constexpr int FWD_TILES = KV_SHARE ? 2 : 3;
+  static constexpr size_t FWD_SMEM = FWD_TILES * TILE + 4 * STAGE + 4 * PBUF;
 };
 
 // rows [row0, row0+64) x cols [0, DP) of a slab into a tile; rows >= T and
@@ -194,10 +210,10 @@ attn_small_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   extern __shared__ __align__(128) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
   T* ks = reinterpret_cast<T*>(smem + L::TILE);
-  T* vs = reinterpret_cast<T*>(smem + 2 * L::TILE);
+  T* vs = reinterpret_cast<T*>(smem + (L::FWD_TILES - 1) * L::TILE);  // ks under KV_SHARE
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* stage = reinterpret_cast<float*>(smem + 3 * L::TILE + warp * L::STAGE);
-  T* pbuf = reinterpret_cast<T*>(smem + 3 * L::TILE + 4 * L::STAGE + warp * L::PBUF);
+  float* stage = reinterpret_cast<float*>(smem + L::FWD_TILES * L::TILE + warp * L::STAGE);
+  T* pbuf = reinterpret_cast<T*>(smem + L::FWD_TILES * L::TILE + 4 * L::STAGE + warp * L::PBUF);
 
   const int n = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ATT_BQ;
   const T* qb = q + long(n) * T_len * ldq + long(h) * D;
@@ -241,7 +257,7 @@ attn_small_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   oacc.zero();
   for (int kt = 0; kt < n_tiles; ++kt) {
     attn_load_tile<T, DP>(ks, kb, ldk, kt * ATT_BK, T_len, D);
-    attn_load_tile<T, DP>(vs, vb, ldv, kt * ATT_BK, T_len, D);
+    if constexpr (!L::KV_SHARE) attn_load_tile<T, DP>(vs, vb, ldv, kt * ATT_BK, T_len, D);
     cp_async_wait<0>();
     __syncthreads();
     W::nt(qw, ks, stage);
@@ -256,6 +272,12 @@ attn_small_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
       pbuf[row * L::LDP + col] = from_f<T>(p);
     }
     __syncwarp();
+    if constexpr (L::KV_SHARE) {  // every warp is done with k: v takes its buffer
+      __syncthreads();
+      attn_load_tile<T, DP>(vs, vb, ldv, kt * ATT_BK, T_len, D);
+      cp_async_wait<0>();
+      __syncthreads();
+    }
     oacc.nn(pbuf, vs);
     __syncthreads();
   }
@@ -275,8 +297,9 @@ static cudaError_t launch_attn_dp(const T* q, const T* k, const T* v, T* o, int 
                                   int H, int D, long ldq, long ldk, long ldv, long ldo,
                                   cudaStream_t stream) {
   using L = AttnLayout<T, DP>;
+  static_assert(L::FWD_SMEM <= size_t(ATT_MAX_SMEM), "attention tiles exceed shared memory");
   auto kernel = attn_small_kernel<T, DP, NORM_P>;
-  const int bytes = int(3 * L::TILE + 4 * L::STAGE + 4 * L::PBUF);
+  const int bytes = int(L::FWD_SMEM);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((T_len + ATT_BQ - 1) / ATT_BQ, H, N);
@@ -287,7 +310,8 @@ static cudaError_t launch_attn_dp(const T* q, const T* k, const T* v, T* o, int 
 
 // D in {56, 64, 72, 80} (checked by the Python wrapper): the head dims of
 // the DiT configs, 64 (S, B, L) and 72 (XL). Add a padded size here when a
-// config needs it.
+// config needs it. The origin ADM's wide f32 heads are in
+// launch_attention_wide_f32 (attention_wide.cu).
 template <bool NORM_P, typename T = bf16>
 static cudaError_t launch_attention(const T* q, const T* k, const T* v, T* o, int N, int T_len,
                                     int H, int D, long ldq, long ldk, long ldv, long ldo,
@@ -298,5 +322,11 @@ static cudaError_t launch_attention(const T* q, const T* k, const T* v, T* o, in
     default: return cudaErrorInvalidValue;
   }
 }
+
+// f32 K1 at D = 128 (celeb256_adm) and 256 (celeb512_adm, church_adm): the
+// origin ADM's attention, an f32 island. Compiled in attention_wide.cu.
+cudaError_t launch_attention_wide_f32(const float* q, const float* k, const float* v, float* o,
+                                      int N, int T_len, int H, int D, long ldq, long ldk,
+                                      long ldv, long ldo, cudaStream_t s);
 
 }  // namespace lfm

@@ -1,5 +1,6 @@
-"""Small-T attention: the CUDA kernels K1 (forward) and K3 (backward), their
-plain versions, and the differentiable ``fused_attention``.
+"""Attention: the CUDA kernels K1 (small-T forward), K3 (its backward) and
+K4 (long-T forward), their plain versions, and the differentiable
+``fused_attention``.
 
 K1 ports lfm_tpu/kernels/flash_attention.py::attention_small (the Pallas
 kernel `_attn_small_kernel`): whole-sequence, non-causal softmax attention
@@ -9,14 +10,18 @@ input type before the PV product. K3 ports ``attention_small_bwd``
 rounded to the input type before their products. The kernels are
 ``csrc/attention.cuh`` and ``csrc/attention_bwd.cuh``; what bounds them is
 noted there. Both take bf16 or f32; f32 runs its products as f32 FMA.
+K4 ports ``flash_attention`` (`_flash_kernel`): keys in blocks of
+``block_k`` with an online softmax, f32 m, l and acc, p rounded to v's
+type before PV, acc / l at the end (``csrc/flash_attention.cuh``).
 
 On a CPU tensor each wrapper computes its plain version; on a CUDA tensor
 it launches its kernel or raises. ``fused_attention_qkv`` is a
 ``torch.autograd.Function`` over a fused qkv row, the port of the
 ``fused_attention`` custom_vjp (``fused_attention`` packs separate q, k, v
-into one): K1 forward (qkv saved, not p), K3 backward within the small-T
-gate. Past the gate the long-T kernel (K4) is
-not ported: the CPU recomputes the plain version, CUDA raises.
+into one): within the small-T gate K1 forward (qkv saved, not p) and K3
+backward; past it K4 forward, and a backward that recomputes the plain
+version through autograd on either device, as the JAX package's
+``_fused_attention_bwd`` does in XLA (it has no long-T backward kernel).
 """
 
 from __future__ import annotations
@@ -30,8 +35,13 @@ from lfm_tpu_torch.kernels._build import LaunchCounter, check_rc, load_library
 
 ATTENTION_SMALL = LaunchCounter()
 ATTENTION_SMALL_BWD = LaunchCounter()
-# head dims the kernels are built for: DiT-S/B/L use 64, DiT-XL 72
+FLASH_ATTENTION = LaunchCounter()
+# head dims every kernel is built for, in bf16 and f32: DiT-S/B/L use 64,
+# DiT-XL 72
 HEAD_DIMS = (56, 64, 72, 80)
+# and in f32 only: the origin ADM's f32 attention at 128 (celeb256_adm) and
+# 256 (celeb512_adm, church_adm)
+F32_HEAD_DIMS = {"attention_small": (128, 256), "flash_attention": (128,)}
 DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -63,6 +73,39 @@ def reference_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
+def reference_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              block_k: int = 512) -> torch.Tensor:
+    """Plain version of K4 (`_flash_kernel`): keys in blocks of
+    ``_pick_block(T, block_k)``; per block f32 scores, m_new = max(m, block
+    max), p = exp(s - m_new), l = alpha l + sum(p), acc = alpha acc + p V
+    with p rounded to v's type and f32 accumulation; acc / l at the end."""
+    n, t, h, d = q.shape
+    bk = _pick_block(t, block_k)
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf = (a.float().transpose(1, 2) for a in (q, k, v))  # (N, H, T, D)
+    m = torch.full((n, h, t, 1), -math.inf, device=q.device)
+    l = torch.zeros((n, h, t, 1), device=q.device)
+    acc = torch.zeros((n, h, t, d), device=q.device)
+    for b0 in range(0, t, bk):
+        s = scale * (qf @ kf[:, :, b0:b0 + bk].transpose(-1, -2))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = alpha * acc + p.to(v.dtype).float() @ vf[:, :, b0:b0 + bk]
+        m = m_new
+    return (acc / l).transpose(1, 2).to(q.dtype)
+
+
+def _pick_block(t: int, target: int) -> int:
+    """Largest divisor of t that is <= target (the JAX package's
+    ``_pick_block``)."""
+    b = min(t, target)
+    while t % b:
+        b -= 1
+    return b
+
+
 def _small_shape_ok(q: torch.Tensor) -> bool:
     """The JAX package's gate for the whole-sequence kernels."""
     n, t, h, d = q.shape
@@ -83,17 +126,20 @@ def _check_slab(name: str, a: torch.Tensor, ref: torch.Tensor) -> None:
         raise ValueError(f"{name} is not 16-byte aligned")
 
 
-def _check_launch(fn: str, q: torch.Tensor, slabs) -> None:
-    """Raise unless the kernel ``fn`` takes these (N, T, H, D) CUDA tensors."""
+def _check_launch(fn: str, q: torch.Tensor, slabs, small_t: bool = True) -> None:
+    """Raise unless the kernel ``fn`` takes these (N, T, H, D) CUDA tensors;
+    ``small_t``: the kernel is one of the whole-sequence ones (K1, K3)."""
     if q.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {q.device}")
     n, t, h, d = q.shape
-    if not _small_shape_ok(q):
+    if small_t and not _small_shape_ok(q):
         raise ValueError(f"{fn}: T={t} is past the small-T gate")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{fn}: head dim {d} is not one of {HEAD_DIMS}")
     if q.dtype not in DTYPES:
         raise ValueError(f"{fn}: dtype {q.dtype} is not one of {DTYPES}")
+    dims = HEAD_DIMS + (F32_HEAD_DIMS.get(fn, ()) if q.dtype == torch.float32 else ())
+    if d not in dims:
+        raise ValueError(f"{fn}: head dim {d} is not one of {dims} for {q.dtype}; "
+                         f"shape {tuple(q.shape)}")
     for name, a in slabs:
         _check_slab(f"{fn}: {name}", a, q)
 
@@ -101,9 +147,9 @@ def _check_launch(fn: str, q: torch.Tensor, slabs) -> None:
 def attention_small(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """q, k, v: (N, T, H, D) -> (N, T, H, D), T <= 1024, scale 1/sqrt(D).
 
-    On CUDA: bf16 or f32, D in HEAD_DIMS; each of q, k, v may be a view
-    whose (T, H*D) rows have any row stride (such as the thirds of a fused
-    qkv tensor), and is read in place."""
+    On CUDA: bf16 or f32, D in HEAD_DIMS (f32 also 128 and 256); each of
+    q, k, v may be a view whose (T, H*D) rows have any row stride (such as
+    the thirds of a fused qkv tensor), and is read in place."""
     if q.device.type == "cpu":
         return reference_attention(q, k, v)
     _check_launch("attention_small", q, (("q", q), ("k", k), ("v", v)))
@@ -145,33 +191,48 @@ def attention_small_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return tuple(_attention_small_bwd_packed(q, k, v, do).unbind(2))
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int = 256,
+                    block_k: int = 512) -> torch.Tensor:
+    """q, k, v: (N, T, H, D) -> (N, T, H, D), any T, scale 1/sqrt(D); keys
+    in blocks of ``_pick_block(T, block_k)``, as the JAX kernel takes them.
+    ``block_q`` is the JAX signature's: query rows are independent, so it
+    changes no value (the kernel takes 64 rows per block).
+
+    On CUDA: bf16 or f32, D in HEAD_DIMS (f32 also 128); q, k, v are read in
+    place as ``attention_small`` reads them."""
+    bk = _pick_block(q.shape[1], block_k)
+    if q.device.type == "cpu":
+        return reference_flash_attention(q, k, v, block_k=bk)
+    _check_launch("flash_attention", q, (("q", q), ("k", k), ("v", v)), small_t=False)
+    n, t, h, d = q.shape
+    out = torch.empty((n, t, h, d), dtype=q.dtype, device=q.device)
+    rc = load_library().lfm_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), n, t, h, d, bk,
+        q.stride(1), k.stride(1), v.stride(1), h * d, int(q.dtype == torch.float32),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check_rc("flash_attention", rc)
+    FLASH_ATTENTION.count += 1
+    return out
+
+
 def _forward(q, k, v) -> torch.Tensor:
-    """Dispatch as ``_dispatch_attention`` does: the small-T kernel within
-    its gate; past it the plain version on the CPU, and on CUDA an error
-    until the long-T kernel (K4) is ported."""
+    """Dispatch as ``_dispatch_attention`` does: the small-T kernel (K1)
+    within its gate, the long-T kernel (K4) past it."""
     if _small_shape_ok(q):
         return attention_small(q, k, v)
-    if q.device.type == "cpu":
-        return reference_attention(q, k, v)
-    raise NotImplementedError(
-        f"attention at T={q.shape[1]} needs the long-T flash_attention kernel, "
-        "which is not ported yet")
+    return flash_attention(q, k, v)
 
 
 def _backward_packed(q, k, v, do) -> torch.Tensor:
     """``_fused_attention_bwd``: K3 within the gate; past it the plain
-    recompute on the CPU, and on CUDA the same error as the forward."""
+    version's gradient through autograd, on either device."""
     do = do.contiguous()
     if _small_shape_ok(q):
         return _attention_small_bwd_packed(q, k, v, do)
-    if q.device.type == "cpu":
-        with torch.enable_grad():
-            qkv = [a.detach().requires_grad_(True) for a in (q, k, v)]
-            grads = torch.autograd.grad(reference_attention(*qkv), qkv, do)
-        return torch.stack(grads, dim=2)
-    raise NotImplementedError(
-        f"attention backward at T={q.shape[1]} needs the long-T flash_attention kernel, "
-        "which is not ported yet")
+    with torch.enable_grad():
+        qkv = [a.detach().requires_grad_(True) for a in (q, k, v)]
+        grads = torch.autograd.grad(reference_attention(*qkv), qkv, do)
+    return torch.stack(grads, dim=2)
 
 
 class _FusedAttentionQKV(torch.autograd.Function):

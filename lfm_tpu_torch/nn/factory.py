@@ -1,5 +1,6 @@
-"""Model factory: config -> velocity network (port of lfm_tpu/nn/factory.py).
-Only the DiT branch is ported; ADM and EDM come with their slice."""
+"""Model factory: config -> velocity network (port of lfm_tpu/nn/factory.py,
+reference models/__init__.py:6-70): ``use_origin_adm`` -> the ADM UNet,
+DiT-* -> DiT. EDM's networks (DhariwalUNet, SongUNet) are not ported yet."""
 
 from __future__ import annotations
 
@@ -9,15 +10,23 @@ import torch
 
 from lfm_tpu_torch.core.config import ModelConfig
 from lfm_tpu_torch.core.device import DeviceLike
+from lfm_tpu_torch.nn.adm_unet import create_adm_unet
 from lfm_tpu_torch.nn.dit import create_dit
 
 
 def create_network(cfg: ModelConfig, *, dtype: torch.dtype = torch.float32,
                    use_flash: bool = False, remat: bool = False,
-                   remat_policy: Optional[str] = None, device: DeviceLike = None):
-    """DiT-* -> DiT on ``device`` (the card unless ``device="cpu"``);
-    ``remat`` recomputes each block in backward (grad checkpointing)."""
-    if cfg.is_dit and not cfg.use_origin_adm:
+                   remat_policy: Optional[str] = None, use_fused_gn: bool = False,
+                   device: DeviceLike = None):
+    """The network of ``cfg`` on ``device`` (the card unless
+    ``device="cpu"``). ``remat`` recomputes each DiT block in backward (grad
+    checkpointing; the JAX package ignores it for the ADM UNet, as this
+    does); ``use_fused_gn`` sends the ADM ResBlocks' GroupNorm + SiLU
+    through the fused kernel."""
+    if cfg.use_origin_adm:
+        return create_adm_unet(cfg, dtype=dtype, use_flash=use_flash,
+                               use_fused_gn=use_fused_gn, device=device)
+    if cfg.is_dit:
         return create_dit(cfg.model_type, img_resolution=cfg.latent_size,
                           in_channels=cfg.num_in_channels,
                           label_dropout=cfg.label_dropout,
@@ -25,4 +34,5 @@ def create_network(cfg: ModelConfig, *, dtype: torch.dtype = torch.float32,
                           use_flash=use_flash, remat=remat,
                           remat_policy=remat_policy, device=device)
     raise NotImplementedError(
-        f"model_type {cfg.model_type!r}: only the DiT family is ported yet")
+        f"model_type {cfg.model_type!r} without use_origin_adm is EDM's network "
+        "(DhariwalUNet / SongUNet), which is not ported yet")

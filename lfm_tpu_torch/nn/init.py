@@ -3,11 +3,14 @@ with every tensor non-zero.
 
 ``dit_init_`` gives a fresh DiT the JAX package's initializers (those of the
 reference DiT, models/DiT.py:197-229), with other draws. The repository
-holds no trained checkpoint, so the checks use ``seeded_init_``:
-adaLN-Zero's zero init makes every DiT block an identity, so a wrong
-attention or MLP would still pass a check; these weights give every tensor
-signal instead: weights N(0, 1/fan_in), biases and embedding tables
-N(0, 0.02^2), norm scales 1 + N(0, 0.02^2). The draws come from a generator
+holds no trained checkpoint, so the checks use ``seeded_init_``, for the
+DiT and the ADM UNet alike: adaLN-Zero's zero init makes every DiT block an
+identity, and the ADM's zero-initialised ``out_layers.3``, ``out.2`` and
+attention ``proj_out`` hide their block, so a wrong attention, MLP or
+GroupNorm would still pass a check; these weights give every tensor
+signal instead: weights N(0, 1/fan_in) (fan_in = in channels x kernel
+size for a convolution), biases and embedding tables N(0, 0.02^2), norm
+scales 1 + N(0, 0.02^2). The draws come from a generator
 on the module's device, so the same seed gives other numbers on the CPU
 than on the card.
 """
@@ -35,7 +38,7 @@ def seeded_init_(module: nn.Module, seed: int) -> nn.Module:
         noise = torch.randn(p.shape, generator=gen, device=p.device, dtype=torch.float32)
         if name in norm_names:
             value = 1.0 + 0.02 * noise
-        elif p.dim() >= 2 and not name.endswith("embedding_table.weight"):
+        elif p.dim() >= 2 and not name.endswith(("embedding_table.weight", "label_emb.weight")):
             value = noise / math.sqrt(p[0].numel())
         else:
             value = 0.02 * noise

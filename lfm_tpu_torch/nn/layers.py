@@ -1,9 +1,11 @@
-"""Shared DiT building blocks (port of lfm_tpu/nn/layers.py).
+"""Shared building blocks of the DiT and the ADM UNet (port of
+lfm_tpu/nn/layers.py).
 
 Parameters are float32 masters; each module computes in its ``dtype`` and
-casts the weights to it on use, as flax's ``Dense(dtype=...)`` does. The
-LayerNorm statistics and the softmax stay float32. Module and parameter
-names follow the reference's timm / models/DiT.py layout, so a reference
+casts the weights to it on use, as flax's ``Dense(dtype=...)`` and
+``Conv(dtype=...)`` do. The LayerNorm and GroupNorm statistics and the
+softmax stay float32. Module and parameter names follow the reference's
+timm / models/DiT.py and guided-diffusion layouts, so a reference
 ``state_dict`` loads as it is.
 """
 
@@ -33,6 +35,37 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     """``layer(x)`` computed in ``dtype`` (flax Dense with dtype=...)."""
     return dense(x, layer.weight, layer.bias, dtype)
+
+
+def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``Conv(dtype=...)`` on NHWC x with the reference's (O, I, kh, kw)
+    weight: the product rounded to ``dtype``, then the bias added in
+    ``dtype``, as ``dense`` does. The convolution runs on the channels-last
+    view of x, which cuDNN takes without a copy."""
+    y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), conv.weight.to(dtype), None,
+                 conv.stride, conv.padding).permute(0, 2, 3, 1)
+    return y + conv.bias.to(dtype)
+
+
+def group_norm_f32(x: torch.Tensor, gn: nn.GroupNorm) -> torch.Tensor:
+    """GroupNorm over NHWC x in float32 (``F.group_norm``'s two-pass
+    statistics; flax's E[x^2] - E[x]^2 agrees to f32 rounding unless |mean|
+    >> std); returns float32."""
+    y = F.group_norm(x.float().permute(0, 3, 1, 2), gn.num_groups, gn.weight.float(),
+                     gn.bias.float(), gn.eps)
+    return y.permute(0, 2, 3, 1)
+
+
+class GroupNorm32(nn.GroupNorm):
+    """GroupNorm computed in float32 whatever the activation type, cast back
+    to it (models/guided_diffusion/nn.py:17-19): 32 groups, eps 1e-5, on
+    NHWC."""
+
+    def __init__(self, channels: int):
+        super().__init__(32, channels, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return group_norm_f32(x, self).to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -4,11 +4,14 @@
 ``make_sampler`` returns ``fn(noise, y) -> SampleOutput``: per-sample latent
 noise (core/rng.py), optional CFG as one doubled batch (ode/cfg.py), the
 ODE from t=1 to t=0 (ode/solvers.py), the latent unscale, the VAE decode and
-the [0, 1] clamp. With ``use_fused_dit`` a bf16 DiT evaluates every block
-through the fused block kernel (nn/dit_fused.py); otherwise the module
-path runs, whose attention goes through the ``attention_small`` kernel when
-the model has ``use_flash``. int8, the sequence- and pipeline-parallel
-paths, Karras samplers and the ``eval_noise`` floor are not ported yet.
+the [0, 1] clamp. The model is a DiT or the origin-ADM UNet. With
+``use_fused_dit`` a bf16 DiT evaluates every block through the fused block
+kernel (nn/dit_fused.py); otherwise, and for a UNet, the module path runs,
+whose attention goes through the attention kernels when the model has
+``use_flash``. Labels are drawn only when ``num_classes > 1``, and CFG's
+null label is the model's ``null_label``. int8, the sequence- and
+pipeline-parallel paths, Karras samplers and the ``eval_noise`` floor are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -34,9 +37,9 @@ def build_velocity(model, y: Optional[torch.Tensor], cfg_scale: float, *,
                    use_fused_dit: bool = False) -> Callable:
     """v(t, x), CFG-fused when cfg_scale > 1 (test_flow_latent.py:55-59).
 
-    With ``use_fused_dit`` and ``fused_applicable``, the model evaluates
-    through ``dit_fused_apply`` on a bf16 copy of its parameters made once,
-    at the first call."""
+    With ``use_fused_dit`` and ``fused_applicable`` (a bf16 DiT; never a
+    UNet), the model evaluates through ``dit_fused_apply`` on a bf16 copy of
+    its parameters made once, at the first call."""
     apply = model
     if use_fused_dit:
         from lfm_tpu_torch.nn.dit_fused import (cast_params_bf16, dit_fused_apply,

@@ -84,6 +84,9 @@ def train(config: Config, *, dataset=None, vae=None, device: DeviceLike = None,
     device = resolve_device(device)
     tc = config.train
     _check_single_device(config.mesh)
+    if config.model.use_origin_adm or not config.model.is_dit:
+        raise NotImplementedError("only the DiT family trains in this package yet; ADM and "
+                                  "EDM training are not ported")
     dataset = dataset if dataset is not None else get_dataset(config, seed=tc.seed)
     loader = DataLoader(dataset, tc.batch_size, shuffle=True, drop_last=True, seed=tc.seed)
     steps_per_epoch = tc.steps_per_epoch or max(len(loader), 1)

@@ -21,14 +21,13 @@ card; bf16 is unaffected.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lfm_tpu_torch.core.device import DeviceLike, resolve_device
+from lfm_tpu_torch.core.device import DeviceLike, no_tf32, resolve_device
 
 _GN_EPS = 1e-6
 
@@ -205,17 +204,6 @@ class Decoder(nn.Module):
         return _conv(h, self.conv_out, dtype).float()
 
 
-@contextlib.contextmanager
-def _no_tf32():
-    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
-
-
 class AutoencoderKL(nn.Module):
     """The frozen first-stage model; f = 2^(len(block_out)-1). Parameters
     are f32 masters; ``dtype`` is the compute type."""
@@ -233,7 +221,7 @@ class AutoencoderKL(nn.Module):
     def encode_moments(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: (N, H, W, 3) in [-1, 1] -> (mean, logvar), each (N, H/8, W/8, 4)
         f32; logvar clipped to [-30, 20]."""
-        with _no_tf32():
+        with no_tf32():
             m = self.encoder(x.permute(0, 3, 1, 2), self.dtype)
             m = _conv(m, self.quant_conv, self.dtype).permute(0, 2, 3, 1)
         mean, logvar = m.chunk(2, dim=-1)
@@ -254,7 +242,7 @@ class AutoencoderKL(nn.Module):
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """z: (N, h, w, 4) UNSCALED latents -> (N, 8h, 8w, 3), f32, in [-1, 1]-ish."""
-        with _no_tf32():
+        with no_tf32():
             x = z.permute(0, 3, 1, 2)
             x = _conv(x, self.post_quant_conv, self.dtype)
             img = self.decoder(x, self.dtype)

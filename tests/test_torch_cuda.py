@@ -14,7 +14,10 @@ The backward (K3) is held to 2e-2 of the largest plain gradient in bf16
 way moves a term by 2^-8), and every f32 case to 1e-4 of the largest plain
 value (f32 sums in another order). The small DiT's parameter gradients
 through K1/K3 are held to 5e-2 of the largest plain gradient of each
-tensor, the bf16 tolerance of the CPU parity tests.
+tensor, the bf16 tolerance of the CPU parity tests. K4 is held to its plain
+version on the same key blocks, and K6 to its plain version, at the same
+2e-2 (bf16) and 1e-4 (f32); the small origin ADM through K1 and K6 to 5e-2
+of its plain paths' largest output (bf16 roundings over the UNet's depth).
 """
 
 import importlib.util
@@ -180,3 +183,119 @@ def test_attention_small_refuses_unbuilt_head_dim(cuda):
     q = torch.randn(1, 64, 2, 32, generator=cuda, device="cuda").bfloat16()
     with pytest.raises(ValueError, match="head dim"):
         attention_small(q, q, q)
+
+
+@pytest.mark.parametrize("shape", [(4, 16, 4, 128), (2, 64, 4, 128), (2, 16, 2, 256),
+                                   (1, 64, 2, 256), (2, 100, 2, 128)])
+def test_attention_small_wide_f32_heads_match_plain(cuda, shape):
+    """The origin ADM's f32 attention: D = 128 and 256 at T = 16 and 64 (a
+    quarter and all of one key tile), and a ragged T."""
+    from lfm_tpu_torch.kernels.flash_attention import (ATTENTION_SMALL, attention_small,
+                                                       reference_attention)
+
+    q, k, v = (torch.randn(*shape, generator=cuda, device="cuda") for _ in range(3))
+    before = ATTENTION_SMALL.count
+    out = attention_small(q, k, v)
+    torch.cuda.synchronize()
+    assert ATTENTION_SMALL.count == before + 1
+    assert _rel(out, reference_attention(q, k, v)) <= 1e-4
+    with pytest.raises(ValueError, match="head dim"):
+        attention_small(q.bfloat16(), k.bfloat16(), v.bfloat16())
+
+
+@pytest.mark.parametrize("dtype,shape,bk", [
+    (torch.bfloat16, (2, 2048, 2, 64), 512), (torch.bfloat16, (1, 1100, 2, 72), 512),
+    (torch.bfloat16, (2, 256, 2, 56), 64), (torch.float32, (1, 2048, 2, 128), 512),
+    (torch.float32, (1, 1030, 2, 80), 512)])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, shape, bk):
+    """K4 against its plain version on the same key blocks: T past the gate,
+    ragged T (1100 = 4 x 275, 1030 = 2 x 515 > 512, so 206-key blocks), and
+    blocks of 64."""
+    from lfm_tpu_torch.kernels.flash_attention import (FLASH_ATTENTION, flash_attention,
+                                                       reference_flash_attention)
+
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    q, k, v = (torch.randn(*shape, generator=cuda, device="cuda").to(dtype) for _ in range(3))
+    before = FLASH_ATTENTION.count
+    out = flash_attention(q, k, v, block_k=bk)
+    torch.cuda.synchronize()
+    assert FLASH_ATTENTION.count == before + 1 and out.dtype == dtype
+    assert _rel(out, reference_flash_attention(q, k, v, block_k=bk)) <= tol
+    n, t, h, d = shape
+    qkv = torch.randn(n, t, 3 * h * d, generator=cuda, device="cuda").to(dtype)
+    qq, kk, vv = (a.view(n, t, h, d) for a in qkv.split(h * d, dim=-1))
+    assert _rel(flash_attention(qq, kk, vv, block_k=bk),
+                reference_flash_attention(qq, kk, vv, block_k=bk)) <= tol
+
+
+def test_fused_attention_past_the_gate_launches_k4(cuda):
+    """Past T = 1024 the autograd Function runs K4 forward and the plain
+    recompute backward."""
+    from lfm_tpu_torch.kernels.flash_attention import (ATTENTION_SMALL, FLASH_ATTENTION,
+                                                       fused_attention_qkv, reference_attention,
+                                                       split_qkv)
+
+    n, t, h, d = 1, 2048, 2, 64
+    qkv = torch.randn(n, t, 3 * h * d, generator=cuda, device="cuda").bfloat16()
+    do = torch.randn(n, t, h, d, generator=cuda, device="cuda").bfloat16()
+    a = qkv.clone().requires_grad_(True)
+    k1, k4 = ATTENTION_SMALL.count, FLASH_ATTENTION.count
+    out = fused_attention_qkv(a, h)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (ATTENTION_SMALL.count, FLASH_ATTENTION.count) == (k1, k4 + 1)
+    b = qkv.clone().requires_grad_(True)
+    ref = reference_attention(*split_qkv(b, h))
+    ref.backward(do)
+    assert _rel(out.detach(), ref.detach()) <= 2e-2 and _rel(a.grad, b.grad) <= 2e-2
+
+
+@pytest.mark.parametrize("dtype,shape,offset", [
+    (torch.bfloat16, (4, 32, 32, 256), 0.0), (torch.bfloat16, (2, 32, 32, 768), 0.0),
+    (torch.bfloat16, (8, 4, 4, 1024), 0.0), (torch.bfloat16, (4, 32, 32, 256), 8.0),
+    (torch.float32, (2, 32, 32, 256), 0.0), (torch.float32, (3, 5, 7, 96), 8.0)])
+def test_groupnorm_silu_kernel_matches_plain(cuda, dtype, shape, offset):
+    from lfm_tpu_torch.kernels.groupnorm_silu import (GROUPNORM_SILU, groupnorm_silu,
+                                                      reference_groupnorm_silu)
+
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    c = shape[-1]
+    x = (torch.randn(*shape, generator=cuda, device="cuda") + offset).to(dtype)
+    scale = 1.0 + 0.1 * torch.randn(c, generator=cuda, device="cuda")
+    bias = 0.1 * torch.randn(c, generator=cuda, device="cuda")
+    before = GROUPNORM_SILU.count
+    out = groupnorm_silu(x, scale, bias)
+    torch.cuda.synchronize()
+    assert GROUPNORM_SILU.count == before + 1 and out.dtype == dtype
+    assert _rel(out, reference_groupnorm_silu(x, scale, bias)) <= tol
+    with pytest.raises(ValueError, match="contiguous"):
+        groupnorm_silu(x.transpose(1, 2), scale, bias)
+
+
+def test_small_adm_runs_its_kernels_and_matches_plain(cuda):
+    """A 2-level origin ADM at celeb256_adm's head width (C = 512, 4 heads,
+    D = 128), bf16, use_flash and use_fused_gn: one forward launches K1 at
+    every attention and K6 at every ResBlock's in-norm, and agrees with the
+    same weights on the plain paths (use_flash and use_fused_gn off) within
+    5e-2 of the largest output."""
+    from lfm_tpu_torch.kernels.flash_attention import ATTENTION_SMALL
+    from lfm_tpu_torch.kernels.groupnorm_silu import GROUPNORM_SILU
+    from lfm_tpu_torch.nn.adm_unet import UNetModel, plan_layers
+    from lfm_tpu_torch.nn.init import seeded_init_
+
+    kw = dict(image_size=8, model_channels=256, channel_mult=(1, 2), num_res_blocks=1,
+              attention_resolutions=(2,), num_heads=4, dtype=torch.bfloat16)
+    fast = seeded_init_(UNetModel(**kw, use_flash=True, use_fused_gn=True).cuda(), 0)
+    plain = UNetModel(**kw).cuda()
+    plain.load_state_dict(fast.state_dict())
+    t = torch.rand(4, generator=cuda, device="cuda")
+    x = torch.randn(4, 8, 8, 4, generator=cuda, device="cuda")
+    layers = list(plan_layers(fast.plan))
+    k1, k6 = ATTENTION_SMALL.count, GROUPNORM_SILU.count
+    with torch.no_grad():
+        got = fast(t, x)
+        want = plain(t, x)
+    torch.cuda.synchronize()
+    assert ATTENTION_SMALL.count - k1 == sum(s.kind == "attn" for s in layers)
+    assert GROUPNORM_SILU.count - k6 == sum(s.kind.startswith("res") for s in layers)
+    assert torch.isfinite(got).all() and _rel(got, want) <= 5e-2

@@ -57,7 +57,9 @@ def test_port_imports_nothing_of_jax_or_lfm_tpu():
                 "lfm_tpu_torch.ode.solvers", "lfm_tpu_torch.train.loop",
                 "lfm_tpu_torch.train.train", "lfm_tpu_torch.train.state",
                 "lfm_tpu_torch.core.checkpoint", "lfm_tpu_torch.core.preemption",
-                "lfm_tpu_torch.data.datasets", "lfm_tpu_torch.data.loader"):
+                "lfm_tpu_torch.data.datasets", "lfm_tpu_torch.data.loader",
+                "lfm_tpu_torch.nn.adm_unet", "lfm_tpu_torch.nn.convert_adm",
+                "lfm_tpu_torch.kernels.groupnorm_silu"):
         assert mod in out["modules"]
 
 
@@ -80,12 +82,14 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_cuda):
     calls = [
         lambda: create_dit("DiT-S/8", img_resolution=32),
         lambda: create_network(cfg.model),
+        lambda: create_network(get_preset("celeb256_adm").model),
         lambda: create_vae((32, 32)),
         lambda: make_sampler(cfg, tiny),
         lambda: noise_and_labels(cfg, SampleRNG(0), [0]),
         lambda: SampleRNG(0).randn([0], (2,)),
         lambda: SampleRNG(0).randint([0], 0, 2),
         lambda: cli.main(["sample", "--preset", "celeb256_dit"]),
+        lambda: cli.main(["sample", "--preset", "celeb256_adm"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -114,11 +118,14 @@ def test_kernel_wrappers_take_no_other_device():
     other device it launches its kernel or raises (here: a meta tensor)."""
     from lfm_tpu_torch.kernels.dit_block import fused_dit_block
     from lfm_tpu_torch.kernels.flash_attention import (attention_small, attention_small_bwd,
-                                                       fused_attention)
+                                                       flash_attention, fused_attention)
+    from lfm_tpu_torch.kernels.groupnorm_silu import groupnorm_silu
 
     q = torch.empty(1, 16, 2, 32, dtype=torch.bfloat16, device="meta")
+    x = torch.empty(1, 4, 4, 64, dtype=torch.bfloat16, device="meta")
     for call in (lambda: attention_small(q, q, q), lambda: attention_small_bwd(q, q, q, q),
-                 lambda: fused_attention(q, q, q)):
+                 lambda: fused_attention(q, q, q), lambda: flash_attention(q, q, q),
+                 lambda: groupnorm_silu(x, x[0, 0, 0], x[0, 0, 0])):
         with pytest.raises(ValueError, match="unsupported device"):
             call()
     x = torch.empty(1, 16, 128, dtype=torch.bfloat16, device="meta")
