@@ -30,12 +30,24 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    - groupnorm_silu (K6), bf16 at (N, 32, 32, 256), (N, 32, 32, 768) (the
      largest in-norm input of celeb256_adm), (N, 4, 4, 1024) and
      (N, 32, 32, 256) offset by +8, f32 at (8, 32, 32, 256); library:
-     silu(group_norm) on an f32 channels-last view.
+     silu(group_norm) on an f32 channels-last view;
+   - K5, the differentiable fused block, at the train step's batch (32) and
+     at 8, T=256, C=1024, hidden 4096, 16 heads, every weight non-zero:
+     block_train_fwd with full and slim streams (library: the block
+     composed as for K2, its streams kept), mlp_bwd and attn_bwd on the
+     kernel forward's own streams (library: autograd's backward of the same
+     half composed of cuBLAS, layer_norm and SDPA, backward alone). Then
+     one block-level check at N = 8: make_fused_block_train with the hybrid
+     backward (path block_hybrid) and with pallas_bwd (path
+     block_pallas_bwd), each against autograd through reference_block, all
+     10 cotangents, with the launch counts of each.
    N is the preset's sampling batch (200), the sampling path's batch.
 3. grad: a 2-block DiT at DiT-L width (C = 1024, 16 heads, T = 256), batch
    8, bf16 compute on f32 masters; the flow-matching loss's parameter
-   gradients with attention through K1/K3 against plain autograd of
-   reference_attention, per tensor.
+   gradients with attention through K1/K3, and through
+   dit_fused_apply(train_vjp=True) (K5's forward, the hybrid backward
+   through K3), each against plain autograd of reference_attention, per
+   tensor.
 4. main_fused: ``make_sampler`` on the celeb256_dit preset, a bf16 DiT-L/2
    at full width and depth with seeded non-zero weights, dopri5 at the
    preset's tolerances, full-size VAE decode of N samples to
@@ -67,7 +79,15 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    recompute). The loop logs, and so waits for the loss, after step 1;
    the time from that log call to the end of the run, after a sync, over
    TRAIN_STEPS - 1 is the seconds per step.
-10. a ``kernels`` line with every ported kernel, then the card's name and
+10. train_fused: the same train step (the same model_0.pth, VAE encoder,
+   batches, draws, AdamW + EMA) through make_train_step(model_apply=
+   dit_fused_model_apply(model)), whose blocks are K5's forward and the
+   hybrid backward through K3, for 1 + TRAIN_STEPS steps: step 1's loss
+   against the train phase's step 1 (the same batch and draws) within 2%,
+   the EMA after step 1, and launch counts of exactly 24 block_train_fwd
+   and 24 attention_small_bwd per step and nothing else; the time of steps
+   2 to 1 + TRAIN_STEPS, after a sync, is the seconds per step.
+11. a ``kernels`` line with every ported kernel, then the card's name and
    power limit, then the last line ``{"ok": true, "device": {...}}``.
 
 Every path resets all launch counts just before it runs and reads them
@@ -121,9 +141,28 @@ F32_TOL = 1e-4
 # fused vs module velocity (DiT), fused vs plain GroupNorm + SiLU (ADM):
 # max abs / max |reference| (as tests/test_dit_fused.py)
 VEL_TOL = 5e-2
-# DiT parameter gradients through K1/K3 vs plain autograd: max abs error /
-# max |plain| per tensor, the bf16 tolerance of the CPU parity tests
+# DiT parameter gradients through K1/K3, and through dit_fused_apply(
+# train_vjp=True), vs plain autograd: max abs error / max |plain| per
+# tensor, the bf16 tolerance of the CPU parity tests (for the fused path
+# tighter than the JAX package's own 8e-2, tests/test_dit_fused.py:190: the
+# card reads 0.6-0.7% for both)
 GRAD_TOL = 5e-2
+# K5 against its plain versions: max abs error / max |plain| per output,
+# bf16 streams and f32 sums of bf16 products at the same rounding points (a
+# rounding that falls the other way moves a term by 2^-8); out and x1 (and
+# dx1, dx) against the block's update |plain - x| (|plain - dy|, |plain -
+# dx1|), as K2, so that the residual cannot hide a wrong update, with one
+# bf16 ulp of the largest output allowed on top (the output's own rounding)
+K5_TOL = 2e-2
+BF16_ULP = 2.0 ** -7  # the largest spacing of bf16 values, relative
+# make_fused_block_train's 10 cotangents vs autograd through reference_block,
+# which keeps in f32 what the kernels round to bf16 (dh2, dpr, do, dqkv):
+# the bf16 tolerance of the CPU gradient tests
+BLOCK_GRAD_TOL = 5e-2
+# the fused train step's loss vs the module step's: the JAX package's own
+# tolerance for its fused path against its module path
+# (tests/test_dit_fused.py:180)
+FUSED_LOSS_TOL = 2e-2
 TRAIN_STEPS = 12  # the first step is not timed
 ADM_FUSED_STEPS = 4  # euler steps of the adm_fused_gn path
 LONG_T_SIZE = 1024  # image size of the long_t path: T = (1024 / 8 / 2)^2 = 4096
@@ -156,17 +195,70 @@ def rel_err(a, b):
     return err, err / float(b.float().abs().max())
 
 
-def library_block(F, x, mod, wqkv, bqkv, wproj, bproj, w1, b1, w2, b2, *, num_heads):
-    """K2's block from library calls: cuBLAS bf16 matmuls, layer_norm and
-    scaled_dot_product_attention. A yardstick of speed only."""
+def library_attn_half(F, x, mod, wqkv, bqkv, wproj, bproj, *, num_heads):
+    """The block's attention half from library calls (cuBLAS bf16 matmuls,
+    layer_norm, scaled_dot_product_attention): (x1, pr, qkv, ao). A
+    yardstick of speed only, as are the two below."""
     n, t, c = x.shape
     m = mod.reshape(n, 6, 1, c)
     h = F.layer_norm(x, (c,), eps=1e-6) * (1 + m[:, 1]) + m[:, 0]
-    q, k, v = F.linear(h, wqkv, bqkv).view(n, t, 3, num_heads, c // num_heads).permute(2, 0, 3, 1, 4)
+    qkv = F.linear(h, wqkv, bqkv)
+    q, k, v = qkv.view(n, t, 3, num_heads, c // num_heads).permute(2, 0, 3, 1, 4)
     ao = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(n, t, c)
-    x1 = x + m[:, 2] * F.linear(ao, wproj, bproj)
+    pr = F.linear(ao, wproj, bproj)
+    return x + m[:, 2] * pr, pr, qkv, ao
+
+
+def library_mlp_half(F, x1, mod, w1, b1, w2, b2):
+    """The block's MLP half from library calls: (out, h2, u)."""
+    n, t, c = x1.shape
+    m = mod.reshape(n, 6, 1, c)
     h = F.layer_norm(x1, (c,), eps=1e-6) * (1 + m[:, 4]) + m[:, 3]
-    return x1 + m[:, 5] * F.linear(F.gelu(F.linear(h, w1, b1), approximate="tanh"), w2, b2)
+    u = F.linear(h, w1, b1)
+    h2 = F.linear(F.gelu(u, approximate="tanh"), w2, b2)
+    return x1 + m[:, 5] * h2, h2, u
+
+
+def library_block_streams(F, x, mod, wqkv, bqkv, wproj, bproj, w1, b1, w2, b2, *, num_heads):
+    """K2's block from library calls, with the streams K5's forward writes:
+    (out, x1, h2, pr, qkv, ao, u)."""
+    x1, pr, qkv, ao = library_attn_half(F, x, mod, wqkv, bqkv, wproj, bproj,
+                                        num_heads=num_heads)
+    out, h2, u = library_mlp_half(F, x1, mod, w1, b1, w2, b2)
+    return out, x1, h2, pr, qkv, ao, u
+
+
+def library_block(F, **kwargs):
+    return library_block_streams(F, **kwargs)[0]
+
+
+def backward_only(torch, fn, inputs, cotangent):
+    """A closure running autograd's backward of ``fn(*inputs)`` alone (its
+    forward graph built once and kept)."""
+    leaves = [a.detach().requires_grad_(True) for a in inputs]
+    out = fn(*leaves)
+    return lambda: torch.autograd.grad(out, leaves, cotangent, retain_graph=True)
+
+
+def output_errors(names, got, want, updates=None):
+    """{name: (max abs error, relative error, reference, ulp)}: the reference
+    is max |plain - base| where ``updates`` names a base tensor, and then ulp
+    is one bf16 ulp of max |plain|; else max |plain|, ulp 0."""
+    errs = {}
+    for name, g, w in zip(names, got, want):
+        err = float((g.float() - w.float()).abs().max())
+        base = (updates or {}).get(name)
+        ref = float(((w.float() - base.float()) if base is not None else w.float()).abs().max())
+        ulp = BF16_ULP * float(w.float().abs().max()) if base is not None else 0.0
+        errs[name] = (err, err / ref, ref, ulp)
+    return errs
+
+
+def check_errors(what, errs, tol):
+    for name, (err, rel, ref, ulp) in errs.items():
+        if not err <= tol * ref + ulp:
+            raise AssertionError(f"{what} {name}: max abs err {err} is {rel} of its reference "
+                                 f"{ref} > {tol} (+ one bf16 ulp, {ulp})")
 
 
 def main() -> int:
@@ -188,11 +280,18 @@ def run(torch, work: str) -> int:
     files."""
     import torch.nn.functional as F
 
+    from lfm_tpu_torch.core.checkpoint import reference_state_dict
     from lfm_tpu_torch.core.config import get_preset
     from lfm_tpu_torch.core.rng import SampleRNG
-    from lfm_tpu_torch.data import SyntheticImageDataset
+    from lfm_tpu_torch.data import DataLoader, SyntheticImageDataset
     from lfm_tpu_torch.kernels import _build
     from lfm_tpu_torch.kernels.dit_block import FUSED_DIT_BLOCK, fused_dit_block, reference_block
+    from lfm_tpu_torch.kernels.dit_block_train import (ATTN_BWD, BLOCK_TRAIN_FWD, MLP_BWD,
+                                                       attn_bwd, block_train_fwd,
+                                                       make_fused_block_train, mlp_bwd,
+                                                       reference_attn_bwd,
+                                                       reference_block_fwd_streams,
+                                                       reference_mlp_bwd)
     from lfm_tpu_torch.kernels.flash_attention import (ATTENTION_SMALL, ATTENTION_SMALL_BWD,
                                                        FLASH_ATTENTION, attention_small,
                                                        attention_small_bwd, flash_attention,
@@ -203,12 +302,15 @@ def run(torch, work: str) -> int:
                                                       reference_groupnorm_silu)
     from lfm_tpu_torch.nn.adm_unet import plan_layers
     from lfm_tpu_torch.nn.dit import DiT
-    from lfm_tpu_torch.nn.dit_fused import cast_params_bf16, dit_fused_apply
+    from lfm_tpu_torch.nn.dit_fused import (cast_params_bf16, dit_fused_apply,
+                                           dit_fused_model_apply)
     from lfm_tpu_torch.nn.factory import create_network
     from lfm_tpu_torch.nn.init import seeded_init_
     from lfm_tpu_torch.ode.flow import interpolate
     from lfm_tpu_torch.sample.sample import make_sampler, noise_and_labels
     from lfm_tpu_torch.train.loop import train
+    from lfm_tpu_torch.train.state import create_train_state, make_optimizer
+    from lfm_tpu_torch.train.train import make_train_step
     from lfm_tpu_torch.vae.autoencoder_kl import create_vae
 
     dev = torch.device("cuda")
@@ -217,7 +319,8 @@ def run(torch, work: str) -> int:
     config = get_preset("celeb256_dit")
     counters = {"attention_small": ATTENTION_SMALL, "fused_dit_block": FUSED_DIT_BLOCK,
                 "attention_small_bwd": ATTENTION_SMALL_BWD, "flash_attention": FLASH_ATTENTION,
-                "groupnorm_silu": GROUPNORM_SILU}
+                "groupnorm_silu": GROUPNORM_SILU, "dit_block_train_fwd": BLOCK_TRAIN_FWD,
+                "dit_block_train_mlp_bwd": MLP_BWD, "dit_block_train_attn_bwd": ATTN_BWD}
 
     def reset_counts():
         for c in counters.values():
@@ -297,13 +400,18 @@ def run(torch, work: str) -> int:
 
     t, c, heads = 256, 1024, 16
     hid = 4 * c
+
+    def block_inputs(n):
+        """A DiT-L/2 block's inputs for a batch of n, every weight non-zero."""
+        return dict(x=rn(n, t, c), mod=rn(n, 6 * c, scale=0.3),
+                    wqkv=rn(3 * c, c, scale=c ** -0.5), bqkv=rn(3 * c, scale=0.02),
+                    wproj=rn(c, c, scale=c ** -0.5), bproj=rn(c, scale=0.02),
+                    w1=rn(hid, c, scale=c ** -0.5), b1=rn(hid, scale=0.02),
+                    w2=rn(c, hid, scale=hid ** -0.5), b2=rn(c, scale=0.02))
+
     for n in sorted({8, batch}):
         t_case = time.time()
-        blk = dict(x=rn(n, t, c), mod=rn(n, 6 * c, scale=0.3),
-                   wqkv=rn(3 * c, c, scale=c ** -0.5), bqkv=rn(3 * c, scale=0.02),
-                   wproj=rn(c, c, scale=c ** -0.5), bproj=rn(c, scale=0.02),
-                   w1=rn(hid, c, scale=c ** -0.5), b1=rn(hid, scale=0.02),
-                   w2=rn(c, hid, scale=hid ** -0.5), b2=rn(c, scale=0.02))
+        blk = block_inputs(n)
         out = fused_dit_block(**blk, num_heads=heads)
         ref = reference_block(**blk, num_heads=heads)
         torch.cuda.synchronize()
@@ -409,28 +517,153 @@ def run(torch, work: str) -> int:
         k6_rows[(n, hh, ww, c, dt, offset)] = row
         emit({"phase": "kernel", "name": "groupnorm_silu", **row})
         del x, xl, out, ref
+
+    # K5: the forward with its streams, then each backward half on the
+    # kernel forward's own streams (t and c as K2's; the loops above rebound
+    # them)
+    t, c = 256, 1024
+    k5_rows = {}
+    weights_bytes = 2 * (4 * c * c + 2 * c * hid + 5 * c + hid)
+    stream_names = {"full": ("out", "x1", "h2", "pr", "qkv", "ao", "u"),
+                    "slim": ("out", "h2", "pr", "qkv")}
+    stream_width = {"full": 8 * c + hid, "slim": 6 * c}
+    for n in sorted({8, train_batch}):
+        blk = block_inputs(n)
+        x, mod = blk["x"], blk["mod"]
+        for mode in ("full", "slim"):
+            t_case = time.time()
+            got = block_train_fwd(**blk, num_heads=heads, save_streams=mode)
+            want = reference_block_fwd_streams(**blk, num_heads=heads, save_streams=mode)
+            torch.cuda.synchronize()
+            errs = output_errors(stream_names[mode], got, want, {"out": x, "x1": x})
+            check_errors(f"block_train_fwd {mode} N={n}", errs, K5_TOL)
+            bms, by = bound_ms(weights_bytes + 2 * n * t * c + 2 * 6 * n * c
+                               + 2 * n * t * stream_width[mode],
+                               2 * n * t * c * (4 * c + 2 * hid) + 4 * n * t * t * c)
+            row = {"shape": [n, t, c, hid, heads], "streams": mode,
+                   "max_abs_err": max(e[0] for e in errs.values()),
+                   "rel_err": {k: e[1] for k, e in errs.items()}, "tol": K5_TOL,
+                   "ms": time_ms(torch, lambda: block_train_fwd(**blk, num_heads=heads,
+                                                                save_streams=mode)),
+                   "plain_ms": time_ms(torch, lambda: reference_block_fwd_streams(
+                       **blk, num_heads=heads, save_streams=mode)),
+                   "library_ms": time_ms(torch, lambda: library_block_streams(
+                       F, **blk, num_heads=heads)),
+                   "bound_ms": bms, "bound_by": by, "seconds": time.time() - t_case}
+            k5_rows[("fwd", mode, n)] = row
+            emit({"phase": "kernel", "name": "dit_block_train_fwd", **row})
+            del got, want
+        out, x1, h2, pr, qkv, ao, u = block_train_fwd(**blk, num_heads=heads)
+        dy = rn(n, t, c)
+
+        t_case = time.time()
+        margs = (x1, mod, h2, u, blk["w1"], blk["w2"], dy)
+        got = mlp_bwd(*margs)
+        want = reference_mlp_bwd(*margs)
+        torch.cuda.synchronize()
+        errs = output_errors(("dx1", "dmod", "dw1", "db1", "dw2", "db2"), got, want, {"dx1": dy})
+        check_errors(f"mlp_bwd N={n}", errs, K5_TOL)
+        lib = backward_only(torch, lambda *a: library_mlp_half(F, *a)[0],
+                            (x1, mod, blk["w1"], blk["b1"], blk["w2"], blk["b2"]), dy)
+        bms, by = bound_ms(2 * (4 * n * t * c + n * t * hid + 6 * n * c + 2 * c * hid)
+                           + 4 * (3 * n * c + 2 * c * hid + hid + c), 8 * n * t * c * hid)
+        row = {"shape": [n, t, c, hid, heads], "max_abs_err": max(e[0] for e in errs.values()),
+               "rel_err": {k: e[1] for k, e in errs.items()}, "tol": K5_TOL,
+               "ms": time_ms(torch, lambda: mlp_bwd(*margs)),
+               "plain_ms": time_ms(torch, lambda: reference_mlp_bwd(*margs)),
+               "library_ms": time_ms(torch, lib), "bound_ms": bms, "bound_by": by,
+               "seconds": time.time() - t_case}
+        k5_rows[("mlp", n)] = row
+        emit({"phase": "kernel", "name": "dit_block_train_mlp_bwd", **row})
+        dx1 = got[0]
+        del got, want, lib
+
+        t_case = time.time()
+        aargs = (x, mod, pr, qkv, ao, blk["wqkv"], blk["wproj"], dx1)
+        got = attn_bwd(*aargs, num_heads=heads)
+        want = reference_attn_bwd(*aargs, num_heads=heads)
+        torch.cuda.synchronize()
+        errs = output_errors(("dx", "dmod", "dwqkv", "dbqkv", "dwproj", "dbproj"), got, want,
+                             {"dx": dx1})
+        check_errors(f"attn_bwd N={n}", errs, K5_TOL)
+        lib = backward_only(torch, lambda *a: library_attn_half(F, *a, num_heads=heads)[0],
+                            (x, mod, blk["wqkv"], blk["bqkv"], blk["wproj"], blk["bproj"]), dx1)
+        bms, by = bound_ms(2 * (8 * n * t * c + 6 * n * c + 4 * c * c)
+                           + 4 * (3 * n * c + 4 * c * c + 4 * c),
+                           # five T x T products a head (logits, dv, dp, dq,
+                           # dk); ao is a stream, so the CostEstimate's sixth
+                           # (PV again) is not work the function needs
+                           16 * n * t * c * c + 10 * n * t * t * c)
+        row = {"shape": [n, t, c, hid, heads], "max_abs_err": max(e[0] for e in errs.values()),
+               "rel_err": {k: e[1] for k, e in errs.items()}, "tol": K5_TOL,
+               "ms": time_ms(torch, lambda: attn_bwd(*aargs, num_heads=heads)),
+               "plain_ms": time_ms(torch, lambda: reference_attn_bwd(*aargs, num_heads=heads)),
+               "library_ms": time_ms(torch, lib), "bound_ms": bms, "bound_by": by,
+               "seconds": time.time() - t_case}
+        k5_rows[("attn", n)] = row
+        emit({"phase": "kernel", "name": "dit_block_train_attn_bwd", **row})
+        del got, want, lib, blk, x, mod, out, x1, h2, pr, qkv, ao, u, dy, dx1
+
+    # make_fused_block_train against autograd through reference_block, each
+    # backward mode a path of its own
+    t_case = time.time()
+    blk = block_inputs(8)
+    dy = rn(8, t, c)
+    leaves = [a.detach().requires_grad_(True) for a in blk.values()]
+    want = torch.autograd.grad(reference_block(*leaves, num_heads=heads), leaves, dy)
+    block_counts, block_errs = {}, {}
+    expected = {"block_hybrid": {"dit_block_train_fwd": 1, "attention_small_bwd": 1},
+                "block_pallas_bwd": {"dit_block_train_fwd": 1, "dit_block_train_mlp_bwd": 1,
+                                     "dit_block_train_attn_bwd": 1}}
+    for path, kw in (("block_hybrid", {}), ("block_pallas_bwd", {"pallas_bwd": True})):
+        fn = make_fused_block_train(heads, 4, 2, **kw)
+        leaves = [a.detach().requires_grad_(True) for a in blk.values()]
+        reset_counts()
+        got = torch.autograd.grad(fn(*leaves), leaves, dy)
+        torch.cuda.synchronize()
+        block_counts[path] = counts()
+        block_errs[path] = output_errors(list(blk), got, want)
+        check_errors(f"make_fused_block_train ({path})", block_errs[path], BLOCK_GRAD_TOL)
+        if {k: v for k, v in block_counts[path].items() if v} != expected[path]:
+            raise AssertionError(f"{path}: launches {block_counts[path]}, expected "
+                                 f"{expected[path]}")
+    emit({"phase": "block_train", "shape": [8, t, c, hid, heads], "tol": BLOCK_GRAD_TOL,
+          "rel_err": {p: {k: e[1] for k, e in errs.items()} for p, errs in block_errs.items()},
+          "launches": block_counts, "seconds": time.time() - t_case})
+    del blk, dy, leaves, want, got
     emit({"phase": "kernels_vs_plain", "seconds": time.time() - t0})
 
-    # 3. gradients of a small full-width DiT through K1/K3 against plain autograd
+    # 3. gradients of a small full-width DiT through K1/K3, and through the
+    # fused train path, against plain autograd
     t0 = time.time()
-    grads = []
-    for use_flash in (True, False):
+    grads = {}
+    for variant in ("kernels", "plain", "fused"):
         small = DiT(img_resolution=32, patch_size=2, hidden_size=1024, depth=2, num_heads=16,
-                    dtype=bf, use_flash=use_flash).to(dev)
+                    dtype=bf, use_flash=variant == "kernels").to(dev)
         seeded_init_(small, SEED)
         g = torch.Generator(device=dev)
         g.manual_seed(SEED + 2)
         z0, z1 = (torch.randn(8, 32, 32, 4, generator=g, device=dev) for _ in range(2))
         tt = torch.rand(8, generator=g, device=dev)
         z_t, u = interpolate(z0, z1, tt)
-        torch.mean(torch.square(small(tt, z_t, train=True) - u)).backward()
-        grads.append({name: p.grad.float() for name, p in small.named_parameters()})
-        del small
-    worst = max(((rel_err(grads[0][name], want)[1], name) for name, want in grads[1].items()))
-    emit({"phase": "grad", "tensors": len(grads[1]), "max_rel_err": worst[0], "tensor": worst[1],
-          "tol": GRAD_TOL, "seconds": time.time() - t0})
-    if not worst[0] <= GRAD_TOL:
-        raise AssertionError(f"DiT gradient of {worst[1]} through K1/K3: {worst[0]} > {GRAD_TOL}")
+        if variant == "fused":
+            v = dit_fused_apply(small, dict(small.named_parameters()), tt, z_t, train_vjp=True)
+        else:
+            v = small(tt, z_t, train=True)
+        torch.mean(torch.square(v - u)).backward()
+        grads[variant] = {name: p.grad.float() for name, p in small.named_parameters()}
+        del small, v
+    worst = {variant: max((rel_err(grads[variant][name], want)[1], name)
+                          for name, want in grads["plain"].items())
+             for variant in ("kernels", "fused")}
+    emit({"phase": "grad", "tensors": len(grads["plain"]), "max_rel_err": worst["kernels"][0],
+          "tensor": worst["kernels"][1], "tol": GRAD_TOL,
+          "fused_max_rel_err": worst["fused"][0], "fused_tensor": worst["fused"][1],
+          "seconds": time.time() - t0})
+    for variant in ("kernels", "fused"):
+        if not worst[variant][0] <= GRAD_TOL:
+            raise AssertionError(f"DiT gradient of {worst[variant][1]} ({variant}): "
+                                 f"{worst[variant][0]} > {GRAD_TOL}")
     del grads
 
     # 4. main path, fused blocks: celeb256_dit, bf16 DiT-L/2, dopri5, VAE decode
@@ -666,10 +899,72 @@ def run(torch, work: str) -> int:
         raise AssertionError(f"train: {state.step} steps, {k3_train} attention_small_bwd and "
                              f"{k1_train} attention_small launches for depth {tdepth}")
     del state
+    torch.cuda.empty_cache()
 
-    # 10. the kernels line, the card, the last line
+    # 10. train_fused: the same step through the fused blocks (K5's forward,
+    # the hybrid backward through K3), from the same weights, batches and draws
+    t_tf = time.time()
+    fmodel = create_network(config.model, dtype=bf, use_flash=config.model.use_flash_attention,
+                            device=dev)
+    fmodel.load_state_dict(reference_state_dict(torch.load(ckpt_path, map_location="cpu",
+                                                           weights_only=False)))
+    fmodel.train()
+    loader = DataLoader(dataset, train_batch, shuffle=True, drop_last=True, seed=tc.seed)
+    loader.set_epoch(0)
+    fstate = create_train_state(fmodel)
+    fstep = make_train_step(
+        fmodel, make_optimizer(tc, tc.steps_per_epoch or max(len(loader), 1)),
+        model_apply=dit_fused_model_apply(fmodel), ema_decay=tc.ema_decay, use_ema=tc.use_ema,
+        encode_fn=vae.encode_sample, scale_factor=config.scale_factor, seed=tc.seed + 1)
+    batches = iter(loader)
+
+    def fused_step():
+        return fstep(fstate, {"x": torch.from_numpy(next(batches)["x"]).to(dev)})
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    floss1 = float(fused_step()[0])
+    i = fstate.names.index(probe)
+    p1, ema1 = fstate.params[i].detach(), fstate.ema[i].detach()
+    fema_err = float((ema1 - (decay * p0 + (1 - decay) * p1)).abs().max())
+    fmoved = float((p1 - p0).abs().max())
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(TRAIN_STEPS):
+        floss = fused_step()[0]
+    torch.cuda.synchronize()
+    fsec_per_step = (time.time() - t0) / TRAIN_STEPS
+    tf_counts = counts()
+    fpeak = torch.cuda.max_memory_allocated() / 2 ** 30
+    fsteps = fstate.step
+    ffinite = all(bool(torch.isfinite(p).all()) for p in fstate.params)
+    floss_err = abs(floss1 - loss1) / abs(loss1)
+    emit({"phase": "train_fused", "preset": "celeb256_dit", "model": config.model.model_type,
+          "batch": train_batch, "steps": fsteps, "seconds_per_step": fsec_per_step,
+          "images_per_s": train_batch / fsec_per_step, "peak_gib": fpeak,
+          "loss_step1": floss1, "module_loss_step1": loss1, "loss_rel_err": floss_err,
+          "loss_tol": FUSED_LOSS_TOL, "loss_last": float(floss), "launches": tf_counts,
+          "ema_max_abs_err": fema_err, "param_max_change_step1": fmoved,
+          "params_finite": ffinite, "seconds": time.time() - t_tf})
+    if not (math.isfinite(floss1) and ffinite):
+        raise AssertionError(f"train_fused: step 1's loss {floss1} or the parameters are not "
+                             "finite")
+    if not floss_err <= FUSED_LOSS_TOL:
+        raise AssertionError(f"train_fused: step 1's loss {floss1} is {floss_err} off the module "
+                             f"path's {loss1} > {FUSED_LOSS_TOL}")
+    if not (fmoved > 0 and fema_err <= 1e-6 * float(p0.abs().max())):
+        raise AssertionError(f"train_fused: parameters moved {fmoved}; EMA off by {fema_err}")
+    want_counts = {"dit_block_train_fwd": tdepth * fsteps, "attention_small_bwd": tdepth * fsteps}
+    if fsteps != 1 + TRAIN_STEPS or {k: v for k, v in tf_counts.items() if v} != want_counts:
+        raise AssertionError(f"train_fused: {fsteps} steps, launches {tf_counts}, expected "
+                             f"{want_counts}")
+    del fstate, fstep, fmodel, p1, ema1
+    torch.cuda.empty_cache()
+
+    # 11. the kernels line, the card, the last line
     by_path = {"main_fused": fused_counts, "main_module": module_counts, "adm_main": adm_counts,
-               "adm_fused_gn": fgn_counts, "long_t": long_counts, "train": train_counts}
+               "adm_fused_gn": fgn_counts, "long_t": long_counts, "train": train_counts,
+               "train_fused": tf_counts, **block_counts}
     # name, source, TPU kernel, the path whose count is "launches", the row
     kernels = (
         ("attention_small", "attention.cuh", "flash_attention.py:163", "train",
@@ -681,6 +976,12 @@ def run(torch, work: str) -> int:
          k4_rows[(2, 4096, 16, 64, bf)]),
         ("groupnorm_silu", "groupnorm_silu.cu", "groupnorm_silu.py:68", "adm_fused_gn",
          k6_rows[(batch, 32, 32, 256, bf, 0.0)]),
+        ("dit_block_train_fwd", "dit_block_train.cu", "dit_block_train.py:357", "train_fused",
+         k5_rows[("fwd", "full", train_batch)]),
+        ("dit_block_train_mlp_bwd", "dit_block_train.cu", "dit_block_train.py:398",
+         "block_pallas_bwd", k5_rows[("mlp", train_batch)]),
+        ("dit_block_train_attn_bwd", "dit_block_train.cu", "dit_block_train.py:429",
+         "block_pallas_bwd", k5_rows[("attn", train_batch)]),
     )
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"lfm_tpu_torch/kernels/csrc/{src}",

@@ -34,6 +34,9 @@ SIGNATURES = {
     "lfm_attention_small": [_P] * 4 + [_I] * 9 + [_P],
     "lfm_attention_small_bwd": [_P] * 8 + [_I] * 10 + [_P],
     "lfm_dit_block": [_P] * 16 + [_I] * 5 + [_P],
+    "lfm_dit_block_train_fwd": [_P] * 20 + [_I] * 5 + [_P],
+    "lfm_dit_block_train_mlp_bwd": [_P] * 20 + [_I] * 4 + [_P],
+    "lfm_dit_block_train_attn_bwd": [_P] * 22 + [_I] * 4 + [_P],
     "lfm_flash_attention": [_P] * 4 + [_I] * 10 + [_P],
     "lfm_groupnorm_silu": [_P] * 4 + [_I] * 4 + [_F, _I, _P],
 }

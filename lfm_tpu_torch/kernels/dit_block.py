@@ -16,6 +16,7 @@ raises.
 from __future__ import annotations
 
 import math
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
@@ -39,9 +40,12 @@ def _mm(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return F.linear(a.float(), w.float(), b.float())
 
 
-def reference_block(x, mod, wqkv, bqkv, wproj, bproj, w1, b1, w2, b2, *,
-                    num_heads: int) -> torch.Tensor:
-    """Plain version of the kernel (dit_block_train.py::reference_block)."""
+def reference_block_parts(x, mod, wqkv, bqkv, wproj, bproj, w1, b1, w2, b2, *,
+                          num_heads: int) -> Dict[str, torch.Tensor]:
+    """The plain block's values at the kernel's rounding points: ``qkv`` and
+    ``ao`` (bf16), ``pr`` (the projection before its gate), ``x1``, ``u``
+    (fc1 before GELU) and ``h2`` (fc2 before its gate), all f32, and
+    ``out`` in x's type. Differentiable through autograd."""
     n, t, c = x.shape
     hd = c // num_heads
     scale = 1.0 / math.sqrt(hd)
@@ -56,20 +60,31 @@ def reference_block(x, mod, wqkv, bqkv, wproj, bproj, w1, b1, w2, b2, *,
     p = torch.softmax(logits, dim=-1)
     o = torch.einsum("nhqk,nkhd->nqhd", p.to(torch.bfloat16).float(), v.float())
     ao = o.to(torch.bfloat16).reshape(n, t, c)
-    x1 = xf + g_msa * _mm(ao, wproj, bproj)
+    pr = _mm(ao, wproj, bproj)
+    x1 = xf + g_msa * pr
 
     h = (layernorm_f32(x1) * (1.0 + sc_mlp) + sh_mlp).to(torch.bfloat16)
-    g = F.gelu(_mm(h, w1, b1), approximate="tanh")
-    x2 = x1 + g_mlp * _mm(g.to(torch.bfloat16), w2, b2)
-    return x2.to(x.dtype)
+    u = _mm(h, w1, b1)
+    g = F.gelu(u, approximate="tanh")
+    h2 = _mm(g.to(torch.bfloat16), w2, b2)
+    x2 = x1 + g_mlp * h2
+    return dict(qkv=qkv, ao=ao, pr=pr, x1=x1, u=u, h2=h2, out=x2.to(x.dtype))
 
 
-def _check(name: str, a: torch.Tensor, shape, device) -> None:
+def reference_block(x, mod, wqkv, bqkv, wproj, bproj, w1, b1, w2, b2, *,
+                    num_heads: int) -> torch.Tensor:
+    """Plain version of the kernel (dit_block_train.py::reference_block)."""
+    return reference_block_parts(x, mod, wqkv, bqkv, wproj, bproj, w1, b1, w2, b2,
+                                 num_heads=num_heads)["out"]
+
+
+def check_operand(fn: str, name: str, a: torch.Tensor, shape, device) -> None:
+    """Raise unless ``a`` is a contiguous bf16 tensor of ``shape`` on ``device``."""
     if a.device != device or a.dtype != torch.bfloat16 or tuple(a.shape) != tuple(shape):
-        raise ValueError(f"fused_dit_block: {name} must be bf16 {tuple(shape)} on {device}, "
+        raise ValueError(f"{fn}: {name} must be bf16 {tuple(shape)} on {device}, "
                          f"got {a.dtype} {tuple(a.shape)} on {a.device}")
     if not a.is_contiguous():
-        raise ValueError(f"fused_dit_block: {name} must be contiguous")
+        raise ValueError(f"{fn}: {name} must be contiguous")
 
 
 def fused_dit_block(x, mod, wqkv, bqkv, wproj, bproj, w1, b1, w2, b2, *,
@@ -96,7 +111,7 @@ def fused_dit_block(x, mod, wqkv, bqkv, wproj, bproj, w1, b1, w2, b2, *,
                            ("wproj", wproj, (c, c)), ("bproj", bproj, (c,)),
                            ("w1", w1, (hidden, c)), ("b1", b1, (hidden,)),
                            ("w2", w2, (c, hidden)), ("b2", b2, (c,))):
-        _check(name, a, shape, dev)
+        check_operand("fused_dit_block", name, a, shape, dev)
     m = n * t
     bf = torch.bfloat16
     out = torch.empty_like(x)

@@ -1,14 +1,17 @@
 """Where the time of the celeb256_dit train loop goes on the card.
 
-    python -m lfm_tpu_torch.tools.profile_train [--out DIR]
+    python -m lfm_tpu_torch.tools.profile_train [--out DIR] [--fused]
 
 Runs the training loop itself, ``train(...)`` of ``train/loop.py``, on the
 celeb256_dit preset (DiT-L/2, batch 32, bf16 on f32 masters, grad
 checkpointing, EMA) from its fresh initialisation, with a seeded
 full-width VAE encoder over synthetic 256^2 images, for
 ``WARMUP + STEPS + 1`` steps, all under ``torch.profiler`` with device
-activity only (no host events, which would slow the host). Every number
-comes from the kernels of that one trace:
+activity only (no host events, which would slow the host). With
+``--fused`` the same steps go through ``make_train_step(model_apply=
+dit_fused_model_apply(model))`` instead (the fused blocks: K5's forward and
+the hybrid backward through K3), over the same batches in the loop's order.
+Every number comes from the kernels of that one trace:
 
 - a step starts at its first convolution (the VAE encode, cuDNN) and ends
   where the next starts, so the time from one step's start to the next is
@@ -50,23 +53,30 @@ import torch
 WARMUP, STEPS = 3, 8  # steps left out, then steps read
 
 K3, K1 = "K3 attention_small_bwd", "K1 attention_small"
+K5 = "K5 block_train_fwd"
 CONV, MATMUL, OPT = "convolution (cuDNN)", "matmul", "optimizer (foreach)"
-# kernel name -> class, first match wins (lower-case substrings)
+DIT_CLASSES = (MATMUL, K1, K3, K5)
+# kernel name -> class, first match wins: a key is a tuple of lower-case
+# substrings that must all be in the name. K5's forward is this package's
+# GEMM and LayerNorm kernels and its attention that normalises p before
+# rounding it (``lfm::attn_small_kernel<..., true>``; K1's is ``false>``)
 CLASSES = (
-    (K3, ("attn_bwd",)),
-    (K1, ("attn_small_kernel",)),
-    (CONV, ("cudnn", "implicit_gemm", "conv")),
-    (MATMUL, ("nvjet", "gemm", "cutlass", "cublas")),
-    (OPT, ("multi_tensor_apply",)),
-    ("copy / cast", ("copy_kernel",)),
-    ("reduction", ("reduce_kernel",)),
+    (K5, (("lfm::gemm_kernel",), ("lfm::ln_modulate_kernel",),
+          ("lfm::attn_small_kernel", "true>"))),
+    (K3, (("attn_bwd",),)),
+    (K1, (("attn_small_kernel",),)),
+    (CONV, (("cudnn",), ("implicit_gemm",), ("conv",))),
+    (MATMUL, (("nvjet",), ("gemm",), ("cutlass",), ("cublas",))),
+    (OPT, (("multi_tensor_apply",),)),
+    ("copy / cast", (("copy_kernel",),)),
+    ("reduction", (("reduce_kernel",),)),
 )
 
 
 def _classify(name: str) -> str:
     low = name.lower()
     for cls, keys in CLASSES:
-        if any(k in low for k in keys):
+        if any(all(k in low for k in key) for key in keys):
             return cls
     return "elementwise / other"
 
@@ -100,13 +110,43 @@ def _stage_names(step) -> list:
         elif i >= opt[0]:
             names.append("optimizer")
         else:
-            names.append("dit " + (c if c in (MATMUL, K1, K3) else "other"))
+            names.append("dit " + (c if c in DIT_CLASSES else "other"))
     return names
+
+
+def _fused_steps(config, dataset, vae, dev, steps: int) -> None:
+    """``steps`` train steps through the fused blocks: the model, optimizer,
+    EMA, batches and draws that ``train(...)`` would use, from the same
+    fresh initialisation."""
+    from lfm_tpu_torch.data import DataLoader
+    from lfm_tpu_torch.nn.dit_fused import dit_fused_model_apply
+    from lfm_tpu_torch.nn.factory import create_network
+    from lfm_tpu_torch.nn.init import dit_init_
+    from lfm_tpu_torch.train.state import create_train_state, make_optimizer
+    from lfm_tpu_torch.train.train import make_train_step
+
+    tc = config.train
+    model = create_network(config.model, dtype=torch.bfloat16,
+                           use_flash=config.model.use_flash_attention, device=dev)
+    dit_init_(model, tc.seed)
+    model.train()
+    vae.to(dev).eval().requires_grad_(False)
+    loader = DataLoader(dataset, tc.batch_size, shuffle=True, drop_last=True, seed=tc.seed)
+    loader.set_epoch(0)
+    state = create_train_state(model)
+    step = make_train_step(
+        model, make_optimizer(tc, tc.steps_per_epoch or max(len(loader), 1)),
+        model_apply=dit_fused_model_apply(model), ema_decay=tc.ema_decay, use_ema=tc.use_ema,
+        encode_fn=vae.encode_sample, scale_factor=config.scale_factor, seed=tc.seed + 1)
+    for _, batch in zip(range(steps), loader):
+        step(state, {"x": torch.from_numpy(batch["x"]).to(dev)})
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="profile_train")
     p.add_argument("--out", type=str, default="saved_info/profile")
+    p.add_argument("--fused", action="store_true",
+                   help="train through dit_fused_model_apply (K5) instead of the module")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: CUDA is not available", file=sys.stderr)
@@ -130,8 +170,11 @@ def main(argv=None) -> int:
     try:
         config = dataclasses.replace(preset, output_dir=work)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            train(config, dataset=dataset, vae=vae, device=dev, max_steps=total,
-                  log_fn=lambda line: None)
+            if args.fused:
+                _fused_steps(config, dataset, vae, dev, total)
+            else:
+                train(config, dataset=dataset, vae=vae, device=dev, max_steps=total,
+                      log_fn=lambda line: None)
             torch.cuda.synchronize()
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -162,7 +205,8 @@ def main(argv=None) -> int:
     between = idle_by_stage["between steps"]
     ms = lambda us: us / STEPS / 1e3  # noqa: E731  per step
     line = {
-        "phase": "profile_train", "preset": "celeb256_dit", "steps_read": STEPS,
+        "phase": "profile_train", "preset": "celeb256_dit",
+        "path": "fused (K5)" if args.fused else "module", "steps_read": STEPS,
         "warmup_steps": WARMUP, "batch": batch,
         "wall_ms_per_step": ms(wall), "device_busy_ms_per_step": ms(wall - idle),
         "device_idle_share": idle / wall,
@@ -177,9 +221,10 @@ def main(argv=None) -> int:
     }
     print(json.dumps(line), flush=True)
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "profile_train.json"), "w") as f:
+    stem = "profile_train_fused" if args.fused else "profile_train"
+    with open(os.path.join(args.out, f"{stem}.json"), "w") as f:
         f.write(json.dumps(line, indent=1))
-    prof.export_chrome_trace(os.path.join(args.out, "profile_train_trace.json"))
+    prof.export_chrome_trace(os.path.join(args.out, f"{stem}_trace.json"))
     return 0
 
 

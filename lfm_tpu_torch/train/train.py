@@ -34,8 +34,9 @@ def fm_train_loss(model: nn.Module, z0: torch.Tensor, y: Optional[torch.Tensor],
     return torch.mean(torch.square(v.float() - u.float()))
 
 
-def make_train_step(model: nn.Module, tx: AdamW, *, ema_decay: float = 0.9999,
-                    use_ema: bool = True,
+def make_train_step(model: nn.Module, tx: AdamW, *,
+                    model_apply: Optional[Callable[..., torch.Tensor]] = None,
+                    ema_decay: float = 0.9999, use_ema: bool = True,
                     encode_fn: Optional[Callable[[torch.Tensor, torch.Generator],
                                                  torch.Tensor]] = None,
                     scale_factor: float = 0.18215, is_latent_data: bool = False,
@@ -47,7 +48,14 @@ def make_train_step(model: nn.Module, tx: AdamW, *, ema_decay: float = 0.9999,
     latents) on the model's device, "y": labels or absent}. ``encode_fn(x,
     generator)`` returns unscaled latents (``AutoencoderKL.encode_sample``);
     it runs without gradients. Label dropout draws from the step's
-    generator when ``label_dropout``."""
+    generator when ``label_dropout``.
+
+    ``model_apply(t, z_t, y, generator) -> v`` replaces the module's train
+    forward, as JAX's ``model_apply`` argument does (the default is the
+    module), for example the fused blocks,
+    ``nn.dit_fused.dit_fused_model_apply(model)``.
+    Its backward must reach ``state.params``; a parameter it does not use
+    keeps a zero gradient."""
     update = make_fused_adamw_ema(tx, ema_decay=ema_decay, use_ema=use_ema)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -64,10 +72,17 @@ def make_train_step(model: nn.Module, tx: AdamW, *, ema_decay: float = 0.9999,
         z1 = torch.randn(z0.shape, generator=gen, device=z0.device)
         for p in state.params:
             p.grad = None
-        loss = fm_train_loss(model, z0, y, t, z1, generator=gen if label_dropout else None)
+        drop_gen = gen if label_dropout else None
+        if model_apply is None:
+            loss = fm_train_loss(model, z0, y, t, z1, generator=drop_gen)
+        else:
+            z_t, u = interpolate(z0, z1, t)
+            v = model_apply(t, z_t, y, drop_gen)
+            loss = torch.mean(torch.square(v.float() - u.float()))
         loss.backward()
         gnorm = update(state, [torch.zeros_like(p) if p.grad is None else p.grad
                                for p in state.params])
         return loss.detach(), gnorm
 
     return train_step
+

@@ -28,17 +28,22 @@ import torch.nn.functional as F
 from torch import nn
 
 from lfm_tpu_torch.core.device import DeviceLike, no_tf32, resolve_device
+from lfm_tpu_torch.nn.layers import dense
 
 _GN_EPS = 1e-6
 
 
 def _conv(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
-    return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
-                    padding=conv.padding)
+    """flax ``Conv(dtype=...)`` on NCHW x: the product rounded to ``dtype``,
+    then the bias added in ``dtype`` (a second rounding, which a fused bias
+    would skip; in f32 the two agree)."""
+    y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None, conv.stride, conv.padding)
+    return y + conv.bias.to(dtype)[:, None, None]
 
 
 def _linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
+    """flax ``Dense(dtype=...)``, rounded as ``_conv``."""
+    return dense(x, lin.weight, lin.bias, dtype)
 
 
 def group_norm(x: torch.Tensor, gn: nn.GroupNorm) -> torch.Tensor:
@@ -102,8 +107,7 @@ class Downsample(nn.Module):
         self.conv = nn.Conv2d(ch, ch, 3, stride=2)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        x = F.pad(x.to(dtype), (0, 1, 0, 1))
-        return F.conv2d(x, self.conv.weight.to(dtype), self.conv.bias.to(dtype), stride=2)
+        return _conv(F.pad(x.to(dtype), (0, 1, 0, 1)), self.conv, dtype)
 
 
 class Upsample(nn.Module):

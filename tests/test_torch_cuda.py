@@ -299,3 +299,176 @@ def test_small_adm_runs_its_kernels_and_matches_plain(cuda):
     assert ATTENTION_SMALL.count - k1 == sum(s.kind == "attn" for s in layers)
     assert GROUPNORM_SILU.count - k6 == sum(s.kind.startswith("res") for s in layers)
     assert torch.isfinite(got).all() and _rel(got, want) <= 5e-2
+
+
+# K5: the differentiable fused block (kernels/dit_block_train.py). Shapes:
+# DiT-like widths, a batch whose N*T is not a multiple of the GEMMs' 128-row
+# tiles (3 x 96 = 288), T not a multiple of the 64-row attention tiles, and
+# DiT-XL's head dim 72. Outputs within 2e-2 of the largest plain value; out
+# and x1 (dx1, dx) within 2e-2 of the block's update |plain - x| (|plain -
+# dy|, |plain - dx1|), as K2, plus one bf16 ulp (2^-7 relative at most) of
+# the largest output: the output's own rounding may fall the other way, and
+# where the update is small against the residual that ulp is more than 2%
+# of it.
+K5_SHAPES = [(2, 64, 128, 2), (3, 96, 256, 4), (1, 256, 384, 6), (1, 64, 1152, 16)]
+
+
+def _block_args(gen, n, t, c):
+    hid = 4 * c
+
+    def rn(*s, scale=1.0):
+        return (scale * torch.randn(*s, generator=gen, device="cuda")).bfloat16()
+
+    return dict(x=rn(n, t, c), mod=rn(n, 6 * c, scale=0.3), wqkv=rn(3 * c, c, scale=c ** -0.5),
+                bqkv=rn(3 * c, scale=0.02), wproj=rn(c, c, scale=c ** -0.5),
+                bproj=rn(c, scale=0.02), w1=rn(hid, c, scale=c ** -0.5), b1=rn(hid, scale=0.02),
+                w2=rn(c, hid, scale=hid ** -0.5), b2=rn(c, scale=0.02))
+
+
+def _within(got, want, base=None, tol=2e-2) -> bool:
+    err = float((got.float() - want.float()).abs().max())
+    if base is None:
+        return err <= tol * float(want.float().abs().max())
+    update = float((want.float() - base.float()).abs().max())
+    return err <= tol * update + 2.0 ** -7 * float(want.float().abs().max())
+
+
+@pytest.mark.parametrize("mode", ["full", "slim"])
+@pytest.mark.parametrize("n,t,c,heads", K5_SHAPES)
+def test_block_train_fwd_kernel_matches_plain(cuda, n, t, c, heads, mode):
+    from lfm_tpu_torch.kernels.dit_block_train import (BLOCK_TRAIN_FWD, block_train_fwd,
+                                                       reference_block_fwd_streams)
+
+    args = _block_args(cuda, n, t, c)
+    before = BLOCK_TRAIN_FWD.count
+    got = block_train_fwd(**args, num_heads=heads, save_streams=mode)
+    torch.cuda.synchronize()
+    assert BLOCK_TRAIN_FWD.count == before + 1
+    want = reference_block_fwd_streams(**args, num_heads=heads, save_streams=mode)
+    names = ("out", "h2", "pr", "qkv") if mode == "slim" else ("out", "x1", "h2", "pr", "qkv",
+                                                              "ao", "u")
+    assert len(got) == len(names)
+    for name, g, w in zip(names, got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        base = args["x"] if name in ("out", "x1") else None
+        assert _within(g, w, base), (name, _rel(g, w))
+
+
+@pytest.mark.parametrize("n,t,c,heads", K5_SHAPES)
+def test_block_train_bwd_kernels_match_plain(cuda, n, t, c, heads):
+    from lfm_tpu_torch.kernels.dit_block_train import (ATTN_BWD, MLP_BWD, attn_bwd,
+                                                       block_train_fwd, mlp_bwd,
+                                                       reference_attn_bwd, reference_mlp_bwd)
+
+    args = _block_args(cuda, n, t, c)
+    _, x1, h2, pr, qkv, ao, u = block_train_fwd(**args, num_heads=heads)
+    dy = torch.randn(n, t, c, generator=cuda, device="cuda").bfloat16()
+    margs = (x1, args["mod"], h2, u, args["w1"], args["w2"], dy)
+    before = MLP_BWD.count
+    got = mlp_bwd(*margs)
+    torch.cuda.synchronize()
+    assert MLP_BWD.count == before + 1
+    want = reference_mlp_bwd(*margs)
+    for name, g, w in zip(("dx1", "dmod", "dw1", "db1", "dw2", "db2"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert _within(g, w, dy if name == "dx1" else None), (name, _rel(g, w))
+    dx1 = got[0]
+    aargs = (args["x"], args["mod"], pr, qkv, ao, args["wqkv"], args["wproj"], dx1)
+    before = ATTN_BWD.count
+    got = attn_bwd(*aargs, num_heads=heads)
+    torch.cuda.synchronize()
+    assert ATTN_BWD.count == before + 1
+    want = reference_attn_bwd(*aargs, num_heads=heads)
+    for name, g, w in zip(("dx", "dmod", "dwqkv", "dbqkv", "dwproj", "dbproj"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert _within(g, w, dx1 if name == "dx" else None), (name, _rel(g, w))
+
+
+@pytest.mark.parametrize("mode", [dict(), dict(pallas_bwd=True), dict(save_streams="slim")])
+def test_fused_block_train_on_the_card_matches_the_plain_path(cuda, mode):
+    """make_fused_block_train on CUDA tensors (its kernels, K3 in the hybrid
+    backward, K1 in slim's recompute) against the same block on CPU tensors
+    (the plain versions): the output and all 10 cotangents within 2e-2."""
+    from lfm_tpu_torch.kernels.dit_block_train import (ATTN_BWD, BLOCK_TRAIN_FWD, MLP_BWD,
+                                                       make_fused_block_train)
+    from lfm_tpu_torch.kernels.flash_attention import ATTENTION_SMALL, ATTENTION_SMALL_BWD
+
+    args = _block_args(cuda, 4, 64, 256)
+    dy = torch.randn(4, 64, 256, generator=cuda, device="cuda").bfloat16()
+    block = make_fused_block_train(4, 2, 2, **mode)
+    results = []
+    for dev in ("cuda", "cpu"):
+        leaves = [a.detach().to(dev).requires_grad_(True) for a in args.values()]
+        counters = (BLOCK_TRAIN_FWD, MLP_BWD, ATTN_BWD, ATTENTION_SMALL, ATTENTION_SMALL_BWD)
+        before = [k.count for k in counters]
+        out = block(*leaves)
+        grads = torch.autograd.grad(out, leaves, dy.to(dev))
+        launched = [k.count - b for k, b in zip(counters, before)]
+        results.append((out, grads, launched))
+    (out, grads, launched), (want_out, want_grads, cpu_launched) = results
+    pallas, slim = mode.get("pallas_bwd", False), mode.get("save_streams") == "slim"
+    assert launched == [1, int(pallas), int(pallas), int(slim), int(not pallas)]
+    assert cpu_launched == [0] * 5
+    assert _within(out.detach().cpu(), want_out.detach(), args["x"].cpu())
+    for name, g, w in zip(args, grads, want_grads):
+        assert g.dtype == torch.bfloat16, name
+        assert _within(g.cpu(), w), (name, _rel(g.cpu(), w))
+
+
+def test_block_train_kernels_refuse_what_they_do_not_take(cuda):
+    """On a CUDA tensor the wrappers launch or raise: no CPU computation."""
+    from lfm_tpu_torch.kernels.dit_block_train import attn_bwd, block_train_fwd, mlp_bwd
+
+    args = _block_args(cuda, 2, 64, 128)
+    with pytest.raises(ValueError, match="bf16"):
+        block_train_fwd(**{**args, "x": args["x"].float()}, num_heads=2)
+    with pytest.raises(ValueError, match="head dim"):
+        block_train_fwd(**args, num_heads=4)  # head dim 32 is not built
+    odd = _block_args(cuda, 1, 17, 128)  # N*T = 17 rows: not whole 32-row GEMM steps
+    with pytest.raises(ValueError, match="unsupported shape"):
+        block_train_fwd(**odd, num_heads=2)
+    narrow = _block_args(cuda, 2, 64, 192)  # C % 128 != 0
+    with pytest.raises(ValueError, match="unsupported shape"):
+        block_train_fwd(**narrow, num_heads=3)
+    # C > 4096: wider than the rows the LayerNorm backward holds in registers
+    wide = torch.zeros(1, 32, 4224, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="unsupported shape"):
+        mlp_bwd(wide, args["mod"], wide, args["x"], args["w1"], args["w2"], wide)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        attn_bwd(wide, args["mod"], wide, wide, wide, args["wqkv"], args["wproj"], wide,
+                 num_heads=66)
+    x = args["x"]
+    with pytest.raises(ValueError, match="contiguous"):
+        mlp_bwd(x, args["mod"], x, torch.empty(2, 64, 512, device="cuda").bfloat16().transpose(0, 1)
+                .contiguous().transpose(0, 1), args["w1"], args["w2"], x)
+    with pytest.raises(ValueError, match="bf16"):
+        attn_bwd(x, args["mod"], x, torch.empty(2, 64, 384, device="cuda"), x, args["wqkv"],
+                 args["wproj"], x, num_heads=2)
+
+
+def test_fused_train_step_launches_k5_forward_and_k3(cuda):
+    """One make_train_step(model_apply=dit_fused_model_apply(model)) step of a
+    2-block DiT at C = 256 on latents: the blocks launch K5's forward and K3
+    once each, nothing else, and the parameters move."""
+    from lfm_tpu_torch.kernels.dit_block_train import ATTN_BWD, BLOCK_TRAIN_FWD, MLP_BWD
+    from lfm_tpu_torch.kernels.flash_attention import ATTENTION_SMALL, ATTENTION_SMALL_BWD
+    from lfm_tpu_torch.nn.dit import DiT
+    from lfm_tpu_torch.nn.init import seeded_init_
+    from lfm_tpu_torch.train.state import AdamW, create_train_state
+    from lfm_tpu_torch.nn.dit_fused import dit_fused_model_apply
+    from lfm_tpu_torch.train.train import make_train_step
+
+    model = DiT(img_resolution=16, patch_size=2, hidden_size=256, depth=2, num_heads=4,
+                dtype=torch.bfloat16).to("cuda")
+    seeded_init_(model, 0)
+    state = create_train_state(model)
+    p0 = [p.detach().clone() for p in state.params]
+    step = make_train_step(model, AdamW(lr=lambda s: 1e-3),
+                           model_apply=dit_fused_model_apply(model), is_latent_data=True)
+    counters = (BLOCK_TRAIN_FWD, ATTENTION_SMALL_BWD, MLP_BWD, ATTN_BWD, ATTENTION_SMALL)
+    before = [k.count for k in counters]
+    loss, gnorm = step(state, {"x": torch.randn(4, 16, 16, 4, generator=cuda, device="cuda")})
+    torch.cuda.synchronize()
+    assert [k.count - b for k, b in zip(counters, before)] == [2, 2, 0, 0, 0]
+    assert bool(torch.isfinite(loss)) and bool(torch.isfinite(gnorm))
+    assert all(float((a - b.detach()).abs().max()) > 0 for a, b in zip(p0, state.params))

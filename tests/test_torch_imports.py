@@ -59,7 +59,7 @@ def test_port_imports_nothing_of_jax_or_lfm_tpu():
                 "lfm_tpu_torch.core.checkpoint", "lfm_tpu_torch.core.preemption",
                 "lfm_tpu_torch.data.datasets", "lfm_tpu_torch.data.loader",
                 "lfm_tpu_torch.nn.adm_unet", "lfm_tpu_torch.nn.convert_adm",
-                "lfm_tpu_torch.kernels.groupnorm_silu"):
+                "lfm_tpu_torch.kernels.groupnorm_silu", "lfm_tpu_torch.kernels.dit_block_train"):
         assert mod in out["modules"]
 
 
@@ -117,6 +117,7 @@ def test_kernel_wrappers_take_no_other_device():
     """A wrapper computes the plain version only for a CPU tensor; for any
     other device it launches its kernel or raises (here: a meta tensor)."""
     from lfm_tpu_torch.kernels.dit_block import fused_dit_block
+    from lfm_tpu_torch.kernels.dit_block_train import attn_bwd, block_train_fwd, mlp_bwd
     from lfm_tpu_torch.kernels.flash_attention import (attention_small, attention_small_bwd,
                                                        flash_attention, fused_attention)
     from lfm_tpu_torch.kernels.groupnorm_silu import groupnorm_silu
@@ -129,8 +130,12 @@ def test_kernel_wrappers_take_no_other_device():
         with pytest.raises(ValueError, match="unsupported device"):
             call()
     x = torch.empty(1, 16, 128, dtype=torch.bfloat16, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        fused_dit_block(x, *([x] * 9), num_heads=4)
+    for call in (lambda: fused_dit_block(x, *([x] * 9), num_heads=4),
+                 lambda: block_train_fwd(x, *([x] * 9), num_heads=4),
+                 lambda: mlp_bwd(*([x] * 7)),
+                 lambda: attn_bwd(*([x] * 8), num_heads=4)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
 
 
 def test_chip_smoke_fails_without_cuda_or_the_package(tmp_path):
