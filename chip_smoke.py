@@ -41,6 +41,15 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
      backward (path block_hybrid) and with pallas_bwd (path
      block_pallas_bwd), each against autograd through reference_block, all
      10 cotangents, with the launch counts of each.
+   - P1, the int8 GEMM (int8_gemm.cu): quant_rows at fc2's input, (51200,
+     4096) f32 (no single library call computes it: library_ms null);
+     int8_dense at the int8 path's four products, M = 51200 (N = 200 x T
+     = 256) with (K, N) = (1024, 3072) to bf16 (qkv), (1024, 1024) (proj),
+     (1024, 4096) + GELU (fc1) and (4096, 1024) (fc2), f32 out, library:
+     torch._int_mm (cuBLASLt) with eager quantization and dequantization;
+     int8_mlp and bf16_mlp at P1's own call, 16384 rows, D 1024, H 4096,
+     CHAIN 8 (tools/microbench_int8.py's inputs), library: the _int_mm
+     chain and F.linear + gelu in bf16.
    N is the preset's sampling batch (200), the sampling path's batch.
 3. grad: a 2-block DiT at DiT-L width (C = 1024, 16 heads, T = 256), batch
    8, bf16 compute on f32 masters; the flow-matching loss's parameter
@@ -55,6 +64,20 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
 5. main_module: the same model with use_fused_dit=False, euler at 4 steps;
    attention_small must launch 24 x NFE times. The fused and module
    velocities at one (t, x) must agree.
+5b. int8_main: the same model and noise with use_int8_dit=True (w8a8, the
+   weights quantized once when the sampler is built), euler at 4 steps,
+   VAE decode; quant_rows and int8_dense must each launch 4 x 24 x NFE
+   times and nothing else (no K1, no K2). The int8 velocity at one (t, x)
+   must agree with the plain int8 path on the card, and with main_module's
+   bf16 velocity within the JAX package's 8%.
+5c. fid: FIDInceptionV3 with seeded weights (eval/inception.py) on the
+   card over main_module's and int8_main's 200 images; its activations on
+   2 images against the same module on the CPU; the Fréchet distance
+   int8-vs-bf16 must be finite. With seeded weights it is a protocol-level
+   number, not an image-quality one.
+5d. p1_probe: tools/microbench_int8.py's measure() (P1's probe: int8_mlp
+   against bf16_mlp, each chained 8 times per call); int8_mlp and bf16_mlp
+   must each launch 8 x (1 + REPS) times and nothing else.
 6. adm_main: ``make_sampler`` on the celeb256_adm preset, a bf16 origin-ADM
    UNet at full width (nf 256, ch_mult 1 2 2 2, 2 ResBlocks per level, 4
    heads, attention through K1) with seeded non-zero weights, dopri5 at
@@ -163,6 +186,35 @@ BLOCK_GRAD_TOL = 5e-2
 # tolerance for its fused path against its module path
 # (tests/test_dit_fused.py:180)
 FUSED_LOSS_TOL = 2e-2
+# P1: quant_rows bit-exact (the same IEEE divisions and ties to even);
+# int8_dense, one product, max abs error / max |plain| within 1e-5 (exact
+# int32 sums, the same f32 dequant; GELU's tanh may differ in the last bit);
+# bf16 out within one rounding of it. int8_mlp, one step of P1's call,
+# within 2e-2: a GELU output that differs in its last bit can land on the
+# other side of a rounding boundary of the hidden's quantization, and one
+# int8 step of one hidden value moves an output by up to ~1e-2 of the
+# largest. After P1's chain of 8, within 0.15: the chain amplifies such
+# flips; giving the plain chain's GELU last-bit changes alone (f64 GELU
+# rounded to f32) moves its output by 8.4% of its largest at P1's scales,
+# 3.3% at scales that hold the chain's size (512 rows on the CPU).
+# bf16_mlp, one step and the chain of 8, within 2e-2: f32 sums in another
+# order round to bf16 the other way (0.8% after the chain, the same test)
+INT8_TOL = 1e-5
+P1_STEP_TOL = 2e-2
+P1_CHAIN_TOL = 0.15
+BF16_MLP_TOL = 2e-2
+# the int8 velocity against the plain int8 path on the card: the GELU's
+# last-bit differences flip a few quantizations a block, 24 blocks deep
+INT8_VEL_TOL = 1e-2
+# the int8 velocity against the bf16 module's: the JAX package's own
+# bound for its int8 path (tests/test_dit_int8.py:62)
+INT8_VS_BF16_TOL = 8e-2
+# Inception pool3 on the card against the same module on the CPU, f32 with
+# TF32 off: max abs / max |CPU|, f32 convolutions in other algorithms over
+# 95 layers
+FID_ACT_TOL = 1e-3
+INT8_OPS = 1979e12  # dense int8 tensor-core op/s, H100 SXM data sheet
+P1_ROWS = 51200  # the int8 path's rows at the sampling batch: 200 x 256 tokens
 TRAIN_STEPS = 12  # the first step is not timed
 ADM_FUSED_STEPS = 4  # euler steps of the adm_fused_gn path
 LONG_T_SIZE = 1024  # image size of the long_t path: T = (1024 / 8 / 2)^2 = 4096
@@ -230,6 +282,27 @@ def library_block_streams(F, x, mod, wqkv, bqkv, wproj, bproj, w1, b1, w2, b2, *
 
 def library_block(F, **kwargs):
     return library_block_streams(F, **kwargs)[0]
+
+
+def library_int8_dense(torch, F, x, q_w, s_w, bias, gelu, out_dtype):
+    """int8_dense from library calls: eager row quantization, torch._int_mm
+    (cuBLASLt), eager dequant. A yardstick of speed only."""
+    xf = x.float()
+    s = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    q = torch.round(xf / s).clamp_(-127, 127).to(torch.int8)
+    y = torch._int_mm(q, q_w.t()).float() * s * s_w
+    if bias is not None:
+        y = y + bias.float()
+    return (F.gelu(y, approximate="tanh") if gelu else y).to(out_dtype)
+
+
+def library_int8_mlp(torch, F, x, q1, s1, b1, q2, s2, b2):
+    h = library_int8_dense(torch, F, x, q1, s1, b1, True, torch.float32)
+    return library_int8_dense(torch, F, h, q2, s2, b2, False, torch.float32)
+
+
+def library_bf16_mlp(F, x, w1, w2):
+    return F.linear(F.gelu(F.linear(x, w1), approximate="tanh"), w2)
 
 
 def backward_only(torch, fn, inputs, cotangent):
@@ -300,6 +373,15 @@ def run(torch, work: str) -> int:
                                                        reference_flash_attention)
     from lfm_tpu_torch.kernels.groupnorm_silu import (GROUPNORM_SILU, groupnorm_silu,
                                                       reference_groupnorm_silu)
+    from lfm_tpu_torch.kernels.int8_matmul import (BF16_MLP, INT8_DENSE, INT8_MLP, QUANT_ROWS,
+                                                   bf16_mlp, int8_dense, int8_mlp, quant_rows,
+                                                   reference_bf16_mlp, reference_int8_dense,
+                                                   reference_int8_mlp, reference_quant_rows)
+    from lfm_tpu_torch.eval.fid import (ActivationExtractor, activation_statistics,
+                                        calculate_frechet_distance)
+    from lfm_tpu_torch.eval.inception import seeded_inception_state_dict
+    from lfm_tpu_torch.nn.dit_int8 import dit_int8_apply, quantize_params_int8, quantize_weight
+    from lfm_tpu_torch.tools import microbench_int8
     from lfm_tpu_torch.nn.adm_unet import plan_layers
     from lfm_tpu_torch.nn.dit import DiT
     from lfm_tpu_torch.nn.dit_fused import (cast_params_bf16, dit_fused_apply,
@@ -320,7 +402,9 @@ def run(torch, work: str) -> int:
     counters = {"attention_small": ATTENTION_SMALL, "fused_dit_block": FUSED_DIT_BLOCK,
                 "attention_small_bwd": ATTENTION_SMALL_BWD, "flash_attention": FLASH_ATTENTION,
                 "groupnorm_silu": GROUPNORM_SILU, "dit_block_train_fwd": BLOCK_TRAIN_FWD,
-                "dit_block_train_mlp_bwd": MLP_BWD, "dit_block_train_attn_bwd": ATTN_BWD}
+                "dit_block_train_mlp_bwd": MLP_BWD, "dit_block_train_attn_bwd": ATTN_BWD,
+                "quant_rows": QUANT_ROWS, "int8_dense": INT8_DENSE, "int8_mlp": INT8_MLP,
+                "bf16_mlp": BF16_MLP}
 
     def reset_counts():
         for c in counters.values():
@@ -631,6 +715,96 @@ def run(torch, work: str) -> int:
           "rel_err": {p: {k: e[1] for k, e in errs.items()} for p, errs in block_errs.items()},
           "launches": block_counts, "seconds": time.time() - t_case})
     del blk, dy, leaves, want, got
+
+    # P1: row quantization and the int8 GEMM at the int8 path's shapes, then
+    # the probe's two chains at its own call
+    t_case = time.time()
+    x = rn(P1_ROWS, 4 * c, dtype=f32)
+    q, sq = quant_rows(x)
+    wq, wsq = reference_quant_rows(x)
+    torch.cuda.synchronize()
+    mismatches = int((q != wq).sum()) + int((sq != wsq).sum())
+    if mismatches:
+        raise AssertionError(f"quant_rows (51200, 4096): {mismatches} values differ from plain")
+    bms, by = bound_ms(x.numel() * 5 + 4 * P1_ROWS, 3 * x.numel(), F32_FLOPS)
+    p1_rows = {"quant_rows": {
+        "shape": list(x.shape), "max_abs_err": 0.0, "mismatches": mismatches,
+        "ms": time_ms(torch, lambda: quant_rows(x)),
+        "plain_ms": time_ms(torch, lambda: reference_quant_rows(x)), "library_ms": None,
+        "bound_ms": bms, "bound_by": by, "seconds": time.time() - t_case}}
+    emit({"phase": "kernel", "name": "quant_rows", **p1_rows["quant_rows"]})
+    del x, q, sq, wq, wsq
+    int8_cases = (("qkv", c, 3 * c, "store", bf, f32), ("proj", c, c, "store", f32, bf),
+                  ("fc1", c, hid, "gelu", f32, f32), ("fc2", hid, c, "store", f32, f32))
+    for layer, k, n, epi, odt, xdt in int8_cases:
+        t_case = time.time()
+        x = rn(P1_ROWS, k, dtype=xdt)
+        qw, sw = quantize_weight(rn(n, k, scale=k ** -0.5, dtype=f32))
+        b = rn(n, scale=0.02)
+        out = int8_dense(x, qw, sw, b, epi, odt)
+        ref = reference_int8_dense(x, qw, sw, b, epi, odt)
+        torch.cuda.synchronize()
+        err, rel = rel_err(out, ref)
+        tol = INT8_TOL if odt == f32 else 2.0 ** -8
+        if not rel <= tol:
+            raise AssertionError(f"int8_dense {layer} (51200, {k}) x ({n}, {k}): max abs err "
+                                 f"{err} is {rel} of max |plain| > {tol}")
+        nbytes = x.numel() * x.element_size() + n * k + 6 * n + P1_ROWS * n * out.element_size()
+        bms, by = bound_ms(nbytes, 2 * P1_ROWS * n * k, INT8_OPS)
+        row = {"layer": layer, "shape": [P1_ROWS, k, n], "epilogue": epi, "out": str(odt),
+               "max_abs_err": err, "rel_err": rel, "tol": tol,
+               "ms": time_ms(torch, lambda: int8_dense(x, qw, sw, b, epi, odt)),
+               "plain_ms": time_ms(torch, lambda: reference_int8_dense(x, qw, sw, b, epi, odt),
+                                   reps=5),
+               "library_ms": time_ms(torch, lambda: library_int8_dense(
+                   torch, F, x, qw, sw, b, epi == "gelu", odt)),
+               "bound_ms": bms, "bound_by": by, "seconds": time.time() - t_case}
+        p1_rows[layer] = row
+        emit({"phase": "kernel", "name": "int8_dense", **row})
+        del x, qw, sw, b, out, ref
+    inp = microbench_int8.probe_inputs(dev, SEED)
+    dh = microbench_int8.D * microbench_int8.H
+    p1_ops = microbench_int8.CHAIN * 2 * (2 * inp["x"].shape[0] * dh)
+    # x read and the output written in bf16, the two weights (int8 with their
+    # f32 scales, or bf16) read once
+    p1_io = 2 * 2 * inp["x"].numel()
+    x = inp["x"]
+    steps = {"int8_mlp": (int8_mlp(x, inp["w1"], inp["s1"], None, inp["w2"], inp["s2"], None),
+                          reference_int8_mlp(x, inp["w1"], inp["s1"], None, inp["w2"],
+                                             inp["s2"], None)),
+             "bf16_mlp": (bf16_mlp(x, inp["w1b"], inp["w2b"]),
+                          reference_bf16_mlp(x, inp["w1b"], inp["w2b"]))}
+    for name, run, plain, lib, peak, wbytes, step_tol, chain_tol in (
+            ("int8_mlp", microbench_int8.run_int8, reference_int8_mlp,
+             lambda *a: library_int8_mlp(torch, F, *a), INT8_OPS,
+             2 * dh + 4 * (microbench_int8.D + microbench_int8.H), P1_STEP_TOL, P1_CHAIN_TOL),
+            ("bf16_mlp", microbench_int8.run_bf16, reference_bf16_mlp,
+             lambda *a: library_bf16_mlp(F, *a), BF16_FLOPS, 4 * dh, BF16_MLP_TOL,
+             BF16_MLP_TOL)):
+        t_case = time.time()
+        out, ref = run(inp), run(inp, plain)
+        torch.cuda.synchronize()
+        err, rel = rel_err(out, ref)
+        step_err, step_rel = rel_err(*steps[name])
+        if not step_rel <= step_tol:
+            raise AssertionError(f"{name}, one step: max abs err {step_err} is {step_rel} of "
+                                 f"max |plain| > {step_tol}")
+        if not (rel <= chain_tol and float(ref.float().abs().max()) > 0):
+            raise AssertionError(f"{name} chain of {microbench_int8.CHAIN}: max abs err {err} "
+                                 f"is {rel} of max |plain| > {chain_tol}")
+        bms, by = bound_ms(p1_io + wbytes, p1_ops, peak)
+        row = {"shape": [inp["x"].shape[0], microbench_int8.D, microbench_int8.H],
+               "chain": microbench_int8.CHAIN, "max_abs_err": err, "rel_err": rel,
+               "tol": chain_tol, "step_rel_err": step_rel, "step_tol": step_tol,
+               "max_plain": float(ref.float().abs().max()),
+               "ms": time_ms(torch, lambda: run(inp), reps=5, warmup=1),
+               "plain_ms": time_ms(torch, lambda: run(inp, plain), reps=2, warmup=1),
+               "library_ms": time_ms(torch, lambda: run(inp, lib), reps=5, warmup=1),
+               "bound_ms": bms, "bound_by": by, "seconds": time.time() - t_case}
+        p1_rows[name] = row
+        emit({"phase": "kernel", "name": name, **row})
+        del out, ref
+    del inp, x, steps
     emit({"phase": "kernels_vs_plain", "seconds": time.time() - t0})
 
     # 3. gradients of a small full-width DiT through K1/K3, and through the
@@ -726,7 +900,95 @@ def run(torch, work: str) -> int:
                              f"depth {depth}")
     if not vel_err <= VEL_TOL:
         raise AssertionError(f"fused vs module velocity: {vel_err} > {VEL_TOL}")
-    del sampler, msampler, res, mres, img, mimg, noise, v_fused, v_module
+    del sampler, msampler, res, img, v_fused
+
+    # 5b. int8_main: the same model and noise through the w8a8 blocks
+    t_int8 = time.time()
+    iconfig = dataclasses.replace(config, sample=dataclasses.replace(
+        config.sample, use_int8_dit=True, method="euler", num_steps=4))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    isampler = make_sampler(iconfig, model, None, vae, None, device=dev)
+    torch.cuda.synchronize()
+    quantize_s = time.time() - t0
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ires = isampler(noise, y)
+    torch.cuda.synchronize()
+    isecs = time.time() - t0
+    int8_counts = counts()
+    iimg = ires.images
+    with torch.no_grad():
+        qparams = quantize_params_int8(model, model.state_dict())
+        v_int8 = dit_int8_apply(model, qparams, tt, noise)
+        v_int8_plain = dit_int8_apply(model, qparams, tt, noise, plain=True)
+    int8_err = float((v_int8 - v_int8_plain).abs().max()) / float(v_int8_plain.abs().max())
+    int8_bf16_err = float((v_int8 - v_module).abs().max()) / float(v_module.abs().max())
+    per_eval = 4 * depth
+    emit({"phase": "int8_main", "seconds": isecs, "samples_per_s": batch / isecs,
+          "method": "euler", "nfe": ires.nfe, "quantize_seconds": quantize_s,
+          "images": list(iimg.shape), "launches": int8_counts,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "velocity_rel_err_vs_plain": int8_err, "velocity_tol": INT8_VEL_TOL,
+          "velocity_rel_err_vs_bf16_module": int8_bf16_err, "vs_bf16_tol": INT8_VS_BF16_TOL,
+          "image_mean": float(iimg.float().mean()), "phase_seconds": time.time() - t_int8})
+    if tuple(iimg.shape) != (batch, 256, 256, 3) or not (
+            bool(torch.isfinite(iimg).all()) and bool(torch.isfinite(ires.latents).all())):
+        raise AssertionError(f"int8 images {tuple(iimg.shape)} are not finite or mis-shaped")
+    want_counts = {"quant_rows": per_eval * ires.nfe, "int8_dense": per_eval * ires.nfe}
+    if {k: v for k, v in int8_counts.items() if v} != want_counts:
+        raise AssertionError(f"int8 path: launches {int8_counts}, expected {want_counts}")
+    if not int8_err <= INT8_VEL_TOL:
+        raise AssertionError(f"int8 velocity vs its plain version: {int8_err} > {INT8_VEL_TOL}")
+    if not int8_bf16_err <= INT8_VS_BF16_TOL:
+        raise AssertionError(f"int8 vs bf16 module velocity: {int8_bf16_err} > "
+                             f"{INT8_VS_BF16_TOL}")
+    del isampler, ires, qparams, v_int8, v_int8_plain, v_module, noise
+    torch.cuda.empty_cache()
+
+    # 5c. fid: seeded Inception over the bf16 module's and the int8 images
+    t_fid = time.time()
+    inception_sd = seeded_inception_state_dict(SEED)
+    extractor = ActivationExtractor(inception_sd, device=dev)
+    act_cpu = ActivationExtractor(inception_sd, device="cpu")(mimg[:2].cpu())
+    act_dev = extractor(mimg[:2])
+    act_err = float(abs(act_dev - act_cpu).max()) / float(abs(act_cpu).max())
+    extractor(mimg[:50])  # warm-up (cuDNN's algorithm choice)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    acts = {name: extractor.over_batches(images.split(50)) for name, images in
+            (("bf16", mimg), ("int8", iimg))}
+    torch.cuda.synchronize()
+    extract_s = time.time() - t0
+    t0 = time.time()
+    fid = calculate_frechet_distance(*activation_statistics(acts["int8"]),
+                                     *activation_statistics(acts["bf16"]))
+    sqrtm_s = time.time() - t0
+    emit({"phase": "fid", "images": [int(mimg.shape[0]), int(iimg.shape[0])],
+          "features": int(acts["int8"].shape[1]), "fid_int8_vs_bf16": fid,
+          "weights": "seeded (no pt_inception checkpoint in the repository): a "
+                     "protocol-level number, not image quality",
+          "activation_rel_err_vs_cpu": act_err, "activation_tol": FID_ACT_TOL,
+          "extract_ms_per_image": 1e3 * extract_s / (2 * batch), "sqrtm_seconds": sqrtm_s,
+          "phase_seconds": time.time() - t_fid})
+    if not math.isfinite(fid):
+        raise AssertionError(f"Fréchet distance int8 vs bf16 is not finite: {fid}")
+    if not act_err <= FID_ACT_TOL:
+        raise AssertionError(f"Inception activations on the card vs the CPU: {act_err} > "
+                             f"{FID_ACT_TOL}")
+    del extractor, acts, mimg, iimg, inception_sd
+    torch.cuda.empty_cache()
+
+    # 5d. p1_probe: P1's probe tool, int8_mlp against bf16_mlp
+    reset_counts()
+    p1_line = microbench_int8.measure(dev)
+    probe_counts = counts()
+    calls = microbench_int8.CHAIN * (1 + microbench_int8.REPS)
+    emit({"phase": "p1_probe", **p1_line, "launches": probe_counts})
+    if {k: v for k, v in probe_counts.items() if v} != {"int8_mlp": calls, "bf16_mlp": calls}:
+        raise AssertionError(f"p1_probe: launches {probe_counts}, expected {calls} of each")
 
     # 6. adm_main: celeb256_adm, bf16 origin-ADM UNet, dopri5, VAE decode
     t_adm = time.time()
@@ -962,30 +1224,37 @@ def run(torch, work: str) -> int:
     torch.cuda.empty_cache()
 
     # 11. the kernels line, the card, the last line
-    by_path = {"main_fused": fused_counts, "main_module": module_counts, "adm_main": adm_counts,
+    by_path = {"main_fused": fused_counts, "main_module": module_counts,
+               "int8_main": int8_counts, "p1_probe": probe_counts, "adm_main": adm_counts,
                "adm_fused_gn": fgn_counts, "long_t": long_counts, "train": train_counts,
                "train_fused": tf_counts, **block_counts}
+    kdir, p1 = "lfm_tpu/kernels/", "tools/microbench_int8_pallas.py"
     # name, source, TPU kernel, the path whose count is "launches", the row
     kernels = (
-        ("attention_small", "attention.cuh", "flash_attention.py:163", "train",
+        ("attention_small", "attention.cuh", kdir + "flash_attention.py:163", "train",
          k1_rows[(train_batch, 256, 16, 64, bf)]),
-        ("fused_dit_block", "dit_block.cu", "dit_block.py:135", "main_fused", k2_rows[batch]),
-        ("attention_small_bwd", "attention_bwd.cuh", "flash_attention.py:233", "train",
+        ("fused_dit_block", "dit_block.cu", kdir + "dit_block.py:135", "main_fused",
+         k2_rows[batch]),
+        ("attention_small_bwd", "attention_bwd.cuh", kdir + "flash_attention.py:233", "train",
          k3_rows[(train_batch, 256, bf)]),
-        ("flash_attention", "flash_attention.cuh", "flash_attention.py:74", "long_t",
+        ("flash_attention", "flash_attention.cuh", kdir + "flash_attention.py:74", "long_t",
          k4_rows[(2, 4096, 16, 64, bf)]),
-        ("groupnorm_silu", "groupnorm_silu.cu", "groupnorm_silu.py:68", "adm_fused_gn",
+        ("groupnorm_silu", "groupnorm_silu.cu", kdir + "groupnorm_silu.py:68", "adm_fused_gn",
          k6_rows[(batch, 32, 32, 256, bf, 0.0)]),
-        ("dit_block_train_fwd", "dit_block_train.cu", "dit_block_train.py:357", "train_fused",
-         k5_rows[("fwd", "full", train_batch)]),
-        ("dit_block_train_mlp_bwd", "dit_block_train.cu", "dit_block_train.py:398",
+        ("dit_block_train_fwd", "dit_block_train.cu", kdir + "dit_block_train.py:357",
+         "train_fused", k5_rows[("fwd", "full", train_batch)]),
+        ("dit_block_train_mlp_bwd", "dit_block_train.cu", kdir + "dit_block_train.py:398",
          "block_pallas_bwd", k5_rows[("mlp", train_batch)]),
-        ("dit_block_train_attn_bwd", "dit_block_train.cu", "dit_block_train.py:429",
+        ("dit_block_train_attn_bwd", "dit_block_train.cu", kdir + "dit_block_train.py:429",
          "block_pallas_bwd", k5_rows[("attn", train_batch)]),
+        ("quant_rows", "int8_gemm.cu", p1 + ":92", "int8_main", p1_rows["quant_rows"]),
+        ("int8_dense", "int8_gemm.cu", p1 + ":92", "int8_main", p1_rows["fc2"]),
+        ("int8_mlp", "int8_gemm.cu", p1 + ":92", "p1_probe", p1_rows["int8_mlp"]),
+        ("bf16_mlp", "int8_gemm.cu", p1 + ":103", "p1_probe", p1_rows["bf16_mlp"]),
     )
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"lfm_tpu_torch/kernels/csrc/{src}",
-         "replaces": f"lfm_tpu/kernels/{tpu}", "launches": by_path[path][name],
+         "replaces": tpu, "launches": by_path[path][name],
          "launches_by_path": {p: c[name] for p, c in by_path.items()},
          **{key: row[key] for key in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}}

@@ -7,7 +7,8 @@ subcommands.
 
 ``sample`` builds the preset's network in bf16 with attention through the
 attention kernels, as ``lfm_tpu.cli.main sample`` does: a DiT (fused DiT
-blocks unless ``--no_fused_dit``) or, with ``use_origin_adm``, the ADM UNet.
+blocks unless ``--no_fused_dit``; w8a8 int8 blocks with ``--int8_dit``) or,
+with ``use_origin_adm``, the ADM UNet.
 It samples one batch and writes the images in [0, 1] as a ``.npy``
 (N, H, W, 3) float32 file. ``--ckpt`` takes a reference ``model_{E}.pth``
 (with or without the DDP ``module.`` prefix, and a DiT's fixed
@@ -77,6 +78,9 @@ def _build_parser() -> argparse.ArgumentParser:
     s.add_argument("--batch_size", type=int, default=None)
     s.add_argument("--seed", type=int, default=None)
     s.add_argument("--no_fused_dit", action="store_true")
+    s.add_argument("--int8_dit", action="store_true",
+                   help="w8a8 int8 DiT sampling (nn/dit_int8.py; wins over the fused "
+                        "blocks)")
     s.add_argument("--device", type=str, default=None,
                    help="default: the card; pass cpu to run on the CPU")
     s.add_argument("--out", type=str, default=None,
@@ -166,7 +170,8 @@ def _resolve_config(args) -> Config:
     sample = _over(config.sample, method=args.method, num_steps=args.num_steps,
                    atol=args.atol, rtol=args.rtol, cfg_scale=args.cfg_scale,
                    batch_size=args.batch_size, seed=args.seed,
-                   use_fused_dit=False if args.no_fused_dit else None)
+                   use_fused_dit=False if args.no_fused_dit else None,
+                   use_int8_dit=True if args.int8_dit else None)
     return dataclasses.replace(config, sample=sample)
 
 

@@ -79,7 +79,8 @@ class SampleConfig:
     # fused DiT block kernel for sampling (nn/dit_fused.py); ignored for
     # non-DiT or f32 models
     use_fused_dit: bool = True
-    # w8a8 int8 sampling: not ported yet; the sampler raises when it is set
+    # w8a8 int8 DiT sampling (nn/dit_int8.py); wins over use_fused_dit,
+    # ignored for non-DiT models
     use_int8_dit: bool = False
     # adaptive-solver noise floor: None = per-method policy (auto only for
     # bf16 dopri8; see sample.resolve_eval_noise), or a float / "auto"

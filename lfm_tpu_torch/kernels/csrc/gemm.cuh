@@ -106,8 +106,8 @@ struct GemmTiles {
 };
 
 // out[m, n] = epilogue(sum_k A[m, k] * B[k, n]) with A, B in LAYOUT (above);
-// bias may be null only for EPI_STORE and EPI_DGELU. EPI_GATED*: resid[m, n]
-// + mod[m / T, gate_idx * N + n] * value.
+// a null bias adds nothing (EPI_STORE and EPI_DGELU never read it).
+// EPI_GATED*: resid[m, n] + mod[m / T, gate_idx * N + n] * value.
 template <int EPI, typename TRes, typename TOut, int LAYOUT = LAYOUT_NT>
 __global__ void __launch_bounds__(G_THREADS)
 gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
@@ -211,7 +211,7 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
             val *= gelu_tanh_grad(to_f(ax.u[o + e]));
             scratch[r * 16 + c0 + e] = val;
           } else if constexpr (EPI != EPI_STORE) {
-            val += to_f(bias[gn + e]);
+            if (bias) val += to_f(bias[gn + e]);
           }
           if constexpr (EPI == EPI_GELU_AUX) {
             if (ax.aux) ax.aux[o + e] = from_f<bf16>(val);

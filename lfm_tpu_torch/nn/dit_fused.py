@@ -48,6 +48,32 @@ def cast_params_bf16(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Ten
             for k, v in state_dict.items()}
 
 
+def embed_bf16(model, p: Dict[str, torch.Tensor], t: torch.Tensor, x: torch.Tensor,
+               y: Optional[torch.Tensor]):
+    """The embedders in bf16 (dit_fused.py:113-127, shared with
+    dit_int8.py): tokens (N, T, D) with the position table added, and
+    silu(t_emb + y_emb) (N, D). y None means the null label."""
+    n, hh, ww, cc = x.shape
+    ps = model.patch_size
+    t = torch.as_tensor(t, dtype=torch.float32, device=x.device).reshape(-1).expand(n)
+    if y is None:
+        y = torch.full((n,), model.null_label, dtype=torch.int64, device=x.device)
+
+    # patchify (nn/layers.py PatchEmbed): reshape + matmul, row-major patches
+    xt = x.reshape(n, hh // ps, ps, ww // ps, ps, cc).permute(0, 1, 3, 2, 4, 5)
+    xt = xt.reshape(n, (hh // ps) * (ww // ps), ps * ps * cc)
+    w = p["x_embedder.proj.weight"]
+    xt = dense(xt, w.permute(0, 2, 3, 1).reshape(model.hidden_size, -1),
+               p["x_embedder.proj.bias"], _BF)
+    xt = xt + model.pos_embed.to(_BF)
+
+    # conditioning c = t_emb + y_emb
+    te = timestep_embedding(t, 256).to(_BF)
+    te = _dense(F.silu(_dense(te, p, "t_embedder.mlp.0")), p, "t_embedder.mlp.2")
+    c = te + p["y_embedder.embedding_table.weight"][y].to(_BF)
+    return xt.contiguous(), F.silu(c)
+
+
 def fused_applicable(model, x: torch.Tensor) -> bool:
     """Gate of the fused sampling path: a bf16 DiT whose widths the kernel
     takes (d % 128 == 0, d % heads == 0, t % 8 == 0, t <= 1024)."""
@@ -81,30 +107,9 @@ def dit_fused_apply(model, params: Dict[str, torch.Tensor], t: torch.Tensor,
     so ``backward()`` through the result reaches every parameter.
     ``samples_per_cell`` defaults to the JAX package's pick."""
     p = params
-    n, hh, ww, cc = x.shape
-    ps = model.patch_size
-    d = model.hidden_size
     heads = model.num_heads
-    s_cell = samples_per_cell or _pick_samples_per_cell(n)
-
-    t = torch.as_tensor(t, dtype=torch.float32, device=x.device).reshape(-1).expand(n)
-    if y is None:
-        y = torch.full((n,), model.null_label, dtype=torch.int64, device=x.device)
-
-    # patchify (nn/layers.py PatchEmbed): reshape + matmul, row-major patches
-    xt = x.reshape(n, hh // ps, ps, ww // ps, ps, cc).permute(0, 1, 3, 2, 4, 5)
-    xt = xt.reshape(n, (hh // ps) * (ww // ps), ps * ps * cc)
-    w = p["x_embedder.proj.weight"]
-    xt = dense(xt, w.permute(0, 2, 3, 1).reshape(d, -1), p["x_embedder.proj.bias"], _BF)
-    xt = xt + model.pos_embed.to(_BF)
-
-    # conditioning c = t_emb + y_emb
-    te = timestep_embedding(t, 256).to(_BF)
-    te = _dense(F.silu(_dense(te, p, "t_embedder.mlp.0")), p, "t_embedder.mlp.2")
-    c = te + p["y_embedder.embedding_table.weight"][y].to(_BF)
-    silu_c = F.silu(c)
-
-    xt = xt.contiguous()
+    s_cell = samples_per_cell or _pick_samples_per_cell(x.shape[0])
+    xt, silu_c = embed_bf16(model, p, t, x, y)
     block_fn = make_fused_block_train(heads, s_cell, bwd_samples_per_cell) if train_vjp else None
     for i in range(model.depth):
         b = f"blocks.{i}."

@@ -5,13 +5,15 @@
 noise (core/rng.py), optional CFG as one doubled batch (ode/cfg.py), the
 ODE from t=1 to t=0 (ode/solvers.py), the latent unscale, the VAE decode and
 the [0, 1] clamp. The model is a DiT or the origin-ADM UNet. With
-``use_fused_dit`` a bf16 DiT evaluates every block through the fused block
-kernel (nn/dit_fused.py); otherwise, and for a UNet, the module path runs,
-whose attention goes through the attention kernels when the model has
-``use_flash``. Labels are drawn only when ``num_classes > 1``, and CFG's
-null label is the model's ``null_label``. int8, the sequence- and
-pipeline-parallel paths, Karras samplers and the ``eval_noise`` floor are
-not ported yet.
+``use_int8_dit`` a DiT evaluates every block's four matmuls in int8
+(nn/dit_int8.py, through the int8 GEMM kernel), and this wins over
+``use_fused_dit``, with which a bf16 DiT evaluates every block through the
+fused block kernel (nn/dit_fused.py); otherwise, and for a UNet under
+either flag, the module path runs, whose attention goes through the
+attention kernels when the model has ``use_flash``. Labels are drawn only
+when ``num_classes > 1``, and CFG's null label is the model's
+``null_label``. The sequence- and pipeline-parallel paths, Karras samplers
+and the ``eval_noise`` floor are not ported yet.
 """
 
 from __future__ import annotations
@@ -34,14 +36,23 @@ class SampleOutput(NamedTuple):
 
 
 def build_velocity(model, y: Optional[torch.Tensor], cfg_scale: float, *,
-                   use_fused_dit: bool = False) -> Callable:
+                   use_fused_dit: bool = False, int8_params=None) -> Callable:
     """v(t, x), CFG-fused when cfg_scale > 1 (test_flow_latent.py:55-59).
 
-    With ``use_fused_dit`` and ``fused_applicable`` (a bf16 DiT; never a
-    UNet), the model evaluates through ``dit_fused_apply`` on a bf16 copy of
-    its parameters made once, at the first call."""
+    With ``int8_params`` (``quantize_params_int8`` of a DiT's state dict,
+    which ``make_sampler`` makes under ``use_int8_dit``) the model
+    evaluates through ``dit_int8_apply``, whatever ``use_fused_dit`` says,
+    as in the JAX sampler (lfm_tpu/sample/sample.py:95-116). Else, with
+    ``use_fused_dit`` and ``fused_applicable`` (a bf16 DiT; never a UNet),
+    it evaluates through ``dit_fused_apply`` on a bf16 copy of its
+    parameters made once, at the first call."""
     apply = model
-    if use_fused_dit:
+    if int8_params is not None:
+        from lfm_tpu_torch.nn.dit_int8 import dit_int8_apply
+
+        def apply(t, x, yy):
+            return dit_int8_apply(model, int8_params, t, x, yy)
+    elif use_fused_dit:
         from lfm_tpu_torch.nn.dit_fused import (cast_params_bf16, dit_fused_apply,
                                                 fused_applicable)
         bf16_params = None
@@ -84,14 +95,22 @@ def make_sampler(config: Config, model, params=None, vae=None, vae_params=None,
     ``model`` and ``vae`` are this package's modules; ``params`` and
     ``vae_params``, where given, are state dicts loaded into them. Both are
     moved to ``device`` (the card unless ``device="cpu"``). Without a VAE the
-    latents are returned as the images."""
+    latents are returned as the images. With ``use_int8_dit`` and a DiT
+    (``int8_model_ok``, the JAX gate: on the model only) the block weights
+    are quantized here, once, from the f32 parameters (JAX's ``params_pre
+    == "int8"``); a UNet under ``use_int8_dit`` takes the module path, as
+    in JAX."""
     device = resolve_device(device)
     sc = config.sample
-    if sc.use_int8_dit:
-        raise NotImplementedError("int8 DiT sampling is not ported yet")
     if params is not None:
         model.load_state_dict(params)
     model.to(device).eval()
+    int8_params = None
+    if sc.use_int8_dit:
+        from lfm_tpu_torch.nn.dit_int8 import int8_model_ok, quantize_params_int8
+
+        if int8_model_ok(model):
+            int8_params = quantize_params_int8(model, model.state_dict())
     if vae is not None:
         if vae_params is not None:
             vae.load_state_dict(vae_params)
@@ -101,7 +120,8 @@ def make_sampler(config: Config, model, params=None, vae=None, vae_params=None,
     def fn(noise: torch.Tensor, y: Optional[torch.Tensor] = None) -> SampleOutput:
         noise = noise.to(device=device, dtype=torch.float32)
         y = None if y is None else y.to(device)
-        velocity = build_velocity(model, y, sc.cfg_scale, use_fused_dit=sc.use_fused_dit)
+        velocity = build_velocity(model, y, sc.cfg_scale, use_fused_dit=sc.use_fused_dit,
+                                  int8_params=int8_params)
         z0, nfe = sample_latents(velocity, noise, method=sc.method, atol=sc.atol,
                                  rtol=sc.rtol, num_steps=sc.num_steps,
                                  step_size=sc.step_size,

@@ -1,7 +1,7 @@
 """Where the time of a sampling run goes on the card.
 
     python -m lfm_tpu_torch.tools.profile_sample [--preset celeb256_adm] [--fused_gn]
-        [--out DIR]
+        [--int8_dit] [--out DIR]
 
 Builds the preset's network in bf16 as ``cli.main sample`` does (attention
 through the kernels; a DiT through the fused block kernel), with seeded
@@ -14,11 +14,13 @@ after an untraced timed run of the same call. From each trace:
 - wall: the first kernel's start to the last kernel's end; busy: the
   union of the kernel intervals; idle: the rest (launches and host syncs
   the device waits for);
-- device time by kernel class: the port's kernels (K1, K2, K4, K6) by
-  name, cuDNN convolutions, matmuls, ATen's GroupNorm statistics,
-  concatenation, copies and casts, and the other elementwise kernels.
+- device time by kernel class: the port's kernels (K1, K2, K4, K6 and
+  P1's int8 GEMM and row quantization) by name, cuDNN convolutions,
+  matmuls, ATen's GroupNorm statistics, concatenation, copies and casts,
+  and the other elementwise kernels.
 
-``--fused_gn`` sends an ADM's ResBlock GroupNorm + SiLU through K6. Prints
+``--fused_gn`` sends an ADM's ResBlock GroupNorm + SiLU through K6;
+``--int8_dit`` samples a DiT through the w8a8 blocks (nn/dit_int8.py). Prints
 one JSON line and writes it, with both Chrome traces, to ``--out``
 (default ``saved_info/profile_sample/``). The profiler's own cost per
 launch is in the traced wall time; the untraced seconds are beside it.
@@ -42,6 +44,8 @@ CONV, K2 = "convolution (cuDNN)", "K2 fused_dit_block"
 # kernel name -> class, first match wins (lower-case substrings of the
 # demangled name)
 CLASSES = (
+    ("P1 int8_gemm", ("lfm::int8_gemm_kernel",)),
+    ("P1 quant_rows", ("lfm::quant_rows_kernel",)),
     (K2, ("lfm::gemm_kernel", "lfm::ln_modulate_kernel")),
     ("K1 attention_small", ("attn_small_kernel",)),
     ("K4 flash_attention", ("flash_attn_kernel",)),
@@ -104,6 +108,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="profile_sample")
     p.add_argument("--preset", type=str, default="celeb256_adm")
     p.add_argument("--fused_gn", action="store_true")
+    p.add_argument("--int8_dit", action="store_true")
     p.add_argument("--out", type=str, default="saved_info/profile_sample")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -118,7 +123,8 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     preset = get_preset(args.preset)
-    sample = dataclasses.replace(preset.sample, method="euler", num_steps=STEPS)
+    sample = dataclasses.replace(preset.sample, method="euler", num_steps=STEPS,
+                                 use_int8_dit=args.int8_dit)
     config = dataclasses.replace(preset, sample=sample)
     model = create_network(config.model, dtype=torch.bfloat16,
                            use_flash=config.model.use_flash_attention,
@@ -137,7 +143,7 @@ def main(argv=None) -> int:
     line = {
         "phase": "profile_sample", "preset": args.preset, "model": type(model).__name__,
         "batch": sample.batch_size, "method": "euler", "nfe": nfe, "fused_gn": args.fused_gn,
-        "use_fused_dit": sample.use_fused_dit,
+        "use_fused_dit": sample.use_fused_dit, "use_int8_dit": sample.use_int8_dit,
         "ode_seconds_untraced": ode_s, "decode_seconds_untraced": dec_s,
         "ode_per_nfe": summarize(ode_kernels, per=nfe), "decode": summarize(dec_kernels),
         "device": torch.cuda.get_device_name(0),
@@ -145,7 +151,7 @@ def main(argv=None) -> int:
     }
     print(json.dumps(line), flush=True)
     os.makedirs(args.out, exist_ok=True)
-    tag = f"{args.preset}{'_fused_gn' if args.fused_gn else ''}"
+    tag = f"{args.preset}{'_fused_gn' if args.fused_gn else ''}{'_int8' if args.int8_dit else ''}"
     with open(os.path.join(args.out, f"profile_sample_{tag}.json"), "w") as f:
         f.write(json.dumps(line, indent=1))
     ode_prof.export_chrome_trace(os.path.join(args.out, f"trace_ode_{tag}.json"))

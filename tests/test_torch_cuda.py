@@ -472,3 +472,132 @@ def test_fused_train_step_launches_k5_forward_and_k3(cuda):
     assert [k.count - b for k, b in zip(counters, before)] == [2, 2, 0, 0, 0]
     assert bool(torch.isfinite(loss)) and bool(torch.isfinite(gnorm))
     assert all(float((a - b.detach()).abs().max()) > 0 for a, b in zip(p0, state.params))
+
+
+# P1: the int8 GEMM, row quantization and the bf16 MLP (int8_gemm.cu).
+# quant_rows is bit-exact (the same IEEE divisions and ties to even as its
+# plain version); int8_dense within INT8_TOL of the largest plain output
+# (exact int32 sums and the same f32 dequant, only the GELU's tanh may
+# differ in the last bit); int8_mlp and bf16_mlp after INT8_CHAIN chained
+# steps within 2e-2 (a GELU output that rounds the other way moves one int8
+# step in the next product; bf16 sums in another order round the other way).
+INT8_TOL = 1e-5
+MLP_TOL = 2e-2
+INT8_CHAIN = 8
+
+
+def _int8_weight(gen, n, k):
+    from lfm_tpu_torch.nn.dit_int8 import quantize_weight
+
+    return quantize_weight(torch.randn(n, k, generator=gen, device="cuda") * k ** -0.5)
+
+
+@pytest.mark.parametrize("dtype,shape", [(torch.bfloat16, (300, 1024)),
+                                         (torch.float32, (100, 4096)),
+                                         (torch.float32, (7, 128))])
+def test_quant_rows_kernel_is_bit_exact(cuda, dtype, shape):
+    from lfm_tpu_torch.kernels.int8_matmul import QUANT_ROWS, quant_rows, reference_quant_rows
+
+    x = (3 * torch.randn(*shape, generator=cuda, device="cuda")).to(dtype)
+    # row 0 hits the ties: max 127, so s = 1 and x / s = k + 0.5
+    x[0] = 0.0
+    x[0, :6] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -2.5], device="cuda").to(dtype)
+    before = QUANT_ROWS.count
+    q, s = quant_rows(x)
+    torch.cuda.synchronize()
+    assert QUANT_ROWS.count == before + 1 and q.dtype == torch.int8 and s.shape == (shape[0], 1)
+    wq, ws = reference_quant_rows(x)
+    assert torch.equal(q, wq) and torch.equal(s, ws)
+    assert q[0, :6].tolist() == [127, 0, 2, 2, 0, -2]
+
+
+@pytest.mark.parametrize("m,k,n", [(300, 128, 384), (257, 512, 128), (64, 1024, 256)])
+@pytest.mark.parametrize("epilogue,out_dtype,bias", [("store", torch.float32, True),
+                                                     ("store", torch.bfloat16, True),
+                                                     ("gelu", torch.float32, True),
+                                                     ("store", torch.float32, False)])
+def test_int8_dense_kernel_matches_plain(cuda, m, k, n, epilogue, out_dtype, bias):
+    from lfm_tpu_torch.kernels.int8_matmul import INT8_DENSE, int8_dense, reference_int8_dense
+
+    x = torch.randn(m, k, generator=cuda, device="cuda")
+    q, s = _int8_weight(cuda, n, k)
+    b = (0.1 * torch.randn(n, generator=cuda, device="cuda")).bfloat16() if bias else None
+    before = INT8_DENSE.count
+    got = int8_dense(x, q, s, b, epilogue, out_dtype)
+    torch.cuda.synchronize()
+    assert INT8_DENSE.count == before + 1 and got.dtype == out_dtype and got.shape == (m, n)
+    want = reference_int8_dense(x, q, s, b, epilogue, out_dtype)
+    assert _rel(got, want) <= (INT8_TOL if out_dtype == torch.float32 else 2.0 ** -8)
+
+
+def test_int8_mlp_and_bf16_mlp_chains_match_plain(cuda):
+    from lfm_tpu_torch.kernels.int8_matmul import (BF16_MLP, INT8_MLP, bf16_mlp, int8_mlp,
+                                                   reference_bf16_mlp, reference_int8_mlp)
+
+    rows, d, h = 1000, 256, 1024
+    q1, s1 = _int8_weight(cuda, h, d)
+    q2, s2 = _int8_weight(cuda, d, h)
+    s1, s2 = 1.25 * s1, 1.25 * s2  # a chain that neither vanishes nor explodes
+    w1, w2 = (q1.float() * s1[:, None]).bfloat16(), (q2.float() * s2[:, None]).bfloat16()
+    x = torch.randn(rows, d, generator=cuda, device="cuda").bfloat16()
+    before = (INT8_MLP.count, BF16_MLP.count)
+    gi, wi, gb, wb = x.float(), x.float(), x, x
+    for _ in range(INT8_CHAIN):
+        gi = int8_mlp(gi, q1, s1, None, q2, s2, None)
+        wi = reference_int8_mlp(wi, q1, s1, None, q2, s2, None)
+        gb, wb = bf16_mlp(gb, w1, w2), reference_bf16_mlp(wb, w1, w2)
+    torch.cuda.synchronize()
+    assert (INT8_MLP.count, BF16_MLP.count) == (before[0] + INT8_CHAIN, before[1] + INT8_CHAIN)
+    assert float(wi.abs().max()) > 1e-2 and float(wb.float().abs().max()) > 1e-2
+    assert _rel(gi, wi) <= MLP_TOL and _rel(gb, wb) <= MLP_TOL
+
+
+def test_int8_kernels_refuse_what_they_do_not_take(cuda):
+    from lfm_tpu_torch.kernels.int8_matmul import bf16_mlp, int8_dense, quant_rows
+
+    x = torch.randn(64, 128, device="cuda")
+    q, s = _int8_weight(cuda, 256, 128)
+    with pytest.raises(ValueError, match="N % 128"):
+        int8_dense(x, q[:200].contiguous(), s[:200].contiguous())
+    with pytest.raises(ValueError, match="K % 64"):
+        int8_dense(x[:, :96].contiguous(), q[:, :96].contiguous(), s)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_rows(x.t())
+    with pytest.raises(ValueError, match="bias"):
+        int8_dense(x, q, s, torch.zeros(256, device="cuda"))
+    with pytest.raises(ValueError, match="float16"):
+        quant_rows(x.half())
+    w = torch.zeros(256, 128, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="N % 128"):
+        bf16_mlp(x.bfloat16()[:, :96].contiguous(), w[:, :96].contiguous(),
+                 w.t()[:96].contiguous())
+
+
+def test_small_dit_int8_velocity_matches_plain(cuda):
+    """dit_int8_apply of a small DiT on the card: 4 int8_dense launches a
+    block, nothing of K1 or K2, and the velocity within 1e-2 of the plain
+    int8 path on the card (a few GELU outputs that round the other way
+    change an int8 step of fc2's input, 3 blocks deep)."""
+    from lfm_tpu_torch.kernels.dit_block import FUSED_DIT_BLOCK
+    from lfm_tpu_torch.kernels.flash_attention import ATTENTION_SMALL
+    from lfm_tpu_torch.kernels.int8_matmul import INT8_DENSE, QUANT_ROWS
+    from lfm_tpu_torch.nn.dit import DiT
+    from lfm_tpu_torch.nn.dit_int8 import dit_int8_apply, quantize_params_int8
+    from lfm_tpu_torch.nn.init import seeded_init_
+
+    model = DiT(img_resolution=16, patch_size=2, hidden_size=128, depth=3, num_heads=4,
+                num_classes=10, dtype=torch.bfloat16, use_flash=True).to("cuda")
+    seeded_init_(model, 0)
+    qp = quantize_params_int8(model, model.state_dict())
+    x = torch.randn(4, 16, 16, 4, generator=cuda, device="cuda")
+    t = torch.linspace(0.1, 0.9, 4, device="cuda")
+    y = torch.tensor([0, 3, 5, 9], device="cuda")
+    counters = (INT8_DENSE, QUANT_ROWS, ATTENTION_SMALL, FUSED_DIT_BLOCK)
+    before = [c.count for c in counters]
+    with torch.no_grad():
+        got = dit_int8_apply(model, qp, t, x, y)
+        torch.cuda.synchronize()
+        assert [c.count - b for c, b in zip(counters, before)] == [12, 12, 0, 0]
+        want = dit_int8_apply(model, qp, t, x, y, plain=True)
+    assert got.shape == (4, 16, 16, 4) and bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= 1e-2

@@ -59,7 +59,10 @@ def test_port_imports_nothing_of_jax_or_lfm_tpu():
                 "lfm_tpu_torch.core.checkpoint", "lfm_tpu_torch.core.preemption",
                 "lfm_tpu_torch.data.datasets", "lfm_tpu_torch.data.loader",
                 "lfm_tpu_torch.nn.adm_unet", "lfm_tpu_torch.nn.convert_adm",
-                "lfm_tpu_torch.kernels.groupnorm_silu", "lfm_tpu_torch.kernels.dit_block_train"):
+                "lfm_tpu_torch.kernels.groupnorm_silu", "lfm_tpu_torch.kernels.dit_block_train",
+                "lfm_tpu_torch.kernels.int8_matmul", "lfm_tpu_torch.nn.dit_int8",
+                "lfm_tpu_torch.eval.inception", "lfm_tpu_torch.eval.fid",
+                "lfm_tpu_torch.tools.microbench_int8"):
         assert mod in out["modules"]
 
 
@@ -121,6 +124,7 @@ def test_kernel_wrappers_take_no_other_device():
     from lfm_tpu_torch.kernels.flash_attention import (attention_small, attention_small_bwd,
                                                        flash_attention, fused_attention)
     from lfm_tpu_torch.kernels.groupnorm_silu import groupnorm_silu
+    from lfm_tpu_torch.kernels.int8_matmul import bf16_mlp, int8_dense, int8_mlp, quant_rows
 
     q = torch.empty(1, 16, 2, 32, dtype=torch.bfloat16, device="meta")
     x = torch.empty(1, 4, 4, 64, dtype=torch.bfloat16, device="meta")
@@ -134,6 +138,14 @@ def test_kernel_wrappers_take_no_other_device():
                  lambda: block_train_fwd(x, *([x] * 9), num_heads=4),
                  lambda: mlp_bwd(*([x] * 7)),
                  lambda: attn_bwd(*([x] * 8), num_heads=4)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
+    a = torch.empty(16, 128, dtype=torch.bfloat16, device="meta")
+    q = torch.empty(128, 128, dtype=torch.int8, device="meta")
+    s = torch.empty(128, dtype=torch.float32, device="meta")
+    for call in (lambda: quant_rows(a), lambda: int8_dense(a, q, s),
+                 lambda: int8_mlp(a, q, s, None, q, s, None),
+                 lambda: bf16_mlp(a, a.new_empty(256, 128), a.new_empty(128, 256))):
         with pytest.raises(ValueError, match="unsupported device"):
             call()
 
