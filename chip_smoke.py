@@ -13,8 +13,9 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    kernel's time, the plain version's time, the bound and the time of one
    library call computing the same function:
    - attention_small (K1), bf16 at (8, 256, 16, 64), (2, 1024, 16, 64),
-     (32, 256, 16, 64) (the train step's shape) and (N, 256, 16, 64), and
-     f32 at (8, 256, 16, 64) and at the origin ADM's heads, (N, 16, 4, 128)
+     (32, 256, 16, 64) (the train step's shape) and (N, 256, 16, 64), the
+     last also on the thirds of a fused qkv row (K2's layout), and f32 at
+     (8, 256, 16, 64) and at the origin ADM's heads, (N, 16, 4, 128)
      (celeb256_adm's path), (16, 64, 4, 128) and (16, 16, 4, 256); library:
      scaled_dot_product_attention;
    - fused_dit_block (K2) at T=256, C=1024, hidden 4096, 16 heads, N=8 and
@@ -51,6 +52,10 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
      CHAIN 8 (tools/microbench_int8.py's inputs), library: the _int_mm
      chain and F.linear + gelu in bf16.
    N is the preset's sampling batch (200), the sampling path's batch.
+   Then one attention_redesign line: each bf16 K1 and K4 shape (the wgmma
+   + TMA kernel of attention_sm90.cuh) with its ms, share of its bound and
+   ratio to SDPA, and each of that kernel's instances' registers and
+   spills from the build's ptxas report; a spill fails the run.
 3. grad: a 2-block DiT at DiT-L width (C = 1024, 16 heads, T = 256), batch
    8, bf16 compute on f32 masters; the flow-matching loss's parameter
    gradients with attention through K1/K3, and through
@@ -458,9 +463,16 @@ def run(torch, work: str) -> int:
     # f32: the DiT's head, then the origin ADM's (celeb256_adm's path first)
     k1_f32 = [(8, 256, 16, 64, f32), (batch, 16, 4, 128, f32), (16, 64, 4, 128, f32),
               (16, 16, 4, 256, f32)]
-    for n, t, h, d, dt in k1_cases + k1_f32:
+    # and K2's layout: q, k, v as the thirds of one (N, T, 3C) qkv row
+    k1_qkv = [(batch, 256, 16, 64, bf)]
+    for n, t, h, d, dt, layout in ([c + ("separate",) for c in k1_cases + k1_f32]
+                                   + [c + ("qkv",) for c in k1_qkv]):
         t_case = time.time()
-        q, k, v = rn(n, t, h, d, dtype=dt), rn(n, t, h, d, dtype=dt), rn(n, t, h, d, dtype=dt)
+        if layout == "qkv":
+            qkv = rn(n, t, 3 * h * d, dtype=dt)
+            q, k, v = (a.view(n, t, h, d) for a in qkv.split(h * d, dim=-1))
+        else:
+            q, k, v = rn(n, t, h, d, dtype=dt), rn(n, t, h, d, dtype=dt), rn(n, t, h, d, dtype=dt)
         out = attention_small(q, k, v)
         ref = reference_attention(q, k, v)
         torch.cuda.synchronize()
@@ -473,12 +485,13 @@ def run(torch, work: str) -> int:
         esize = q.element_size()
         bms, by = bound_ms(4 * n * t * h * d * esize, 4 * n * h * t * t * d,
                            BF16_FLOPS if dt == bf else F32_FLOPS)
-        row = {"shape": [n, t, h, d], "dtype": str(dt), "max_abs_err": err, "rel_err": rel,
-               "tol": tol, "ms": time_ms(torch, lambda: attention_small(q, k, v)),
+        row = {"shape": [n, t, h, d], "dtype": str(dt), "layout": layout, "max_abs_err": err,
+               "rel_err": rel, "tol": tol,
+               "ms": time_ms(torch, lambda: attention_small(q, k, v)),
                "plain_ms": time_ms(torch, lambda: reference_attention(q, k, v)),
                "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh)),
                "bound_ms": bms, "bound_by": by, "seconds": time.time() - t_case}
-        k1_rows[(n, t, h, d, dt)] = row
+        k1_rows[(n, t, h, d, dt) + ((layout,) if layout != "separate" else ())] = row
         emit({"phase": "kernel", "name": "attention_small", **row})
         del q, k, v, qh, kh, vh, out, ref
 
@@ -573,6 +586,25 @@ def run(torch, work: str) -> int:
         k4_rows[(n, t, h, d, dt)] = row
         emit({"phase": "kernel", "name": "flash_attention", **row})
         del q, k, v, qh, kh, vh, out, ref
+
+    # the wgmma + TMA attention (bf16 K1 and K4): time against bound and
+    # SDPA at every shape above, and ptxas's registers and spills
+    redesign = [{"kernel": name, "shape": r["shape"], "layout": r.get("layout", "separate"),
+                 "ms": r["ms"], "bound_ms": r["bound_ms"], "bound_share": r["bound_ms"] / r["ms"],
+                 "library_ms": r["library_ms"], "vs_sdpa": r["ms"] / r["library_ms"]}
+                for name, rows in (("attention_small", k1_rows), ("flash_attention", k4_rows))
+                for r in rows.values() if r["dtype"] == str(bf)]
+    ptxas = {}
+    for mangled, use in _build.ptxas_usage("attention_sm90").items():
+        m = re.search(r"(attn_\w+_kernel)ILi(\d+)ELb([01])E", mangled)
+        if m:
+            ptxas[f"{m.group(1)}<{m.group(2)}, {'true' if m.group(3) == '1' else 'false'}>"] = use
+    emit({"phase": "attention_redesign",
+          "source": "lfm_tpu_torch/kernels/csrc/attention_sm90.cuh", "shapes": redesign,
+          "ptxas": ptxas})
+    spilled = {k: u for k, u in ptxas.items() if u.get("spill_stores") or u.get("spill_loads")}
+    if len(ptxas) != 8 or spilled:
+        raise AssertionError(f"attention_sm90: {len(ptxas)} kernel instances, spills {spilled}")
 
     for n, hh, ww, c, dt, offset in ((batch, 32, 32, 256, bf, 0.0), (batch, 32, 32, 768, bf, 0.0),
                                      (batch, 4, 4, 1024, bf, 0.0), (batch, 32, 32, 256, bf, 8.0),
@@ -1231,13 +1263,13 @@ def run(torch, work: str) -> int:
     kdir, p1 = "lfm_tpu/kernels/", "tools/microbench_int8_pallas.py"
     # name, source, TPU kernel, the path whose count is "launches", the row
     kernels = (
-        ("attention_small", "attention.cuh", kdir + "flash_attention.py:163", "train",
+        ("attention_small", "attention_sm90.cuh", kdir + "flash_attention.py:163", "train",
          k1_rows[(train_batch, 256, 16, 64, bf)]),
         ("fused_dit_block", "dit_block.cu", kdir + "dit_block.py:135", "main_fused",
          k2_rows[batch]),
         ("attention_small_bwd", "attention_bwd.cuh", kdir + "flash_attention.py:233", "train",
          k3_rows[(train_batch, 256, bf)]),
-        ("flash_attention", "flash_attention.cuh", kdir + "flash_attention.py:74", "long_t",
+        ("flash_attention", "attention_sm90.cuh", kdir + "flash_attention.py:74", "long_t",
          k4_rows[(2, 4096, 16, 64, bf)]),
         ("groupnorm_silu", "groupnorm_silu.cu", kdir + "groupnorm_silu.py:68", "adm_fused_gn",
          k6_rows[(batch, 32, 32, 256, bf, 0.0)]),

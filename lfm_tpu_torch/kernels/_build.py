@@ -5,8 +5,10 @@ The library is built at first use from ``csrc/`` into
 ``kernels/_build/<hash of sources and flags>/`` (ignored by git). Each
 ``.cu`` compiles in its own nvcc process, all started together; the link
 writes a temporary name that ``os.replace`` moves into place, so a build
-that is killed leaves neither a lock nor a half-written library. Nothing
-here runs at import time, and nothing here is needed on the CPU.
+that is killed leaves neither a lock nor a half-written library. Beside the
+library, ``<source>.ptxas.txt`` keeps each source's ``ptxas -v`` report
+(registers and spills per kernel; ``ptxas_usage`` reads it). Nothing here
+runs at import time, and nothing here is needed on the CPU.
 """
 
 from __future__ import annotations
@@ -15,17 +17,19 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import List
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 LIB_NAME = "liblfm_kernels.so"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+PTXAS_SUFFIX = ".ptxas.txt"
 BUILD_TIMEOUT_S = 900
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -106,6 +110,7 @@ def build() -> Path:
                 _, err = proc.communicate(timeout=BUILD_TIMEOUT_S)
                 if proc.returncode != 0:
                     failures.append(f"{src.name}:\n{err}")
+                (tmp / (src.stem + PTXAS_SUFFIX)).write_text(err)
         finally:
             for _, proc in procs:
                 if proc.poll() is None:
@@ -119,6 +124,8 @@ def build() -> Path:
         if res.returncode != 0:
             raise RuntimeError("nvcc link failed:\n" + res.stderr)
         out.parent.mkdir(parents=True, exist_ok=True)
+        for log in tmp.glob("*" + PTXAS_SUFFIX):
+            os.replace(log, out.parent / log.name)
         os.replace(lib_tmp, out)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -140,3 +147,26 @@ def load_library() -> ctypes.CDLL:
 def check_rc(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def ptxas_usage(stem: str) -> Dict[str, Dict[str, int]]:
+    """{mangled kernel name: registers, spill_stores, spill_loads (bytes)}
+    from the ptxas report of ``csrc/<stem>.cu`` in the built library's
+    directory."""
+    text = (library_path().parent / (stem + PTXAS_SUFFIX)).read_text()
+    usage, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            usage[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            usage[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[name]["registers"] = int(m.group(1))
+    return usage

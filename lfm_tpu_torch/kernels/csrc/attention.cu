@@ -1,5 +1,5 @@
 // C entry point of K1, the port of lfm_tpu/kernels/flash_attention.py::
-// attention_small. The kernel itself is in attention.cuh.
+// attention_small: bf16 runs attention_sm90.cuh, f32 attention.cuh.
 #include "attention.cuh"
 
 // q, k, v, o: (N, T, H*D) slabs with row strides ldq/ldk/ldv/ldo

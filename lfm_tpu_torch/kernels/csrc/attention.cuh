@@ -1,7 +1,10 @@
-// Whole-sequence softmax attention for small T (the port of
-// lfm_tpu/kernels/flash_attention.py::attention_small, `_attn_small_kernel`),
-// and the warp-tile products that it shares with the backward (K3,
-// attention_bwd.cuh).
+// Whole-sequence softmax attention for small T in f32 (the port of
+// lfm_tpu/kernels/flash_attention.py::attention_small, `_attn_small_kernel`,
+// for f32 models), the dispatch of K1 by element type, and the warp-tile
+// products that the backward (K3, attention_bwd.cuh) uses in both types.
+// The bf16 forward (K1, and the attention inside K2 and K5) is the wgmma +
+// TMA kernel of attention_sm90.cuh: launch_attention<NORM_P, bf16> launches
+// it. The f32 forward below is an FMA island, not redesigned.
 //
 // q, k, v are read in place from (N, T, row) slabs: token t of sample n,
 // head h starts at ptr[(n*T + t)*ld + h*D]. So the kernel takes the
@@ -12,23 +15,21 @@
 // owns 16 rows. Key and value tiles of 64 rows stream through shared memory.
 // Pass 1 computes S = scale * Q K^T tile by tile (f32 accumulation) and keeps
 // each row's running max m and sum l = sum exp(s - m) in f32. Pass 2
-// recomputes S, forms p = exp(s - m) in f32, rounds p to the input type and
-// accumulates P V in f32. NORM_P = false divides the f32 result by l at the
-// end (the rounding of `_attn_small_kernel`, K1); NORM_P = true rounds p / l
-// before the PV product instead (the rounding of `_dit_block_kernel`, the
-// attention inside K2). The (T, T) scores never reach device memory. The
-// head dim is zero-padded to DP, a multiple of 16.
+// recomputes S, forms p = exp(s - m) in f32 and accumulates P V in f32.
+// NORM_P = false divides the f32 result by l at the end (the rounding of
+// `_attn_small_kernel`, K1); NORM_P = true normalises p before the PV
+// product instead (the rounding of `_dit_block_kernel`, the attention
+// inside K2). The (T, T) scores never reach device memory. The head dim is
+// zero-padded to DP, a multiple of 16.
 //
-// Element types: bf16 runs its products on the tensor cores (WMMA bf16 ->
-// f32); f32 runs them as f32 FMA on the CUDA cores, so an f32 model is f32
-// throughout (no TF32 anywhere). WarpTile<T, DP> below holds both.
+// f32 runs its products as f32 FMA on the CUDA cores, so an f32 model is
+// f32 throughout (no TF32 anywhere). WarpTile<T, DP> below holds them, and
+// the bf16 WMMA products (bf16 -> f32, mma.sync) that K3 uses.
 //
-// What bounds it on the H100: at T=256, D=64 the bytes it must move are
-// 4*T*H*D*2 per sample against 4*T*T*H*D flops, about 128 flops per byte,
-// under the card's ~295 bf16 flops per byte, so it is bound by memory in
-// principle; this simple design recomputes QK^T once (1.5x the flops), uses
-// WMMA (mma.sync) rather than wgmma, and does not overlap loads with math,
-// so in practice it is bound by its own latency. TMA + wgmma is later work.
+// What bounds it on the H100: at f32, T=256, D=64 the bytes it must move
+// are 4*T*H*D*4 per sample against 4*T*T*H*D flops on the 67 TFLOP/s f32
+// units: bound by operations. This design recomputes QK^T once (1.5x the
+// flops) and does not overlap loads with math.
 //
 // Wide heads: the origin ADM runs its attention in f32 at D = 128
 // (celeb256_adm) and 256 (celeb512_adm, church_adm), at T = 16 or 64. At f32
@@ -38,6 +39,8 @@
 // T = 16 fills a quarter of one tile; the rows past T are zero-filled and
 // their columns masked.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -200,11 +203,13 @@ struct WarpTile<float, DP> {
   };
 };
 
+// f32 only: bf16 runs attention_sm90.cuh
 template <typename T, int DP, bool NORM_P>
 __global__ void __launch_bounds__(ATT_THREADS)
 attn_small_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   T* __restrict__ o, int T_len, int D, long ldq, long ldk, long ldv, long ldo,
                   float scale) {
+  static_assert(std::is_same<T, float>::value, "bf16 attention runs attention_sm90.cuh");
   using L = AttnLayout<T, DP>;
   using W = WarpTile<T, DP>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -308,18 +313,30 @@ static cudaError_t launch_attn_dp(const T* q, const T* k, const T* v, T* o, int 
   return cudaGetLastError();
 }
 
+// bf16 attention on Hopper (attention_sm90.cu): bk = 0 takes the whole
+// sequence (K1, K2, K5), bk > 0 K4's key blocks
+cudaError_t launch_attention_sm90(const bf16* q, const bf16* k, const bf16* v, bf16* o, int N,
+                                  int T, int H, int D, long ldq, long ldk, long ldv, long ldo,
+                                  int bk, bool norm_p, cudaStream_t stream);
+
 // D in {56, 64, 72, 80} (checked by the Python wrapper): the head dims of
-// the DiT configs, 64 (S, B, L) and 72 (XL). Add a padded size here when a
-// config needs it. The origin ADM's wide f32 heads are in
-// launch_attention_wide_f32 (attention_wide.cu).
+// the DiT configs, 64 (S, B, L) and 72 (XL). bf16 launches the wgmma
+// kernel of attention_sm90.cuh, f32 the FMA kernel above. The origin ADM's
+// wide f32 heads are in launch_attention_wide_f32 (attention_wide.cu).
 template <bool NORM_P, typename T = bf16>
 static cudaError_t launch_attention(const T* q, const T* k, const T* v, T* o, int N, int T_len,
                                     int H, int D, long ldq, long ldk, long ldv, long ldo,
                                     cudaStream_t s) {
-  switch ((D + 15) / 16) {
-    case 4: return launch_attn_dp<T, 64, NORM_P>(q, k, v, o, N, T_len, H, D, ldq, ldk, ldv, ldo, s);
-    case 5: return launch_attn_dp<T, 80, NORM_P>(q, k, v, o, N, T_len, H, D, ldq, ldk, ldv, ldo, s);
-    default: return cudaErrorInvalidValue;
+  if constexpr (std::is_same<T, bf16>::value) {
+    return launch_attention_sm90(q, k, v, o, N, T_len, H, D, ldq, ldk, ldv, ldo, 0, NORM_P, s);
+  } else {
+    switch ((D + 15) / 16) {
+      case 4:
+        return launch_attn_dp<T, 64, NORM_P>(q, k, v, o, N, T_len, H, D, ldq, ldk, ldv, ldo, s);
+      case 5:
+        return launch_attn_dp<T, 80, NORM_P>(q, k, v, o, N, T_len, H, D, ldq, ldk, ldv, ldo, s);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 

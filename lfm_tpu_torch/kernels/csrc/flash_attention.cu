@@ -1,9 +1,11 @@
 // C entry point of K4, the port of lfm_tpu/kernels/flash_attention.py::
-// flash_attention. The kernel is in flash_attention.cuh.
+// flash_attention: bf16 runs attention_sm90.cuh (key-block mode), f32
+// flash_attention.cuh.
 #include "flash_attention.cuh"
 
 namespace lfm {
-// compiled here for bf16; the float instance is in flash_attention_f32.cu
+// the bf16 dispatch is compiled here; the float instance is in
+// flash_attention_f32.cu
 template cudaError_t launch_flash<bf16>(const void*, const void*, const void*, void*, int, int,
                                         int, int, int, long, long, long, long, cudaStream_t);
 extern template cudaError_t launch_flash<float>(const void*, const void*, const void*, void*,

@@ -1,5 +1,8 @@
 // Blocked online-softmax attention for long T (the port of
 // lfm_tpu/kernels/flash_attention.py::flash_attention, `_flash_kernel`): K4.
+// bf16 runs the wgmma + TMA kernel of attention_sm90.cuh (its key-block
+// mode); this file holds the f32 kernel, an FMA island that is not
+// redesigned, and the dispatch by element type.
 //
 // The TPU kernel walks the keys in blocks of BK (512 by default) and keeps,
 // per query row, f32 m (running max), l (running sum of exp) and acc (the
@@ -7,28 +10,24 @@
 // m_new = max(m, block max), p = exp(s - m_new) in f32, alpha =
 // exp(m - m_new), l = alpha * l + sum(p), acc = alpha * acc + round(p) V
 // with p rounded to v's type and the product accumulated in f32; at the end
-// out = acc / l, rounded to the output type. This kernel keeps those
-// rounding points and the same blocks of BK keys, so it agrees with its
+// out = acc / l, rounded to the output type. Both kernels keep those
+// rounding points and the same blocks of BK keys, so they agree with their
 // plain version (reference_flash_attention) to the order of f32 sums.
 //
-// Layout and tiles are K1's (attention.cuh): q, k, v are read in place from
-// (N, T, row) slabs, one block of 4 warps takes 64 query rows of one
-// (sample, head), and key and value tiles of 64 rows stream through shared
-// memory; WarpTile does the products (WMMA for bf16, f32 FMA for f32). A
-// key block of BK spans BK / 64 tiles: a first sweep computes S tile by
-// tile for the block's row max, a second recomputes S, forms p and adds
-// P V into a block sum that the lanes then fold into their f32 acc
-// registers (lane L owns row L / 2 and half L % 2 of the columns, as in
-// K1). So the (T, T) scores never reach device memory, and QK^T is
-// computed twice, as in K1.
+// Layout and tiles of the f32 kernel are K1's (attention.cuh): q, k, v are
+// read in place from (N, T, row) slabs, one block of 4 warps takes 64 query
+// rows of one (sample, head), and key and value tiles of 64 rows stream
+// through shared memory; WarpTile does the products in f32 FMA. A key block
+// of BK spans BK / 64 tiles: a first sweep computes S tile by tile for the
+// block's row max, a second recomputes S, forms p and adds P V into a block
+// sum that the lanes then fold into their f32 acc registers (lane L owns row
+// L / 2 and half L % 2 of the columns, as in K1). So the (T, T) scores never
+// reach device memory, and QK^T is computed twice.
 //
-// What bounds it on the H100: at (2, 4096, 16, 64) bf16 the inputs and the
-// output are 4 * 2 * 4096 * 16 * 64 * 2 = 34 MB against 4 * N*H*T^2*D =
-// 137 GFLOP (without the recompute), about 4,000 flops per byte: bound by
-// operations, 0.14 ms at the bf16 peak. This simple design runs WMMA
-// (mma.sync), recomputes QK^T and does not overlap loads with math, so it
-// is bound by its own latency; wgmma, TMA and one pass per key tile with
-// rescaling (FlashAttention-2) are later work.
+// What bounds it on the H100: at (1, 4096, 4, 128) f32 the inputs and the
+// output are 4 * 4096 * 4 * 128 * 4 = 33.6 MB against 4 * N*H*T^2*D =
+// 34.4 GFLOP (without the recompute) on the 67 TFLOP/s f32 units: bound by
+// operations, 0.51 ms.
 #pragma once
 
 #include <type_traits>
@@ -37,11 +36,13 @@
 
 namespace lfm {
 
+// f32 only: bf16 runs attention_sm90.cuh
 template <typename T, int DP>
 __global__ void __launch_bounds__(ATT_THREADS)
 flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   T* __restrict__ o, int T_len, int D, int BK, long ldq, long ldk, long ldv,
                   long ldo, float scale) {
+  static_assert(std::is_same<T, float>::value, "bf16 attention runs attention_sm90.cuh");
   using L = AttnLayout<T, DP>;
   using W = WarpTile<T, DP>;
   constexpr int HALF = DP / 2;
@@ -154,7 +155,8 @@ static cudaError_t launch_flash_dp(const T* q, const T* k, const T* v, T* o, int
 }
 
 // D in {56, 64, 72, 80} for both types (the DiT's heads) and 128 for float
-// (checked by the Python wrapper); BK >= 1.
+// (checked by the Python wrapper); BK >= 1 divides T. bf16 launches the
+// key-block mode of attention_sm90.cuh, f32 the FMA kernel above.
 template <typename T>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o, int N, int T_len,
                          int H, int D, int BK, long ldq, long ldk, long ldv, long ldo,
@@ -162,15 +164,22 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o, i
   auto c = [](const void* p) { return static_cast<const T*>(p); };
   auto m = static_cast<T*>(o);
   if (BK < 1) return cudaErrorInvalidValue;
-  switch ((D + 15) / 16) {
-    case 4: return launch_flash_dp<T, 64>(c(q), c(k), c(v), m, N, T_len, H, D, BK, ldq, ldk, ldv, ldo, s);
-    case 5: return launch_flash_dp<T, 80>(c(q), c(k), c(v), m, N, T_len, H, D, BK, ldq, ldk, ldv, ldo, s);
-    case 8:
-      if constexpr (std::is_same<T, float>::value)
+  if constexpr (std::is_same<T, bf16>::value) {
+    return launch_attention_sm90(c(q), c(k), c(v), m, N, T_len, H, D, ldq, ldk, ldv, ldo, BK,
+                                 false, s);
+  } else {
+    switch ((D + 15) / 16) {
+      case 4:
+        return launch_flash_dp<T, 64>(c(q), c(k), c(v), m, N, T_len, H, D, BK, ldq, ldk, ldv,
+                                      ldo, s);
+      case 5:
+        return launch_flash_dp<T, 80>(c(q), c(k), c(v), m, N, T_len, H, D, BK, ldq, ldk, ldv,
+                                      ldo, s);
+      case 8:
         return launch_flash_dp<T, 128>(c(q), c(k), c(v), m, N, T_len, H, D, BK, ldq, ldk, ldv,
                                        ldo, s);
-      return cudaErrorInvalidValue;
-    default: return cudaErrorInvalidValue;
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 

@@ -7,12 +7,14 @@ kernel `_attn_small_kernel`): whole-sequence, non-causal softmax attention
 per head, scale 1/sqrt(D), f32 max / sum / accumulation, p rounded to the
 input type before the PV product. K3 ports ``attention_small_bwd``
 (`_attn_small_bwd_kernel`): dq, dk, dv with the probs recomputed, p and ds
-rounded to the input type before their products. The kernels are
-``csrc/attention.cuh`` and ``csrc/attention_bwd.cuh``; what bounds them is
-noted there. Both take bf16 or f32; f32 runs its products as f32 FMA.
+rounded to the input type before their products (``csrc/attention_bwd.cuh``).
 K4 ports ``flash_attention`` (`_flash_kernel`): keys in blocks of
 ``block_k`` with an online softmax, f32 m, l and acc, p rounded to v's
-type before PV, acc / l at the end (``csrc/flash_attention.cuh``).
+type before PV, acc / l at the end. In bf16, K1 and K4 are one wgmma + TMA
+kernel for Hopper (``csrc/attention_sm90.cuh``: whole-row mode up to T =
+256, key blocks past it); in f32 they are f32 FMA kernels
+(``csrc/attention.cuh``, ``csrc/flash_attention.cuh``), as is K3's f32
+build. What bounds each is noted in its source.
 
 On a CPU tensor each wrapper computes its plain version; on a CUDA tensor
 it launches its kernel or raises. ``fused_attention_qkv`` is a

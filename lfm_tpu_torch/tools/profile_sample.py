@@ -47,8 +47,11 @@ CLASSES = (
     ("P1 int8_gemm", ("lfm::int8_gemm_kernel",)),
     ("P1 quant_rows", ("lfm::quant_rows_kernel",)),
     (K2, ("lfm::gemm_kernel", "lfm::ln_modulate_kernel")),
-    ("K1 attention_small", ("attn_small_kernel",)),
-    ("K4 flash_attention", ("flash_attn_kernel",)),
+    # bf16 K1 and K4 are attention_sm90.cuh's two modes (K1 takes the
+    # key-block one only past T = 256, which no shipped preset reaches);
+    # f32 runs attn_small_kernel / flash_attn_kernel
+    ("K1 attention_small", ("attn_small_kernel", "sm90::attn_whole_kernel")),
+    ("K4 flash_attention", ("flash_attn_kernel", "sm90::attn_blocked_kernel")),
     ("K6 groupnorm_silu", ("gn_silu_kernel",)),
     (CONV, ("cudnn", "implicit_gemm", "xmma", "conv", "fprop")),
     ("matmul", ("nvjet", "gemm", "cutlass", "cublas")),
@@ -61,7 +64,7 @@ CLASSES = (
 
 def classify(name: str) -> str:
     low = name.lower()
-    if "lfm::attn_small_kernel" in low and "true>" in low:  # NORM_P: K2's attention
+    if "lfm::sm90::attn_" in low and "true>" in low:  # NORM_P: K2's attention
         return K2
     for cls, keys in CLASSES:
         if any(k in low for k in keys):

@@ -59,12 +59,13 @@ DIT_CLASSES = (MATMUL, K1, K3, K5)
 # kernel name -> class, first match wins: a key is a tuple of lower-case
 # substrings that must all be in the name. K5's forward is this package's
 # GEMM and LayerNorm kernels and its attention that normalises p before
-# rounding it (``lfm::attn_small_kernel<..., true>``; K1's is ``false>``)
+# rounding it (``lfm::sm90::attn_whole_kernel<64, true>``; K1's is
+# ``false>``; f32 K1 is ``attn_small_kernel``)
 CLASSES = (
     (K5, (("lfm::gemm_kernel",), ("lfm::ln_modulate_kernel",),
-          ("lfm::attn_small_kernel", "true>"))),
+          ("lfm::sm90::attn_", "true>"))),
     (K3, (("attn_bwd",),)),
-    (K1, (("attn_small_kernel",),)),
+    (K1, (("lfm::sm90::attn_",), ("attn_small_kernel",))),
     (CONV, (("cudnn",), ("implicit_gemm",), ("conv",))),
     (MATMUL, (("nvjet",), ("gemm",), ("cutlass",), ("cublas",))),
     (OPT, (("multi_tensor_apply",),)),

@@ -46,8 +46,11 @@ def cuda():
     return gen
 
 
+# bf16 K1 runs attention_sm90.cuh: whole-row mode up to T = 256, key blocks
+# past it (257, 300, 1024), every head dim (56/64 pad to 64, 72/80 to 80)
 @pytest.mark.parametrize("shape", [(2, 256, 4, 64), (3, 100, 2, 72), (1, 17, 3, 56),
-                                   (2, 1024, 2, 80), (2, 64, 4, 64)])
+                                   (2, 1024, 2, 80), (2, 64, 4, 64), (2, 257, 2, 64),
+                                   (1, 1024, 4, 64), (2, 256, 2, 80), (1, 300, 2, 72)])
 def test_attention_small_kernel_matches_plain(cuda, shape):
     from lfm_tpu_torch.kernels.flash_attention import (ATTENTION_SMALL, attention_small,
                                                        reference_attention)
@@ -206,11 +209,13 @@ def test_attention_small_wide_f32_heads_match_plain(cuda, shape):
 @pytest.mark.parametrize("dtype,shape,bk", [
     (torch.bfloat16, (2, 2048, 2, 64), 512), (torch.bfloat16, (1, 1100, 2, 72), 512),
     (torch.bfloat16, (2, 256, 2, 56), 64), (torch.float32, (1, 2048, 2, 128), 512),
-    (torch.float32, (1, 1030, 2, 80), 512)])
+    (torch.float32, (1, 1030, 2, 80), 512), (torch.bfloat16, (1, 1200, 2, 64), 512),
+    (torch.bfloat16, (1, 1030, 2, 80), 512), (torch.bfloat16, (2, 256, 2, 64), 512)])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, shape, bk):
     """K4 against its plain version on the same key blocks: T past the gate,
-    ragged T (1100 = 4 x 275, 1030 = 2 x 515 > 512, so 206-key blocks), and
-    blocks of 64."""
+    ragged T (1100 = 4 x 275, 1030 = 2 x 515 > 512, so 206-key blocks, 1200
+    = 3 x 400: blocks that end inside a 64-key tile), blocks of 64, and one
+    block of 256 keys (the whole-row mode of bf16)."""
     from lfm_tpu_torch.kernels.flash_attention import (FLASH_ATTENTION, flash_attention,
                                                        reference_flash_attention)
 
@@ -331,6 +336,38 @@ def _within(got, want, base=None, tol=2e-2) -> bool:
         return err <= tol * float(want.float().abs().max())
     update = float((want.float() - base.float()).abs().max())
     return err <= tol * update + 2.0 ** -7 * float(want.float().abs().max())
+
+
+@pytest.mark.parametrize("n,t,c,heads", [(2, 256, 1024, 16), (2, 272, 256, 4)])
+def test_fused_blocks_attention_matches_plain_in_both_modes(cuda, n, t, c, heads):
+    """K2 and K5's forward run their attention (p / l rounded before P V)
+    through attention_sm90.cuh: DiT-L/2's block at T = 256 (whole-row
+    mode) and T = 272 (key blocks)."""
+    from lfm_tpu_torch.kernels.dit_block import fused_dit_block, reference_block
+    from lfm_tpu_torch.kernels.dit_block_train import (block_train_fwd,
+                                                       reference_block_fwd_streams)
+
+    args = _block_args(cuda, n, t, c)
+    assert _within(fused_dit_block(**args, num_heads=heads),
+                   reference_block(**args, num_heads=heads), args["x"])
+    got = block_train_fwd(**args, num_heads=heads)
+    want = reference_block_fwd_streams(**args, num_heads=heads)
+    names = ("out", "x1", "h2", "pr", "qkv", "ao", "u")
+    for name, g, w in zip(names, got, want):
+        base = args["x"] if name in ("out", "x1") else None
+        assert _within(g, w, base), (name, _rel(g, w))
+
+
+def test_sm90_attention_builds_without_spills(cuda):
+    """ptxas's report of the wgmma attention: all 8 instances (2 modes x 2
+    padded head dims x NORM_P) built, none spills."""
+    from lfm_tpu_torch.kernels import _build
+
+    _build.load_library()
+    usage = {k: v for k, v in _build.ptxas_usage("attention_sm90").items() if "attn_" in k}
+    assert len(usage) == 8
+    for name, u in usage.items():
+        assert u["spill_stores"] == 0 and u["spill_loads"] == 0 and u["registers"] <= 255, name
 
 
 @pytest.mark.parametrize("mode", ["full", "slim"])

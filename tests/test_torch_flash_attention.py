@@ -48,8 +48,43 @@ def test_flash_plain_version_matches_pallas_kernel(dtype, tol):
     assert rel_err(to_np(got), np.asarray(want, np.float32)) < tol
 
 
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("shape", [(1, 257, 2, 64), (1, 300, 2, 72)])
+def test_attention_plain_version_past_the_whole_row_width_matches_pallas(shape, dtype, tol):
+    """K1's plain version (``reference_attention``, which ``attention_small``
+    runs on a CPU tensor) against lfm_tpu's Pallas ``attention_small`` in
+    interpret mode at ragged T past 256, where the card's kernel leaves its
+    whole-row mode for key blocks; D = 72 pads to 80 there."""
+    q, k, v = _inputs(shape, seed=3)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    with pltpu.force_tpu_interpret_mode():
+        want = jattn.attention_small(*(jnp.asarray(a, jdt) for a in (q, k, v)))
+    args = [torch.from_numpy(a).to(tdt) for a in (q, k, v)]
+    before = tattn.ATTENTION_SMALL.count
+    got = tattn.attention_small(*args)
+    assert got.dtype == tdt and got.shape == shape and tattn.ATTENTION_SMALL.count == before
+    assert rel_err(to_np(got), np.asarray(want, np.float32)) < tol
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_flash_plain_version_with_ragged_key_blocks_matches_pallas(dtype, tol):
+    """(1, 600, 2, 64) with block_k = 200: three key blocks that end inside
+    the card kernel's 64-key tiles (200 = 3 x 64 + 8), so its masking at the
+    block end matters; the plain version takes the same blocks as JAX."""
+    q, k, v = _inputs((1, 600, 2, 64), seed=4)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    with pltpu.force_tpu_interpret_mode():
+        want = jattn.flash_attention(*(jnp.asarray(a, jdt) for a in (q, k, v)), block_k=200)
+    args = [torch.from_numpy(a).to(tdt) for a in (q, k, v)]
+    got = tattn.flash_attention(*args, block_k=200)
+    assert tattn._pick_block(600, 200) == 200
+    assert torch.equal(got, tattn.reference_flash_attention(*args, block_k=200))
+    assert rel_err(to_np(got), np.asarray(want, np.float32)) < tol
+
+
 def test_pick_block_matches_jax():
-    for t, target in ((4096, 512), (2048, 512), (1040, 512), (256, 64), (100, 512), (97, 64)):
+    for t, target in ((4096, 512), (2048, 512), (1040, 512), (256, 64), (100, 512), (97, 64),
+                      (1200, 512), (1100, 512), (1030, 512), (600, 200)):
         assert tattn._pick_block(t, target) == jattn._pick_block(t, target)
 
 

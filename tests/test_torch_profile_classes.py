@@ -1,0 +1,43 @@
+"""The profilers' kernel classes (tools/profile_train.py, profile_sample.py)
+on the demangled names the card's traces show: the wgmma attention of
+attention_sm90.cuh serves K1 (whole-row mode), K4 (key blocks) and, with
+p / l rounded (``true>``), the attention inside K2 and K5's forward; the
+f32 FMA kernels keep their names. Pure string functions: no card needed.
+"""
+
+import pytest
+
+from tests.torch_parity import leaves_process_as_found  # noqa: F401
+
+from lfm_tpu_torch.tools import profile_sample, profile_train
+
+SM90 = "void lfm::sm90::attn_{}_kernel<{}, {}>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, " \
+       "__nv_bfloat16*, int, int, long, float)"
+
+
+@pytest.mark.parametrize("mode,dp,norm_p,sample_class", [
+    ("whole", 64, "false", "K1 attention_small"),
+    ("whole", 80, "false", "K1 attention_small"),
+    ("blocked", 64, "false", "K4 flash_attention"),
+    ("whole", 64, "true", "K2 fused_dit_block"),
+    ("blocked", 80, "true", "K2 fused_dit_block"),
+])
+def test_sampling_profile_classes_the_sm90_attention(mode, dp, norm_p, sample_class):
+    assert profile_sample.classify(SM90.format(mode, dp, norm_p)) == sample_class
+
+
+@pytest.mark.parametrize("name,train_class", [
+    (SM90.format("whole", 64, "false"), profile_train.K1),
+    (SM90.format("whole", 64, "true"), profile_train.K5),
+    ("void lfm::attn_small_kernel<float, 64, false>(float const*, ...)", profile_train.K1),
+    ("void lfm::attn_bwd_dq_kernel<__nv_bfloat16, 64>(...)", profile_train.K3),
+])
+def test_train_profile_classes_the_sm90_attention(name, train_class):
+    assert profile_train._classify(name) == train_class
+
+
+def test_f32_kernels_keep_their_sampling_classes():
+    assert profile_sample.classify("void lfm::attn_small_kernel<float, 128, false>(...)") \
+        == "K1 attention_small"
+    assert profile_sample.classify("void lfm::flash_attn_kernel<float, 128>(...)") \
+        == "K4 flash_attention"
