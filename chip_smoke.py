@@ -52,10 +52,13 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
      CHAIN 8 (tools/microbench_int8.py's inputs), library: the _int_mm
      chain and F.linear + gelu in bf16.
    N is the preset's sampling batch (200), the sampling path's batch.
-   Then one attention_redesign line: each bf16 K1 and K4 shape (the wgmma
-   + TMA kernel of attention_sm90.cuh) with its ms, share of its bound and
-   ratio to SDPA, and each of that kernel's instances' registers and
-   spills from the build's ptxas report; a spill fails the run.
+   Then one attention_redesign line: each shape of the redesigned
+   attention kernels (bf16 K1 and K4, the wgmma + TMA forward of
+   attention_sm90.cuh; bf16 K3, the wgmma + TMA backward of
+   attention_bwd_sm90.cuh; f32 K1 at the origin ADM's T <= 64, the one-pass
+   kernel of attention_wide.cu) with its ms, share of its bound and ratio
+   to SDPA, and the registers and spills of each of the 12 wgmma kernel
+   instances from the build's ptxas report; a spill fails the run.
 3. grad: a 2-block DiT at DiT-L width (C = 1024, 16 heads, T = 256), batch
    8, bf16 compute on f32 masters; the flow-matching loss's parameter
    gradients with attention through K1/K3, and through
@@ -115,8 +118,10 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    the EMA after step 1, and launch counts of exactly 24 block_train_fwd
    and 24 attention_small_bwd per step and nothing else; the time of steps
    2 to 1 + TRAIN_STEPS, after a sync, is the seconds per step.
-11. a ``kernels`` line with every ported kernel, then the card's name and
-   power limit, then the last line ``{"ok": true, "device": {...}}``.
+11. a ``kernels`` line with every ported kernel (f32 K1 at celeb256_adm's
+   (200, 16, 4, 128) as its own entry, attention_small_f32, with
+   adm_main's launches), then the card's name and power limit, then the
+   last line ``{"ok": true, "device": {...}}``.
 
 Every path resets all launch counts just before it runs and reads them
 just after.
@@ -587,24 +592,40 @@ def run(torch, work: str) -> int:
         emit({"phase": "kernel", "name": "flash_attention", **row})
         del q, k, v, qh, kh, vh, out, ref
 
-    # the wgmma + TMA attention (bf16 K1 and K4): time against bound and
-    # SDPA at every shape above, and ptxas's registers and spills
-    redesign = [{"kernel": name, "shape": r["shape"], "layout": r.get("layout", "separate"),
-                 "ms": r["ms"], "bound_ms": r["bound_ms"], "bound_share": r["bound_ms"] / r["ms"],
-                 "library_ms": r["library_ms"], "vs_sdpa": r["ms"] / r["library_ms"]}
-                for name, rows in (("attention_small", k1_rows), ("flash_attention", k4_rows))
-                for r in rows.values() if r["dtype"] == str(bf)]
+    # the redesigned attention kernels: the wgmma + TMA forward (bf16 K1 and
+    # K4) and backward (bf16 K3), and the one-pass f32 K1 at the origin
+    # ADM's short sequences; time against bound and SDPA at every shape
+    # above, and ptxas's registers and spills of each instance
+    csrc = "lfm_tpu_torch/kernels/csrc/"
+    redesign = [{"kernel": name, "source": csrc + src, "shape": r["shape"], "dtype": r["dtype"],
+                 "layout": r.get("layout", "separate"), "ms": r["ms"], "bound_ms": r["bound_ms"],
+                 "bound_share": r["bound_ms"] / r["ms"], "library_ms": r["library_ms"],
+                 "vs_sdpa": r["ms"] / r["library_ms"]}
+                for name, src, rows, pick in (
+                    ("attention_small", "attention_sm90.cuh", k1_rows,
+                     lambda r: r["dtype"] == str(bf)),
+                    ("attention_small", "attention_wide.cu", k1_rows,
+                     lambda r: r["dtype"] == str(f32) and r["shape"][1] <= 64
+                     and r["shape"][3] >= 128),
+                    ("attention_small_bwd", "attention_bwd_sm90.cuh", k3_rows,
+                     lambda r: r["dtype"] == str(bf)),
+                    ("flash_attention", "attention_sm90.cuh", k4_rows,
+                     lambda r: r["dtype"] == str(bf)))
+                for r in rows.values() if pick(r)]
     ptxas = {}
-    for mangled, use in _build.ptxas_usage("attention_sm90").items():
-        m = re.search(r"(attn_\w+_kernel)ILi(\d+)ELb([01])E", mangled)
-        if m:
-            ptxas[f"{m.group(1)}<{m.group(2)}, {'true' if m.group(3) == '1' else 'false'}>"] = use
-    emit({"phase": "attention_redesign",
-          "source": "lfm_tpu_torch/kernels/csrc/attention_sm90.cuh", "shapes": redesign,
-          "ptxas": ptxas})
+    for stem, pattern in (("attention_sm90", r"(attn_\w+_kernel)ILi(\d+)ELb([01])E"),
+                          ("attention_bwd", r"sm90\d+(attn_bwd_\w+_kernel)ILi(\d+)E()")):
+        for mangled, use in _build.ptxas_usage(stem).items():
+            m = re.search(pattern, mangled)
+            if m:
+                flag = {"1": ", true", "0": ", false"}.get(m.group(3), "")
+                ptxas[f"{m.group(1)}<{m.group(2)}{flag}>"] = use
+    emit({"phase": "attention_redesign", "shapes": redesign, "ptxas": ptxas})
     spilled = {k: u for k, u in ptxas.items() if u.get("spill_stores") or u.get("spill_loads")}
-    if len(ptxas) != 8 or spilled:
-        raise AssertionError(f"attention_sm90: {len(ptxas)} kernel instances, spills {spilled}")
+    # 8 forward instances (2 modes x 2 padded head dims x NORM_P), 4 of K3
+    # (2 kernels x 2 padded head dims)
+    if len(ptxas) != 12 or spilled:
+        raise AssertionError(f"wgmma attention: {len(ptxas)} kernel instances, spills {spilled}")
 
     for n, hh, ww, c, dt, offset in ((batch, 32, 32, 256, bf, 0.0), (batch, 32, 32, 768, bf, 0.0),
                                      (batch, 4, 4, 1024, bf, 0.0), (batch, 32, 32, 256, bf, 8.0),
@@ -1261,13 +1282,16 @@ def run(torch, work: str) -> int:
                "adm_fused_gn": fgn_counts, "long_t": long_counts, "train": train_counts,
                "train_fused": tf_counts, **block_counts}
     kdir, p1 = "lfm_tpu/kernels/", "tools/microbench_int8_pallas.py"
-    # name, source, TPU kernel, the path whose count is "launches", the row
+    # name, source, TPU kernel, the path whose count is "launches", the row;
+    # the f32 K1 of the origin ADM counts under attention_small
     kernels = (
         ("attention_small", "attention_sm90.cuh", kdir + "flash_attention.py:163", "train",
          k1_rows[(train_batch, 256, 16, 64, bf)]),
+        ("attention_small_f32", "attention_wide.cu", kdir + "flash_attention.py:163", "adm_main",
+         k1_rows[(batch, 16, 4, 128, f32)]),
         ("fused_dit_block", "dit_block.cu", kdir + "dit_block.py:135", "main_fused",
          k2_rows[batch]),
-        ("attention_small_bwd", "attention_bwd.cuh", kdir + "flash_attention.py:233", "train",
+        ("attention_small_bwd", "attention_bwd_sm90.cuh", kdir + "flash_attention.py:233", "train",
          k3_rows[(train_batch, 256, bf)]),
         ("flash_attention", "attention_sm90.cuh", kdir + "flash_attention.py:74", "long_t",
          k4_rows[(2, 4096, 16, 64, bf)]),
@@ -1286,8 +1310,8 @@ def run(torch, work: str) -> int:
     )
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"lfm_tpu_torch/kernels/csrc/{src}",
-         "replaces": tpu, "launches": by_path[path][name],
-         "launches_by_path": {p: c[name] for p, c in by_path.items()},
+         "replaces": tpu, "launches": by_path[path][name.removesuffix("_f32")],
+         "launches_by_path": {p: c[name.removesuffix("_f32")] for p, c in by_path.items()},
          **{key: row[key] for key in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}}
         for name, src, tpu, path, row in kernels

@@ -1,10 +1,12 @@
 // Whole-sequence softmax attention for small T in f32 (the port of
 // lfm_tpu/kernels/flash_attention.py::attention_small, `_attn_small_kernel`,
-// for f32 models), the dispatch of K1 by element type, and the warp-tile
-// products that the backward (K3, attention_bwd.cuh) uses in both types.
-// The bf16 forward (K1, and the attention inside K2 and K5) is the wgmma +
-// TMA kernel of attention_sm90.cuh: launch_attention<NORM_P, bf16> launches
-// it. The f32 forward below is an FMA island, not redesigned.
+// for f32 models), the dispatch of K1 by element type, and the f32 warp-tile
+// products that the f32 K3 (attention_bwd.cuh) and K4 (flash_attention.cuh)
+// use. The bf16 forward (K1, and the attention inside K2 and K5) is the
+// wgmma + TMA kernel of attention_sm90.cuh: launch_attention<NORM_P, bf16>
+// launches it; bf16 K3 is attention_bwd_sm90.cuh. The f32 forward below is
+// an FMA island; the origin ADM's short sequences (T <= 64 at D = 128 and
+// 256) take the one-pass kernel of attention_wide.cu instead.
 //
 // q, k, v are read in place from (N, T, row) slabs: token t of sample n,
 // head h starts at ptr[(n*T + t)*ld + h*D]. So the kernel takes the
@@ -23,8 +25,7 @@
 // zero-padded to DP, a multiple of 16.
 //
 // f32 runs its products as f32 FMA on the CUDA cores, so an f32 model is
-// f32 throughout (no TF32 anywhere). WarpTile<T, DP> below holds them, and
-// the bf16 WMMA products (bf16 -> f32, mma.sync) that K3 uses.
+// f32 throughout (no TF32 anywhere). WarpTile<float, DP> below holds them.
 //
 // What bounds it on the H100: at f32, T=256, D=64 the bytes it must move
 // are 4*T*H*D*4 per sample against 4*T*T*H*D flops on the 67 TFLOP/s f32
@@ -32,12 +33,12 @@
 // flops) and does not overlap loads with math.
 //
 // Wide heads: the origin ADM runs its attention in f32 at D = 128
-// (celeb256_adm) and 256 (celeb512_adm, church_adm), at T = 16 or 64. At f32
-// and DP 256 the q, k and v tiles and the stages would take 277 KB, past the
-// 227 KB a block may have, so there v follows k through one tile buffer
-// (AttnLayout::KV_SHARE): one more barrier and a serial load per key tile.
-// T = 16 fills a quarter of one tile; the rows past T are zero-filled and
-// their columns masked.
+// (celeb256_adm) and 256 (celeb512_adm, church_adm), at T = 16 or 64: the
+// one-pass kernel of attention_wide.cu. This kernel takes them past T = 64
+// (a model override). At f32 and DP 256 the q, k and v tiles and the stages
+// would take 277 KB, past the 227 KB a block may have, so there v follows k
+// through one tile buffer (AttnLayout::KV_SHARE): one more barrier and a
+// serial load per key tile.
 #pragma once
 
 #include <type_traits>
@@ -85,7 +86,7 @@ __device__ __forceinline__ void attn_load_tile(T* tile, const T* base, long ld, 
   cp_async_commit();
 }
 
-// The two per-warp products of the attention kernels, forward and backward.
+// The two per-warp products of the f32 attention kernels, forward and backward.
 // Lane layout of the f32 results: lane L owns row L / 2 and the half L % 2
 // of the columns.
 //   nt:  stage (16 x 64, f32) = A (16 x DP) . B (64 x DP)^T
@@ -94,65 +95,6 @@ __device__ __forceinline__ void attn_load_tile(T* tile, const T* base, long ld, 
 // A, B are tiles with row stride LDT; P has row stride LDP.
 template <typename T, int DP>
 struct WarpTile;
-
-template <int DP>
-struct WarpTile<bf16, DP> {
-  using L = AttnLayout<bf16, DP>;
-
-  static __device__ __forceinline__ void nt(const bf16* a, const bf16* b, float* stage) {
-    using namespace nvcuda;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[ATT_BK / 16];
-#pragma unroll
-    for (int j = 0; j < ATT_BK / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, a + kk * 16, L::LDT);
-#pragma unroll
-      for (int j = 0; j < ATT_BK / 16; ++j) {
-        // B^T as a column-major (DP x 64) operand: element (d, r) at r*LDT + d
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fb, b + j * 16 * L::LDT + kk * 16, L::LDT);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
-      }
-    }
-    __syncwarp();  // every lane has read what it needed of the last stage
-#pragma unroll
-    for (int j = 0; j < ATT_BK / 16; ++j)
-      wmma::store_matrix_sync(stage + j * 16, acc[j], L::LDS, wmma::mem_row_major);
-    __syncwarp();
-  }
-
-  struct Acc {
-    nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> f[DP / 16];
-
-    __device__ __forceinline__ void zero() {
-#pragma unroll
-      for (int j = 0; j < DP / 16; ++j) nvcuda::wmma::fill_fragment(f[j], 0.0f);
-    }
-    __device__ __forceinline__ void nn(const bf16* p, const bf16* b) {
-      using namespace nvcuda;
-#pragma unroll
-      for (int kk = 0; kk < ATT_BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, p + kk * 16, L::LDP);
-#pragma unroll
-        for (int j = 0; j < DP / 16; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, b + kk * 16 * L::LDT + j * 16, L::LDT);
-          wmma::mma_sync(f[j], fa, fb, f[j]);
-        }
-      }
-    }
-    __device__ __forceinline__ void store(float* stage) {
-      __syncwarp();
-#pragma unroll
-      for (int j = 0; j < DP / 16; ++j)
-        nvcuda::wmma::store_matrix_sync(stage + j * 16, f[j], L::LDS, nvcuda::wmma::mem_row_major);
-      __syncwarp();
-    }
-  };
-};
 
 template <int DP>
 struct WarpTile<float, DP> {
@@ -345,5 +287,19 @@ static cudaError_t launch_attention(const T* q, const T* k, const T* v, T* o, in
 cudaError_t launch_attention_wide_f32(const float* q, const float* k, const float* v, float* o,
                                       int N, int T_len, int H, int D, long ldq, long ldk,
                                       long ldv, long ldo, cudaStream_t s);
+
+// K3 (attention_bwd.cu): bf16 on Hopper, the wgmma + TMA kernels of
+// attention_bwd_sm90.cuh; stats is f32 scratch of 2 * N * H * Tp floats, Tp
+// = T rounded up to 64. T <= 1024, D in 8..80 a multiple of 8.
+cudaError_t launch_attn_bwd_sm90(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+                                 bf16* dq, bf16* dk, bf16* dv, float* stats, int N, int T, int H,
+                                 int D, long ldq, long ldk, long ldv, long lddo, long ldg,
+                                 cudaStream_t stream);
+// f32 K3, the FMA kernels of attention_bwd.cuh (attention_bwd_f32.cu); stats:
+// 3 * N * H * T floats. D in {56, 64, 72, 80}.
+cudaError_t launch_attn_bwd_f32(const float* q, const float* k, const float* v,
+                                const float* dout, float* dq, float* dk, float* dv, float* stats,
+                                int N, int T_len, int H, int D, long ldq, long ldk, long ldv,
+                                long lddo, long ldg, cudaStream_t s);
 
 }  // namespace lfm

@@ -1,12 +1,15 @@
-// K3: the backward of whole-sequence attention for small T, the port of
-// lfm_tpu/kernels/flash_attention.py::attention_small_bwd
-// (`_attn_small_bwd_kernel`). Per (sample, head), with s = scale q k^T:
+// f32 K3: the backward of whole-sequence attention for small T in f32, the
+// port of lfm_tpu/kernels/flash_attention.py::attention_small_bwd
+// (`_attn_small_bwd_kernel`) for f32 models; no shipped path reaches it. bf16
+// runs the wgmma + TMA kernels of attention_bwd_sm90.cuh. Per (sample,
+// head), with s = scale q k^T:
 //   p  = softmax(s)                        (f32)
-//   dv = p^T do                            (p rounded to the input type)
-//   dp = do v^T                            (f32)
-//   ds = p * (dp - rowsum(dp * p))         (f32, then rounded to the input type)
-//   dq = scale ds k,  dk = scale ds^T q    (f32 accumulation)
-// The probs are recomputed from q and k and never reach device memory.
+//   dv = p^T do
+//   dp = do v^T
+//   ds = p * (dp - rowsum(dp * p))
+//   dq = scale ds k,  dk = scale ds^T q
+// all in f32. The probs are recomputed from q and k and never reach device
+// memory.
 //
 // Two kernels on one stream, the FlashAttention-2 split, with no atomics,
 // so the result is deterministic:
@@ -16,7 +19,7 @@
 //     sum exp(s - m) * dp online (rescaled when m grows), which gives
 //     delta = rowsum(dp * p) at the end. Pass 2 recomputes s and dp, forms ds
 //     and accumulates dq = ds k. It writes dq and the row statistics
-//     (m, l, delta) in f32 for the second kernel.
+//     (m, l, delta) in f32, 3 * N * H * T floats, for the second kernel.
 //  2. attn_bwd_dkdv_kernel, one block per 64 key rows, each warp 16 keys.
 //     It loops over the query tiles, recomputes s^T = k q^T and dp^T = v do^T
 //     for its keys, forms p^T and ds^T from the row statistics and
@@ -25,18 +28,13 @@
 // (the thirds of a fused qkv row); dq, dk, dv are written the same way, so
 // the three land in one (N, T, 3C) buffer, the gradient of the qkv Linear.
 //
-// Each element type is compiled in its own translation unit
-// (attention_bwd.cu for bf16 with the C entry point, attention_bwd_f32.cu),
-// so that the two compile in parallel.
-//
-// What bounds it on the H100: the JAX cost model counts 10 T^2 D flops per
-// (sample, head) against 7 T H D elements moved, ~180 flops per byte at
-// T=256, D=64 in bf16, under the card's ~295: memory in principle. This
-// simple design does 18 T^2 D flops (s and dp are computed in both kernels),
-// WMMA (mma.sync) bf16 tiles rather than wgmma, and no overlap of loads with
-// math, so it is bound by its own latency. f32 runs its products as f32 FMA
-// on the CUDA cores (no TF32).
+// What bounds it on the H100: 10 T^2 D flops per (sample, head) on the
+// 67 TFLOP/s f32 units against 7 T H D * 4 bytes: operations. This simple
+// design does 18 T^2 D flops (s and dp are computed in both kernels) as
+// f32 FMA on the CUDA cores (no TF32), with no overlap of loads with math.
 #pragma once
+#include <type_traits>
+
 #include "attention.cuh"
 
 namespace lfm {
@@ -47,6 +45,7 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
                    const T* __restrict__ dout, T* __restrict__ dq, float* __restrict__ stats,
                    int T_len, int H, int D, long ldq, long ldk, long ldv, long lddo, long ldg,
                    float scale) {
+  static_assert(std::is_same<T, float>::value, "bf16 K3 runs attention_bwd_sm90.cuh");
   using L = AttnLayout<T, DP>;
   using W = WarpTile<T, DP>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -258,24 +257,6 @@ static cudaError_t launch_attn_bwd_dp(const T* q, const T* k, const T* v, const 
   k_dkdv<<<grid, ATT_THREADS, bytes_dkdv, stream>>>(q, k, v, dout, dk, dv, stats, T_len, H, D,
                                                     ldq, ldk, ldv, lddo, ldg, scale);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_attn_bwd(const void* q, const void* k, const void* v, const void* dout,
-                                   void* dq, void* dk, void* dv, float* stats, int N, int T_len,
-                                   int H, int D, long ldq, long ldk, long ldv, long lddo,
-                                   long ldg, cudaStream_t s) {
-  auto c = [](const void* p) { return static_cast<const T*>(p); };
-  auto m = [](void* p) { return static_cast<T*>(p); };
-  switch ((D + 15) / 16) {
-    case 4:
-      return launch_attn_bwd_dp<T, 64>(c(q), c(k), c(v), c(dout), m(dq), m(dk), m(dv), stats, N,
-                                       T_len, H, D, ldq, ldk, ldv, lddo, ldg, s);
-    case 5:
-      return launch_attn_bwd_dp<T, 80>(c(q), c(k), c(v), c(dout), m(dq), m(dk), m(dv), stats, N,
-                                       T_len, H, D, ldq, ldk, ldv, lddo, ldg, s);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace lfm

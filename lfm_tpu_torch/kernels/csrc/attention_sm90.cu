@@ -1,6 +1,7 @@
 // The bf16 attention forward for Hopper (attention_sm90.cuh): its instances
 // and launcher, compiled once for K1 (attention.cu), K2 (dit_block.cu), K4
-// (flash_attention.cu) and K5 (dit_block_train.cu).
+// (flash_attention.cu) and K5 (dit_block_train.cu); and the tensor maps
+// that the backward (attention_bwd_sm90.cuh) shares.
 #include "attention_sm90.cuh"
 
 namespace lfm {
@@ -52,17 +53,23 @@ template <int DP, bool NORM_P>
 cudaError_t launch_dp(const bf16* q, const bf16* k, const bf16* v, bf16* o, int N, int T, int H,
                       int D, long ldq, long ldk, long ldv, long ldo, int bk, cudaStream_t stream) {
   using B = sm90::TileBytes<DP>;
+  // the maps are encoded after the function attribute is set: that runtime
+  // call makes the device's context current in a thread new to it, as the
+  // encoder needs
   CUtensorMap mq, mk, mv;
+  auto maps = [&]() {
+    cudaError_t e;
+    if ((e = slab_map<DP>(&mq, q, N, T, H, D, ldq)) != cudaSuccess) return e;
+    if ((e = slab_map<DP>(&mk, k, N, T, H, D, ldk)) != cudaSuccess) return e;
+    return slab_map<DP>(&mv, v, N, T, H, D, ldv);
+  };
   cudaError_t err;
-  if ((err = slab_map<DP>(&mq, q, N, T, H, D, ldq)) != cudaSuccess) return err;
-  if ((err = slab_map<DP>(&mk, k, N, T, H, D, ldk)) != cudaSuccess) return err;
-  if ((err = slab_map<DP>(&mv, v, N, T, H, D, ldv)) != cudaSuccess) return err;
   const float scale_log2 = 1.4426950408889634f / sqrtf(float(D));
   if (T <= sm90::WHOLE_MAX_T && (bk == 0 || bk >= T)) {  // one block of at most 256 keys
     auto kernel = sm90::attn_whole_kernel<DP, NORM_P>;
     const int bytes = 1024 + (1 + 2 * sm90::WHOLE_TILES) * B::TILE + 16;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
+    if (err != cudaSuccess || (err = maps()) != cudaSuccess) return err;
     dim3 grid((T + sm90::ROWS - 1) / sm90::ROWS, H, N);
     kernel<<<grid, sm90::WG_THREADS, bytes, stream>>>(mq, mk, mv, o, T, D, ldo, scale_log2);
     return cudaGetLastError();
@@ -71,7 +78,7 @@ cudaError_t launch_dp(const bf16* q, const bf16* k, const bf16* v, bf16* o, int 
   const int bytes =
       1024 + (sm90::RING_WG + 2 * sm90::STAGES) * B::TILE + 8 * (1 + 2 * sm90::STAGES);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || (err = maps()) != cudaSuccess) return err;
   dim3 grid((T + sm90::RING_WG * sm90::ROWS - 1) / (sm90::RING_WG * sm90::ROWS), H, N);
   kernel<<<grid, sm90::RING_WG * sm90::WG_THREADS, bytes, stream>>>(mq, mk, mv, o, T, D,
                                                                     bk ? bk : T, ldo, scale_log2);
@@ -86,6 +93,11 @@ cudaError_t launch_norm(const bf16* q, const bf16* k, const bf16* v, bf16* o, in
 }
 
 }  // namespace
+
+cudaError_t make_slab_map(CUtensorMap* map, const bf16* ptr, int N, int T, int H, int D,
+                          long ld) {
+  return D <= 64 ? slab_map<64>(map, ptr, N, T, H, D, ld) : slab_map<80>(map, ptr, N, T, H, D, ld);
+}
 
 cudaError_t launch_attention_sm90(const bf16* q, const bf16* k, const bf16* v, bf16* o, int N,
                                   int T, int H, int D, long ldq, long ldk, long ldv, long ldo,

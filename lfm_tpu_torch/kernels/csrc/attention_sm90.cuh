@@ -617,6 +617,13 @@ attn_blocked_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
 
 }  // namespace sm90
 
+// The 4-D (D, H, T, N) tensor map of an (N, T, row) slab with row stride ld
+// (elements): boxes of 64 rows by the padded head dim's chunk width (D <=
+// 64: one 64-column box, 128-byte swizzle; else 16-column boxes, 32-byte
+// swizzle), zero fill past D and T. Defined in attention_sm90.cu.
+cudaError_t make_slab_map(CUtensorMap* map, const bf16* ptr, int N, int T, int H, int D,
+                          long ld);
+
 // bf16 attention on (N, T, row) slabs with row strides ldq/ldk/ldv/ldo
 // (elements, 16-byte multiples; 16-byte aligned bases), D in 8..80 a
 // multiple of 8. bk = 0: the whole sequence (K1; NORM_P rounds p / l, K2

@@ -57,16 +57,9 @@
 // memory. wgmma, TMA, split-K for the narrow weight gradients and fusing
 // the passes into the GEMMs are later work.
 #include "attention.cuh"
-#include "attention_bwd.cuh"
 #include "gemm.cuh"
 
 namespace lfm {
-
-// K3's bf16 launcher is compiled in attention_bwd.cu
-extern template cudaError_t launch_attn_bwd<bf16>(const void*, const void*, const void*,
-                                                  const void*, void*, void*, void*, float*, int,
-                                                  int, int, int, long, long, long, long, long,
-                                                  cudaStream_t);
 
 constexpr int COL_THREADS = 128;  // columns per block of the per-sample sums
 
@@ -300,7 +293,8 @@ extern "C" int lfm_dit_block_train_mlp_bwd(const void* x1, const void* mod, cons
 // (3C, C), wproj (C, C). Outputs: dx bf16 (N*T, C); dmod3 f32 (N, 3, C);
 // dwqkv f32 (3C, C), dbqkv (3C), dwproj (C, C), dbproj (C). Scratch: hb,
 // dpr_b, dao (N*T, C) bf16; dqkv (N*T, 3C) bf16; dhb (N*T, C) f32; stats
-// (N*T, 2) f32; astats (3, N, heads, T) f32; part f32 of N*3C.
+// (N*T, 2) f32; astats f32, 3 * N * heads * Tp (Tp = T rounded up to 64; K3's
+// row statistics); part f32 of N*3C.
 // (N*T) % 32 == 0, C <= 4096. Eleven kernels on `stream` (K3's two among them).
 extern "C" int lfm_dit_block_train_attn_bwd(const void* x, const void* mod, const void* pr,
                                             const void* qkv, const void* ao, const void* wqkv,
@@ -335,9 +329,9 @@ extern "C" int lfm_dit_block_train_attn_bwd(const void* x, const void* mod, cons
   LFM_CHECK((lfm::launch_gemm<lfm::EPI_STORE, bf16, float, lfm::LAYOUT_TN>(
       dpr, bp(ao), nullptr, fp(dwproj), C, C, M, nullptr, nullptr, 0, T, s)));
   const bf16* q = bp(qkv);
-  cudaError_t err = lfm::launch_attn_bwd<bf16>(q, q + C, q + 2 * C, dao, dqkv, dqkv + C,
-                                               dqkv + 2 * C, fp(astats_buf), N, T, heads, D,
-                                               3L * C, 3L * C, 3L * C, C, 3L * C, s);
+  cudaError_t err = lfm::launch_attn_bwd_sm90(q, q + C, q + 2 * C, dao, dqkv, dqkv + C,
+                                              dqkv + 2 * C, fp(astats_buf), N, T, heads, D,
+                                              3L * C, 3L * C, 3L * C, C, 3L * C, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   LFM_CHECK((lfm::colsum_rows_kernel<<<dim3(3 * C / lfm::COL_THREADS, N), lfm::COL_THREADS, 0, s>>>(
       dqkv, T, 3 * C, part)));

@@ -37,8 +37,8 @@ import torch
 from lfm_tpu_torch.kernels._build import LaunchCounter, check_rc, load_library
 from lfm_tpu_torch.kernels.dit_block import check_operand, reference_block_parts
 from lfm_tpu_torch.kernels.flash_attention import (HEAD_DIMS, _attention_small_bwd_packed,
-                                                   attention_small, reference_attention_bwd,
-                                                   split_qkv)
+                                                   attention_small, bwd_stats_scratch,
+                                                   reference_attention_bwd, split_qkv)
 
 BLOCK_TRAIN_FWD = LaunchCounter()
 MLP_BWD = LaunchCounter()
@@ -367,7 +367,7 @@ def attn_bwd(x, mod, pr, qkv, ao, wqkv, wproj, dx1, *, num_heads: int):
     dqkv = torch.empty((rows, 3 * c), dtype=_BF, device=dev)
     dhb = torch.empty((rows, c), dtype=f32, device=dev)
     stats = torch.empty((rows, 2), dtype=f32, device=dev)
-    astats = torch.empty((3 * rows * num_heads,), dtype=f32, device=dev)
+    astats = bwd_stats_scratch(n, t, num_heads, dev)
     part = torch.empty((n * 3 * c,), dtype=f32, device=dev)
     ptr = [a.data_ptr() for a in (x, mod, pr, qkv, ao, wqkv, wproj, dx1, dx, dmod, dwqkv, dbqkv,
                                   dwproj, dbproj, hb, dpr, dao, dqkv, dhb, stats, astats, part)]

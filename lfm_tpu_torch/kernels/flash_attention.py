@@ -7,14 +7,17 @@ kernel `_attn_small_kernel`): whole-sequence, non-causal softmax attention
 per head, scale 1/sqrt(D), f32 max / sum / accumulation, p rounded to the
 input type before the PV product. K3 ports ``attention_small_bwd``
 (`_attn_small_bwd_kernel`): dq, dk, dv with the probs recomputed, p and ds
-rounded to the input type before their products (``csrc/attention_bwd.cuh``).
+rounded to the input type before their products.
 K4 ports ``flash_attention`` (`_flash_kernel`): keys in blocks of
 ``block_k`` with an online softmax, f32 m, l and acc, p rounded to v's
 type before PV, acc / l at the end. In bf16, K1 and K4 are one wgmma + TMA
 kernel for Hopper (``csrc/attention_sm90.cuh``: whole-row mode up to T =
-256, key blocks past it); in f32 they are f32 FMA kernels
-(``csrc/attention.cuh``, ``csrc/flash_attention.cuh``), as is K3's f32
-build. What bounds each is noted in its source.
+256, key blocks past it), and bf16 K3 two wgmma + TMA kernels
+(``csrc/attention_bwd_sm90.cuh``); in f32 they are f32 FMA kernels
+(``csrc/attention.cuh``, ``csrc/flash_attention.cuh``,
+``csrc/attention_bwd.cuh``), with f32 K1 at T <= 64 and D = 128/256 (the
+origin ADM's attention) in a one-pass kernel sized to T
+(``csrc/attention_wide.cu``). What bounds each is noted in its source.
 
 On a CPU tensor each wrapper computes its plain version; on a CUDA tensor
 it launches its kernel or raises. ``fused_attention_qkv`` is a
@@ -114,12 +117,18 @@ def _small_shape_ok(q: torch.Tensor) -> bool:
     return t <= 1024 and (3 * t * h * d * 4 + t * t * 4) < 96 * 1024 * 1024
 
 
+def _ld(a: torch.Tensor) -> int:
+    """Row stride (elements) of an (N, T, H, D) slab; at T = 1 the row is
+    the whole sample, whatever stride the size-1 dimension reports."""
+    return a.stride(0) if a.shape[1] == 1 else a.stride(1)
+
+
 def _check_slab(name: str, a: torch.Tensor, ref: torch.Tensor) -> None:
     n, t, h, d = ref.shape
     if a.device != ref.device or a.dtype != ref.dtype or a.shape != ref.shape:
         raise ValueError(f"{name} must be {ref.dtype} {tuple(ref.shape)} on {ref.device}, "
                          f"got {a.dtype} {tuple(a.shape)} on {a.device}")
-    ld = a.stride(1)
+    ld = _ld(a)
     if (a.stride(3) != 1 or a.stride(2) != d or a.stride(0) != t * ld
             or (ld * a.element_size()) % 16):
         raise ValueError(f"{name} needs (T, H*D) rows with unit stride inside a row and a "
@@ -159,11 +168,18 @@ def attention_small(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     out = torch.empty((n, t, h, d), dtype=q.dtype, device=q.device)
     rc = load_library().lfm_attention_small(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), n, t, h, d,
-        q.stride(1), k.stride(1), v.stride(1), h * d, int(q.dtype == torch.float32),
+        _ld(q), _ld(k), _ld(v), h * d, int(q.dtype == torch.float32),
         torch.cuda.current_stream(q.device).cuda_stream)
     check_rc("attention_small", rc)
     ATTENTION_SMALL.count += 1
     return out
+
+
+def bwd_stats_scratch(n: int, t: int, h: int, device) -> torch.Tensor:
+    """K3's f32 scratch for the row statistics: 3 * N * H * Tp floats, Tp =
+    T rounded up to 64 (bf16 takes lse and delta for every row up to Tp, f32
+    m, l and delta for every row up to T)."""
+    return torch.empty((3 * n * h * (-(-t // 64) * 64),), dtype=torch.float32, device=device)
 
 
 def _attention_small_bwd_packed(q, k, v, do) -> torch.Tensor:
@@ -174,11 +190,11 @@ def _attention_small_bwd_packed(q, k, v, do) -> torch.Tensor:
     _check_launch("attention_small_bwd", q, (("q", q), ("k", k), ("v", v), ("do", do)))
     n, t, h, d = q.shape
     g = torch.empty((n, t, 3, h, d), dtype=q.dtype, device=q.device)
-    stats = torch.empty((3, n, h, t), dtype=torch.float32, device=q.device)
+    stats = bwd_stats_scratch(n, t, h, q.device)
     rc = load_library().lfm_attention_small_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         g[:, :, 0].data_ptr(), g[:, :, 1].data_ptr(), g[:, :, 2].data_ptr(), stats.data_ptr(),
-        n, t, h, d, q.stride(1), k.stride(1), v.stride(1), do.stride(1), 3 * h * d,
+        n, t, h, d, _ld(q), _ld(k), _ld(v), _ld(do), 3 * h * d,
         int(q.dtype == torch.float32), torch.cuda.current_stream(q.device).cuda_stream)
     check_rc("attention_small_bwd", rc)
     ATTENTION_SMALL_BWD.count += 1
@@ -210,7 +226,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: 
     out = torch.empty((n, t, h, d), dtype=q.dtype, device=q.device)
     rc = load_library().lfm_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), n, t, h, d, bk,
-        q.stride(1), k.stride(1), v.stride(1), h * d, int(q.dtype == torch.float32),
+        _ld(q), _ld(k), _ld(v), h * d, int(q.dtype == torch.float32),
         torch.cuda.current_stream(q.device).cuda_stream)
     check_rc("flash_attention", rc)
     FLASH_ATTENTION.count += 1

@@ -111,8 +111,12 @@ def test_attention_small_f32_matches_plain(cuda, shape):
     assert _rel(out, reference_attention(q, k, v)) <= 1e-4
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("t,d", [(256, 64), (1024, 64), (256, 72), (1024, 72), (100, 56)])
+# bf16 K3 (the wgmma + TMA kernels of attention_bwd_sm90.cuh) at every head
+# dim and T in {100, 256, 1024}; f32 K3 (attention_bwd.cuh) as before
+@pytest.mark.parametrize("dtype,t,d", [(torch.bfloat16, t, d) for t in (100, 256, 1024)
+                                       for d in (56, 64, 72, 80)]
+                         + [(torch.float32, t, d) for t, d in ((256, 64), (1024, 64), (256, 72),
+                                                               (1024, 72), (100, 56))])
 def test_attention_small_bwd_kernel_matches_plain(cuda, dtype, t, d):
     from lfm_tpu_torch.kernels.flash_attention import (ATTENTION_SMALL_BWD, attention_small_bwd,
                                                        reference_attention_bwd)
@@ -133,6 +137,24 @@ def test_attention_small_bwd_kernel_matches_plain(cuda, dtype, t, d):
     qq, kk, vv = (a.view(n, t, h, d) for a in qkv.split(h * d, dim=-1))
     for g, w in zip(attention_small_bwd(qq, kk, vv, do), reference_attention_bwd(qq, kk, vv, do)):
         assert _rel(g, w) <= tol
+
+
+@pytest.mark.parametrize("t,d", [(256, 64), (100, 72)])
+def test_attention_small_bwd_is_deterministic(cuda, t, d):
+    """bf16 K3 sums without atomics: two runs give the same bits, on separate
+    tensors and on the thirds of a qkv row."""
+    from lfm_tpu_torch.kernels.flash_attention import attention_small_bwd, split_qkv
+
+    n, h = 4, 3
+    q, k, v, do = (torch.randn(n, t, h, d, generator=cuda, device="cuda").bfloat16()
+                   for _ in range(4))
+    qkv = torch.randn(n, t, 3 * h * d, generator=cuda, device="cuda").bfloat16()
+    for args in ((q, k, v, do), (*split_qkv(qkv, h), do)):
+        first = [g.clone() for g in attention_small_bwd(*args)]
+        second = attention_small_bwd(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
 
 
 def test_fused_attention_autograd_launches_k1_and_k3(cuda):
@@ -189,12 +211,15 @@ def test_attention_small_refuses_unbuilt_head_dim(cuda):
 
 
 @pytest.mark.parametrize("shape", [(4, 16, 4, 128), (2, 64, 4, 128), (2, 16, 2, 256),
-                                   (1, 64, 2, 256), (2, 100, 2, 128)])
+                                   (1, 64, 2, 256), (2, 100, 2, 128)]
+                         + [(2, t, 2, d) for d in (128, 256) for t in (1, 15, 17, 32, 33)])
 def test_attention_small_wide_f32_heads_match_plain(cuda, shape):
-    """The origin ADM's f32 attention: D = 128 and 256 at T = 16 and 64 (a
-    quarter and all of one key tile), and a ragged T."""
+    """The origin ADM's f32 attention: D = 128 and 256 at T = 16 and 64 and at
+    the one-pass kernel's tile boundaries (16 and 32 query rows; 16, 32 or 64
+    keys), and past it at a ragged T (the 64-row kernel), on separate tensors
+    and on the thirds of a fused qkv row (the ADM's layout)."""
     from lfm_tpu_torch.kernels.flash_attention import (ATTENTION_SMALL, attention_small,
-                                                       reference_attention)
+                                                       reference_attention, split_qkv)
 
     q, k, v = (torch.randn(*shape, generator=cuda, device="cuda") for _ in range(3))
     before = ATTENTION_SMALL.count
@@ -202,6 +227,9 @@ def test_attention_small_wide_f32_heads_match_plain(cuda, shape):
     torch.cuda.synchronize()
     assert ATTENTION_SMALL.count == before + 1
     assert _rel(out, reference_attention(q, k, v)) <= 1e-4
+    n, t, h, d = shape
+    qq, kk, vv = split_qkv(torch.randn(n, t, 3 * h * d, generator=cuda, device="cuda"), h)
+    assert _rel(attention_small(qq, kk, vv), reference_attention(qq, kk, vv)) <= 1e-4
     with pytest.raises(ValueError, match="head dim"):
         attention_small(q.bfloat16(), k.bfloat16(), v.bfloat16())
 
@@ -359,13 +387,17 @@ def test_fused_blocks_attention_matches_plain_in_both_modes(cuda, n, t, c, heads
 
 
 def test_sm90_attention_builds_without_spills(cuda):
-    """ptxas's report of the wgmma attention: all 8 instances (2 modes x 2
-    padded head dims x NORM_P) built, none spills."""
+    """ptxas's report of the wgmma attention: all 8 forward instances (2
+    modes x 2 padded head dims x NORM_P) and all 4 of bf16 K3 (2 kernels x 2
+    padded head dims) built, none spills."""
     from lfm_tpu_torch.kernels import _build
 
     _build.load_library()
     usage = {k: v for k, v in _build.ptxas_usage("attention_sm90").items() if "attn_" in k}
     assert len(usage) == 8
+    bwd = {k: v for k, v in _build.ptxas_usage("attention_bwd").items() if "attn_bwd" in k}
+    assert len(bwd) == 4
+    usage.update(bwd)
     for name, u in usage.items():
         assert u["spill_stores"] == 0 and u["spill_loads"] == 0 and u["registers"] <= 255, name
 

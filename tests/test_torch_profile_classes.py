@@ -1,8 +1,10 @@
 """The profilers' kernel classes (tools/profile_train.py, profile_sample.py)
 on the demangled names the card's traces show: the wgmma attention of
 attention_sm90.cuh serves K1 (whole-row mode), K4 (key blocks) and, with
-p / l rounded (``true>``), the attention inside K2 and K5's forward; the
-f32 FMA kernels keep their names. Pure string functions: no card needed.
+p / l rounded (``true>``), the attention inside K2 and K5's forward; K3 is
+attention_bwd_sm90.cuh's two kernels; the f32 FMA kernels keep their names,
+and the origin ADM's short f32 K1 is ``attn_short_f32_kernel``. Pure string
+functions: no card needed.
 """
 
 import pytest
@@ -31,6 +33,12 @@ def test_sampling_profile_classes_the_sm90_attention(mode, dp, norm_p, sample_cl
     (SM90.format("whole", 64, "true"), profile_train.K5),
     ("void lfm::attn_small_kernel<float, 64, false>(float const*, ...)", profile_train.K1),
     ("void lfm::attn_bwd_dq_kernel<__nv_bfloat16, 64>(...)", profile_train.K3),
+    ("void lfm::sm90::attn_bwd_dq_kernel<64>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, __nv_bfloat16*, float*, int, int, long, float, float)", profile_train.K3),
+    ("void lfm::sm90::attn_bwd_dkdv_kernel<80>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, __nv_bfloat16*, __nv_bfloat16*, float const*, int, int, long, float, "
+     "float)", profile_train.K3),
+    ("void lfm::(anonymous namespace)::attn_short_f32_kernel<128, 16, 16>(...)", profile_train.K1),
 ])
 def test_train_profile_classes_the_sm90_attention(name, train_class):
     assert profile_train._classify(name) == train_class
@@ -41,3 +49,6 @@ def test_f32_kernels_keep_their_sampling_classes():
         == "K1 attention_small"
     assert profile_sample.classify("void lfm::flash_attn_kernel<float, 128>(...)") \
         == "K4 flash_attention"
+    assert profile_sample.classify(
+        "void lfm::(anonymous namespace)::attn_short_f32_kernel<128, 16, 16>(...)") \
+        == "K1 attention_small"
