@@ -58,7 +58,13 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    attention_bwd_sm90.cuh; f32 K1 at the origin ADM's T <= 64, the one-pass
    kernel of attention_wide.cu) with its ms, share of its bound and ratio
    to SDPA, and the registers and spills of each of the 12 wgmma kernel
-   instances from the build's ptxas report; a spill fails the run.
+   instances from the build's ptxas report; a spill fails the run. And one
+   gemm_redesign line: each NT GEMM of K2 at N and of K5's forward at the
+   train batch alone (the persistent wgmma + TMA GEMM of gemm_sm90.cuh,
+   through kernels/gemm.py; tools/bench_block.py's gemm_rows) with its ms,
+   TFLOP/s, share of its bound, tile width and torch.matmul's time for the
+   same product, and the registers and spills of its 8 instances; a spill
+   fails the run.
 3. grad: a 2-block DiT at DiT-L width (C = 1024, 16 heads, T = 256), batch
    8, bf16 compute on f32 masters; the flow-matching loss's parameter
    gradients with attention through K1/K3, and through
@@ -740,6 +746,24 @@ def run(torch, work: str) -> int:
         k5_rows[("attn", n)] = row
         emit({"phase": "kernel", "name": "dit_block_train_attn_bwd", **row})
         del got, want, lib, blk, x, mod, out, x1, h2, pr, qkv, ao, u, dy, dx1
+
+    # the redesigned NT GEMM (gemm_sm90.cuh): each GEMM of K2 at the
+    # sampling batch and of K5's forward at the train batch alone, against
+    # its bound and torch.matmul of the same product; ptxas's registers and
+    # spills of its 8 instances
+    from lfm_tpu_torch.tools.bench_block import gemm_rows
+
+    gemms = {"fused_dit_block": gemm_rows(batch, False, reps=10),
+             "dit_block_train_fwd": gemm_rows(train_batch, True, reps=10)}
+    gemm_ptxas = {re.sub(r"^_ZN3lfm4sm9014gemm_nt_kernelI(.*)EEv.*$", r"gemm_nt_kernel<\1>", k): u
+                  for k, u in _build.ptxas_usage("gemm_sm90").items() if "gemm_nt_kernel" in k}
+    emit({"phase": "gemm_redesign", "source": csrc + "gemm_sm90.cuh", "gemms": gemms,
+          "ptxas": gemm_ptxas})
+    spilled = {k: u for k, u in gemm_ptxas.items()
+               if u.get("spill_stores") or u.get("spill_loads")}
+    # 4 epilogue kinds x 2 tile widths
+    if len(gemm_ptxas) != 8 or spilled:
+        raise AssertionError(f"wgmma GEMM: {len(gemm_ptxas)} kernel instances, spills {spilled}")
 
     # make_fused_block_train against autograd through reference_block, each
     # backward mode a path of its own

@@ -46,6 +46,7 @@ SIGNATURES = {
     "lfm_quant_rows": [_P] * 3 + [_I] * 3 + [_P],
     "lfm_int8_gemm": [_P] * 6 + [_I] * 5 + [_P],
     "lfm_bf16_mlp": [_P] * 5 + [_I] * 3 + [_P],
+    "lfm_gemm": [_P] * 8 + [_I] * 8 + [_P],
 }
 
 

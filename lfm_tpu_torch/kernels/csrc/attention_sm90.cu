@@ -7,36 +7,11 @@
 namespace lfm {
 namespace {
 
-// cuTensorMapEncodeTiled, looked up in libcuda at run time (the runtime's
-// entry-point query), so that the library links without -lcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // the (D, H, T, N) map of one slab: boxes of CW columns x 64 rows, zero fill
 // past D and T
 template <int DP>
 cudaError_t slab_map(CUtensorMap* map, const bf16* ptr, int N, int T, int H, int D, long ld) {
-  EncodeTiled encode = encode_tiled();
+  sm90::EncodeTiled encode = sm90::encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(H), cuuint64_t(T), cuuint64_t(N)};
   const cuuint64_t strides[3] = {cuuint64_t(D) * 2, cuuint64_t(ld) * 2, cuuint64_t(T) * ld * 2};
@@ -53,9 +28,7 @@ template <int DP, bool NORM_P>
 cudaError_t launch_dp(const bf16* q, const bf16* k, const bf16* v, bf16* o, int N, int T, int H,
                       int D, long ldq, long ldk, long ldv, long ldo, int bk, cudaStream_t stream) {
   using B = sm90::TileBytes<DP>;
-  // the maps are encoded after the function attribute is set: that runtime
-  // call makes the device's context current in a thread new to it, as the
-  // encoder needs
+  // the maps are encoded after the function attribute is set (sm90.cuh)
   CUtensorMap mq, mk, mv;
   auto maps = [&]() {
     cudaError_t e;

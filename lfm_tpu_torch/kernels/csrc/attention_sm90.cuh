@@ -67,9 +67,7 @@
 // (ring).
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and the encoder's types; the encoder is found at run time
-
-#include "common.cuh"
+#include "sm90.cuh"
 
 namespace lfm {
 namespace sm90 {
@@ -108,36 +106,6 @@ struct TileBytes {
   static constexpr uint32_t TILE = ROWS * DP * 2;  // a multiple of 1024: every tile is aligned
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// returns once the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
 // one box of the (D, H, T, N) map at column c0, head h, row t0, sample n
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                          int c0, int h, int t0, int n) {
@@ -158,34 +126,11 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, 
     tma_load(dst + c * TileBytes<DP>::CHUNK, map, bar, c * Tile<DP>::CW, h, t0, n);
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// after the wait: the accumulators are read only from here on
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&r)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// wgmma shared-memory matrix descriptor, as two 32-bit words. Low: start
-// address and leading byte offset (16-byte units); high: stride byte offset
-// and swizzle layout, one constant for every operand of a kernel (base
-// offset 0: every swizzle atom starts aligned). A descriptor passed as one
-// 64-bit operand would hold two registers while live; the low words take one.
-template <int DP>
-__device__ __forceinline__ uint32_t desc_lo(uint32_t addr, uint32_t lbo) {
-  return ((addr & 0x3FFFF) >> 4) | (((lbo >> 4) & 0x3FFF) << 16);
-}
+// the high word of the wgmma shared-memory descriptors (sm90.cuh) in a
+// tile's swizzle
 template <int DP>
 __device__ __forceinline__ uint32_t desc_hi() {
-  return ((Tile<DP>::SBO >> 4) & 0x3FFF) | uint32_t(Tile<DP>::LAYOUT << 30);
+  return desc_hi_bits(Tile<DP>::SBO, Tile<DP>::LAYOUT);
 }
 // K-major operand (Q, K) at k-step kk (columns 16kk .. 16kk+15) of a tile:
 // inside a 128-byte swizzle row the start moves by 32 bytes; at the 32-byte
@@ -193,14 +138,14 @@ __device__ __forceinline__ uint32_t desc_hi() {
 template <int DP>
 __device__ __forceinline__ uint32_t kmajor_desc(uint32_t tile, int kk) {
   constexpr int CW = Tile<DP>::CW;
-  return desc_lo<DP>(tile + (kk * 16 / CW) * TileBytes<DP>::CHUNK + (kk * 16 % CW) * 2, 16);
+  return desc_lo_bits(tile + (kk * 16 / CW) * TileBytes<DP>::CHUNK + (kk * 16 % CW) * 2, 16);
 }
 // V as P V's MN-major B operand at k-step kk (keys 16kk .. 16kk+15) of
 // consecutive tiles: 8-key groups SBO apart, CW-column chunks LBO apart
 template <int DP>
 __device__ __forceinline__ uint32_t v_desc(uint32_t tiles, int kk) {
   constexpr int CW = Tile<DP>::CW;
-  return desc_lo<DP>(tiles + (kk / 4) * TileBytes<DP>::TILE + (kk % 4) * 16 * CW * 2,
+  return desc_lo_bits(tiles + (kk / 4) * TileBytes<DP>::TILE + (kk % 4) * 16 * CW * 2,
                      TileBytes<DP>::CHUNK);
 }
 

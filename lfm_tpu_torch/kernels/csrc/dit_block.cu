@@ -2,7 +2,7 @@
 // fused_dit_block, `_dit_block_kernel`), with its bf16 rounding points:
 //   h   = bf16(LN(x) * (1 + scale_msa) + shift_msa)          ln_modulate
 //   qkv = bf16(h Wqkv^T + bqkv)                               gemm, EPI_BIAS
-//   ao  = bf16(softmax(q k^T / sqrt(D)) v), p rounded to bf16 attention.cuh
+//   ao  = bf16(softmax(q k^T / sqrt(D)) v), p rounded to bf16 attention_sm90.cuh
 //   x1  = f32(x) + gate_msa * (ao Wproj^T + bproj)     (f32)  gemm, EPI_GATED
 //   h   = bf16(LN(x1) * (1 + scale_mlp) + shift_mlp)          ln_modulate
 //   u   = bf16(gelu_tanh(h W1^T + b1))                        gemm, EPI_GELU
@@ -19,13 +19,13 @@
 // operations. The TPU kernel kept all six weight matrices resident in VMEM
 // and ran S samples per grid cell; that does not carry over (227 KB of
 // shared memory per SM). Here the work is a short fixed sequence of kernels
-// on one stream: the four GEMMs are tiled 128x128x32, eight warps each
-// computing 64x32 with WMMA bf16 -> f32 (mma.sync), a two-stage cp.async
-// pipeline, and the bias / GELU / gated-residual epilogues fused into the
-// store. The intermediates (h, qkv, ao, x1, u) round-trip device memory,
-// which at these sizes is cheap next to the GEMMs. wgmma, TMA and a
-// persistent schedule are later work.
-// The GEMM and LayerNorm pieces are in gemm.cuh, shared with K5
+// on one stream: the four GEMMs are gemm_sm90.cuh's persistent,
+// warp-specialised wgmma + TMA kernel with the bias / GELU / gated-residual
+// epilogues fused into its register epilogue, and the attention is
+// attention_sm90.cuh's wgmma + TMA kernel (whole-row mode at T <= 256). The
+// intermediates (h, qkv, ao, x1, u) round-trip device memory, which at
+// these sizes is cheap next to the GEMMs.
+// The GEMM declarations and the LayerNorm are in gemm.cuh, shared with K5
 // (dit_block_train.cu).
 #include "attention.cuh"
 #include "gemm.cuh"
@@ -58,20 +58,25 @@ extern "C" int lfm_dit_block(const void* x, const void* mod, const void* wqkv, c
     cudaError_t e_ = cudaGetLastError();                  \
     if (e_ != cudaSuccess) return static_cast<int>(e_);   \
   } while (0)
+#define LFM_TRY(call)                                     \
+  do {                                                    \
+    cudaError_t e_ = (call);                              \
+    if (e_ != cudaSuccess) return static_cast<int>(e_);   \
+  } while (0)
   LFM_CHECK((lfm::ln_modulate_kernel<bf16><<<M, lfm::LN_THREADS, 0, s>>>(bp(x), m, h, T, C, 0, 1)));
-  LFM_CHECK((lfm::launch_gemm<lfm::EPI_BIAS, bf16, bf16>(h, bp(wqkv), bp(bqkv), qkv, M, 3 * C, C,
-                                                         nullptr, nullptr, 0, T, s)));
-  cudaError_t err = lfm::launch_attention<true>(qkv, qkv + C, qkv + 2 * C, ao, N, T, heads, D,
-                                                3L * C, 3L * C, 3L * C, C, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  LFM_CHECK((lfm::launch_gemm<lfm::EPI_GATED, bf16, float>(ao, bp(wproj), bp(bproj), x1, M, C, C,
-                                                           bp(x), m, 2, T, s)));
+  LFM_TRY((lfm::launch_gemm_nt<lfm::EPI_BIAS, bf16, bf16>(h, bp(wqkv), bp(bqkv), qkv, M, 3 * C, C,
+                                                          nullptr, nullptr, 0, T, s)));
+  LFM_TRY(lfm::launch_attention<true>(qkv, qkv + C, qkv + 2 * C, ao, N, T, heads, D, 3L * C,
+                                      3L * C, 3L * C, C, s));
+  LFM_TRY((lfm::launch_gemm_nt<lfm::EPI_GATED, bf16, float>(ao, bp(wproj), bp(bproj), x1, M, C, C,
+                                                            bp(x), m, 2, T, s)));
   LFM_CHECK((lfm::ln_modulate_kernel<float><<<M, lfm::LN_THREADS, 0, s>>>(x1, m, h, T, C, 3, 4)));
-  LFM_CHECK((lfm::launch_gemm<lfm::EPI_GELU, bf16, bf16>(h, bp(w1), bp(b1), u, M, hidden, C,
-                                                         nullptr, nullptr, 0, T, s)));
-  LFM_CHECK((lfm::launch_gemm<lfm::EPI_GATED, float, bf16>(u, bp(w2), bp(b2),
-                                                           static_cast<bf16*>(out), M, C, hidden,
-                                                           x1, m, 5, T, s)));
+  LFM_TRY((lfm::launch_gemm_nt<lfm::EPI_GELU, bf16, bf16>(h, bp(w1), bp(b1), u, M, hidden, C,
+                                                          nullptr, nullptr, 0, T, s)));
+  LFM_TRY((lfm::launch_gemm_nt<lfm::EPI_GATED, float, bf16>(u, bp(w2), bp(b2),
+                                                            static_cast<bf16*>(out), M, C, hidden,
+                                                            x1, m, 5, T, s)));
 #undef LFM_CHECK
+#undef LFM_TRY
   return 0;
 }

@@ -51,11 +51,12 @@
 // attention half 16 N T C^2 + 10 N T^2 C = 158.9 GFLOP (five T x T products
 // per head: logits, dv, dp, dq, dk; ao is a stream, so PV is not redone).
 // All three are bound by tensor-core operations (0.217, 0.278 and 0.161 ms
-// at 989 TFLOP/s). The
-// GEMMs are gemm.cuh's WMMA tiles, so they run at K2's rate; the
-// element-wise passes and the recomputed LayerNorms round-trip device
-// memory. wgmma, TMA, split-K for the narrow weight gradients and fusing
-// the passes into the GEMMs are later work.
+// at 989 TFLOP/s). The forward's four GEMMs are K2's: gemm_sm90.cuh's
+// persistent wgmma + TMA kernel, the streams written from its register
+// epilogue. The backward's NN and TN GEMMs are gemm.cuh's WMMA tiles
+// (mma.sync); the element-wise passes and the recomputed LayerNorms
+// round-trip device memory. Those GEMMs on wgmma, split-K for the narrow
+// weight gradients and fusing the passes into the GEMMs are later work.
 #include "attention.cuh"
 #include "gemm.cuh"
 
@@ -194,6 +195,12 @@ static cudaError_t reduce_rows(const float* part, int P, int ncols, float* out, 
     cudaError_t e_ = cudaGetLastError();                  \
     if (e_ != cudaSuccess) return static_cast<int>(e_);   \
   } while (0)
+// a launcher that returns its error (the NT GEMM, the attention)
+#define LFM_TRY(call)                                     \
+  do {                                                    \
+    cudaError_t e_ = (call);                              \
+    if (e_ != cudaSuccess) return static_cast<int>(e_);   \
+  } while (0)
 
 // x, out: bf16 (N, T, C); mod (N, 6C); weights (out, in) bf16, C % 128 == 0,
 // hidden % 128 == 0, C / heads in {56, 64, 72, 80}. Streams (bf16): x1s (N*T,
@@ -220,19 +227,18 @@ extern "C" int lfm_dit_block_train_fwd(const void* x, const void* mod, const voi
   const bf16* m = bp(mod);
 
   LFM_CHECK((lfm::ln_modulate_kernel<bf16><<<M, lfm::LN_THREADS, 0, s>>>(bp(x), m, h, T, C, 0, 1)));
-  LFM_CHECK((lfm::launch_gemm<lfm::EPI_BIAS, bf16, bf16>(h, bp(wqkv), bp(bqkv), qkv, M, 3 * C, C,
-                                                         nullptr, nullptr, 0, T, s)));
-  cudaError_t err = lfm::launch_attention<true>(qkv, qkv + C, qkv + 2 * C, ao, N, T, heads, D,
-                                                3L * C, 3L * C, 3L * C, C, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  LFM_CHECK((lfm::launch_gemm<lfm::EPI_GATED_AUX, bf16, float>(
+  LFM_TRY((lfm::launch_gemm_nt<lfm::EPI_BIAS, bf16, bf16>(h, bp(wqkv), bp(bqkv), qkv, M, 3 * C, C,
+                                                          nullptr, nullptr, 0, T, s)));
+  LFM_TRY(lfm::launch_attention<true>(qkv, qkv + C, qkv + 2 * C, ao, N, T, heads, D, 3L * C,
+                                      3L * C, 3L * C, C, s));
+  LFM_TRY((lfm::launch_gemm_nt<lfm::EPI_GATED_AUX, bf16, float>(
       ao, bp(wproj), bp(bproj), x1, M, C, C, bp(x), m, 2, T, s,
       lfm::GemmAux{mp(prs), mp(x1s), nullptr, nullptr})));
   LFM_CHECK((lfm::ln_modulate_kernel<float><<<M, lfm::LN_THREADS, 0, s>>>(x1, m, h, T, C, 3, 4)));
-  LFM_CHECK((lfm::launch_gemm<lfm::EPI_GELU_AUX, bf16, bf16>(
+  LFM_TRY((lfm::launch_gemm_nt<lfm::EPI_GELU_AUX, bf16, bf16>(
       h, bp(w1), bp(b1), g, M, hidden, C, nullptr, nullptr, 0, T, s,
       lfm::GemmAux{mp(us), nullptr, nullptr, nullptr})));
-  LFM_CHECK((lfm::launch_gemm<lfm::EPI_GATED_AUX, float, bf16>(
+  LFM_TRY((lfm::launch_gemm_nt<lfm::EPI_GATED_AUX, float, bf16>(
       g, bp(w2), bp(b2), mp(out), M, C, hidden, x1, m, 5, T, s,
       lfm::GemmAux{mp(h2s), nullptr, nullptr, nullptr})));
   return 0;

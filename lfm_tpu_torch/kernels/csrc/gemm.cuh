@@ -1,16 +1,22 @@
 // GEMM and LayerNorm pieces shared by K2 (dit_block.cu) and K5
-// (dit_block_train.cu): the row-wise LayerNorm + adaLN modulate, and one
-// WMMA GEMM template with three operand layouts and fused epilogues.
+// (dit_block_train.cu): the row-wise LayerNorm + adaLN modulate, the fused
+// epilogues, and the two GEMMs.
 //
-// The GEMM tiles 128x128x32: eight warps each compute 64x32 with WMMA
-// bf16 -> f32 (mma.sync), a two-stage cp.async pipeline, and the epilogue
-// fused into the store. Layouts (all row-major bf16, f32 accumulation):
-//   LAYOUT_NT  out (M, N) = A (M, K) . W (N, K)^T   a torch.nn.Linear forward
+// The NT layout, out (M, N) = A (M, K) . W (N, K)^T (a torch.nn.Linear
+// forward: K2, K5's forward, lfm_bf16_mlp), runs on Hopper's wgmma + TMA:
+// launch_gemm_nt, the persistent warp-specialised kernel of gemm_sm90.cuh
+// (compiled in gemm_sm90.cu). N % 128 == 0, K % 64 == 0; rows m >= M are
+// masked.
+//
+// K5's backward keeps one WMMA GEMM template (gemm_kernel) for the other two
+// layouts, tiled 128x128x32: eight warps each compute 64x32 with WMMA bf16
+// -> f32 (mma.sync), a two-stage cp.async pipeline, and the epilogue fused
+// into the store (all row-major bf16, f32 accumulation):
 //   LAYOUT_NN  out (M, N) = A (M, K) . B (K, N)     an activation gradient
 //   LAYOUT_TN  out (M, N) = A (K, M)^T . B (K, N)   a weight gradient, summed
 //                                                   over all K token rows
-// N % 128 == 0 and K % 32 == 0; rows m >= M are masked (NT and NN), TN
-// needs M % 128 == 0. wgmma, TMA and a persistent schedule are later work.
+// N % 128 == 0 and K % 32 == 0; rows m >= M are masked (NN), TN needs
+// M % 128 == 0. Moving them onto wgmma is later work.
 #pragma once
 
 #include <type_traits>
@@ -57,7 +63,8 @@ ln_modulate_kernel(const TIn* __restrict__ x, const bf16* __restrict__ mod,
   }
 }
 
-// K2's epilogues (0-2), then K5's:
+// K2's epilogues (0-2), then K5's. The NT GEMM takes all but EPI_DGELU;
+// gemm_kernel (NN, TN) takes EPI_STORE and EPI_DGELU:
 //   EPI_BIAS       out = value + bias
 //   EPI_GELU       out = gelu_tanh(value + bias)
 //   EPI_GATED      out = resid + mod[gate] * (value + bias)
@@ -70,7 +77,7 @@ ln_modulate_kernel(const TIn* __restrict__ x, const bf16* __restrict__ mod,
 //                  colsum per blockIdx.y, in a fixed order)
 enum { EPI_BIAS = 0, EPI_GELU = 1, EPI_GATED = 2, EPI_GELU_AUX = 3, EPI_GATED_AUX = 4,
        EPI_STORE = 5, EPI_DGELU = 6 };
-enum { LAYOUT_NT = 0, LAYOUT_NN = 1, LAYOUT_TN = 2 };
+enum { LAYOUT_NN = 1, LAYOUT_TN = 2 };
 
 struct GemmAux {
   bf16* aux;          // EPI_GELU_AUX, EPI_GATED_AUX
@@ -96,19 +103,19 @@ __device__ __forceinline__ float gelu_tanh_grad(float u) {
 
 template <int LAYOUT>
 struct GemmTiles {
+  static_assert(LAYOUT == LAYOUT_NN || LAYOUT == LAYOUT_TN, "NT runs in gemm_sm90.cuh");
   static constexpr int A_TILE = LAYOUT == LAYOUT_TN ? GK * GLD_KM : GM * GLD;
-  static constexpr int B_TILE = LAYOUT == LAYOUT_NT ? GN * GLD : GK * GLD_KM;
+  static constexpr int B_TILE = GK * GLD_KM;
   using ALayout = typename std::conditional<LAYOUT == LAYOUT_TN, nvcuda::wmma::col_major,
                                             nvcuda::wmma::row_major>::type;
-  using BLayout = typename std::conditional<LAYOUT == LAYOUT_NT, nvcuda::wmma::col_major,
-                                            nvcuda::wmma::row_major>::type;
+  using BLayout = nvcuda::wmma::row_major;
   static_assert(A_TILE * 2 >= 8 * 256 * 4, "the epilogue stages its fragments in the A tiles");
 };
 
 // out[m, n] = epilogue(sum_k A[m, k] * B[k, n]) with A, B in LAYOUT (above);
 // a null bias adds nothing (EPI_STORE and EPI_DGELU never read it).
 // EPI_GATED*: resid[m, n] + mod[m / T, gate_idx * N + n] * value.
-template <int EPI, typename TRes, typename TOut, int LAYOUT = LAYOUT_NT>
+template <int EPI, typename TRes, typename TOut, int LAYOUT>
 __global__ void __launch_bounds__(G_THREADS)
 gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
             const bf16* __restrict__ bias, TOut* __restrict__ out, int M, int N, int K,
@@ -134,10 +141,7 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
         bool ok = m0 + r < M;
         cp_async16(&as[stage][r * GLD + c], A + (ok ? long(m0 + r) * K + k0 + c : 0), ok);
       }
-      if constexpr (LAYOUT == LAYOUT_NT) {   // W: 128 n-rows of 32 k
-        int r = id >> 2, c = (id & 3) * 8;
-        cp_async16(&bs[stage][r * GLD + c], W + long(n0 + r) * K + k0 + c, true);
-      } else {                               // B: 32 k-rows of 128 n
+      {                                      // B: 32 k-rows of 128 n
         int r = id >> 4, c = (id & 15) * 8;
         cp_async16(&bs[stage][r * GLD_KM + c], W + long(k0 + r) * N + n0 + c, true);
       }
@@ -175,12 +179,8 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
           wmma::load_matrix_sync(a[i], a_s + (wm * 64 + i * 16) * GLD + kk, GLD);
       }
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if constexpr (LAYOUT == LAYOUT_NT)
-          wmma::load_matrix_sync(b[j], b_s + (wn * 32 + j * 16) * GLD + kk, GLD);
-        else
-          wmma::load_matrix_sync(b[j], b_s + kk * GLD_KM + wn * 32 + j * 16, GLD_KM);
-      }
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(b[j], b_s + kk * GLD_KM + wn * 32 + j * 16, GLD_KM);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -250,13 +250,34 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
   }
 }
 
-template <int EPI, typename TRes, typename TOut, int LAYOUT = LAYOUT_NT>
+template <int EPI, typename TRes, typename TOut, int LAYOUT>
 static void launch_gemm(const bf16* A, const bf16* W, const bf16* bias, TOut* out, int M, int N,
                         int K, const TRes* resid, const bf16* mod, int gate_idx, int T,
                         cudaStream_t s, GemmAux ax = GemmAux{nullptr, nullptr, nullptr, nullptr}) {
   dim3 grid(N / GN, (M + GM - 1) / GM);
   gemm_kernel<EPI, TRes, TOut, LAYOUT><<<grid, G_THREADS, 0, s>>>(A, W, bias, out, M, N, K, resid,
                                                                   mod, gate_idx, T, ax);
+}
+
+// The NT GEMM on wgmma + TMA (gemm_sm90.cu): out (M, N) = epilogue(A (M, K)
+// . W (N, K)^T) with one of EPI_BIAS, EPI_GELU, EPI_GATED, EPI_GELU_AUX,
+// EPI_GATED_AUX, EPI_STORE (ax.aux and ax.aux2 may be null). Built for
+// EPI_BIAS, EPI_STORE and EPI_GELU* into bf16, EPI_GATED* with a bf16 resid
+// into f32 and an f32 resid into bf16; anything else, N % 128 != 0 or K % 64
+// != 0 returns cudaErrorInvalidValue and launches nothing.
+cudaError_t launch_gemm_nt(int epi, const bf16* A, const bf16* W, const bf16* bias, void* out,
+                           bool out_f32, const void* resid, bool resid_f32, const bf16* mod,
+                           int gate_idx, int T, bf16* aux, bf16* aux2, int M, int N, int K,
+                           cudaStream_t s);
+
+template <int EPI, typename TRes, typename TOut>
+cudaError_t launch_gemm_nt(const bf16* A, const bf16* W, const bf16* bias, TOut* out, int M,
+                           int N, int K, const TRes* resid, const bf16* mod, int gate_idx, int T,
+                           cudaStream_t s,
+                           GemmAux ax = GemmAux{nullptr, nullptr, nullptr, nullptr}) {
+  return launch_gemm_nt(EPI, A, W, bias, out, std::is_same<TOut, float>::value, resid,
+                        std::is_same<TRes, float>::value, mod, gate_idx, T, ax.aux, ax.aux2, M,
+                        N, K, s);
 }
 
 }  // namespace lfm

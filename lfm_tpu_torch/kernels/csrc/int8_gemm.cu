@@ -33,17 +33,19 @@
 // reduction; the hidden is not rounded to bf16 to save it (JAX quantizes the
 // f32 values).
 //
-// `_kernel_bf16` (run_bf16), the probe's yardstick, is lfm_bf16_mlp: two of
-// gemm.cuh's bf16 WMMA GEMMs, EPI_GELU with no bias into a bf16 hidden (the
-// f32 GELU rounded to bf16 before the second product) and EPI_STORE into a
-// bf16 out (the f32 product rounded when the next chain step reads it).
+// `_kernel_bf16` (run_bf16), the probe's yardstick, is lfm_bf16_mlp: two
+// launches of the bf16 NT GEMM that K2 uses (gemm_sm90.cuh, wgmma + TMA),
+// EPI_GELU with no bias into a bf16 hidden (the f32 GELU rounded to bf16
+// before the second product) and EPI_STORE into a bf16 out (the f32 product
+// rounded when the next chain step reads it).
 //
 // What bounds it on the H100: one DiT-L/2 block's four int8 products at
 // N = 200, T = 256 are 2 * 51200 * 1024 * 12288 = 1.29 TOP, 0.65 ms at the
 // 1979 TOP/s dense int8 peak; the activations they read and write (f32 in,
 // f32 or bf16 out, the hidden twice) are ~2.2 GB, 0.66 ms at 3.35 TB/s, so a
-// block's int8 path is at the ridge. WMMA's mma.sync reaches a fraction of
-// the peak that wgmma + TMA would; those are later work.
+// block's int8 path is at the ridge. The int8 GEMM's WMMA mma.sync reaches
+// a fraction of the peak that an s8 wgmma + TMA kernel would; that is later
+// work.
 #include "gemm.cuh"
 
 namespace lfm {
@@ -254,20 +256,16 @@ extern "C" int lfm_int8_gemm(const void* a, const void* w, const void* sa, const
 // One step of `_kernel_bf16`: x (M, D) bf16, w1 (H, D) and w2 (D, H) bf16 in
 // torch.nn.Linear layout; h (M, H) bf16 scratch; out (M, D) bf16 =
 // bf16(bf16(gelu(x w1^T)) w2^T). D % 128 == 0, H % 128 == 0. Launches
-// two GEMMs on `stream`, allocates nothing, returns cudaGetLastError().
+// two GEMMs on `stream`, allocates nothing, returns the first error.
 extern "C" int lfm_bf16_mlp(const void* x, const void* w1, const void* w2, void* h, void* out,
                             int M, int D, int H, void* stream) {
   using lfm::bf16;
   auto st = static_cast<cudaStream_t>(stream);
   auto bp = [](const void* p) { return static_cast<const bf16*>(p); };
-  if (D % lfm::GN || H % lfm::GN || (M + lfm::GM - 1) / lfm::GM > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  lfm::launch_gemm<lfm::EPI_GELU, bf16, bf16>(bp(x), bp(w1), nullptr, static_cast<bf16*>(h), M,
-                                              H, D, nullptr, nullptr, 0, 1, st);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = lfm::launch_gemm_nt<lfm::EPI_GELU, bf16, bf16>(
+      bp(x), bp(w1), nullptr, static_cast<bf16*>(h), M, H, D, nullptr, nullptr, 0, 1, st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  lfm::launch_gemm<lfm::EPI_STORE, bf16, bf16>(static_cast<const bf16*>(h), bp(w2), nullptr,
-                                               static_cast<bf16*>(out), M, D, H, nullptr, nullptr,
-                                               0, 1, st);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(lfm::launch_gemm_nt<lfm::EPI_STORE, bf16, bf16>(
+      static_cast<const bf16*>(h), bp(w2), nullptr, static_cast<bf16*>(out), M, D, H, nullptr,
+      nullptr, 0, 1, st));
 }

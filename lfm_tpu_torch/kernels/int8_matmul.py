@@ -44,8 +44,8 @@ INT8_MLP = LaunchCounter()
 BF16_MLP = LaunchCounter()
 EPILOGUES = ("store", "gelu")
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)  # x's types and out's
-# the int8 GEMM's tile widths (int8_gemm.cu): N % 128 == 0, K % 64 == 0;
-# the bf16 GEMMs take N % 128 == 0 and K % 32 == 0 (gemm.cuh)
+# the int8 GEMM's tile widths (int8_gemm.cu) and the bf16 NT GEMM's
+# (gemm_sm90.cuh): N % 128 == 0, K % 64 == 0
 TILE_N, TILE_K = 128, 64
 _BF = torch.bfloat16
 
@@ -265,8 +265,8 @@ def bf16_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tenso
     if x.device.type == "cpu":
         return reference_bf16_mlp(x, w1, w2)
     _check_device(fn, x)
-    _check_tiles(fn, d, h, 32)
-    _check_tiles(fn, h, d, 32)
+    _check_tiles(fn, d, h)
+    _check_tiles(fn, h, d)
     for name, a in (("x", x), ("w1", w1), ("w2", w2)):
         _check_on(fn, name, a, _BF, x.device)
     hid = torch.empty((rows, h), dtype=_BF, device=x.device)

@@ -46,7 +46,9 @@ CONV, K2 = "convolution (cuDNN)", "K2 fused_dit_block"
 CLASSES = (
     ("P1 int8_gemm", ("lfm::int8_gemm_kernel",)),
     ("P1 quant_rows", ("lfm::quant_rows_kernel",)),
-    (K2, ("lfm::gemm_kernel", "lfm::ln_modulate_kernel")),
+    # K2's GEMMs run gemm_sm90.cuh's kernel (the P1 probe's bf16_mlp too,
+    # which no sampling path runs)
+    (K2, ("lfm::sm90::gemm_nt_kernel", "lfm::ln_modulate_kernel")),
     # bf16 K1 and K4 are attention_sm90.cuh's two modes (K1 takes the
     # key-block one only past T = 256, which no shipped preset reaches);
     # f32 runs attn_small_kernel (attn_short_f32_kernel at T <= 64) /

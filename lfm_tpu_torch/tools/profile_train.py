@@ -58,12 +58,13 @@ CONV, MATMUL, OPT = "convolution (cuDNN)", "matmul", "optimizer (foreach)"
 DIT_CLASSES = (MATMUL, K1, K3, K5)
 # kernel name -> class, first match wins: a key is a tuple of lower-case
 # substrings that must all be in the name. K5's forward is this package's
-# GEMM and LayerNorm kernels and its attention that normalises p before
+# NT GEMM (``lfm::sm90::gemm_nt_kernel``) and LayerNorm kernels and its
+# attention that normalises p before
 # rounding it (``lfm::sm90::attn_whole_kernel<64, true>``; K1's is
 # ``false>``; f32 K1 is ``attn_small_kernel`` or ``attn_short_f32_kernel``);
 # K3 is ``lfm::sm90::attn_bwd_dq_kernel`` and ``attn_bwd_dkdv_kernel``
 CLASSES = (
-    (K5, (("lfm::gemm_kernel",), ("lfm::ln_modulate_kernel",),
+    (K5, (("lfm::sm90::gemm_nt_kernel",), ("lfm::ln_modulate_kernel",),
           ("lfm::sm90::attn_", "true>"))),
     (K3, (("attn_bwd",),)),
     (K1, (("lfm::sm90::attn_",), ("attn_small_kernel",), ("attn_short_f32_kernel",))),

@@ -402,6 +402,100 @@ def test_sm90_attention_builds_without_spills(cuda):
         assert u["spill_stores"] == 0 and u["spill_loads"] == 0 and u["registers"] <= 255, name
 
 
+# the NT GEMM of gemm_sm90.cuh through its own wrapper, every epilogue:
+# (epilogue, M, K, N, bias, resid dtype, aux, aux2). M = 300 ends inside a
+# 128-row tile; N = 384 and 1152 (C = 384 and 1152), and every N at M = 300
+# or 256, take 128-wide tiles; M = 8192 (the train step's N*T) 256-wide ones
+GEMM_CASES = [
+    ("bias", 300, 1024, 3072, True, None, False, False),
+    ("bias", 8192, 1024, 3072, True, None, False, False),
+    ("store", 256, 128, 384, False, None, False, False),
+    ("gelu", 300, 384, 1536, False, None, False, False),
+    ("gelu", 8192, 1024, 4096, True, None, False, False),
+    ("gelu_aux", 300, 1152, 1152, True, None, True, False),
+    ("gelu_aux", 256, 256, 1024, True, None, False, False),
+    ("gated", 300, 256, 384, True, torch.bfloat16, False, False),
+    ("gated", 300, 1536, 384, True, torch.float32, False, False),
+    ("gated_aux", 8192, 1024, 1024, True, torch.bfloat16, True, True),
+    ("gated_aux", 8192, 4096, 1024, True, torch.float32, True, False),
+    ("gated_aux", 300, 384, 1152, False, torch.bfloat16, True, False),
+]
+
+
+@pytest.mark.parametrize("epilogue,m,k,n,bias,resid,aux,aux2", GEMM_CASES)
+def test_sm90_gemm_matches_plain(cuda, epilogue, m, k, n, bias, resid, aux, aux2):
+    """The wgmma + TMA GEMM against its plain version: each f32 output
+    within 1e-4 of its largest plain value (f32 sums in another order),
+    each bf16 output within one bf16 ulp of its largest (a rounding that
+    falls the other way), a gated bf16 output also within 2e-2 of the
+    update resid + gate * value - resid."""
+    from lfm_tpu_torch.kernels.gemm import GEMM, gemm, reference_gemm
+
+    def rn(*s, scale=1.0, dtype=torch.bfloat16):
+        return (scale * torch.randn(*s, generator=cuda, device="cuda")).to(dtype)
+
+    tokens = 100 if m == 300 else 64
+    a, w = rn(m, k), rn(n, k, scale=k ** -0.5)
+    kw = dict(epilogue=epilogue, aux=aux, aux2=aux2)
+    if bias:
+        kw["bias"] = rn(n, scale=0.1)
+    if resid is not None:
+        kw.update(resid=rn(m, n, dtype=resid), mod=rn(m // tokens, 6 * n, scale=0.3), gate=4,
+                  tokens=tokens, out_dtype=torch.float32 if resid == torch.bfloat16
+                  else torch.bfloat16)
+    before = GEMM.count
+    got = gemm(a, w, **kw)
+    torch.cuda.synchronize()
+    assert GEMM.count == before + 1
+    want = reference_gemm(a, w, **kw)
+    for name, g, wt in zip(("out", "aux", "aux2"), got, want):
+        assert (g is None) == (wt is None), name
+        if g is None:
+            continue
+        assert g.dtype == wt.dtype and g.shape == (m, n), name
+        err = float((g.float() - wt.float()).abs().max())
+        top = float(wt.float().abs().max())
+        assert top > 0 and err <= (1e-4 if g.dtype == torch.float32 else 2.0 ** -7) * top, \
+            (name, err, top)
+        if name == "out" and g.dtype == torch.bfloat16 and resid is not None:
+            assert _within(g, wt, kw["resid"]), name
+
+
+def test_sm90_gemm_refuses_what_it_does_not_take(cuda):
+    from lfm_tpu_torch.kernels.gemm import gemm
+
+    a = torch.zeros(64, 128, device="cuda", dtype=torch.bfloat16)
+    w = torch.zeros(256, 128, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="K % 64"):
+        gemm(a[:, :96].contiguous(), w[:, :96].contiguous())
+    with pytest.raises(ValueError, match="N % 128"):
+        gemm(a, w[:192].contiguous())
+    with pytest.raises(ValueError, match="float32 resid into bfloat16"):
+        gemm(a, w, epilogue="gated", resid=torch.zeros(64, 256, device="cuda"),
+             mod=torch.zeros(1, 6 * 256, device="cuda", dtype=torch.bfloat16), tokens=64,
+             out_dtype=torch.float32)
+
+
+def test_sm90_gemm_builds_without_spills(cuda):
+    """ptxas's report of the NT GEMM: its 8 instances (4 epilogue kinds x 2
+    tile widths) built, none spills; and no NT instance of the WMMA
+    gemm_kernel is left (K5's backward keeps NN and TN ones)."""
+    import re
+
+    from lfm_tpu_torch.kernels import _build
+
+    _build.load_library()
+    usage = {k: v for k, v in _build.ptxas_usage("gemm_sm90").items() if "gemm_nt_kernel" in k}
+    assert len(usage) == 8
+    for name, u in usage.items():
+        assert u["spill_stores"] == 0 and u["spill_loads"] == 0 and u["registers"] <= 255, name
+    layouts = {stem: [int(m.group(1)) for k in _build.ptxas_usage(stem)
+                      for m in [re.search(r"11gemm_kernelI.*?Li(\d)EEEv", k)] if m]
+               for stem in ("dit_block", "dit_block_train", "int8_gemm")}
+    assert layouts["dit_block"] == [] and layouts["int8_gemm"] == []
+    assert layouts["dit_block_train"] and set(layouts["dit_block_train"]) <= {1, 2}
+
+
 @pytest.mark.parametrize("mode", ["full", "slim"])
 @pytest.mark.parametrize("n,t,c,heads", K5_SHAPES)
 def test_block_train_fwd_kernel_matches_plain(cuda, n, t, c, heads, mode):

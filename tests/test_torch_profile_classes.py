@@ -52,3 +52,28 @@ def test_f32_kernels_keep_their_sampling_classes():
     assert profile_sample.classify(
         "void lfm::(anonymous namespace)::attn_short_f32_kernel<128, 16, 16>(...)") \
         == "K1 attention_small"
+
+
+GEMM = "void lfm::sm90::gemm_nt_kernel<{}, {}, {}, {}>(CUtensorMap_st, CUtensorMap_st, " \
+       "lfm::sm90::GemmArgs)"
+
+
+@pytest.mark.parametrize("kind,bn,tres,tout", [
+    (0, 256, "__nv_bfloat16", "__nv_bfloat16"), (1, 128, "__nv_bfloat16", "__nv_bfloat16"),
+    (2, 256, "__nv_bfloat16", "float"), (2, 128, "float", "__nv_bfloat16"),
+])
+def test_profiles_count_the_nt_gemm_in_its_block(kind, bn, tres, tout):
+    """gemm_sm90.cuh's GEMM is K2's in a sampling trace and K5's forward's
+    in a fused training trace, not a library matmul."""
+    name = GEMM.format(kind, bn, tres, tout)
+    assert profile_sample.classify(name) == "K2 fused_dit_block"
+    assert profile_train._classify(name) == profile_train.K5
+
+
+@pytest.mark.parametrize("name", [
+    "nvjet_tst_256x128_64x4_1x2_h_bz_coopA_TNT",
+    "void cutlass::Kernel2<cutlass_80_wmma_tensorop_bf16_s161616gemm_bf16_32x32_128x2_tn_align8>",
+])
+def test_library_matmuls_stay_matmuls(name):
+    assert profile_sample.classify(name) == "matmul"
+    assert profile_train._classify(name) == profile_train.MATMUL
