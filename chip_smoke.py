@@ -13,18 +13,21 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    kernel's time, the plain version's time, the bound and the time of one
    library call computing the same function:
    - attention_small (K1), bf16 at (8, 256, 16, 64), (2, 1024, 16, 64),
-     (32, 256, 16, 64) (the train step's shape) and (N, 256, 16, 64), the
-     last also on the thirds of a fused qkv row (K2's layout), and f32 at
-     (8, 256, 16, 64) and at the origin ADM's heads, (N, 16, 4, 128)
-     (celeb256_adm's path), (16, 64, 4, 128) and (16, 16, 4, 256); library:
-     scaled_dot_product_attention;
+     (32, 256, 16, 64) (the train step's shape), (8, 256, 16, 72) (DiT-XL's
+     head) and (N, 256, 16, 64), the last also on the thirds of a fused qkv
+     row (K2's layout), and f32 at the f32 DiT's heads, (8, 256, 16, 64),
+     (32, 256, 16, 64) (train_f32's shape) and (8, 256, 16, 72), at
+     (2, 1024, 16, 64) (an f32 DiT-L/2 at 512 px, past T = 256: attention.cuh's
+     kernel), and at the origin ADM's heads, (N, 16, 4, 128) (celeb256_adm's path), (16, 64, 4,
+     128) and (16, 16, 4, 256); library: scaled_dot_product_attention;
    - fused_dit_block (K2) at T=256, C=1024, hidden 4096, 16 heads, N=8 and
      N, every weight non-zero; library: the same block composed of cuBLAS
      bf16 matmuls and scaled_dot_product_attention;
    - attention_small_bwd (K3), bf16 at (32, 256, 16, 64) and
-     (8, 1024, 16, 64), f32 at (8, 256, 16, 64); library: the backward of
-     scaled_dot_product_attention through autograd (its saved forward
-     graph, backward alone);
+     (8, 1024, 16, 64), f32 at (8, 256, 16, 64), (32, 256, 16, 64),
+     (8, 256, 16, 72) and (2, 1024, 16, 64) (attention_bwd.cuh's kernels,
+     past T = 256); library: the backward of scaled_dot_product_attention
+     through autograd (its saved forward graph, backward alone);
    - flash_attention (K4), bf16 at (2, 4096, 16, 64) (DiT-L/2 at 1024 px,
      the long_t path) and (4, 2048, 16, 64), f32 at (1, 4096, 4, 128);
      library: scaled_dot_product_attention;
@@ -56,9 +59,13 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    attention kernels (bf16 K1 and K4, the wgmma + TMA forward of
    attention_sm90.cuh; bf16 K3, the wgmma + TMA backward of
    attention_bwd_sm90.cuh; f32 K1 at the origin ADM's T <= 64, the one-pass
-   kernel of attention_wide.cu) with its ms, share of its bound and ratio
-   to SDPA, and the registers and spills of each of the 12 wgmma kernel
-   instances from the build's ptxas report; a spill fails the run. And one
+   kernel of attention_wide.cu; f32 K1 and K3 at the DiT's heads and T <=
+   256, the one-pass kernels of attention_row_f32.cuh; f32 K1 and K3 past
+   T = 256, attention.cuh's and attention_bwd.cuh's) with its ms, share of
+   its bound, ratio to SDPA and output digest, and the registers and spills
+   of each of the 12 wgmma kernel instances and the 14 instances of
+   attention_row_f32.cuh from the build's ptxas report; a spill fails the
+   run. And one
    gemm_redesign line: each NT GEMM of K2 at N and of K5's forward at the
    train batch alone (the persistent wgmma + TMA GEMM of gemm_sm90.cuh,
    through kernels/gemm.py; tools/bench_block.py's gemm_rows) with its ms,
@@ -70,7 +77,8 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    gradients with attention through K1/K3, and through
    dit_fused_apply(train_vjp=True) (K5's forward, the hybrid backward
    through K3), each against plain autograd of reference_attention, per
-   tensor.
+   tensor. Then the same model in f32 (f32 compute, as train_f32): its
+   gradients through f32 K1/K3 against plain autograd in f32, per tensor.
 4. main_fused: ``make_sampler`` on the celeb256_dit preset, a bf16 DiT-L/2
    at full width and depth with seeded non-zero weights, dopri5 at the
    preset's tolerances, full-size VAE decode of N samples to
@@ -124,10 +132,23 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    the EMA after step 1, and launch counts of exactly 24 block_train_fwd
    and 24 attention_small_bwd per step and nothing else; the time of steps
    2 to 1 + TRAIN_STEPS, after a sync, is the seconds per step.
+10b. train_f32: ``train(...)`` on the same preset, model_0.pth, VAE encoder
+   and images with precision="f32" (f32 compute on f32 masters, grad
+   checkpointing and EMA as the preset sets them), 1 + TRAIN_F32_STEPS
+   steps (tools/bench_train.py's timed_train: the time from the log after
+   step 1 to the end, after a sync, over TRAIN_F32_STEPS is the seconds
+   per step): exactly 2 x 24 f32 attention_small (forward and recompute)
+   and 24 f32 attention_small_bwd per step and no other kernel, f32
+   parameters that stay finite, and step 1's loss within F32_LOSS_TOL of
+   the same f32 model's with plain attention (use_flash_attention=False)
+   on the same batch and draws, while the same plain step with attention's
+   products in TF32 lands outside it.
 11. a ``kernels`` line with every ported kernel (f32 K1 at celeb256_adm's
    (200, 16, 4, 128) as its own entry, attention_small_f32, with
-   adm_main's launches), then the card's name and power limit, then the
-   last line ``{"ok": true, "device": {...}}``.
+   adm_main's launches; f32 K1 and K3 at the f32 DiT's (32, 256, 16, 64)
+   as attention_small_f32_dit and attention_small_bwd_f32, with
+   train_f32's), then the card's name and power limit, then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Every path resets all launch counts just before it runs and reads them
 just after.
@@ -140,6 +161,7 @@ any result.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -186,6 +208,16 @@ VEL_TOL = 5e-2
 # tighter than the JAX package's own 8e-2, tests/test_dit_fused.py:190: the
 # card reads 0.6-0.7% for both)
 GRAD_TOL = 5e-2
+# the same in f32 through f32 K1/K3: f32 sums in another order, carried
+# through two blocks of the backward (tests/test_torch_cuda.py's f32 case;
+# the card reads 3.8e-7)
+F32_GRAD_TOL = 1e-5
+# train_f32's step-1 loss against the same f32 model's with plain attention
+# on the same batch and draws, relative: set between the readings of the
+# card (NVIDIA H100 80GB HBM3), 0.0 with the f32 kernels and 8.0e-7 (8 f32
+# ulps of a loss of 2.39) with the plain attention's products in TF32; the
+# phase also checks that the TF32 reading stays above it
+F32_LOSS_TOL = 4e-7
 # K5 against its plain versions: max abs error / max |plain| per output,
 # bf16 streams and f32 sums of bf16 products at the same rounding points (a
 # rounding that falls the other way moves a term by 2^-8); out and x1 (and
@@ -232,6 +264,7 @@ FID_ACT_TOL = 1e-3
 INT8_OPS = 1979e12  # dense int8 tensor-core op/s, H100 SXM data sheet
 P1_ROWS = 51200  # the int8 path's rows at the sampling batch: 200 x 256 tokens
 TRAIN_STEPS = 12  # the first step is not timed
+TRAIN_F32_STEPS = 6  # timed steps of train_f32, after its first
 ADM_FUSED_STEPS = 4  # euler steps of the adm_fused_gn path
 LONG_T_SIZE = 1024  # image size of the long_t path: T = (1024 / 8 / 2)^2 = 4096
 
@@ -256,6 +289,14 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def digest(torch, *tensors) -> str:
+    """A digest of the tensors' bytes: equal outputs, equal digests."""
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def rel_err(a, b):
@@ -397,13 +438,14 @@ def run(torch, work: str) -> int:
                                         calculate_frechet_distance)
     from lfm_tpu_torch.eval.inception import seeded_inception_state_dict
     from lfm_tpu_torch.nn.dit_int8 import dit_int8_apply, quantize_params_int8, quantize_weight
-    from lfm_tpu_torch.tools import microbench_int8
+    from lfm_tpu_torch.tools import bench_train, microbench_int8
     from lfm_tpu_torch.nn.adm_unet import plan_layers
     from lfm_tpu_torch.nn.dit import DiT
     from lfm_tpu_torch.nn.dit_fused import (cast_params_bf16, dit_fused_apply,
                                            dit_fused_model_apply)
     from lfm_tpu_torch.nn.factory import create_network
     from lfm_tpu_torch.nn.init import seeded_init_
+    from lfm_tpu_torch.nn import layers as nn_layers
     from lfm_tpu_torch.ode.flow import interpolate
     from lfm_tpu_torch.sample.sample import make_sampler, noise_and_labels
     from lfm_tpu_torch.train.loop import train
@@ -424,7 +466,7 @@ def run(torch, work: str) -> int:
 
     def reset_counts():
         for c in counters.values():
-            c.count = 0
+            c.reset()
 
     def counts():
         return {name: c.count for name, c in counters.items()}
@@ -470,10 +512,15 @@ def run(torch, work: str) -> int:
     train_batch = config.train.batch_size
     k1_rows, k2_rows, k3_rows, k4_rows, k6_rows = {}, {}, {}, {}, {}
     k1_cases = sorted({(8, 256, 16, 64, bf), (2, 1024, 16, 64, bf), (train_batch, 256, 16, 64, bf),
-                       (batch, 256, 16, 64, bf)}, key=lambda c: c[:4])
-    # f32: the DiT's head, then the origin ADM's (celeb256_adm's path first)
-    k1_f32 = [(8, 256, 16, 64, f32), (batch, 16, 4, 128, f32), (16, 64, 4, 128, f32),
-              (16, 16, 4, 256, f32)]
+                       (8, 256, 16, 72, bf), (batch, 256, 16, 64, bf)}, key=lambda c: c[:4])
+    # f32: the DiT's heads (train_f32's shape among them), then the origin
+    # ADM's (celeb256_adm's path first)
+    f32_dit = [(8, 256, 16, 64), (train_batch, 256, 16, 64), (8, 256, 16, 72)]
+    # and past T = 256, where f32 K1 and K3 take attention.cuh's and
+    # attention_bwd.cuh's kernels (an f32 DiT-L/2 at 512 px)
+    f32_long = [(2, 1024, 16, 64)]
+    k1_f32 = [c + (f32,) for c in f32_dit + f32_long] + [
+        (batch, 16, 4, 128, f32), (16, 64, 4, 128, f32), (16, 16, 4, 256, f32)]
     # and K2's layout: q, k, v as the thirds of one (N, T, 3C) qkv row
     k1_qkv = [(batch, 256, 16, 64, bf)]
     for n, t, h, d, dt, layout in ([c + ("separate",) for c in k1_cases + k1_f32]
@@ -497,7 +544,7 @@ def run(torch, work: str) -> int:
         bms, by = bound_ms(4 * n * t * h * d * esize, 4 * n * h * t * t * d,
                            BF16_FLOPS if dt == bf else F32_FLOPS)
         row = {"shape": [n, t, h, d], "dtype": str(dt), "layout": layout, "max_abs_err": err,
-               "rel_err": rel, "tol": tol,
+               "rel_err": rel, "tol": tol, "digest": digest(torch, out),
                "ms": time_ms(torch, lambda: attention_small(q, k, v)),
                "plain_ms": time_ms(torch, lambda: reference_attention(q, k, v)),
                "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh)),
@@ -541,8 +588,8 @@ def run(torch, work: str) -> int:
         emit({"phase": "kernel", "name": "fused_dit_block", **row})
         del blk, out, ref
 
-    for n, t, h, d, dt in ((train_batch, 256, 16, 64, bf), (8, 1024, 16, 64, bf),
-                           (8, 256, 16, 64, torch.float32)):
+    for n, t, h, d, dt in ([(train_batch, 256, 16, 64, bf), (8, 1024, 16, 64, bf)]
+                           + [c + (f32,) for c in f32_dit + f32_long]):
         t_case = time.time()
         q, k, v, do = (rn(n, t, h, d, dtype=dt) for _ in range(4))
         got = attention_small_bwd(q, k, v, do)
@@ -567,11 +614,12 @@ def run(torch, work: str) -> int:
         row = {"shape": [n, t, h, d], "dtype": str(dt),
                "max_abs_err": max(e[0] for e in errs.values()),
                "rel_err": {name: e[1] for name, e in errs.items()}, "tol": tol,
+               "digest": digest(torch, *got),
                "ms": time_ms(torch, lambda: attention_small_bwd(q, k, v, do)),
                "plain_ms": time_ms(torch, lambda: reference_attention_bwd(q, k, v, do)),
                "library_ms": time_ms(torch, sdpa_bwd),
                "bound_ms": bms, "bound_by": by, "seconds": time.time() - t_case}
-        k3_rows[(n, t, dt)] = row
+        k3_rows[(n, t, d, dt)] = row
         emit({"phase": "kernel", "name": "attention_small_bwd", **row})
         del q, k, v, do, got, want, qh, kh, vh, doh, oh
 
@@ -599,39 +647,58 @@ def run(torch, work: str) -> int:
         del q, k, v, qh, kh, vh, out, ref
 
     # the redesigned attention kernels: the wgmma + TMA forward (bf16 K1 and
-    # K4) and backward (bf16 K3), and the one-pass f32 K1 at the origin
-    # ADM's short sequences; time against bound and SDPA at every shape
-    # above, and ptxas's registers and spills of each instance
+    # K4) and backward (bf16 K3), the one-pass f32 K1 at the origin ADM's
+    # short sequences, and the one-pass f32 K1 and K3 at the DiT's heads;
+    # time against bound and SDPA at every shape above, and ptxas's
+    # registers and spills of each instance
     csrc = "lfm_tpu_torch/kernels/csrc/"
+
+    def f32_dit_row(r):
+        return r["dtype"] == str(f32) and r["shape"][1] <= 256 and r["shape"][3] <= 80
+
+    def f32_long_row(r):
+        return r["dtype"] == str(f32) and r["shape"][1] > 256
+
     redesign = [{"kernel": name, "source": csrc + src, "shape": r["shape"], "dtype": r["dtype"],
                  "layout": r.get("layout", "separate"), "ms": r["ms"], "bound_ms": r["bound_ms"],
                  "bound_share": r["bound_ms"] / r["ms"], "library_ms": r["library_ms"],
-                 "vs_sdpa": r["ms"] / r["library_ms"]}
+                 "vs_sdpa": r["ms"] / r["library_ms"], "digest": r.get("digest")}
                 for name, src, rows, pick in (
                     ("attention_small", "attention_sm90.cuh", k1_rows,
                      lambda r: r["dtype"] == str(bf)),
                     ("attention_small", "attention_wide.cu", k1_rows,
                      lambda r: r["dtype"] == str(f32) and r["shape"][1] <= 64
                      and r["shape"][3] >= 128),
+                    ("attention_small", "attention_row_f32.cuh", k1_rows, f32_dit_row),
+                    ("attention_small", "attention.cuh", k1_rows, f32_long_row),
                     ("attention_small_bwd", "attention_bwd_sm90.cuh", k3_rows,
                      lambda r: r["dtype"] == str(bf)),
+                    ("attention_small_bwd", "attention_row_f32.cuh", k3_rows, f32_dit_row),
+                    ("attention_small_bwd", "attention_bwd.cuh", k3_rows, f32_long_row),
                     ("flash_attention", "attention_sm90.cuh", k4_rows,
                      lambda r: r["dtype"] == str(bf)))
                 for r in rows.values() if pick(r)]
     ptxas = {}
     for stem, pattern in (("attention_sm90", r"(attn_\w+_kernel)ILi(\d+)ELb([01])E"),
-                          ("attention_bwd", r"sm90\d+(attn_bwd_\w+_kernel)ILi(\d+)E()")):
+                          ("attention_bwd", r"sm90\d+(attn_bwd_\w+_kernel)ILi(\d+)E()"),
+                          ("attention_row_f32", r"row32\d+(attn_row_kernel)ILi(\d+)ELi(\d+)E"),
+                          ("attention_bwd_row_f32",
+                           r"row32\d+(attn_row_bwd_\w+_kernel)ILi(\d+)E(?:Li(\d+)E)?")):
         for mangled, use in _build.ptxas_usage(stem).items():
             m = re.search(pattern, mangled)
             if m:
-                flag = {"1": ", true", "0": ", false"}.get(m.group(3), "")
+                flag = ({"1": ", true", "0": ", false"}.get(m.group(3), "")
+                        if stem in ("attention_sm90", "attention_bwd")
+                        else f", {m.group(3)}" if m.group(3) else "")
                 ptxas[f"{m.group(1)}<{m.group(2)}{flag}>"] = use
     emit({"phase": "attention_redesign", "shapes": redesign, "ptxas": ptxas})
     spilled = {k: u for k, u in ptxas.items() if u.get("spill_stores") or u.get("spill_loads")}
-    # 8 forward instances (2 modes x 2 padded head dims x NORM_P), 4 of K3
-    # (2 kernels x 2 padded head dims)
-    if len(ptxas) != 12 or spilled:
-        raise AssertionError(f"wgmma attention: {len(ptxas)} kernel instances, spills {spilled}")
+    # wgmma: 8 forward instances (2 modes x 2 padded head dims x NORM_P), 4
+    # of K3 (2 kernels x 2 padded head dims); f32 one-pass: 6 of K1 (2
+    # padded head dims x TK 64, 128, 256), 6 of K3's dq kernel, 2 of its
+    # dk/dv kernel
+    if len(ptxas) != 26 or spilled:
+        raise AssertionError(f"attention: {len(ptxas)} kernel instances, spills {spilled}")
 
     for n, hh, ww, c, dt, offset in ((batch, 32, 32, 256, bf, 0.0), (batch, 32, 32, 768, bf, 0.0),
                                      (batch, 4, 4, 1024, bf, 0.0), (batch, 32, 32, 256, bf, 8.0),
@@ -888,9 +955,10 @@ def run(torch, work: str) -> int:
     # fused train path, against plain autograd
     t0 = time.time()
     grads = {}
-    for variant in ("kernels", "plain", "fused"):
+    for variant in ("kernels", "plain", "fused", "kernels_f32", "plain_f32"):
         small = DiT(img_resolution=32, patch_size=2, hidden_size=1024, depth=2, num_heads=16,
-                    dtype=bf, use_flash=variant == "kernels").to(dev)
+                    dtype=f32 if variant.endswith("f32") else bf,
+                    use_flash=variant.startswith("kernels")).to(dev)
         seeded_init_(small, SEED)
         g = torch.Generator(device=dev)
         g.manual_seed(SEED + 2)
@@ -905,16 +973,19 @@ def run(torch, work: str) -> int:
         grads[variant] = {name: p.grad.float() for name, p in small.named_parameters()}
         del small, v
     worst = {variant: max((rel_err(grads[variant][name], want)[1], name)
-                          for name, want in grads["plain"].items())
-             for variant in ("kernels", "fused")}
+                          for name, want in grads[plain].items())
+             for variant, plain in (("kernels", "plain"), ("fused", "plain"),
+                                    ("kernels_f32", "plain_f32"))}
     emit({"phase": "grad", "tensors": len(grads["plain"]), "max_rel_err": worst["kernels"][0],
           "tensor": worst["kernels"][1], "tol": GRAD_TOL,
           "fused_max_rel_err": worst["fused"][0], "fused_tensor": worst["fused"][1],
-          "seconds": time.time() - t0})
-    for variant in ("kernels", "fused"):
-        if not worst[variant][0] <= GRAD_TOL:
+          "f32_max_rel_err": worst["kernels_f32"][0], "f32_tensor": worst["kernels_f32"][1],
+          "f32_tol": F32_GRAD_TOL, "seconds": time.time() - t0})
+    for variant, tol in (("kernels", GRAD_TOL), ("fused", GRAD_TOL),
+                         ("kernels_f32", F32_GRAD_TOL)):
+        if not worst[variant][0] <= tol:
             raise AssertionError(f"DiT gradient of {worst[variant][1]} ({variant}): "
-                                 f"{worst[variant][0]} > {GRAD_TOL}")
+                                 f"{worst[variant][0]} > {tol}")
     del grads
 
     # 4. main path, fused blocks: celeb256_dit, bf16 DiT-L/2, dopri5, VAE decode
@@ -1300,23 +1371,110 @@ def run(torch, work: str) -> int:
     del fstate, fstep, fmodel, p1, ema1
     torch.cuda.empty_cache()
 
+    # 10b. train_f32: the same train(...) in f32, every attention through f32
+    # K1 and K3; step 1's loss against the same model with plain attention
+    t_f32 = time.time()
+    f32_config = dataclasses.replace(tconfig, train=dataclasses.replace(tc, precision="f32"))
+    reset_counts()
+    f32_run = bench_train.timed_train(f32_config, dataset, vae, dev, TRAIN_F32_STEPS)
+    f32_counts = counts()
+    f32_dtypes = {name: dict(c.by_dtype) for name, c in counters.items() if c.by_dtype}
+    f32_state = f32_run.pop("state")
+    f32_finite = all(bool(torch.isfinite(p).all()) for p in f32_state.params)
+    f32_param_dtypes = sorted({str(p.dtype) for p in f32_state.params})
+    f32_steps = f32_state.step
+    del f32_state
+    torch.cuda.empty_cache()
+    pmodel = create_network(config.model, dtype=f32, use_flash=False,
+                            remat=tc.use_grad_checkpointing, remat_policy=tc.remat_policy,
+                            device=dev)
+    p_weights = reference_state_dict(torch.load(ckpt_path, map_location="cpu",
+                                                weights_only=False))
+    pmodel.load_state_dict(p_weights)
+    pmodel.train()
+    ploader = DataLoader(dataset, train_batch, shuffle=True, drop_last=True, seed=tc.seed)
+    ploader.set_epoch(0)
+    pbatch = {"x": torch.from_numpy(next(iter(ploader))["x"]).to(dev)}
+    pstep = make_train_step(
+        pmodel, make_optimizer(tc, tc.steps_per_epoch or max(len(ploader), 1)),
+        ema_decay=tc.ema_decay, use_ema=tc.use_ema, encode_fn=vae.encode_sample,
+        scale_factor=config.scale_factor, label_dropout=config.model.label_dropout > 0,
+        seed=tc.seed + 1)
+    reset_counts()
+    ploss1 = float(pstep(create_train_state(pmodel), pbatch)[0])
+    plain_counts = counts()
+
+    # the same plain step from the same weights with attention's products in
+    # TF32 (the rest in f32): how far an attention error of TF32's size moves
+    # step 1's loss, against which F32_LOSS_TOL is set
+    def tf32_attention(*qkv):
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return reference_attention(*qkv)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+
+    pmodel.load_state_dict(p_weights)
+    nn_layers.reference_attention = tf32_attention
+    try:
+        tf32_loss1 = float(pstep(create_train_state(pmodel), pbatch)[0])
+    finally:
+        nn_layers.reference_attention = reference_attention
+    del pmodel, pstep, p_weights, pbatch
+    torch.cuda.empty_cache()
+    f32_loss_err = abs(f32_run["loss_step1"] - ploss1) / abs(ploss1)
+    tf32_loss_err = abs(tf32_loss1 - ploss1) / abs(ploss1)
+    emit({"phase": "train_f32", "preset": "celeb256_dit", "model": config.model.model_type,
+          "batch": train_batch, "precision": "f32", "steps": f32_steps,
+          **{k: f32_run[k] for k in ("seconds_per_step", "images_per_s", "peak_gib",
+                                     "loss_step1")},
+          "plain_attention_loss_step1": ploss1, "loss_rel_err": f32_loss_err,
+          "loss_tol": F32_LOSS_TOL, "tf32_attention_loss_step1": tf32_loss1,
+          "tf32_attention_loss_rel_err": tf32_loss_err, "launches": f32_counts, "launches_by_dtype": f32_dtypes,
+          "param_dtypes": f32_param_dtypes, "params_finite": f32_finite,
+          "card": torch.cuda.get_device_name(0), "seconds": time.time() - t_f32})
+    if not (math.isfinite(f32_run["loss_step1"]) and f32_finite
+            and f32_param_dtypes == [str(f32)]):
+        raise AssertionError(f"train_f32: step 1's loss {f32_run['loss_step1']}, parameters "
+                             f"finite {f32_finite}, dtypes {f32_param_dtypes}")
+    if not f32_loss_err <= F32_LOSS_TOL:
+        raise AssertionError(f"train_f32: step 1's loss {f32_run['loss_step1']} is "
+                             f"{f32_loss_err} off plain attention's {ploss1} > {F32_LOSS_TOL}")
+    if not tf32_loss_err > F32_LOSS_TOL:
+        raise AssertionError(f"train_f32: attention in TF32 moves step 1's loss by only "
+                             f"{tf32_loss_err} <= {F32_LOSS_TOL}: the loss check cannot tell it "
+                             "from f32")
+    want_counts = {"attention_small": 2 * tdepth * f32_steps,
+                   "attention_small_bwd": tdepth * f32_steps}
+    want_dtypes = {k: {"float32": v} for k, v in want_counts.items()}
+    if (f32_steps != 1 + TRAIN_F32_STEPS
+            or {k: v for k, v in f32_counts.items() if v} != want_counts
+            or f32_dtypes != want_dtypes or any(plain_counts.values())):
+        raise AssertionError(f"train_f32: {f32_steps} steps, launches {f32_counts} by dtype "
+                             f"{f32_dtypes}, expected {want_dtypes}; plain step {plain_counts}")
+
     # 11. the kernels line, the card, the last line
     by_path = {"main_fused": fused_counts, "main_module": module_counts,
                "int8_main": int8_counts, "p1_probe": probe_counts, "adm_main": adm_counts,
                "adm_fused_gn": fgn_counts, "long_t": long_counts, "train": train_counts,
-               "train_fused": tf_counts, **block_counts}
+               "train_fused": tf_counts, "train_f32": f32_counts, **block_counts}
     kdir, p1 = "lfm_tpu/kernels/", "tools/microbench_int8_pallas.py"
     # name, source, TPU kernel, the path whose count is "launches", the row;
-    # the f32 K1 of the origin ADM counts under attention_small
+    # the f32 K1 and K3 entries count under attention_small(_bwd)
     kernels = (
         ("attention_small", "attention_sm90.cuh", kdir + "flash_attention.py:163", "train",
          k1_rows[(train_batch, 256, 16, 64, bf)]),
         ("attention_small_f32", "attention_wide.cu", kdir + "flash_attention.py:163", "adm_main",
          k1_rows[(batch, 16, 4, 128, f32)]),
+        ("attention_small_f32_dit", "attention_row_f32.cuh", kdir + "flash_attention.py:163",
+         "train_f32", k1_rows[(train_batch, 256, 16, 64, f32)]),
+        ("attention_small_bwd_f32", "attention_row_f32.cuh", kdir + "flash_attention.py:233",
+         "train_f32", k3_rows[(train_batch, 256, 64, f32)]),
         ("fused_dit_block", "dit_block.cu", kdir + "dit_block.py:135", "main_fused",
          k2_rows[batch]),
         ("attention_small_bwd", "attention_bwd_sm90.cuh", kdir + "flash_attention.py:233", "train",
-         k3_rows[(train_batch, 256, bf)]),
+         k3_rows[(train_batch, 256, 64, bf)]),
         ("flash_attention", "attention_sm90.cuh", kdir + "flash_attention.py:74", "long_t",
          k4_rows[(2, 4096, 16, 64, bf)]),
         ("groupnorm_silu", "groupnorm_silu.cu", kdir + "groupnorm_silu.py:68", "adm_fused_gn",
@@ -1332,10 +1490,13 @@ def run(torch, work: str) -> int:
         ("int8_mlp", "int8_gemm.cu", p1 + ":92", "p1_probe", p1_rows["int8_mlp"]),
         ("bf16_mlp", "int8_gemm.cu", p1 + ":103", "p1_probe", p1_rows["bf16_mlp"]),
     )
+    def counter(name):
+        return re.sub(r"_f32(_dit)?$", "", name)
+
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"lfm_tpu_torch/kernels/csrc/{src}",
-         "replaces": tpu, "launches": by_path[path][name.removesuffix("_f32")],
-         "launches_by_path": {p: c[name.removesuffix("_f32")] for p, c in by_path.items()},
+         "replaces": tpu, "launches": by_path[path][counter(name)],
+         "launches_by_path": {p: c[counter(name)] for p, c in by_path.items()},
          **{key: row[key] for key in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}}
         for name, src, tpu, path, row in kernels

@@ -51,11 +51,21 @@ SIGNATURES = {
 
 
 class LaunchCounter:
-    """Counts a wrapper's kernel launches; a run resets it and reads it back
-    to show that its path went through the kernel."""
+    """Counts a wrapper's kernel launches, in all and, for the wrappers that
+    take either element type (``add``), by dtype; a run resets it and reads
+    it back to show that its path went through the kernel."""
 
     def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
         self.count = 0
+        self.by_dtype = {}
+
+    def add(self, dtype) -> None:
+        self.count += 1
+        key = str(dtype).removeprefix("torch.")
+        self.by_dtype[key] = self.by_dtype.get(key, 0) + 1
 
 
 def find_nvcc() -> str:

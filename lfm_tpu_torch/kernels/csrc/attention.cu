@@ -1,5 +1,7 @@
 // C entry point of K1, the port of lfm_tpu/kernels/flash_attention.py::
-// attention_small: bf16 runs attention_sm90.cuh, f32 attention.cuh.
+// attention_small: bf16 runs attention_sm90.cuh; f32 is split by shape, one
+// kernel for each: D 128/256 attention_wide.cu, T <= 256
+// attention_row_f32.cuh, past 256 attention.cuh.
 #include "attention.cuh"
 
 // q, k, v, o: (N, T, H*D) slabs with row strides ldq/ldk/ldv/ldo
@@ -12,6 +14,10 @@ extern "C" int lfm_attention_small(const void* q, const void* k, const void* v, 
   auto s = static_cast<cudaStream_t>(stream);
   if (f32 && D > 80)
     return static_cast<int>(lfm::launch_attention_wide_f32(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), N, T, H, D, ldq, ldk, ldv, ldo, s));
+  if (f32 && T <= 256)
+    return static_cast<int>(lfm::launch_attention_row_f32(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), N, T, H, D, ldq, ldk, ldv, ldo, s));
   if (f32)

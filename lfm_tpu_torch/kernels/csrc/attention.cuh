@@ -1,12 +1,17 @@
-// Whole-sequence softmax attention for small T in f32 (the port of
+// Whole-sequence softmax attention in f32 past T = 256 (the port of
 // lfm_tpu/kernels/flash_attention.py::attention_small, `_attn_small_kernel`,
 // for f32 models), the dispatch of K1 by element type, and the f32 warp-tile
-// products that the f32 K3 (attention_bwd.cuh) and K4 (flash_attention.cuh)
-// use. The bf16 forward (K1, and the attention inside K2 and K5) is the
-// wgmma + TMA kernel of attention_sm90.cuh: launch_attention<NORM_P, bf16>
-// launches it; bf16 K3 is attention_bwd_sm90.cuh. The f32 forward below is
-// an FMA island; the origin ADM's short sequences (T <= 64 at D = 128 and
-// 256) take the one-pass kernel of attention_wide.cu instead.
+// products that this kernel, the f32 K3 past T = 256 (attention_bwd.cuh) and
+// K4 (flash_attention.cuh) use. The bf16 forward (K1, and the attention
+// inside K2 and K5) is the wgmma + TMA kernel of attention_sm90.cuh:
+// launch_attention<NORM_P, bf16> launches it; bf16 K3 is
+// attention_bwd_sm90.cuh. f32 K1 is dispatched by shape in
+// lfm_attention_small (attention.cu): the origin ADM's wide heads (D 128,
+// 256) take attention_wide.cu; the DiT's heads (D 56-80) at T <= 256, the
+// f32 DiT train step's forward, take the one-pass kernel of
+// attention_row_f32.cuh; past T = 256 they take the kernel below. That is a
+// split by shape, as the wide heads' at T = 64, not a fallback: each shape
+// has one kernel.
 //
 // q, k, v are read in place from (N, T, row) slabs: token t of sample n,
 // head h starts at ptr[(n*T + t)*ld + h*D]. So the kernel takes the
@@ -30,7 +35,8 @@
 // What bounds it on the H100: at f32, T=256, D=64 the bytes it must move
 // are 4*T*H*D*4 per sample against 4*T*T*H*D flops on the 67 TFLOP/s f32
 // units: bound by operations. This design recomputes QK^T once (1.5x the
-// flops) and does not overlap loads with math.
+// flops) and does not overlap loads with math; at T <= 256 the one-pass
+// kernel of attention_row_f32.cuh avoids both.
 //
 // Wide heads: the origin ADM runs its attention in f32 at D = 128
 // (celeb256_adm) and 256 (celeb512_adm, church_adm), at T = 16 or 64: the
@@ -263,8 +269,9 @@ cudaError_t launch_attention_sm90(const bf16* q, const bf16* k, const bf16* v, b
 
 // D in {56, 64, 72, 80} (checked by the Python wrapper): the head dims of
 // the DiT configs, 64 (S, B, L) and 72 (XL). bf16 launches the wgmma
-// kernel of attention_sm90.cuh, f32 the FMA kernel above. The origin ADM's
-// wide f32 heads are in launch_attention_wide_f32 (attention_wide.cu).
+// kernel of attention_sm90.cuh, f32 the FMA kernel above (lfm_attention_small
+// sends f32 at T <= 256 to launch_attention_row_f32 instead). The origin
+// ADM's wide f32 heads are in launch_attention_wide_f32 (attention_wide.cu).
 template <bool NORM_P, typename T = bf16>
 static cudaError_t launch_attention(const T* q, const T* k, const T* v, T* o, int N, int T_len,
                                     int H, int D, long ldq, long ldk, long ldv, long ldo,
@@ -295,11 +302,22 @@ cudaError_t launch_attn_bwd_sm90(const bf16* q, const bf16* k, const bf16* v, co
                                  bf16* dq, bf16* dk, bf16* dv, float* stats, int N, int T, int H,
                                  int D, long ldq, long ldk, long ldv, long lddo, long ldg,
                                  cudaStream_t stream);
-// f32 K3, the FMA kernels of attention_bwd.cuh (attention_bwd_f32.cu); stats:
-// 3 * N * H * T floats. D in {56, 64, 72, 80}.
+// f32 K1 at T <= 256, D 8-80 a multiple of 8: the one-pass kernel of
+// attention_row_f32.cuh (attention_row_f32.cu).
+cudaError_t launch_attention_row_f32(const float* q, const float* k, const float* v, float* o,
+                                     int N, int T, int H, int D, long ldq, long ldk, long ldv,
+                                     long ldo, cudaStream_t s);
+// f32 K3 past T = 256, the FMA kernels of attention_bwd.cuh
+// (attention_bwd_f32.cu); stats: 3 * N * H * T floats. D in {56, 64, 72, 80}.
 cudaError_t launch_attn_bwd_f32(const float* q, const float* k, const float* v,
                                 const float* dout, float* dq, float* dk, float* dv, float* stats,
                                 int N, int T_len, int H, int D, long ldq, long ldk, long ldv,
                                 long lddo, long ldg, cudaStream_t s);
+// f32 K3 at T <= 256, D 8-80 a multiple of 8: the two kernels of
+// attention_row_f32.cuh (attention_bwd_row_f32.cu); the same stats layout.
+cudaError_t launch_attn_bwd_row_f32(const float* q, const float* k, const float* v,
+                                    const float* dout, float* dq, float* dk, float* dv,
+                                    float* stats, int N, int T, int H, int D, long ldq, long ldk,
+                                    long ldv, long lddo, long ldg, cudaStream_t s);
 
 }  // namespace lfm

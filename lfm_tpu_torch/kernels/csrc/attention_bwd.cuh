@@ -1,8 +1,10 @@
-// f32 K3: the backward of whole-sequence attention for small T in f32, the
+// f32 K3 past T = 256: the backward of whole-sequence attention in f32, the
 // port of lfm_tpu/kernels/flash_attention.py::attention_small_bwd
-// (`_attn_small_bwd_kernel`) for f32 models; no shipped path reaches it. bf16
-// runs the wgmma + TMA kernels of attention_bwd_sm90.cuh. Per (sample,
-// head), with s = scale q k^T:
+// (`_attn_small_bwd_kernel`) for f32 models, reached by an f32 DiT at 256 <
+// T <= 1024. At T <= 256 (the f32 DiT train step at 256 px) the one-pass
+// kernels of attention_row_f32.cuh take f32 K3: a split by shape, not a
+// fallback. bf16 runs the wgmma + TMA kernels of attention_bwd_sm90.cuh. Per
+// (sample, head), with s = scale q k^T:
 //   p  = softmax(s)                        (f32)
 //   dv = p^T do
 //   dp = do v^T

@@ -14,10 +14,13 @@ type before PV, acc / l at the end. In bf16, K1 and K4 are one wgmma + TMA
 kernel for Hopper (``csrc/attention_sm90.cuh``: whole-row mode up to T =
 256, key blocks past it), and bf16 K3 two wgmma + TMA kernels
 (``csrc/attention_bwd_sm90.cuh``); in f32 they are f32 FMA kernels
-(``csrc/attention.cuh``, ``csrc/flash_attention.cuh``,
-``csrc/attention_bwd.cuh``), with f32 K1 at T <= 64 and D = 128/256 (the
-origin ADM's attention) in a one-pass kernel sized to T
-(``csrc/attention_wide.cu``). What bounds each is noted in its source.
+split by shape: f32 K1 and K3 at T <= 256 and D 56-80 (the f32 DiT's
+attention, ``train --precision f32``) are one-pass, register-blocked
+kernels (``csrc/attention_row_f32.cuh``), f32 K1 at T <= 64 and D =
+128/256 (the origin ADM's attention) a one-pass kernel sized to T
+(``csrc/attention_wide.cu``), and the rest (f32 K1 and K3 past T = 256,
+f32 K4) the kernels of ``csrc/attention.cuh``, ``csrc/attention_bwd.cuh``
+and ``csrc/flash_attention.cuh``. What bounds each is noted in its source.
 
 On a CPU tensor each wrapper computes its plain version; on a CUDA tensor
 it launches its kernel or raises. ``fused_attention_qkv`` is a
@@ -171,7 +174,7 @@ def attention_small(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         _ld(q), _ld(k), _ld(v), h * d, int(q.dtype == torch.float32),
         torch.cuda.current_stream(q.device).cuda_stream)
     check_rc("attention_small", rc)
-    ATTENTION_SMALL.count += 1
+    ATTENTION_SMALL.add(q.dtype)
     return out
 
 
@@ -197,7 +200,7 @@ def _attention_small_bwd_packed(q, k, v, do) -> torch.Tensor:
         n, t, h, d, _ld(q), _ld(k), _ld(v), _ld(do), 3 * h * d,
         int(q.dtype == torch.float32), torch.cuda.current_stream(q.device).cuda_stream)
     check_rc("attention_small_bwd", rc)
-    ATTENTION_SMALL_BWD.count += 1
+    ATTENTION_SMALL_BWD.add(q.dtype)
     return g
 
 
@@ -229,7 +232,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: 
         _ld(q), _ld(k), _ld(v), h * d, int(q.dtype == torch.float32),
         torch.cuda.current_stream(q.device).cuda_stream)
     check_rc("flash_attention", rc)
-    FLASH_ATTENTION.count += 1
+    FLASH_ATTENTION.add(q.dtype)
     return out
 
 

@@ -1,7 +1,7 @@
-"""Times the port's f32 K1 at the origin ADM's short sequences and its bf16
-K3 on the card, with each one's error against its plain version.
+"""Times the port's attention kernels on the card, with each one's error
+against its plain version.
 
-    python -m lfm_tpu_torch.tools.bench_attention
+    python -m lfm_tpu_torch.tools.bench_attention [--timing-only]
 
 or, to time another checkout's kernels on the same inputs (its package is
 the one imported; its kernels are built in that checkout):
@@ -9,20 +9,28 @@ the one imported; its kernels are built in that checkout):
     PYTHONPATH=<other checkout> python <this checkout>/lfm_tpu_torch/tools/bench_attention.py
 
 Shapes: ``attention_small`` in f32 at (200, 16, 4, 128) (celeb256_adm's
-path, batch 200), (16, 64, 4, 128) and (16, 16, 4, 256), on the thirds of
-a fused qkv row as the ADM calls it; ``attention_small_bwd`` in bf16 at
-(32, 256, 16, 64) (the DiT-L/2 train step's shape) and (8, 1024, 16, 64).
-Inputs come from a CUDA generator seeded per shape, so two checkouts see
-the same values. Each kernel is timed with CUDA events, the mean of REPS
+path, batch 200), (16, 64, 4, 128) and (16, 16, 4, 256), and at the f32
+DiT's heads (8, 256, 16, 64), (32, 256, 16, 64) (DiT-L/2's train step
+with ``--precision f32``) and (8, 256, 16, 72) (DiT-XL/2's head), all on
+the thirds of a fused qkv row as the models call it; in bf16 at (8, 256,
+16, 72) and (32, 256, 16, 72); ``attention_small_bwd`` in bf16 at (32,
+256, 16, 64) (the DiT-L/2 train step's shape) and (8, 1024, 16, 64), and
+in f32 at the three f32 DiT shapes. Inputs come from a CUDA generator
+seeded per shape, so two checkouts see the same values. Each kernel is timed with CUDA events, the mean of REPS
 calls after WARMUP, REPEATS times (at these sizes a call can take less
 device time than its host launch, so ``ms`` may be the host's rate), and
 by ``torch.profiler`` as the device time of REPS calls over REPS
 (``device_ms``, and ``device_kernels_ms`` by kernel); beside it the max abs error and the error relative to
 max |plain| of each output, a digest of the output's bytes (two checkouts
 that give the same bits give the same digest), and the same times of
-``scaled_dot_product_attention`` (its backward through autograd for K3).
-Prints one JSON line with the card's name and power limit and the file of
-the package that ran. Needs a CUDA card.
+``scaled_dot_product_attention`` (its backward through autograd for K3),
+and the bound (bytes or operations at the card's peaks, as chip_smoke.py
+counts them). f32 rows also give the error against the same function in
+float64 (``rel_err_f64``): the plain version's f32 GEMMs sum in an order
+of their own, so the error against them measures agreement with that
+order as much as accuracy. ``--timing-only`` keeps the event times alone (the repeated
+rounds of an A/B comparison). Prints one JSON line with the card's name and
+power limit and the file of the package that ran. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -30,12 +38,19 @@ from __future__ import annotations
 import hashlib
 import json
 import subprocess
+import sys
 
 import torch
 
-K1_SHAPES = ((200, 16, 4, 128), (16, 64, 4, 128), (16, 16, 4, 256))
-K3_SHAPES = ((32, 256, 16, 64), (8, 1024, 16, 64))
+F32_DIT = ((8, 256, 16, 64), (32, 256, 16, 64), (8, 256, 16, 72))
+K1_CASES = ([(s, torch.float32) for s in ((200, 16, 4, 128), (16, 64, 4, 128), (16, 16, 4, 256))
+             + F32_DIT] + [(s, torch.bfloat16) for s in ((8, 256, 16, 72), (32, 256, 16, 72))])
+K3_CASES = ([(s, torch.bfloat16) for s in ((32, 256, 16, 64), (8, 1024, 16, 64))]
+            + [(s, torch.float32) for s in F32_DIT])
 WARMUP, REPS, REPEATS = 3, 50, 3
+# H100 SXM peaks (NVIDIA data sheet), as chip_smoke.py: HBM bytes/s, f32
+# flop/s outside the tensor cores, dense bf16 tensor-core flop/s
+HBM_BYTES_PER_S, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
 
 
 def time_ms(fn) -> float:
@@ -86,40 +101,75 @@ def errors(got, want):
     return err, err / float(want.float().abs().max())
 
 
+def bound(nbytes: float, flops: float, dtype):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / (F32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def attention_f64(q, k, v):
+    """softmax(q k^T / sqrt(D)) v in float64, (N, T, H, D) in and out."""
+    qd, kd, vd = (a.double() for a in (q, k, v))
+    s = torch.einsum("nqhd,nkhd->nhqk", qd, kd) / q.shape[-1] ** 0.5
+    return torch.einsum("nhqk,nkhd->nqhd", torch.softmax(s, dim=-1), vd)
+
+
+def attention_bwd_f64(q, k, v, do):
+    """(dq, dk, dv) of attention_f64, by autograd in float64."""
+    leaves = [a.double().requires_grad_(True) for a in (q, k, v)]
+    return torch.autograd.grad(attention_f64(*leaves), leaves, do.double())
+
+
 def generator(shape) -> torch.Generator:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(sum(shape))
     return gen
 
 
-def bench_k1(shape):
+def bench_k1(shape, dtype, timing_only: bool):
     from lfm_tpu_torch.kernels.flash_attention import (attention_small, reference_attention,
                                                        split_qkv)
 
     n, t, h, d = shape
-    qkv = torch.randn(n, t, 3 * h * d, generator=generator(shape), device="cuda")
+    qkv = torch.randn(n, t, 3 * h * d, generator=generator(shape), device="cuda").to(dtype)
     q, k, v = split_qkv(qkv, h)
+    row = {"kernel": "attention_small", "dtype": str(dtype).removeprefix("torch."),
+           "shape": list(shape),
+           "ms": [time_ms(lambda: attention_small(q, k, v)) for _ in range(REPEATS)]}
+    if timing_only:
+        return row
     out = attention_small(q, k, v)
     err, rel = errors(out, reference_attention(q, k, v))
+    if dtype == torch.float32:
+        row["rel_err_f64"] = errors(out, attention_f64(q, k, v))[1]
     qh, kh, vh = (a.transpose(1, 2).contiguous() for a in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    return {"kernel": "attention_small", "dtype": "float32", "shape": list(shape),
-            "max_abs_err": err, "rel_err": rel, "digest": digest(out),
-            "ms": [time_ms(lambda: attention_small(q, k, v)) for _ in range(REPEATS)],
+    esize = q.element_size()
+    return {**row, "max_abs_err": err, "rel_err": rel, "digest": digest(out),
+            **bound(4 * n * t * h * d * esize, 4 * n * h * t * t * d, dtype),
             **device(lambda: attention_small(q, k, v)),
             "library_ms": [time_ms(lambda: sdpa(qh, kh, vh)) for _ in range(REPEATS)],
             **device(lambda: sdpa(qh, kh, vh), "library_")}
 
 
-def bench_k3(shape):
+def bench_k3(shape, dtype, timing_only: bool):
     from lfm_tpu_torch.kernels.flash_attention import attention_small_bwd, reference_attention_bwd
 
     gen = generator(shape)
-    q, k, v, do = (torch.randn(*shape, generator=gen, device="cuda").bfloat16() for _ in range(4))
+    q, k, v, do = (torch.randn(*shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
+    row = {"kernel": "attention_small_bwd", "dtype": str(dtype).removeprefix("torch."),
+           "shape": list(shape),
+           "ms": [time_ms(lambda: attention_small_bwd(q, k, v, do)) for _ in range(REPEATS)]}
+    if timing_only:
+        return row
     got = attention_small_bwd(q, k, v, do)
     again = attention_small_bwd(q, k, v, do)
     errs = {name: errors(g, w) for name, g, w in zip(("dq", "dk", "dv"), got,
                                                       reference_attention_bwd(q, k, v, do))}
+    if dtype == torch.float32:
+        row["rel_err_f64"] = {name: errors(g, w)[1] for name, g, w in
+                              zip(("dq", "dk", "dv"), got, attention_bwd_f64(q, k, v, do))}
     qh, kh, vh = (a.transpose(1, 2).contiguous().requires_grad_(True) for a in (q, k, v))
     doh = do.transpose(1, 2).contiguous()
     oh = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh)
@@ -127,12 +177,12 @@ def bench_k3(shape):
     def sdpa_bwd():
         torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True)
 
-    return {"kernel": "attention_small_bwd", "dtype": "bfloat16", "shape": list(shape),
-            "max_abs_err": {k: e[0] for k, e in errs.items()},
+    n, t, h, d = shape
+    return {**row, "max_abs_err": {k: e[0] for k, e in errs.items()},
             "rel_err": {k: e[1] for k, e in errs.items()},
             "bit_identical_rerun": all(torch.equal(a, b) for a, b in zip(got, again)),
             "digest": digest(*got),
-            "ms": [time_ms(lambda: attention_small_bwd(q, k, v, do)) for _ in range(REPEATS)],
+            **bound(7 * n * t * h * d * q.element_size(), 10 * n * h * t * t * d, dtype),
             **device(lambda: attention_small_bwd(q, k, v, do)),
             "library_ms": [time_ms(sdpa_bwd) for _ in range(REPEATS)],
             **device(sdpa_bwd, "library_")}
@@ -143,7 +193,9 @@ def main() -> int:
         raise SystemExit("bench_attention needs a CUDA card")
     import lfm_tpu_torch
 
-    rows = [bench_k1(s) for s in K1_SHAPES] + [bench_k3(s) for s in K3_SHAPES]
+    timing_only = "--timing-only" in sys.argv[1:]
+    rows = ([bench_k1(s, dt, timing_only) for s, dt in K1_CASES]
+            + [bench_k3(s, dt, timing_only) for s, dt in K3_CASES])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(json.dumps({"package": lfm_tpu_torch.__file__, "card": smi.stdout.strip(),

@@ -1,10 +1,11 @@
 """Where the time of the celeb256_dit train loop goes on the card.
 
-    python -m lfm_tpu_torch.tools.profile_train [--out DIR] [--fused]
+    python -m lfm_tpu_torch.tools.profile_train [--out DIR] [--fused | --precision f32]
 
 Runs the training loop itself, ``train(...)`` of ``train/loop.py``, on the
 celeb256_dit preset (DiT-L/2, batch 32, bf16 on f32 masters, grad
-checkpointing, EMA) from its fresh initialisation, with a seeded
+checkpointing, EMA; ``--precision f32``: f32 compute, every attention
+through f32 K1 and K3) from its fresh initialisation, with a seeded
 full-width VAE encoder over synthetic 256^2 images, for
 ``WARMUP + STEPS + 1`` steps, all under ``torch.profiler`` with device
 activity only (no host events, which would slow the host). With
@@ -61,13 +62,18 @@ DIT_CLASSES = (MATMUL, K1, K3, K5)
 # NT GEMM (``lfm::sm90::gemm_nt_kernel``) and LayerNorm kernels and its
 # attention that normalises p before
 # rounding it (``lfm::sm90::attn_whole_kernel<64, true>``; K1's is
-# ``false>``; f32 K1 is ``attn_small_kernel`` or ``attn_short_f32_kernel``);
-# K3 is ``lfm::sm90::attn_bwd_dq_kernel`` and ``attn_bwd_dkdv_kernel``
+# ``false>``; f32 K1 is ``lfm::row32::attn_row_kernel`` at T <= 256 and D
+# 56-80, else ``attn_small_kernel`` or ``attn_short_f32_kernel``); K3 is
+# ``lfm::sm90::attn_bwd_dq_kernel`` and ``attn_bwd_dkdv_kernel`` (bf16),
+# ``lfm::row32::attn_row_bwd_dq_kernel`` and ``attn_row_bwd_dkdv_kernel``
+# (f32 at T <= 256), ``lfm::attn_bwd_dq_kernel`` and ``attn_bwd_dkdv_kernel``
+# (f32 past it)
 CLASSES = (
     (K5, (("lfm::sm90::gemm_nt_kernel",), ("lfm::ln_modulate_kernel",),
           ("lfm::sm90::attn_", "true>"))),
-    (K3, (("attn_bwd",),)),
-    (K1, (("lfm::sm90::attn_",), ("attn_small_kernel",), ("attn_short_f32_kernel",))),
+    (K3, (("attn_bwd",), ("attn_row_bwd",))),
+    (K1, (("lfm::sm90::attn_",), ("attn_small_kernel",), ("attn_short_f32_kernel",),
+          ("attn_row_kernel",))),
     (CONV, (("cudnn",), ("implicit_gemm",), ("conv",))),
     (MATMUL, (("nvjet",), ("gemm",), ("cutlass",), ("cublas",))),
     (OPT, (("multi_tensor_apply",),)),
@@ -150,7 +156,11 @@ def main(argv=None) -> int:
     p.add_argument("--out", type=str, default="saved_info/profile")
     p.add_argument("--fused", action="store_true",
                    help="train through dit_fused_model_apply (K5) instead of the module")
+    p.add_argument("--precision", choices=("bf16", "f32"), default="bf16",
+                   help="the module path's compute dtype (the fused blocks are bf16)")
     args = p.parse_args(argv)
+    if args.fused and args.precision != "bf16":
+        p.error("--fused runs bf16 blocks only")
     if not torch.cuda.is_available():
         print("profile_train: CUDA is not available", file=sys.stderr)
         return 1
@@ -171,7 +181,8 @@ def main(argv=None) -> int:
     dataset = SyntheticImageDataset(n=batch * (total + 1), image_size=256)
     work = tempfile.mkdtemp(prefix="profile_train_")
     try:
-        config = dataclasses.replace(preset, output_dir=work)
+        config = dataclasses.replace(preset, output_dir=work, train=dataclasses.replace(
+            preset.train, precision=args.precision))
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             if args.fused:
                 _fused_steps(config, dataset, vae, dev, total)
@@ -209,7 +220,8 @@ def main(argv=None) -> int:
     ms = lambda us: us / STEPS / 1e3  # noqa: E731  per step
     line = {
         "phase": "profile_train", "preset": "celeb256_dit",
-        "path": "fused (K5)" if args.fused else "module", "steps_read": STEPS,
+        "path": "fused (K5)" if args.fused else "module", "precision": args.precision,
+        "steps_read": STEPS,
         "warmup_steps": WARMUP, "batch": batch,
         "wall_ms_per_step": ms(wall), "device_busy_ms_per_step": ms(wall - idle),
         "device_idle_share": idle / wall,
@@ -224,7 +236,8 @@ def main(argv=None) -> int:
     }
     print(json.dumps(line), flush=True)
     os.makedirs(args.out, exist_ok=True)
-    stem = "profile_train_fused" if args.fused else "profile_train"
+    stem = "profile_train" + ("_fused" if args.fused else "") + (
+        "_f32" if args.precision == "f32" else "")
     with open(os.path.join(args.out, f"{stem}.json"), "w") as f:
         f.write(json.dumps(line, indent=1))
     prof.export_chrome_trace(os.path.join(args.out, f"{stem}_trace.json"))

@@ -25,6 +25,10 @@ from pathlib import Path
 
 import pytest
 import torch
+# torch.profiler (test_f32_attention_dispatch_by_length) imports
+# torch._dynamo, which sets an environment variable when first imported;
+# import it with the module, before the state guard looks
+import torch._dynamo  # noqa: F401
 
 # loaded by path: on the card's machine an installed package named `tests`
 # shadows this directory's namespace package
@@ -232,6 +236,105 @@ def test_attention_small_wide_f32_heads_match_plain(cuda, shape):
     assert _rel(attention_small(qq, kk, vv), reference_attention(qq, kk, vv)) <= 1e-4
     with pytest.raises(ValueError, match="head dim"):
         attention_small(q.bfloat16(), k.bfloat16(), v.bfloat16())
+
+
+# f32 K1 and K3 at the DiT's head dims: the one-pass kernels of
+# attention_row_f32.cuh at T <= 256 (TK 64, 128, 256; D 64 and 72 pad to 64
+# and 80), the kernels of attention.cuh / attention_bwd.cuh past it
+ROW_F32_SHAPES = [(2, t, 16, d) for t in (64, 100, 256) for d in (64, 72)]
+
+
+@pytest.mark.parametrize("shape", ROW_F32_SHAPES)
+def test_attention_row_f32_kernels_match_plain(cuda, shape):
+    from lfm_tpu_torch.kernels.flash_attention import (ATTENTION_SMALL, ATTENTION_SMALL_BWD,
+                                                       attention_small, attention_small_bwd,
+                                                       reference_attention,
+                                                       reference_attention_bwd, split_qkv)
+
+    n, t, h, d = shape
+    q, k, v, do = (torch.randn(*shape, generator=cuda, device="cuda") for _ in range(4))
+    k1, k3 = ATTENTION_SMALL.count, ATTENTION_SMALL_BWD.count
+    out = attention_small(q, k, v)
+    grads = attention_small_bwd(q, k, v, do)
+    torch.cuda.synchronize()
+    assert (ATTENTION_SMALL.count, ATTENTION_SMALL_BWD.count) == (k1 + 1, k3 + 1)
+    assert out.dtype == torch.float32 and _rel(out, reference_attention(q, k, v)) <= 1e-4
+    for name, g, w in zip("qkv", grads, reference_attention_bwd(q, k, v, do)):
+        assert g.dtype == torch.float32 and g.shape == shape
+        assert _rel(g, w) <= 1e-4, f"d{name}"
+    # the thirds of a fused qkv row, read in place, and a rerun's bits
+    qq, kk, vv = split_qkv(torch.randn(n, t, 3 * h * d, generator=cuda, device="cuda"), h)
+    assert _rel(attention_small(qq, kk, vv), reference_attention(qq, kk, vv)) <= 1e-4
+    first = [g.clone() for g in attention_small_bwd(qq, kk, vv, do)]
+    for g, again, w in zip(first, attention_small_bwd(qq, kk, vv, do),
+                           reference_attention_bwd(qq, kk, vv, do)):
+        assert _rel(g, w) <= 1e-4 and torch.equal(g, again)
+
+
+@pytest.mark.parametrize("t,fwd,bwd", [(256, "attn_row_kernel", "attn_row_bwd_"),
+                                       (257, "attn_small_kernel", "attn_bwd_d")])
+def test_f32_attention_dispatch_by_length(cuda, t, fwd, bwd):
+    """f32 at D 64: T <= 256 launches attention_row_f32.cuh's kernels, T = 257
+    the kernels of attention.cuh and attention_bwd.cuh (the profiler's
+    kernel names)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lfm_tpu_torch.kernels.flash_attention import attention_small, attention_small_bwd
+
+    q, k, v, do = (torch.randn(1, t, 2, 64, generator=cuda, device="cuda") for _ in range(4))
+    attention_small(q, k, v)
+    attention_small_bwd(q, k, v, do)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        attention_small(q, k, v)
+        attention_small_bwd(q, k, v, do)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    lfm = [name for name in names if "lfm::" in name]
+    assert len(lfm) == 3, names
+    assert fwd in lfm[0] and all(bwd in name for name in lfm[1:]), lfm
+
+
+def test_attention_row_f32_builds_without_spills(cuda):
+    """ptxas's report of the f32 one-pass kernels: 6 K1 instances (D 64, 80 x
+    TK 64, 128, 256), 6 of K3's dq kernel and 2 of its dk/dv kernel, none
+    spills."""
+    from lfm_tpu_torch.kernels import _build
+
+    _build.load_library()
+    fwd = {k: v for k, v in _build.ptxas_usage("attention_row_f32").items() if "attn_row" in k}
+    bwd = {k: v for k, v in _build.ptxas_usage("attention_bwd_row_f32").items()
+           if "attn_row_bwd" in k}
+    assert len(fwd) == 6 and len(bwd) == 8, (sorted(fwd), sorted(bwd))
+    for name, u in {**fwd, **bwd}.items():
+        assert u["spill_stores"] == 0 and u["spill_loads"] == 0 and u["registers"] <= 255, name
+
+
+def test_small_f32_dit_grads_through_kernels_match_plain(cuda):
+    """The 2-block DiT at DiT-L width in f32 (f32 compute, as train
+    --precision f32): the FM loss's parameter gradients with attention
+    through f32 K1/K3 against plain autograd of reference_attention, each
+    within 1e-5 of its tensor's largest plain gradient (f32 sums in another
+    order, through two blocks of the backward)."""
+    from lfm_tpu_torch.nn.dit import DiT
+    from lfm_tpu_torch.nn.init import seeded_init_
+    from lfm_tpu_torch.ode.flow import interpolate
+
+    grads = []
+    for use_flash in (True, False):
+        model = DiT(img_resolution=32, patch_size=2, hidden_size=1024, depth=2, num_heads=16,
+                    dtype=torch.float32, use_flash=use_flash).to("cuda")
+        seeded_init_(model, 0)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(1)
+        z0 = torch.randn(4, 32, 32, 4, generator=g, device="cuda")
+        z1 = torch.randn(4, 32, 32, 4, generator=g, device="cuda")
+        t = torch.rand(4, generator=g, device="cuda")
+        z_t, u = interpolate(z0, z1, t)
+        torch.mean(torch.square(model(t, z_t, train=True) - u)).backward()
+        grads.append({k: p.grad.float() for k, p in model.named_parameters()})
+    for name, want in grads[1].items():
+        assert _rel(grads[0][name], want) <= 1e-5, name
 
 
 @pytest.mark.parametrize("dtype,shape,bk", [

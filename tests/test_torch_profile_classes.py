@@ -39,6 +39,10 @@ def test_sampling_profile_classes_the_sm90_attention(mode, dp, norm_p, sample_cl
      "CUtensorMap_st, __nv_bfloat16*, __nv_bfloat16*, float const*, int, int, long, float, "
      "float)", profile_train.K3),
     ("void lfm::(anonymous namespace)::attn_short_f32_kernel<128, 16, 16>(...)", profile_train.K1),
+    ("void lfm::row32::attn_row_kernel<64, 256>(float const*, float const*, float const*, "
+     "float*, int, int, long, long, long, long, float)", profile_train.K1),
+    ("void lfm::row32::attn_row_bwd_dq_kernel<64, 256>(float const*, ...)", profile_train.K3),
+    ("void lfm::row32::attn_row_bwd_dkdv_kernel<80>(float const*, ...)", profile_train.K3),
 ])
 def test_train_profile_classes_the_sm90_attention(name, train_class):
     assert profile_train._classify(name) == train_class
@@ -51,6 +55,8 @@ def test_f32_kernels_keep_their_sampling_classes():
         == "K4 flash_attention"
     assert profile_sample.classify(
         "void lfm::(anonymous namespace)::attn_short_f32_kernel<128, 16, 16>(...)") \
+        == "K1 attention_small"
+    assert profile_sample.classify("void lfm::row32::attn_row_kernel<80, 128>(...)") \
         == "K1 attention_small"
 
 
