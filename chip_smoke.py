@@ -45,7 +45,8 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
      backward (path block_hybrid) and with pallas_bwd (path
      block_pallas_bwd), each against autograd through reference_block, all
      10 cotangents, with the launch counts of each.
-   - P1, the int8 GEMM (int8_gemm.cu): quant_rows at fc2's input, (51200,
+   - P1, the int8 GEMM (int8_gemm_sm90.cuh, s8 wgmma + TMA) and the row
+     quantization (int8_gemm.cu): quant_rows at fc2's input, (51200,
      4096) f32 (no single library call computes it: library_ms null);
      int8_dense at the int8 path's four products, M = 51200 (N = 200 x T
      = 256) with (K, N) = (1024, 3072) to bf16 (qkv), (1024, 1024) (proj),
@@ -71,7 +72,13 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    through kernels/gemm.py; tools/bench_block.py's gemm_rows) with its ms,
    TFLOP/s, share of its bound, tile width and torch.matmul's time for the
    same product, and the registers and spills of its 8 instances; a spill
-   fails the run.
+   fails the run. And one int8_redesign line: P1's int8 GEMM alone at the
+   int8 path's four products (M = 51200) and the probe step's two
+   (tools/bench_int8.py's gemm_rows) with its ms, TOP/s, share of its
+   bound, tile width and schedule, int8_dense's and torch._int_mm's times
+   for the same int32 product, and the output's digest; it fails unless
+   the output equals the plain version's and int8_dense's bit for bit, and
+   on a spill in any of its 8 instances.
 3. grad: a 2-block DiT at DiT-L width (C = 1024, 16 heads, T = 256), batch
    8, bf16 compute on f32 masters; the flow-matching loss's parameter
    gradients with attention through K1/K3, and through
@@ -949,6 +956,30 @@ def run(torch, work: str) -> int:
         emit({"phase": "kernel", "name": name, **row})
         del out, ref
     del inp, x, steps
+
+    # the redesigned int8 GEMM (int8_gemm_sm90.cuh): each of the int8 path's
+    # four products and the probe step's two alone, against its bound and
+    # torch._int_mm of the same int8 operands; its output against the plain
+    # version's and int8_dense's, bit for bit; ptxas's registers and spills
+    # of its 8 instances
+    from lfm_tpu_torch.tools.bench_int8 import gemm_rows as int8_gemm_rows
+
+    int8_gemms = int8_gemm_rows(reps=10, repeats=1)
+    int8_ptxas = {re.sub(r"^_ZN3lfm4sm9021int8_gemm_sm90_kernelI(.*)EEv.*$",
+                         r"int8_gemm_sm90_kernel<\1>", k): u
+                  for k, u in _build.ptxas_usage("int8_gemm").items()
+                  if "int8_gemm_sm90_kernel" in k}
+    emit({"phase": "int8_redesign", "source": csrc + "int8_gemm_sm90.cuh", "gemms": int8_gemms,
+          "ptxas": int8_ptxas})
+    spilled = {k: u for k, u in int8_ptxas.items()
+               if u.get("spill_stores") or u.get("spill_loads")}
+    # 2 tile widths x GELU or not x f32 or bf16 out
+    if len(int8_ptxas) != 8 or spilled:
+        raise AssertionError(f"int8 GEMM: {len(int8_ptxas)} kernel instances, spills {spilled}")
+    unequal = [r["product"] for r in int8_gemms
+               if not (r["equals_plain"] and r["dense_equals_gemm"])]
+    if unequal:
+        raise AssertionError(f"int8 GEMM: outputs not bit-identical for {unequal}")
     emit({"phase": "kernels_vs_plain", "seconds": time.time() - t0})
 
     # 3. gradients of a small full-width DiT through K1/K3, and through the
@@ -1486,8 +1517,8 @@ def run(torch, work: str) -> int:
         ("dit_block_train_attn_bwd", "dit_block_train.cu", kdir + "dit_block_train.py:429",
          "block_pallas_bwd", k5_rows[("attn", train_batch)]),
         ("quant_rows", "int8_gemm.cu", p1 + ":92", "int8_main", p1_rows["quant_rows"]),
-        ("int8_dense", "int8_gemm.cu", p1 + ":92", "int8_main", p1_rows["fc2"]),
-        ("int8_mlp", "int8_gemm.cu", p1 + ":92", "p1_probe", p1_rows["int8_mlp"]),
+        ("int8_dense", "int8_gemm_sm90.cuh", p1 + ":92", "int8_main", p1_rows["fc2"]),
+        ("int8_mlp", "int8_gemm_sm90.cuh", p1 + ":92", "p1_probe", p1_rows["int8_mlp"]),
         ("bf16_mlp", "int8_gemm.cu", p1 + ":103", "p1_probe", p1_rows["bf16_mlp"]),
     )
     def counter(name):

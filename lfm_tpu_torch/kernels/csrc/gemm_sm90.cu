@@ -6,25 +6,7 @@
 namespace lfm {
 namespace {
 
-// rows x cols of a row-major matrix as a 2-D map: boxes of 128 bytes of a
-// row (64 bf16 or 32 f32) x box_rows rows, 128-byte swizzle; a load
-// zero-fills past the last row, a store drops what falls past it
-template <typename T>
-cudaError_t matrix_map(CUtensorMap* map, const T* ptr, int rows, int cols, int box_rows) {
-  sm90::EncodeTiled encode = sm90::encode_tiled();
-  if (encode == nullptr) return cudaErrorSymbolNotFound;
-  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
-  const cuuint64_t strides[1] = {cuuint64_t(cols) * sizeof(T)};
-  const cuuint32_t box[2] = {cuuint32_t(128 / sizeof(T)), cuuint32_t(box_rows)};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  CUresult r = encode(map,
-                      sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                      2, const_cast<T*>(ptr), dims, strides, box, elem_strides,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
+using sm90::matrix_map;
 
 template <int KIND, int BN, typename TRes, typename TOut>
 cudaError_t launch_bn(const bf16* A, const bf16* W, const sm90::GemmArgs& g, int sms,

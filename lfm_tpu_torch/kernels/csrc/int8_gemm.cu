@@ -7,24 +7,21 @@
 // keeps 1024 rows x 4096 of hidden in VMEM; a Hopper SM has 227 KB, so here
 // it is two kernels that the wrappers chain (kernels/int8_matmul.py):
 //
-//   quant_rows_kernel   one block per row: m = max|x|, s = max(m, 1e-8) / 127,
-//                       q = clip(rint(x / s), -127, 127) (half to even, true
-//                       divisions: the path's _quant_rows, dit_int8.py:121)
-//   int8_gemm_kernel    out[m, n] = epilogue(sum_k qa[m, k] * qw[n, k]) with
-//                       the epilogue in JAX's f32 order: float(acc) * sa[m] *
-//                       sw[n], + float(bias[n]), optionally tanh-GELU,
-//                       stored as f32 or bf16 (dit_int8.py:130-140, 215, 223)
+//   quant_rows_kernel      one block per row: m = max|x|, s = max(m, 1e-8) /
+//                          127, q = clip(rint(x / s), -127, 127) (half to
+//                          even, true divisions: the path's _quant_rows,
+//                          dit_int8.py:121)
+//   int8_gemm_sm90_kernel  out[m, n] = epilogue(sum_k qa[m, k] * qw[n, k]),
+//                          the epilogue in JAX's f32 order: float(acc) *
+//                          sa[m] * sw[n], + float(bias[n]), optionally
+//                          tanh-GELU, stored as f32 or bf16 (dit_int8.py:
+//                          130-140, 215, 223); int8_gemm_sm90.cuh, a
+//                          persistent, warp-specialised s8 wgmma + TMA GEMM
 //
-// The weights are int8 (out, in), K contiguous: the `.col` operand of the s8
-// MMA and the torch.nn.Linear layout (JAX's q is (in, out)). The GEMM tiles
-// 128 x 128 x 64: eight warps each compute 64 x 32 with WMMA s8 -> s32
-// (mma.sync), a two-stage cp.async pipeline, and the epilogue fused into the
-// store. Shared memory holds each operand's 64-byte k-slice as four 16-byte
-// slabs of 128 rows, so every 16 x 16 fragment starts 256-byte aligned. The
-// int32 sums cannot overflow: 127^2 * 4096 < 2^31. The epilogue's products
-// and sum are __fmul_rn / __fadd_rn, so that nvcc does not contract them into
-// one FMA and the f32 values are JAX's. No fast math: a quantization tie
-// that flips moves an int8 value by one step.
+// The weights are int8 (out, in), K contiguous: the K-major B operand of s8
+// wgmma and the torch.nn.Linear layout (JAX's q is (in, out)). This file
+// holds the row quantization, the GEMM's launcher (its tile width by N) and the C entries. No fast math: a quantization tie that flips
+// moves an int8 value by one step.
 //
 // fc1's row quantization needs the max over all hidden columns, which cross
 // N-tiles: the GEMM writes f32 gelu(h1) and quant_rows_kernel reads it again.
@@ -38,32 +35,11 @@
 // EPI_GELU with no bias into a bf16 hidden (the f32 GELU rounded to bf16
 // before the second product) and EPI_STORE into a bf16 out (the f32 product
 // rounded when the next chain step reads it).
-//
-// What bounds it on the H100: one DiT-L/2 block's four int8 products at
-// N = 200, T = 256 are 2 * 51200 * 1024 * 12288 = 1.29 TOP, 0.65 ms at the
-// 1979 TOP/s dense int8 peak; the activations they read and write (f32 in,
-// f32 or bf16 out, the hidden twice) are ~2.2 GB, 0.66 ms at 3.35 TB/s, so a
-// block's int8 path is at the ridge. The int8 GEMM's WMMA mma.sync reaches
-// a fraction of the peak that an s8 wgmma + TMA kernel would; that is later
-// work.
-#include "gemm.cuh"
+#include "int8_gemm_sm90.cuh"
 
 namespace lfm {
 
 constexpr int QR_THREADS = 256;
-
-// tanh-GELU in the order and roundings of PyTorch's CUDA kernel
-// (ActivationGeluKernel.cu, compiled with FMA contraction): x^3 as (x*x)*x,
-// kBeta * fma(kKappa, x^3, x), (0.5*x) * (1 + tanh). The plain version's
-// F.gelu then rounds as the epilogue does, and a quantization of the GELU
-// output that follows sees the same values on both sides.
-__device__ __forceinline__ float gelu_tanh_torch(float x) {
-  constexpr float kBeta = 0.7978845608028654f;  // M_SQRT2 * M_2_SQRTPI * 0.5
-  constexpr float kKappa = 0.044715f;
-  const float x_cube = __fmul_rn(__fmul_rn(x, x), x);
-  const float inner = __fmul_rn(kBeta, __fmaf_rn(kKappa, x_cube, x));
-  return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, tanhf(inner)));
-}
 
 __device__ __forceinline__ float block_max(float v, float* red) {
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
@@ -94,120 +70,61 @@ quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __rest
   }
 }
 
-constexpr int QM = 128, QN = 128, QK = 64;
-constexpr int Q_SLAB = 16;                      // bytes of k per slab row
-constexpr int Q_SLABS = QK / Q_SLAB;            // 4 slabs per k-tile
-constexpr int Q_TILE = QM * QK;                 // 8192 bytes per operand and stage
-static_assert(QM == QN, "A and W tiles share one layout");
-static_assert(Q_TILE >= 8 * 256 * 4, "the epilogue stages its fragments in the A tiles");
+namespace {
 
-// out[m, n] = epilogue(sum_k A[m, k] * W[n, k]); rows m >= M are masked;
-// N % 128 == 0 and K % 64 == 0; bias may be null
-template <bool GELU, typename TOut>
-__global__ void __launch_bounds__(G_THREADS)
-int8_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
-                 const float* __restrict__ sa, const float* __restrict__ sw,
-                 const bf16* __restrict__ bias, TOut* __restrict__ out, int M, int N, int K) {
-  using namespace nvcuda;
-  __shared__ __align__(128) int8_t as[2][Q_TILE];
-  __shared__ __align__(128) int8_t bs[2][Q_TILE];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 4, wn = warp % 4;  // 2 x 4 warps of 64 x 32
-  const int m0 = blockIdx.y * QM, n0 = blockIdx.x * QN;
-
-  // 128 rows x 4 slabs of 16 bytes per operand: 512 chunks, two per thread;
-  // row r's slab ks lands at ks * 128 * 16 + r * 16
-  auto load_stage = [&](int stage, int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int id = threadIdx.x + i * G_THREADS;
-      const int r = id >> 2, ks = id & 3;
-      const int so = ks * QM * Q_SLAB + r * Q_SLAB;
-      const bool ok = m0 + r < M;
-      cp_async16(&as[stage][so], A + (ok ? long(m0 + r) * K + k0 + ks * Q_SLAB : 0), ok);
-      cp_async16(&bs[stage][so], W + long(n0 + r) * K + k0 + ks * Q_SLAB, true);
-    }
-    cp_async_commit();
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0);
-
-  const int k_tiles = K / QK;
-  load_stage(0, 0);
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    if (kt + 1 < k_tiles) {
-      load_stage((kt + 1) & 1, (kt + 1) * QK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int8_t* a_s = as[kt & 1];
-    const int8_t* b_s = bs[kt & 1];
-#pragma unroll
-    for (int ks = 0; ks < Q_SLABS; ++ks) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> b[2];
-      const signed char* a_slab = reinterpret_cast<const signed char*>(a_s) + ks * QM * Q_SLAB;
-      const signed char* b_slab = reinterpret_cast<const signed char*>(b_s) + ks * QN * Q_SLAB;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], a_slab + (wm * 64 + i * 16) * Q_SLAB, Q_SLAB);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], b_slab + (wn * 32 + j * 16) * Q_SLAB, Q_SLAB);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: each warp stages one 16x16 fragment at a time in the (now
-  // idle) A buffers; two lanes per row, 8 contiguous columns each
-  int* scratch = reinterpret_cast<int*>(&as[0][0]) + warp * 256;
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(scratch, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gm = m0 + wm * 64 + i * 16 + r;
-      const int gn = n0 + wn * 32 + j * 16 + c0;
-      if (gm < M) {
-        const long o = long(gm) * N + gn;
-        const float s_row = sa[gm];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          float val = __fmul_rn(__fmul_rn(__int2float_rn(scratch[r * 16 + c0 + e]), s_row),
-                                sw[gn + e]);
-          if (bias) val = __fadd_rn(val, to_f(bias[gn + e]));
-          if constexpr (GELU) val = gelu_tanh_torch(val);
-          out[o + e] = from_f<TOut>(val);
-        }
-      }
-      __syncwarp();
-    }
-  }
+bool aligned(const void* p, uintptr_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-template <bool GELU, typename TOut>
-static cudaError_t launch_int8_gemm(const int8_t* A, const int8_t* W, const float* sa,
-                                    const float* sw, const bf16* bias, void* out, int M, int N,
-                                    int K, cudaStream_t s) {
-  if (N % QN || K % QK || (M + QM - 1) / QM > 65535) return cudaErrorInvalidValue;
-  dim3 grid(N / QN, (M + QM - 1) / QM);
-  int8_gemm_kernel<GELU, TOut><<<grid, G_THREADS, 0, s>>>(A, W, sa, sw, bias,
-                                                           static_cast<TOut*>(out), M, N, K);
+template <int BN, bool GELU, typename TOut>
+cudaError_t launch_tile(const int8_t* A, const int8_t* W, void* out, const sm90::Int8Args& g,
+                        cudaStream_t s) {
+  using R = sm90::Int8Ring<BN>;
+  auto kernel = sm90::int8_gemm_sm90_kernel<BN, GELU, TOut>;
+  // the attribute first: the maps' encoder needs the context it makes current
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         R::SMEM);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  // operands: 128-column k steps; the output: boxes of a consumer's 64 rows
+  CUtensorMap ta, tw, t_out;
+  if ((err = sm90::matrix_map(&ta, A, g.M, g.K, R::TILE_M)) != cudaSuccess ||
+      (err = sm90::matrix_map(&tw, W, g.N, g.K, BN)) != cudaSuccess ||
+      (err = sm90::matrix_map(&t_out, static_cast<const TOut*>(out), g.M, g.N, 64)) !=
+          cudaSuccess)
+    return err;
+  const int tiles = (g.M + R::TILE_M - 1) / R::TILE_M * (g.N / BN);
+  kernel<<<tiles < sms ? tiles : sms, sm90::GEMM_THREADS, R::SMEM, s>>>(ta, tw, t_out, g);
   return cudaGetLastError();
 }
 
+// 256 columns a tile where N % 256 == 0, else 128
+// (kernels/int8_matmul.py::int8_gemm_tile states the same rule)
+template <bool GELU, typename TOut>
+cudaError_t launch_by_n(const int8_t* A, const int8_t* W, void* out, const sm90::Int8Args& g,
+                        cudaStream_t s) {
+  if (g.N % 256 == 0) return launch_tile<256, GELU, TOut>(A, W, out, g, s);
+  return launch_tile<128, GELU, TOut>(A, W, out, g, s);
+}
+
+// out = epilogue(A . W^T); refuses N % 128, K % 64, M < 1 and misaligned
+// pointers
+cudaError_t launch_int8_gemm(const int8_t* A, const int8_t* W, const float* sa, const float* sw,
+                             const bf16* bias, void* out, int M, int N, int K, bool gelu,
+                             bool out_f32, cudaStream_t s) {
+  if (M < 1 || N < 128 || N % 128 || K < 64 || K % 64 || !aligned(A, 16) || !aligned(W, 16) ||
+      !aligned(out, 16) || !aligned(sw, 8) || !aligned(bias, 4) || !aligned(sa, 4))
+    return cudaErrorInvalidValue;
+  const sm90::Int8Args g{sa, sw, bias, M, N, K};
+  if (gelu && out_f32) return launch_by_n<true, float>(A, W, out, g, s);
+  if (gelu) return launch_by_n<true, bf16>(A, W, out, g, s);
+  if (out_f32) return launch_by_n<false, float>(A, W, out, g, s);
+  return launch_by_n<false, bf16>(A, W, out, g, s);
+}
+
+}  // namespace
 }  // namespace lfm
 
 // x: (M, K) bf16 when f32 == 0, float otherwise; q: (M, K) int8; s: M
@@ -235,22 +152,11 @@ extern "C" int lfm_quant_rows(const void* x, void* q, void* s, int M, int K, int
 extern "C" int lfm_int8_gemm(const void* a, const void* w, const void* sa, const void* sw,
                              const void* bias, void* out, int M, int N, int K, int gelu,
                              int out_f32, void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  auto A = static_cast<const int8_t*>(a);
-  auto W = static_cast<const int8_t*>(w);
-  auto SA = static_cast<const float*>(sa);
-  auto SW = static_cast<const float*>(sw);
-  auto B = static_cast<const lfm::bf16*>(bias);
-  cudaError_t e;
-  if (gelu && out_f32)
-    e = lfm::launch_int8_gemm<true, float>(A, W, SA, SW, B, out, M, N, K, st);
-  else if (gelu)
-    e = lfm::launch_int8_gemm<true, lfm::bf16>(A, W, SA, SW, B, out, M, N, K, st);
-  else if (out_f32)
-    e = lfm::launch_int8_gemm<false, float>(A, W, SA, SW, B, out, M, N, K, st);
-  else
-    e = lfm::launch_int8_gemm<false, lfm::bf16>(A, W, SA, SW, B, out, M, N, K, st);
-  return static_cast<int>(e);
+  return static_cast<int>(lfm::launch_int8_gemm(
+      static_cast<const int8_t*>(a), static_cast<const int8_t*>(w),
+      static_cast<const float*>(sa), static_cast<const float*>(sw),
+      static_cast<const lfm::bf16*>(bias), out, M, N, K, gelu != 0, out_f32 != 0,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // One step of `_kernel_bf16`: x (M, D) bf16, w1 (H, D) and w2 (D, H) bf16 in

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) pieces shared by the port's wgmma + TMA kernels: the bf16
-// attention (attention_sm90.cuh, attention_bwd_sm90.cuh) and the NT GEMM of
-// K2 and K5's forward (gemm_sm90.cuh). mbarriers, TMA loads, the wgmma
-// fences and shared-memory descriptors, register rebalancing, and the
-// tensor-map encoder looked up at run time.
+// attention (attention_sm90.cuh, attention_bwd_sm90.cuh), the NT GEMM of
+// K2 and K5's forward (gemm_sm90.cuh) and P1's int8 GEMM
+// (int8_gemm_sm90.cuh). mbarriers, TMA loads, the wgmma fences and
+// shared-memory descriptors, register rebalancing, and the tensor-map
+// encoder looked up at run time with the 2-D row-major maps built on it.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and the encoder's types; the encoder is found at run time
@@ -72,6 +73,11 @@ __device__ __forceinline__ void fence_regs(float (&r)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 
 // a warpgroup's registers per thread, moved between warpgroups (all four
 // warps execute it; the kernel's launch bounds set the starting count)
@@ -122,6 +128,28 @@ inline EncodeTiled encode_tiled() {
                : nullptr;
   }();
   return fn;
+}
+
+// rows x cols of a row-major matrix as a 2-D map: boxes of 128 bytes of a
+// row (128 int8, 64 bf16 or 32 f32) x box_rows rows, 128-byte swizzle; a
+// load zero-fills past the last row and column, a store drops what falls
+// past them
+template <typename T>
+inline cudaError_t matrix_map(CUtensorMap* map, const T* ptr, int rows, int cols, int box_rows) {
+  static_assert(sizeof(T) == 1 || sizeof(T) == 2 || sizeof(T) == 4, "int8, bf16 or f32");
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(cols) * sizeof(T)};
+  const cuuint32_t box[2] = {cuuint32_t(128 / sizeof(T)), cuuint32_t(box_rows)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUtensorMapDataType type = sizeof(T) == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                    : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  CUresult r = encode(map, type, 2, const_cast<T*>(ptr), dims, strides, box, elem_strides,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace sm90

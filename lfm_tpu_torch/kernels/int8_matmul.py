@@ -5,11 +5,12 @@ model the MLP half of the w8a8 DiT path (lfm_tpu/nn/dit_int8.py:220-226):
 
 * ``_kernel_int8`` (``run_int8``): per-row int8 quantization, an int8
   product with int32 sums, the f32 dequant, tanh-GELU, per-row quantization
-  again, a second int8 product and its dequant. Here it is two kernels of
-  ``csrc/int8_gemm.cu``, chained by the wrappers: ``quant_rows`` and the
-  int8 GEMM with its dequant epilogue, which ``int8_dense`` launches for
-  every quantized product of ``nn/dit_int8.py`` and ``int8_mlp`` chains
-  into one step of the probe.
+  again, a second int8 product and its dequant. Here it is two kernels,
+  chained by the wrappers: ``quant_rows`` (``csrc/int8_gemm.cu``) and the
+  int8 GEMM with its dequant epilogue (``csrc/int8_gemm_sm90.cuh``, s8
+  wgmma fed by TMA), which ``int8_dense`` launches for every quantized
+  product of ``nn/dit_int8.py`` and ``int8_mlp`` chains into one step of
+  the probe.
 * ``_kernel_bf16`` (``run_bf16``): the same step in bf16, the probe's
   yardstick: ``bf16_mlp``, two of K2's bf16 GEMMs.
 
@@ -44,8 +45,10 @@ INT8_MLP = LaunchCounter()
 BF16_MLP = LaunchCounter()
 EPILOGUES = ("store", "gelu")
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)  # x's types and out's
-# the int8 GEMM's tile widths (int8_gemm.cu) and the bf16 NT GEMM's
-# (gemm_sm90.cuh): N % 128 == 0, K % 64 == 0
+# the shapes the int8 GEMM (int8_gemm.cu::launch_int8_gemm) and the bf16 NT
+# GEMM (gemm_sm90.cu::launch_gemm_nt) take: N % 128 == 0 (their narrower
+# tile), K % 64 == 0 (the int8 GEMM's k steps are 128 wide, and TMA
+# zero-fills the second half of a last step at K % 128 == 64)
 TILE_N, TILE_K = 128, 64
 _BF = torch.bfloat16
 
@@ -81,12 +84,20 @@ def _dequant(acc, sx, s_w, bias, epilogue: str) -> torch.Tensor:
     return y
 
 
+def reference_int8_gemm(qx, sx, q_w, s_w, bias=None, epilogue: str = "store",
+                        out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The int8 GEMM's plain version: the int8 product of quantized rows qx
+    (rows, K) with scales sx (rows, 1) and q_w (N, K) with scales s_w (N,),
+    and its dequant epilogue."""
+    return _dequant(_int8_product(qx, q_w), sx, s_w, bias, epilogue).to(out_dtype)
+
+
 def reference_int8_dense(x, q_w, s_w, bias=None, epilogue: str = "store",
                          out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain version of ``int8_dense`` (dit_int8.py::_dense_int8, with fc1's
     GELU as an epilogue)."""
     qx, sx = reference_quant_rows(x)
-    return _dequant(_int8_product(qx, q_w), sx, s_w, bias, epilogue).to(out_dtype)
+    return reference_int8_gemm(qx, sx, q_w, s_w, bias, epilogue, out_dtype)
 
 
 def reference_int8_mlp(x, q1, s1, b1, q2, s2, b2) -> torch.Tensor:
@@ -143,6 +154,15 @@ def _check_tiles(fn: str, n: int, k: int, tile_k: int = TILE_K) -> None:
                   f"got N={n} K={k}")
 
 
+def int8_gemm_tile(n: int, k: int) -> int:
+    """Columns of the int8 GEMM's tile for an (N, K) product, by the rule of
+    its launcher (csrc/int8_gemm.cu::launch_by_n): 256 where N % 256 == 0,
+    else 128; both consumer warpgroups share each 128-row tile. Raises
+    ValueError on what the kernel refuses: N % 128 or K % 64 (any M)."""
+    _check_tiles("int8_gemm", n, k)
+    return 128 if n % 256 else 256
+
+
 # --------------------------------------------------------------------------
 # launches (no checks, no counts) and the wrappers
 # --------------------------------------------------------------------------
@@ -162,6 +182,7 @@ def _launch_quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _launch_gemm(qx, sx, q_w, s_w, bias, gelu: bool, out_dtype) -> torch.Tensor:
+    """The int8 GEMM alone on quantized rows."""
     rows, k = qx.shape
     n = q_w.shape[0]
     out = torch.empty((rows, n), dtype=out_dtype, device=qx.device)

@@ -44,7 +44,9 @@ CONV, K2 = "convolution (cuDNN)", "K2 fused_dit_block"
 # kernel name -> class, first match wins (lower-case substrings of the
 # demangled name)
 CLASSES = (
-    ("P1 int8_gemm", ("lfm::int8_gemm_kernel",)),
+    # int8_gemm_sm90.cuh's s8 wgmma GEMM, and the WMMA kernel it replaced
+    # (a trace of an older checkout)
+    ("P1 int8_gemm", ("lfm::sm90::int8_gemm_sm90_kernel", "lfm::int8_gemm_kernel")),
     ("P1 quant_rows", ("lfm::quant_rows_kernel",)),
     # K2's GEMMs run gemm_sm90.cuh's kernel (the P1 probe's bf16_mlp too,
     # which no sampling path runs)

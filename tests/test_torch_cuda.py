@@ -740,7 +740,8 @@ def test_fused_train_step_launches_k5_forward_and_k3(cuda):
     assert all(float((a - b.detach()).abs().max()) > 0 for a, b in zip(p0, state.params))
 
 
-# P1: the int8 GEMM, row quantization and the bf16 MLP (int8_gemm.cu).
+# P1: the int8 GEMM (int8_gemm_sm90.cuh), row quantization and the bf16 MLP
+# (int8_gemm.cu).
 # quant_rows is bit-exact (the same IEEE divisions and ties to even as its
 # plain version); int8_dense within INT8_TOL of the largest plain output
 # (exact int32 sums and the same f32 dequant, only the GELU's tanh may
@@ -794,6 +795,83 @@ def test_int8_dense_kernel_matches_plain(cuda, m, k, n, epilogue, out_dtype, bia
     assert INT8_DENSE.count == before + 1 and got.dtype == out_dtype and got.shape == (m, n)
     want = reference_int8_dense(x, q, s, b, epilogue, out_dtype)
     assert _rel(got, want) <= (INT8_TOL if out_dtype == torch.float32 else 2.0 ** -8)
+
+
+# the s8 wgmma GEMM of int8_gemm_sm90.cuh against its plain version, bit for
+# bit: M = 300 ends inside a tile, N = 384 takes the 128-wide tile and 512
+# the 256-wide one, K = 192 ends in half a k step (TMA zero-fills the rest)
+# and K = 1024 takes eight; M = 5200 makes more tiles than an H100 has SMs
+# (164 of 128 rows at N = 1024), so that a CTA walks several
+@pytest.mark.parametrize("m,k,n", [(300, 192, 384), (300, 192, 512), (1000, 1024, 256),
+                                   (5200, 192, 1024)])
+@pytest.mark.parametrize("epilogue,out_dtype", [("store", torch.float32),
+                                                ("gelu", torch.float32),
+                                                ("store", torch.bfloat16),
+                                                ("gelu", torch.bfloat16)])
+def test_int8_gemm_sm90_equals_plain(cuda, m, k, n, epilogue, out_dtype):
+    from lfm_tpu_torch.kernels.int8_matmul import _launch_gemm, quant_rows, reference_int8_gemm
+
+    x = torch.randn(m, k, generator=cuda, device="cuda")
+    qx, sx = quant_rows(x)
+    q, s = _int8_weight(cuda, n, k)
+    b = (0.1 * torch.randn(n, generator=cuda, device="cuda")).bfloat16()
+    got = _launch_gemm(qx, sx, q, s, b, epilogue == "gelu", out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    assert torch.equal(got, reference_int8_gemm(qx, sx, q, s, b, epilogue, out_dtype))
+    got = _launch_gemm(qx, sx, q, s, None, False, torch.float32)
+    assert torch.equal(got, reference_int8_gemm(qx, sx, q, s, None))
+
+
+@pytest.mark.parametrize("n,epilogue,out_dtype", [(3072, "store", torch.bfloat16),
+                                                   (1024, "store", torch.float32),
+                                                   (4096, "gelu", torch.float32),
+                                                   (3456, "store", torch.bfloat16)])
+def test_int8_dense_launches_the_tile_the_wrapper_names(cuda, n, epilogue, out_dtype):
+    """lfm_int8_gemm's own choice of tile width (its kernel's first template
+    argument in the profiler's name) is int8_gemm_tile's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lfm_tpu_torch.kernels.int8_matmul import int8_dense, int8_gemm_tile
+
+    x = torch.randn(256, 128, generator=cuda, device="cuda")
+    q, s = _int8_weight(cuda, n, 128)
+    int8_dense(x, q, s, None, epilogue, out_dtype)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        int8_dense(x, q, s, None, epilogue, out_dtype)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+             and "int8_gemm_sm90_kernel" in e.name]
+    tile = int8_gemm_tile(n, 128)
+    assert len(names) == 1 and f"int8_gemm_sm90_kernel<{tile}, " in names[0], names
+
+
+def test_int8_gemm_sm90_refuses_what_the_wrapper_refuses(cuda):
+    """The C entry's own checks, below the wrapper's: N = 320 (not a multiple
+    of 128) and K = 96 (not of 64)."""
+    from lfm_tpu_torch.kernels.int8_matmul import _launch_gemm, quant_rows
+
+    for n, k in ((320, 128), (256, 96)):
+        qx, sx = quant_rows(torch.randn(64, k, device="cuda"))
+        q, s = _int8_weight(cuda, n, k)
+        with pytest.raises(RuntimeError, match="int8_gemm: CUDA error"):
+            _launch_gemm(qx, sx, q, s, None, False, torch.float32)
+
+
+def test_int8_gemm_sm90_builds_without_spills(cuda):
+    """ptxas's report of the int8 GEMM: its 8 instances (tile widths 256 and
+    128; GELU or not; f32 or bf16 out) built, none spills, and no WMMA int8
+    kernel is left."""
+    from lfm_tpu_torch.kernels import _build
+
+    _build.load_library()
+    usage = _build.ptxas_usage("int8_gemm")
+    sm90 = {k: v for k, v in usage.items() if "int8_gemm_sm90_kernel" in k}
+    assert len(sm90) == 8
+    for name, u in sm90.items():
+        assert u["spill_stores"] == 0 and u["spill_loads"] == 0 and u["registers"] <= 255, name
+    assert not [k for k in usage if "int8_gemm_kernel" in k]
 
 
 def test_int8_mlp_and_bf16_mlp_chains_match_plain(cuda):

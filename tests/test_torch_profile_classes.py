@@ -77,6 +77,26 @@ def test_profiles_count_the_nt_gemm_in_its_block(kind, bn, tres, tout):
 
 
 @pytest.mark.parametrize("name", [
+    "void lfm::sm90::int8_gemm_sm90_kernel<256, 0, true, float>(CUtensorMap_st, CUtensorMap_st, "
+    "CUtensorMap_st, lfm::sm90::Int8Args)",
+    "void lfm::sm90::int8_gemm_sm90_kernel<128, 1, false, __nv_bfloat16>(CUtensorMap_st, "
+    "CUtensorMap_st, CUtensorMap_st, lfm::sm90::Int8Args)",
+    "void lfm::int8_gemm_kernel<false, float>(signed char const*, signed char const*, "
+    "float const*, float const*, __nv_bfloat16 const*, float*, int, int, int)",
+])
+def test_sampling_profile_counts_the_int8_gemm_as_p1(name):
+    """P1's int8 GEMM (the s8 wgmma kernel, or the WMMA one in an older
+    checkout's trace) lands in its own class, not in K2's or the library
+    matmuls' (its name holds "gemm")."""
+    assert profile_sample.classify(name) == "P1 int8_gemm"
+
+
+def test_sampling_profile_counts_quant_rows_as_p1():
+    assert profile_sample.classify("void lfm::quant_rows_kernel<float>(float const*, "
+                                   "signed char*, float*, int)") == "P1 quant_rows"
+
+
+@pytest.mark.parametrize("name", [
     "nvjet_tst_256x128_64x4_1x2_h_bz_coopA_TNT",
     "void cutlass::Kernel2<cutlass_80_wmma_tensorop_bf16_s161616gemm_bf16_32x32_128x2_tn_align8>",
 ])
