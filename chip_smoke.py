@@ -25,11 +25,12 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
      bf16 matmuls and scaled_dot_product_attention;
    - attention_small_bwd (K3), bf16 at (32, 256, 16, 64) and
      (8, 1024, 16, 64), f32 at (8, 256, 16, 64), (32, 256, 16, 64),
-     (8, 256, 16, 72) and (2, 1024, 16, 64) (attention_bwd.cuh's kernels,
-     past T = 256); library: the backward of scaled_dot_product_attention
+     (8, 256, 16, 72) and (2, 1024, 16, 64) (past T = 256: the dq kernel of
+     attention_long_f32.cuh); library: the backward of scaled_dot_product_attention
      through autograd (its saved forward graph, backward alone);
    - flash_attention (K4), bf16 at (2, 4096, 16, 64) (DiT-L/2 at 1024 px,
-     the long_t path) and (4, 2048, 16, 64), f32 at (1, 4096, 4, 128);
+     the long_t path) and (4, 2048, 16, 64), f32 at (1, 4096, 4, 128) and
+     (2, 4096, 16, 64) (an f32 DiT-L/2 at 1024 px);
      library: scaled_dot_product_attention;
    - groupnorm_silu (K6), bf16 at (N, 32, 32, 256), (N, 32, 32, 768) (the
      largest in-norm input of celeb256_adm), (N, 4, 4, 1024) and
@@ -61,12 +62,13 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    attention_sm90.cuh; bf16 K3, the wgmma + TMA backward of
    attention_bwd_sm90.cuh; f32 K1 at the origin ADM's T <= 64, the one-pass
    kernel of attention_wide.cu; f32 K1 and K3 at the DiT's heads and T <=
-   256, the one-pass kernels of attention_row_f32.cuh; f32 K1 and K3 past
-   T = 256, attention.cuh's and attention_bwd.cuh's) with its ms, share of
-   its bound, ratio to SDPA and output digest, and the registers and spills
-   of each of the 12 wgmma kernel instances and the 14 instances of
-   attention_row_f32.cuh from the build's ptxas report; a spill fails the
-   run. And one
+   256, the one-pass kernels of attention_row_f32.cuh; f32 K1 past T = 256,
+   attention.cuh's; f32 K4 and f32 K3 past T = 256, the key-block and
+   whole-row kernels of attention_long_f32.cuh) with its ms, share of its
+   bound, ratio to SDPA and output digest, and the registers and spills of
+   each of the 12 wgmma kernel instances, the 14 instances of
+   attention_row_f32.cuh and the 7 of attention_long_f32.cuh from the
+   build's ptxas report; a spill fails the run. And one
    gemm_redesign line: each NT GEMM of K2 at N and of K5's forward at the
    train batch alone (the persistent wgmma + TMA GEMM of gemm_sm90.cuh,
    through kernels/gemm.py; tools/bench_block.py's gemm_rows) with its ms,
@@ -523,8 +525,8 @@ def run(torch, work: str) -> int:
     # f32: the DiT's heads (train_f32's shape among them), then the origin
     # ADM's (celeb256_adm's path first)
     f32_dit = [(8, 256, 16, 64), (train_batch, 256, 16, 64), (8, 256, 16, 72)]
-    # and past T = 256, where f32 K1 and K3 take attention.cuh's and
-    # attention_bwd.cuh's kernels (an f32 DiT-L/2 at 512 px)
+    # and past T = 256, where f32 K1 takes attention.cuh's kernel and f32 K3
+    # attention_long_f32.cuh's dq kernel (an f32 DiT-L/2 at 512 px)
     f32_long = [(2, 1024, 16, 64)]
     k1_f32 = [c + (f32,) for c in f32_dit + f32_long] + [
         (batch, 16, 4, 128, f32), (16, 64, 4, 128, f32), (16, 16, 4, 256, f32)]
@@ -630,7 +632,8 @@ def run(torch, work: str) -> int:
         emit({"phase": "kernel", "name": "attention_small_bwd", **row})
         del q, k, v, do, got, want, qh, kh, vh, doh, oh
 
-    for n, t, h, d, dt in ((2, 4096, 16, 64, bf), (4, 2048, 16, 64, bf), (1, 4096, 4, 128, f32)):
+    for n, t, h, d, dt in ((2, 4096, 16, 64, bf), (4, 2048, 16, 64, bf), (1, 4096, 4, 128, f32),
+                           (2, 4096, 16, 64, f32)):
         t_case = time.time()
         q, k, v = (rn(n, t, h, d, dtype=dt) for _ in range(3))
         out = flash_attention(q, k, v)
@@ -655,7 +658,8 @@ def run(torch, work: str) -> int:
 
     # the redesigned attention kernels: the wgmma + TMA forward (bf16 K1 and
     # K4) and backward (bf16 K3), the one-pass f32 K1 at the origin ADM's
-    # short sequences, and the one-pass f32 K1 and K3 at the DiT's heads;
+    # short sequences, the one-pass f32 K1 and K3 at the DiT's heads, and f32
+    # K4 and f32 K3 past T = 256;
     # time against bound and SDPA at every shape above, and ptxas's
     # registers and spills of each instance
     csrc = "lfm_tpu_torch/kernels/csrc/"
@@ -681,16 +685,21 @@ def run(torch, work: str) -> int:
                     ("attention_small_bwd", "attention_bwd_sm90.cuh", k3_rows,
                      lambda r: r["dtype"] == str(bf)),
                     ("attention_small_bwd", "attention_row_f32.cuh", k3_rows, f32_dit_row),
-                    ("attention_small_bwd", "attention_bwd.cuh", k3_rows, f32_long_row),
+                    ("attention_small_bwd", "attention_long_f32.cuh", k3_rows, f32_long_row),
                     ("flash_attention", "attention_sm90.cuh", k4_rows,
-                     lambda r: r["dtype"] == str(bf)))
+                     lambda r: r["dtype"] == str(bf)),
+                    ("flash_attention", "attention_long_f32.cuh", k4_rows,
+                     lambda r: r["dtype"] == str(f32)))
                 for r in rows.values() if pick(r)]
     ptxas = {}
     for stem, pattern in (("attention_sm90", r"(attn_\w+_kernel)ILi(\d+)ELb([01])E"),
                           ("attention_bwd", r"sm90\d+(attn_bwd_\w+_kernel)ILi(\d+)E()"),
                           ("attention_row_f32", r"row32\d+(attn_row_kernel)ILi(\d+)ELi(\d+)E"),
                           ("attention_bwd_row_f32",
-                           r"row32\d+(attn_row_bwd_\w+_kernel)ILi(\d+)E(?:Li(\d+)E)?")):
+                           r"row32\d+(attn_row_bwd_\w+_kernel)ILi(\d+)E(?:Li(\d+)E)?"),
+                          ("flash_attention_f32", r"long32\d+(flash_f32_kernel)ILi(\d+)E()"),
+                          ("attention_bwd_long_f32",
+                           r"long32\d+(attn_long_bwd_dq_kernel)ILi(\d+)ELi(\d+)E")):
         for mangled, use in _build.ptxas_usage(stem).items():
             m = re.search(pattern, mangled)
             if m:
@@ -703,8 +712,9 @@ def run(torch, work: str) -> int:
     # wgmma: 8 forward instances (2 modes x 2 padded head dims x NORM_P), 4
     # of K3 (2 kernels x 2 padded head dims); f32 one-pass: 6 of K1 (2
     # padded head dims x TK 64, 128, 256), 6 of K3's dq kernel, 2 of its
-    # dk/dv kernel
-    if len(ptxas) != 26 or spilled:
+    # dk/dv kernel; attention_long_f32.cuh: 3 of K4 (DP 64, 80, 128), 4 of
+    # K3's dq kernel past T = 256 (2 padded head dims x TK 512, 1024)
+    if len(ptxas) != 33 or spilled:
         raise AssertionError(f"attention: {len(ptxas)} kernel instances, spills {spilled}")
 
     for n, hh, ww, c, dt, offset in ((batch, 32, 32, 256, bf, 0.0), (batch, 32, 32, 768, bf, 0.0),

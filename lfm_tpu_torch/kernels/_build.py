@@ -42,6 +42,7 @@ SIGNATURES = {
     "lfm_dit_block_train_mlp_bwd": [_P] * 20 + [_I] * 4 + [_P],
     "lfm_dit_block_train_attn_bwd": [_P] * 22 + [_I] * 4 + [_P],
     "lfm_flash_attention": [_P] * 4 + [_I] * 10 + [_P],
+    "lfm_flash_f32_max_block": [],
     "lfm_groupnorm_silu": [_P] * 4 + [_I] * 4 + [_F, _I, _P],
     "lfm_quant_rows": [_P] * 3 + [_I] * 3 + [_P],
     "lfm_int8_gemm": [_P] * 6 + [_I] * 5 + [_P],

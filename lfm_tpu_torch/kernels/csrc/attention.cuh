@@ -1,8 +1,7 @@
 // Whole-sequence softmax attention in f32 past T = 256 (the port of
 // lfm_tpu/kernels/flash_attention.py::attention_small, `_attn_small_kernel`,
 // for f32 models), the dispatch of K1 by element type, and the f32 warp-tile
-// products that this kernel, the f32 K3 past T = 256 (attention_bwd.cuh) and
-// K4 (flash_attention.cuh) use. The bf16 forward (K1, and the attention
+// products that this kernel uses. The bf16 forward (K1, and the attention
 // inside K2 and K5) is the wgmma + TMA kernel of attention_sm90.cuh:
 // launch_attention<NORM_P, bf16> launches it; bf16 K3 is
 // attention_bwd_sm90.cuh. f32 K1 is dispatched by shape in
@@ -307,12 +306,19 @@ cudaError_t launch_attn_bwd_sm90(const bf16* q, const bf16* k, const bf16* v, co
 cudaError_t launch_attention_row_f32(const float* q, const float* k, const float* v, float* o,
                                      int N, int T, int H, int D, long ldq, long ldk, long ldv,
                                      long ldo, cudaStream_t s);
-// f32 K3 past T = 256, the FMA kernels of attention_bwd.cuh
-// (attention_bwd_f32.cu); stats: 3 * N * H * T floats. D in {56, 64, 72, 80}.
-cudaError_t launch_attn_bwd_f32(const float* q, const float* k, const float* v,
-                                const float* dout, float* dq, float* dk, float* dv, float* stats,
-                                int N, int T_len, int H, int D, long ldq, long ldk, long ldv,
-                                long lddo, long ldg, cudaStream_t s);
+// f32 K3 at T <= 1024, D 8-80 a multiple of 8 (taken past T = 256): the
+// dq kernel of attention_long_f32.cuh and the dk/dv kernel of
+// attention_row_f32.cuh (attention_bwd_long_f32.cu); stats: 3 * N * H * T
+// floats.
+cudaError_t launch_attn_bwd_long_f32(const float* q, const float* k, const float* v,
+                                     const float* dout, float* dq, float* dk, float* dv,
+                                     float* stats, int N, int T, int H, int D, long ldq, long ldk,
+                                     long ldv, long lddo, long ldg, cudaStream_t s);
+// f32 K4, BK a divisor of T and at most 512, D in {56, 64, 72, 80, 128}:
+// the key-block kernel of attention_long_f32.cuh (flash_attention_f32.cu).
+cudaError_t launch_flash_f32(const float* q, const float* k, const float* v, float* o, int N,
+                             int T, int H, int D, int BK, long ldq, long ldk, long ldv, long ldo,
+                             cudaStream_t s);
 // f32 K3 at T <= 256, D 8-80 a multiple of 8: the two kernels of
 // attention_row_f32.cuh (attention_bwd_row_f32.cu); the same stats layout.
 cudaError_t launch_attn_bwd_row_f32(const float* q, const float* k, const float* v,

@@ -2,7 +2,8 @@
 // attention_small_bwd: bf16 runs the wgmma + TMA kernels of
 // attention_bwd_sm90.cuh (launched here); f32 is split by shape: at T <= 256
 // the one-pass kernels of attention_row_f32.cuh (attention_bwd_row_f32.cu),
-// past it the FMA kernels of attention_bwd.cuh (attention_bwd_f32.cu).
+// past it the dq kernel of attention_long_f32.cuh with the same dk/dv kernel
+// (attention_bwd_long_f32.cu).
 #include "attention.cuh"
 #include "attention_bwd_sm90.cuh"
 
@@ -77,9 +78,9 @@ extern "C" int lfm_attention_small_bwd(const void* q, const void* k, const void*
       return static_cast<int>(lfm::launch_attn_bwd_row_f32(c(q), c(k), c(v), c(dout), m(dq),
                                                             m(dk), m(dv), st, N, T, H, D, ldq,
                                                             ldk, ldv, lddo, ldg, s));
-    return static_cast<int>(lfm::launch_attn_bwd_f32(c(q), c(k), c(v), c(dout), m(dq), m(dk),
-                                                      m(dv), st, N, T, H, D, ldq, ldk, ldv, lddo,
-                                                      ldg, s));
+    return static_cast<int>(lfm::launch_attn_bwd_long_f32(c(q), c(k), c(v), c(dout), m(dq),
+                                                           m(dk), m(dv), st, N, T, H, D, ldq,
+                                                           ldk, ldv, lddo, ldg, s));
   }
   using lfm::bf16;
   auto c = [](const void* p) { return static_cast<const bf16*>(p); };

@@ -43,16 +43,20 @@
 //    delta (3 N H T floats of flash_attention.bwd_stats_scratch).
 //    attn_row_bwd_dkdv_kernel takes 128 keys (64 at DP 80) and recomputes
 //    s^T and dp^T per query chunk from those statistics (8 T^2 D): 14 T^2 D
-//    in all, not the 18 of attention_bwd.cuh's two sweeps. It forms p as the
-//    dq kernel does, so its p is the dq kernel's bit for bit.
+//    in all, not the 18 of an online pass and a second sweep. It forms p as the
+//    dq kernel does, so its p is the dq kernel's bit for bit. It streams the
+//    queries, so it takes any T: past T = 256 it follows the dq kernel of
+//    attention_long_f32.cuh, which writes the same statistics.
 // Shared memory (DP 64 / 80, TK 256): K1 160 / 197 KB (P takes K's buffer
 // once S is formed), the dq kernel 177 / 218 KB (dS takes V's), the dk/dv
 // kernel 206 / 162 KB: one CTA an SM (two of K1's at TK 128).
 //
-// The f32 sums: s and dp over D, dq, dk and dv over keys or queries, each
-// one chain in order, as attention.cuh's kernels and the plain version's
-// f32 GEMMs sum them (dq, dk and dv summed in 64-key segments were measured
-// 3x further from the plain version); o at DP 64 in two halves of the keys
+// The f32 sums: s and dp over D, and dq over keys, each one chain in order,
+// as the plain version's f32 GEMMs sum them (dq summed in 64-key segments
+// was measured 3x further from the plain version); dk and dv over queries,
+// each 64-query chunk a fresh partial added to the total (shorter chains:
+// measured closer to float64 than one chain, and so further from the plain
+// version, PERF.md); o at DP 64 in two halves of the keys
 // (closer to the plain version and to float64 than one chain, as measured);
 // l and delta directly (a tree over the row's threads), where the older
 // kernels rescale them online. delta is rowsum(p dp) after l, as the TPU
@@ -118,25 +122,44 @@ struct DkdvLayout {
 };
 
 // rows [row0, row0 + ROWS) x columns [0, DP) of a slab into a tile of row
-// stride DP + 4; rows >= T and columns >= D zero-filled (D % 8 == 0)
+// stride DP + 4; rows >= T and columns >= D zero-filled (D % 8 == 0). Thread
+// t copies the 16-byte chunks t, t + THREADS, ... in row-major order. Up to
+// 128 rows (a ring stage, a chunk, a query tile) the loop is unrolled, so a
+// copy costs a few instructions (measured faster in the kernels of
+// attention_long_f32.cuh); a whole row of 256 keys keeps the plain loop
+// (measured faster there in K1).
 template <int DP, int ROWS>
 __device__ __forceinline__ void load_rows(float* dst, const float* base, long ld, int row0, int T,
                                           int D) {
-  constexpr int C4 = DP / 4;
-  for (int id = threadIdx.x; id < ROWS * C4; id += THREADS) {
-    const int r = id / C4, c = (id % C4) * 4;
-    const bool ok = row0 + r < T && c < D;
-    cp_async16(dst + r * (DP + 4) + c, ok ? base + long(row0 + r) * ld + c : base, ok);
+  constexpr int C4 = DP / 4, N = ROWS * C4;
+  if constexpr (ROWS <= 128) {
+    const float* src = base + long(row0) * ld;
+    const int rows = T - row0;
+#pragma unroll
+    for (int k = 0; k < (N + THREADS - 1) / THREADS; ++k) {
+      const int id = int(threadIdx.x) + k * THREADS;
+      if (N % THREADS == 0 || id < N) {
+        const int r = id / C4, c = (id % C4) * 4;
+        const bool ok = r < rows && c < D;
+        cp_async16(dst + r * (DP + 4) + c, ok ? src + long(r) * ld + c : base, ok);
+      }
+    }
+  } else {
+    for (int id = threadIdx.x; id < N; id += THREADS) {
+      const int r = id / C4, c = (id % C4) * 4;
+      const bool ok = row0 + r < T && c < D;
+      cp_async16(dst + r * (DP + 4) + c, ok ? base + long(row0 + r) * ld + c : base, ok);
+    }
   }
 }
 
 // acc[i][j] += sum_d A[r0 + RS i][d] B[c0 + CS j][d], d in order; A and B
-// have rows of DP + 4 floats
-template <int DP, int RM, int RN, int RS, int CS>
+// have rows of DP + 4 floats; the loop unrolled U times
+template <int DP, int RM, int RN, int RS, int CS, int U = 2>
 __device__ __forceinline__ void nt(float (&acc)[RM][RN], const float* A, int r0, const float* B,
                                    int c0) {
   constexpr int LD = DP + 4;
-#pragma unroll 2
+#pragma unroll U
   for (int d = 0; d < DP; d += 4) {
     float4 a[RM];
 #pragma unroll
@@ -157,11 +180,11 @@ __device__ __forceinline__ void nt(float (&acc)[RM][RN], const float* A, int r0,
 }
 
 // acc[i][0..3] += sum_k A[r0 + RS i][k] B[k][c..c+3], k in order over
-// [0, klen), klen % 4 == 0
-template <int RM, int LDA, int LDB, int RS = 16>
+// [0, klen), klen % 4 == 0; the loop unrolled U times
+template <int RM, int LDA, int LDB, int RS = 16, int U = 2>
 __device__ __forceinline__ void nn(float (&acc)[RM][4], const float* A, int r0, const float* B,
                                    int c, int klen) {
-#pragma unroll 2
+#pragma unroll U
   for (int k = 0; k < klen; k += 4) {
     float4 a[RM];
 #pragma unroll
@@ -182,14 +205,15 @@ __device__ __forceinline__ void nn(float (&acc)[RM][4], const float* A, int r0, 
   }
 }
 
-// The RM x 4 output tiles of a 16 RM x DP product: tile `it` has rows ty +
-// 16i and columns 4 cg .. 4 cg + 3. At DP 64 a warp takes 4 rows x 8 column
-// groups (one 128-byte row of B a load); at DP 80 the 320 tiles run in
-// order, threads 0-63 taking a second one.
-template <int DP>
+// The RM x 4 output tiles of an RG RM x DP product: tile `it` has rows ty +
+// RG i and columns 4 cg .. 4 cg + 3. Where DP / 4 is a multiple of 8 a warp
+// takes 4 row groups x 8 column groups (one 128-byte row of B a load; a
+// quarter-warp one row group, so its A loads read one address); at DP 80
+// the tiles run in order (RG 16: threads 0-63 take a second one).
+template <int DP, int RG = 16>
 struct OutTiles {
   static constexpr int CG = DP / 4;
-  static constexpr int COUNT = 16 * CG;
+  static constexpr int COUNT = RG * CG;
   static constexpr int PER_THREAD = (COUNT + THREADS - 1) / THREADS;
   static __device__ __forceinline__ void at(int it, int& ty, int& cg) {
     if constexpr (CG % 8 == 0) {
@@ -547,8 +571,18 @@ attn_row_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ 
       if (it < O::COUNT) {
         int oy, cg;
         O::at(it, oy, cg);
-        nn<RM, L::LDP, L::LD>(acc_dv[slot], ps, oy, dc, 4 * cg, CHUNK);   // dv += p^T do
-        nn<RM, L::LDP, L::LD>(acc_dk[slot], dss, oy, qc, 4 * cg, CHUNK);  // dk += ds^T q
+        // the chunk's sums in fresh partials, added to the totals
+        float pdv[RM][4] = {}, pdk[RM][4] = {};
+        nn<RM, L::LDP, L::LD>(pdv, ps, oy, dc, 4 * cg, CHUNK);   // p^T do
+        nn<RM, L::LDP, L::LD>(pdk, dss, oy, qc, 4 * cg, CHUNK);  // ds^T q
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            acc_dv[slot][i][c] += pdv[i][c];
+            acc_dk[slot][i][c] += pdk[i][c];
+          }
+        }
       }
     }
     __syncthreads();  // the stage and p / ds are free again

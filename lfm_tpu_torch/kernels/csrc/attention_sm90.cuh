@@ -1,8 +1,7 @@
 // bf16 softmax attention forward for Hopper (sm_90a), on wgmma and TMA: the
 // bf16 K1, the attention inside K2 and K5's forward, and the bf16 K4.
 //
-// It replaces the bf16 instances of the WMMA kernels attn_small_kernel
-// (attention.cuh) and flash_attn_kernel (flash_attention.cuh), and computes
+// It replaces the bf16 instances of K1's and K4's WMMA kernels, and computes
 // what the TPU kernels of lfm_tpu/kernels/flash_attention.py compute, at
 // their rounding points:
 //  - `_attn_small_kernel` (K1): the whole row of s = q k^T / sqrt(D) in f32,

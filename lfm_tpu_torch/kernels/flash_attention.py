@@ -16,11 +16,14 @@ kernel for Hopper (``csrc/attention_sm90.cuh``: whole-row mode up to T =
 (``csrc/attention_bwd_sm90.cuh``); in f32 they are f32 FMA kernels
 split by shape: f32 K1 and K3 at T <= 256 and D 56-80 (the f32 DiT's
 attention, ``train --precision f32``) are one-pass, register-blocked
-kernels (``csrc/attention_row_f32.cuh``), f32 K1 at T <= 64 and D =
-128/256 (the origin ADM's attention) a one-pass kernel sized to T
-(``csrc/attention_wide.cu``), and the rest (f32 K1 and K3 past T = 256,
-f32 K4) the kernels of ``csrc/attention.cuh``, ``csrc/attention_bwd.cuh``
-and ``csrc/flash_attention.cuh``. What bounds each is noted in its source.
+kernels (``csrc/attention_row_f32.cuh``); f32 K4 and f32 K3 past T = 256
+keep a whole key block (K4, at most 512 keys) or a whole row (K3's dq
+kernel) of scores on chip with k and v streamed through a cp.async ring
+(``csrc/attention_long_f32.cuh``; K3's dk/dv kernel is the row kernels');
+f32 K1 at T <= 64 and D = 128/256 (the origin ADM's attention) is a
+one-pass kernel sized to T (``csrc/attention_wide.cu``), and f32 K1 past
+T = 256 the kernel of ``csrc/attention.cuh``. What bounds each is noted in
+its source.
 
 On a CPU tensor each wrapper computes its plain version; on a CUDA tensor
 it launches its kernel or raises. ``fused_attention_qkv`` is a
@@ -219,15 +222,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: 
     ``block_q`` is the JAX signature's: query rows are independent, so it
     changes no value (the kernel takes 64 rows per block).
 
-    On CUDA: bf16 or f32, D in HEAD_DIMS (f32 also 128); q, k, v are read in
-    place as ``attention_small`` reads them."""
+    On CUDA: bf16 or f32, D in HEAD_DIMS (f32 also 128, with key blocks of
+    at most 512, the default: the kernel holds a block's scores on chip,
+    ``lfm_flash_f32_max_block``); q, k, v are read in place as
+    ``attention_small`` reads them."""
     bk = _pick_block(q.shape[1], block_k)
     if q.device.type == "cpu":
         return reference_flash_attention(q, k, v, block_k=bk)
     _check_launch("flash_attention", q, (("q", q), ("k", k), ("v", v)), small_t=False)
+    lib = load_library()
+    if q.dtype == torch.float32 and bk > lib.lfm_flash_f32_max_block():
+        raise ValueError(f"flash_attention: f32 key blocks of {bk} keys are past the "
+                         f"{lib.lfm_flash_f32_max_block()} the kernel holds")
     n, t, h, d = q.shape
     out = torch.empty((n, t, h, d), dtype=q.dtype, device=q.device)
-    rc = load_library().lfm_flash_attention(
+    rc = lib.lfm_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), n, t, h, d, bk,
         _ld(q), _ld(k), _ld(v), h * d, int(q.dtype == torch.float32),
         torch.cuda.current_stream(q.device).cuda_stream)

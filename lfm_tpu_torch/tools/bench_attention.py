@@ -1,7 +1,7 @@
 """Times the port's attention kernels on the card, with each one's error
 against its plain version.
 
-    python -m lfm_tpu_torch.tools.bench_attention [--timing-only]
+    python -m lfm_tpu_torch.tools.bench_attention [--timing-only] [--long-f32] [--f64-seeds N]
 
 or, to time another checkout's kernels on the same inputs (its package is
 the one imported; its kernels are built in that checkout):
@@ -15,8 +15,12 @@ with ``--precision f32``) and (8, 256, 16, 72) (DiT-XL/2's head), all on
 the thirds of a fused qkv row as the models call it; in bf16 at (8, 256,
 16, 72) and (32, 256, 16, 72); ``attention_small_bwd`` in bf16 at (32,
 256, 16, 64) (the DiT-L/2 train step's shape) and (8, 1024, 16, 64), and
-in f32 at the three f32 DiT shapes. Inputs come from a CUDA generator
-seeded per shape, so two checkouts see the same values. Each kernel is timed with CUDA events, the mean of REPS
+in f32 at the three f32 DiT shapes and past T = 256 at (2, 1024, 16, 64)
+(an f32 DiT-L/2 at 512 px) and the ragged (2, 300, 16, 64) and (2, 300,
+16, 80); ``flash_attention`` in f32 at (1, 4096, 4, 128) and (2, 4096, 16,
+64) (an f32 DiT-L/2 at 1024 px), its default key blocks of 512. Inputs come
+from a CUDA generator seeded per shape, so two checkouts see the same
+values. Each kernel is timed with CUDA events, the mean of REPS
 calls after WARMUP, REPEATS times (at these sizes a call can take less
 device time than its host launch, so ``ms`` may be the host's rate), and
 by ``torch.profiler`` as the device time of REPS calls over REPS
@@ -29,8 +33,13 @@ counts them). f32 rows also give the error against the same function in
 float64 (``rel_err_f64``): the plain version's f32 GEMMs sum in an order
 of their own, so the error against them measures agreement with that
 order as much as accuracy. ``--timing-only`` keeps the event times alone (the repeated
-rounds of an A/B comparison). Prints one JSON line with the card's name and
-power limit and the file of the package that ran. Needs a CUDA card.
+rounds of an A/B comparison); ``--long-f32`` keeps the f32 rows past T = 256
+(K4, and K3 past T = 256) alone; ``--f64-seeds N`` gives, for those rows
+alone, the kernel's and the plain version's error against float64 on N
+seeded inputs each (seed 0 is the other modes' input), since a tensor's
+largest error is one element's and varies from input to input. Prints one
+JSON line with the card's name and power limit and the file of the package
+that ran. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -45,8 +54,12 @@ import torch
 F32_DIT = ((8, 256, 16, 64), (32, 256, 16, 64), (8, 256, 16, 72))
 K1_CASES = ([(s, torch.float32) for s in ((200, 16, 4, 128), (16, 64, 4, 128), (16, 16, 4, 256))
              + F32_DIT] + [(s, torch.bfloat16) for s in ((8, 256, 16, 72), (32, 256, 16, 72))])
+# f32 past T = 256: an f32 DiT-L/2 at 512 px (K3) and at 1024 px (K4), and
+# ragged T; K4 also at the origin ADM's D = 128
+F32_LONG_K3 = ((2, 1024, 16, 64), (2, 300, 16, 64), (2, 300, 16, 80))
+F32_LONG_K4 = ((1, 4096, 4, 128), (2, 4096, 16, 64))
 K3_CASES = ([(s, torch.bfloat16) for s in ((32, 256, 16, 64), (8, 1024, 16, 64))]
-            + [(s, torch.float32) for s in F32_DIT])
+            + [(s, torch.float32) for s in F32_DIT + F32_LONG_K3])
 WARMUP, REPS, REPEATS = 3, 50, 3
 # H100 SXM peaks (NVIDIA data sheet), as chip_smoke.py: HBM bytes/s, f32
 # flop/s outside the tensor cores, dense bf16 tensor-core flop/s
@@ -121,9 +134,9 @@ def attention_bwd_f64(q, k, v, do):
     return torch.autograd.grad(attention_f64(*leaves), leaves, do.double())
 
 
-def generator(shape) -> torch.Generator:
+def generator(shape, seed: int = 0) -> torch.Generator:
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(sum(shape))
+    gen.manual_seed(sum(shape) + 1000 * seed)
     return gen
 
 
@@ -149,6 +162,30 @@ def bench_k1(shape, dtype, timing_only: bool):
     return {**row, "max_abs_err": err, "rel_err": rel, "digest": digest(out),
             **bound(4 * n * t * h * d * esize, 4 * n * h * t * t * d, dtype),
             **device(lambda: attention_small(q, k, v)),
+            "library_ms": [time_ms(lambda: sdpa(qh, kh, vh)) for _ in range(REPEATS)],
+            **device(lambda: sdpa(qh, kh, vh), "library_")}
+
+
+def bench_k4(shape, dtype, timing_only: bool):
+    from lfm_tpu_torch.kernels.flash_attention import flash_attention, reference_flash_attention
+
+    gen = generator(shape)
+    q, k, v = (torch.randn(*shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    row = {"kernel": "flash_attention", "dtype": str(dtype).removeprefix("torch."),
+           "shape": list(shape),
+           "ms": [time_ms(lambda: flash_attention(q, k, v)) for _ in range(REPEATS)]}
+    if timing_only:
+        return row
+    out = flash_attention(q, k, v)
+    err, rel = errors(out, reference_flash_attention(q, k, v))
+    if dtype == torch.float32:
+        row["rel_err_f64"] = errors(out, attention_f64(q, k, v))[1]
+    qh, kh, vh = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    n, t, h, d = shape
+    return {**row, "max_abs_err": err, "rel_err": rel, "digest": digest(out),
+            **bound(4 * n * t * h * d * q.element_size(), 4 * n * h * t * t * d, dtype),
+            **device(lambda: flash_attention(q, k, v)),
             "library_ms": [time_ms(lambda: sdpa(qh, kh, vh)) for _ in range(REPEATS)],
             **device(lambda: sdpa(qh, kh, vh), "library_")}
 
@@ -188,14 +225,52 @@ def bench_k3(shape, dtype, timing_only: bool):
             **device(sdpa_bwd, "library_")}
 
 
+def f64_errors(seeds: int):
+    """The f32 rows past T = 256, seed by seed: the errors of the kernel and
+    of the plain version against float64 (per output for K3)."""
+    from lfm_tpu_torch.kernels.flash_attention import (attention_small_bwd, flash_attention,
+                                                       reference_attention_bwd,
+                                                       reference_flash_attention)
+
+    rows = []
+    for seed in range(seeds):
+        for shape in F32_LONG_K4:
+            gen = generator(shape, seed)
+            q, k, v = (torch.randn(*shape, generator=gen, device="cuda") for _ in range(3))
+            f64 = attention_f64(q, k, v)
+            rows.append({"kernel": "flash_attention", "shape": list(shape), "seed": seed,
+                         "rel_err_f64": errors(flash_attention(q, k, v), f64)[1],
+                         "plain_rel_err_f64": errors(reference_flash_attention(q, k, v), f64)[1]})
+            del q, k, v, f64
+            torch.cuda.empty_cache()
+        for shape in F32_LONG_K3:
+            gen = generator(shape, seed)
+            q, k, v, do = (torch.randn(*shape, generator=gen, device="cuda") for _ in range(4))
+            f64 = attention_bwd_f64(q, k, v, do)
+            rows.append({"kernel": "attention_small_bwd", "shape": list(shape), "seed": seed,
+                         **{key: {name: errors(g, w)[1] for name, g, w in zip(("dq", "dk", "dv"),
+                                                                               got, f64)}
+                            for key, got in (("rel_err_f64", attention_small_bwd(q, k, v, do)),
+                                             ("plain_rel_err_f64",
+                                              reference_attention_bwd(q, k, v, do)))}})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("bench_attention needs a CUDA card")
     import lfm_tpu_torch
 
     timing_only = "--timing-only" in sys.argv[1:]
-    rows = ([bench_k1(s, dt, timing_only) for s, dt in K1_CASES]
-            + [bench_k3(s, dt, timing_only) for s, dt in K3_CASES])
+    if "--f64-seeds" in sys.argv[1:]:
+        rows = f64_errors(int(sys.argv[sys.argv.index("--f64-seeds") + 1]))
+    elif "--long-f32" in sys.argv[1:]:
+        rows = ([bench_k4(s, torch.float32, timing_only) for s in F32_LONG_K4]
+                + [bench_k3(s, torch.float32, timing_only) for s in F32_LONG_K3])
+    else:
+        rows = ([bench_k1(s, dt, timing_only) for s, dt in K1_CASES]
+                + [bench_k3(s, dt, timing_only) for s, dt in K3_CASES]
+                + [bench_k4(s, torch.float32, timing_only) for s in F32_LONG_K4])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(json.dumps({"package": lfm_tpu_torch.__file__, "card": smi.stdout.strip(),

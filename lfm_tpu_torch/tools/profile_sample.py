@@ -53,11 +53,13 @@ CLASSES = (
     (K2, ("lfm::sm90::gemm_nt_kernel", "lfm::ln_modulate_kernel")),
     # bf16 K1 and K4 are attention_sm90.cuh's two modes (K1 takes the
     # key-block one only past T = 256, which no shipped preset reaches);
-    # f32 runs attn_row_kernel (D 56-80 at T <= 256), attn_short_f32_kernel
-    # (D 128/256 at T <= 64), attn_small_kernel (the rest) / flash_attn_kernel
+    # f32 K1 runs attn_row_kernel (D 56-80 at T <= 256), attn_short_f32_kernel
+    # (D 128/256 at T <= 64) or attn_small_kernel (the rest), f32 K4
+    # long32::flash_f32_kernel (flash_attn_kernel in an older checkout's trace)
     ("K1 attention_small", ("attn_small_kernel", "attn_short_f32_kernel",
                             "row32::attn_row_kernel", "sm90::attn_whole_kernel")),
-    ("K4 flash_attention", ("flash_attn_kernel", "sm90::attn_blocked_kernel")),
+    ("K4 flash_attention", ("long32::flash_f32_kernel", "flash_attn_kernel",
+                            "sm90::attn_blocked_kernel")),
     ("K6 groupnorm_silu", ("gn_silu_kernel",)),
     (CONV, ("cudnn", "implicit_gemm", "xmma", "conv", "fprop")),
     ("matmul", ("nvjet", "gemm", "cutlass", "cublas")),

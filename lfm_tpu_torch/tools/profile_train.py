@@ -66,12 +66,13 @@ DIT_CLASSES = (MATMUL, K1, K3, K5)
 # 56-80, else ``attn_small_kernel`` or ``attn_short_f32_kernel``); K3 is
 # ``lfm::sm90::attn_bwd_dq_kernel`` and ``attn_bwd_dkdv_kernel`` (bf16),
 # ``lfm::row32::attn_row_bwd_dq_kernel`` and ``attn_row_bwd_dkdv_kernel``
-# (f32 at T <= 256), ``lfm::attn_bwd_dq_kernel`` and ``attn_bwd_dkdv_kernel``
-# (f32 past it)
+# (f32 at T <= 256), ``lfm::long32::attn_long_bwd_dq_kernel`` and the row
+# kernels' ``attn_row_bwd_dkdv_kernel`` (f32 past it; ``lfm::attn_bwd_*``
+# in an older checkout's trace)
 CLASSES = (
     (K5, (("lfm::sm90::gemm_nt_kernel",), ("lfm::ln_modulate_kernel",),
           ("lfm::sm90::attn_", "true>"))),
-    (K3, (("attn_bwd",), ("attn_row_bwd",))),
+    (K3, (("attn_bwd",), ("attn_row_bwd",), ("attn_long_bwd",))),
     (K1, (("lfm::sm90::attn_",), ("attn_small_kernel",), ("attn_short_f32_kernel",),
           ("attn_row_kernel",))),
     (CONV, (("cudnn",), ("implicit_gemm",), ("conv",))),

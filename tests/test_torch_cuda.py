@@ -116,7 +116,8 @@ def test_attention_small_f32_matches_plain(cuda, shape):
 
 
 # bf16 K3 (the wgmma + TMA kernels of attention_bwd_sm90.cuh) at every head
-# dim and T in {100, 256, 1024}; f32 K3 (attention_bwd.cuh) as before
+# dim and T in {100, 256, 1024}; f32 K3 (attention_row_f32.cuh at T <= 256,
+# attention_long_f32.cuh's dq kernel past it) as before
 @pytest.mark.parametrize("dtype,t,d", [(torch.bfloat16, t, d) for t in (100, 256, 1024)
                                        for d in (56, 64, 72, 80)]
                          + [(torch.float32, t, d) for t, d in ((256, 64), (1024, 64), (256, 72),
@@ -240,7 +241,8 @@ def test_attention_small_wide_f32_heads_match_plain(cuda, shape):
 
 # f32 K1 and K3 at the DiT's head dims: the one-pass kernels of
 # attention_row_f32.cuh at T <= 256 (TK 64, 128, 256; D 64 and 72 pad to 64
-# and 80), the kernels of attention.cuh / attention_bwd.cuh past it
+# and 80); past it K1 runs attention.cuh and K3 attention_long_f32.cuh's dq
+# kernel
 ROW_F32_SHAPES = [(2, t, 16, d) for t in (64, 100, 256) for d in (64, 72)]
 
 
@@ -271,12 +273,13 @@ def test_attention_row_f32_kernels_match_plain(cuda, shape):
         assert _rel(g, w) <= 1e-4 and torch.equal(g, again)
 
 
-@pytest.mark.parametrize("t,fwd,bwd", [(256, "attn_row_kernel", "attn_row_bwd_"),
-                                       (257, "attn_small_kernel", "attn_bwd_d")])
+@pytest.mark.parametrize("t,fwd,bwd", [
+    (256, "attn_row_kernel", ("attn_row_bwd_dq_kernel", "attn_row_bwd_dkdv_kernel")),
+    (257, "attn_small_kernel", ("attn_long_bwd_dq_kernel", "attn_row_bwd_dkdv_kernel"))])
 def test_f32_attention_dispatch_by_length(cuda, t, fwd, bwd):
-    """f32 at D 64: T <= 256 launches attention_row_f32.cuh's kernels, T = 257
-    the kernels of attention.cuh and attention_bwd.cuh (the profiler's
-    kernel names)."""
+    """f32 at D 64: T <= 256 launches attention_row_f32.cuh's kernels; T =
+    257 K1 of attention.cuh and K3's dq kernel of attention_long_f32.cuh
+    with the row kernels' dk/dv kernel (the profiler's kernel names)."""
     from torch.profiler import ProfilerActivity, profile
 
     from lfm_tpu_torch.kernels.flash_attention import attention_small, attention_small_bwd
@@ -292,7 +295,35 @@ def test_f32_attention_dispatch_by_length(cuda, t, fwd, bwd):
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     lfm = [name for name in names if "lfm::" in name]
     assert len(lfm) == 3, names
-    assert fwd in lfm[0] and all(bwd in name for name in lfm[1:]), lfm
+    assert fwd in lfm[0] and bwd[0] in lfm[1] and bwd[1] in lfm[2], lfm
+
+
+def test_profilers_class_the_long_f32_kernels(cuda):
+    """The names a trace shows for f32 K4 and f32 K3 past T = 256 land in
+    the profilers' K4 and K3 classes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lfm_tpu_torch.kernels.flash_attention import attention_small_bwd, flash_attention
+    from lfm_tpu_torch.tools import profile_sample, profile_train
+
+    q, k, v = (torch.randn(1, 1030, 2, 64, generator=cuda, device="cuda") for _ in range(3))
+    short = [torch.randn(1, 300, 2, 64, generator=cuda, device="cuda") for _ in range(4)]
+    flash_attention(q, k, v)
+    attention_small_bwd(*short)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flash_attention(q, k, v)
+        torch.cuda.synchronize()
+    fwd = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA and "lfm::" in e.name]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        attention_small_bwd(*short)
+        torch.cuda.synchronize()
+    bwd = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA and "lfm::" in e.name]
+    assert len(fwd) == 1 and len(bwd) == 2, (fwd, bwd)
+    assert profile_sample.classify(fwd[0]) == "K4 flash_attention", fwd
+    assert all(profile_train._classify(name) == profile_train.K3 for name in bwd), bwd
 
 
 def test_attention_row_f32_builds_without_spills(cuda):
@@ -307,6 +338,48 @@ def test_attention_row_f32_builds_without_spills(cuda):
            if "attn_row_bwd" in k}
     assert len(fwd) == 6 and len(bwd) == 8, (sorted(fwd), sorted(bwd))
     for name, u in {**fwd, **bwd}.items():
+        assert u["spill_stores"] == 0 and u["spill_loads"] == 0 and u["registers"] <= 255, name
+
+
+# f32 K3 past T = 256 (attention_long_f32.cuh's dq kernel, TK 512 and 1024,
+# and the row kernels' dk/dv kernel): ragged T, every padded head dim
+@pytest.mark.parametrize("shape", [(2, 300, 2, 64), (2, 300, 2, 80), (1, 257, 3, 72),
+                                   (1, 700, 2, 56), (2, 1024, 2, 64), (1, 513, 2, 80)])
+def test_attention_long_f32_bwd_matches_plain(cuda, shape):
+    from lfm_tpu_torch.kernels.flash_attention import (ATTENTION_SMALL_BWD, attention_small_bwd,
+                                                       reference_attention_bwd, split_qkv)
+
+    n, t, h, d = shape
+    q, k, v, do = (torch.randn(*shape, generator=cuda, device="cuda") for _ in range(4))
+    before = ATTENTION_SMALL_BWD.count
+    grads = attention_small_bwd(q, k, v, do)
+    torch.cuda.synchronize()
+    assert ATTENTION_SMALL_BWD.count == before + 1
+    for name, g, w in zip("qkv", grads, reference_attention_bwd(q, k, v, do)):
+        assert g.dtype == torch.float32 and g.shape == shape
+        assert _rel(g, w) <= 1e-4, f"d{name}"
+    # the thirds of a fused qkv row, read in place, and a rerun's bits (no
+    # atomics in the sums)
+    qq, kk, vv = split_qkv(torch.randn(n, t, 3 * h * d, generator=cuda, device="cuda"), h)
+    first = [g.clone() for g in attention_small_bwd(qq, kk, vv, do)]
+    for g, again, w in zip(first, attention_small_bwd(qq, kk, vv, do),
+                           reference_attention_bwd(qq, kk, vv, do)):
+        assert _rel(g, w) <= 1e-4 and torch.equal(g, again)
+
+
+def test_attention_long_f32_builds_without_spills(cuda):
+    """ptxas's report of attention_long_f32.cuh: 3 instances of f32 K4 (DP 64,
+    80, 128) and 4 of K3's dq kernel (DP 64, 80 x TK 512, 1024), none
+    spills."""
+    from lfm_tpu_torch.kernels import _build
+
+    _build.load_library()
+    k4 = {k: v for k, v in _build.ptxas_usage("flash_attention_f32").items()
+          if "flash_f32_kernel" in k}
+    k3 = {k: v for k, v in _build.ptxas_usage("attention_bwd_long_f32").items()
+          if "attn_long_bwd_dq_kernel" in k}
+    assert len(k4) == 3 and len(k3) == 4, (sorted(k4), sorted(k3))
+    for name, u in {**k4, **k3}.items():
         assert u["spill_stores"] == 0 and u["spill_loads"] == 0 and u["registers"] <= 255, name
 
 
@@ -341,12 +414,15 @@ def test_small_f32_dit_grads_through_kernels_match_plain(cuda):
     (torch.bfloat16, (2, 2048, 2, 64), 512), (torch.bfloat16, (1, 1100, 2, 72), 512),
     (torch.bfloat16, (2, 256, 2, 56), 64), (torch.float32, (1, 2048, 2, 128), 512),
     (torch.float32, (1, 1030, 2, 80), 512), (torch.bfloat16, (1, 1200, 2, 64), 512),
-    (torch.bfloat16, (1, 1030, 2, 80), 512), (torch.bfloat16, (2, 256, 2, 64), 512)])
+    (torch.bfloat16, (1, 1030, 2, 80), 512), (torch.bfloat16, (2, 256, 2, 64), 512),
+    (torch.float32, (1, 1100, 2, 64), 512), (torch.float32, (2, 2048, 2, 56), 256),
+    (torch.float32, (1, 1200, 2, 128), 512), (torch.float32, (2, 256, 2, 72), 64)])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, shape, bk):
     """K4 against its plain version on the same key blocks: T past the gate,
     ragged T (1100 = 4 x 275, 1030 = 2 x 515 > 512, so 206-key blocks, 1200
-    = 3 x 400: blocks that end inside a 64-key tile), blocks of 64, and one
-    block of 256 keys (the whole-row mode of bf16)."""
+    = 3 x 400: blocks that end inside a 64-key tile, or inside f32's stage of
+    32 to 128 keys), blocks of 64, and one block of 256 keys (the whole-row
+    mode of bf16)."""
     from lfm_tpu_torch.kernels.flash_attention import (FLASH_ATTENTION, flash_attention,
                                                        reference_flash_attention)
 
@@ -362,6 +438,18 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, shape, bk):
     qq, kk, vv = (a.view(n, t, h, d) for a in qkv.split(h * d, dim=-1))
     assert _rel(flash_attention(qq, kk, vv, block_k=bk),
                 reference_flash_attention(qq, kk, vv, block_k=bk)) <= tol
+
+
+def test_flash_attention_f32_refuses_blocks_past_512(cuda):
+    """f32 K4 holds a key block's scores on chip: blocks of more than 512 keys
+    raise, and launch nothing."""
+    from lfm_tpu_torch.kernels.flash_attention import FLASH_ATTENTION, flash_attention
+
+    q, k, v = (torch.randn(1, 2048, 2, 64, generator=cuda, device="cuda") for _ in range(3))
+    before = FLASH_ATTENTION.count
+    with pytest.raises(ValueError, match="512"):
+        flash_attention(q, k, v, block_k=1024)
+    assert FLASH_ATTENTION.count == before
 
 
 def test_fused_attention_past_the_gate_launches_k4(cuda):

@@ -2,8 +2,10 @@
 on the demangled names the card's traces show: the wgmma attention of
 attention_sm90.cuh serves K1 (whole-row mode), K4 (key blocks) and, with
 p / l rounded (``true>``), the attention inside K2 and K5's forward; K3 is
-attention_bwd_sm90.cuh's two kernels; the f32 FMA kernels keep their names,
-and the origin ADM's short f32 K1 is ``attn_short_f32_kernel``. Pure string
+attention_bwd_sm90.cuh's two kernels; the f32 FMA kernels keep their names
+(f32 K4 is ``long32::flash_f32_kernel``, f32 K3's dq kernel past T = 256
+``long32::attn_long_bwd_dq_kernel``), and the origin ADM's short f32 K1 is
+``attn_short_f32_kernel``. Pure string
 functions: no card needed.
 """
 
@@ -43,6 +45,10 @@ def test_sampling_profile_classes_the_sm90_attention(mode, dp, norm_p, sample_cl
      "float*, int, int, long, long, long, long, float)", profile_train.K1),
     ("void lfm::row32::attn_row_bwd_dq_kernel<64, 256>(float const*, ...)", profile_train.K3),
     ("void lfm::row32::attn_row_bwd_dkdv_kernel<80>(float const*, ...)", profile_train.K3),
+    ("void lfm::long32::attn_long_bwd_dq_kernel<64, 1024>(float const*, float const*, "
+     "float const*, float const*, float*, float*, int, int, int, long, long, long, long, long, "
+     "float)", profile_train.K3),
+    ("void lfm::long32::attn_long_bwd_dq_kernel<80, 512>(float const*, ...)", profile_train.K3),
 ])
 def test_train_profile_classes_the_sm90_attention(name, train_class):
     assert profile_train._classify(name) == train_class
@@ -58,6 +64,11 @@ def test_f32_kernels_keep_their_sampling_classes():
         == "K1 attention_small"
     assert profile_sample.classify("void lfm::row32::attn_row_kernel<80, 128>(...)") \
         == "K1 attention_small"
+    for dp in (64, 80, 128):
+        assert profile_sample.classify(
+            f"void lfm::long32::flash_f32_kernel<{dp}>(float const*, float const*, "
+            "float const*, float*, int, int, int, long, long, long, long, float)") \
+            == "K4 flash_attention"
 
 
 GEMM = "void lfm::sm90::gemm_nt_kernel<{}, {}, {}, {}>(CUtensorMap_st, CUtensorMap_st, " \
