@@ -16,10 +16,13 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
      (32, 256, 16, 64) (the train step's shape), (8, 256, 16, 72) (DiT-XL's
      head) and (N, 256, 16, 64), the last also on the thirds of a fused qkv
      row (K2's layout), and f32 at the f32 DiT's heads, (8, 256, 16, 64),
-     (32, 256, 16, 64) (train_f32's shape) and (8, 256, 16, 72), at
-     (2, 1024, 16, 64) (an f32 DiT-L/2 at 512 px, past T = 256: attention.cuh's
-     kernel), and at the origin ADM's heads, (N, 16, 4, 128) (celeb256_adm's path), (16, 64, 4,
-     128) and (16, 16, 4, 256); library: scaled_dot_product_attention;
+     (32, 256, 16, 64) (train_f32's shape) and (8, 256, 16, 72), past T =
+     256 (attention_long_f32.cuh's key-block kernel, the whole row one
+     block) at (2, 1024, 16, 64) (an f32 DiT-L/2 at 512 px, the long_f32
+     path's shape), (2, 512, 16, 64), (2, 300, 16, 64) and (2, 1024, 16,
+     72), and at the origin ADM's heads, (N, 16, 4, 128) (celeb256_adm's
+     path), (16, 64, 4, 128), (16, 16, 4, 256) and (16, 256, 4, 128)
+     (attention.cuh's kernel); library: scaled_dot_product_attention;
    - fused_dit_block (K2) at T=256, C=1024, hidden 4096, 16 heads, N=8 and
      N, every weight non-zero; library: the same block composed of cuBLAS
      bf16 matmuls and scaled_dot_product_attention;
@@ -41,7 +44,9 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
      block_train_fwd with full and slim streams (library: the block
      composed as for K2, its streams kept), mlp_bwd and attn_bwd on the
      kernel forward's own streams (library: autograd's backward of the same
-     half composed of cuBLAS, layer_norm and SDPA, backward alone). Then
+     half composed of cuBLAS, layer_norm and SDPA, backward alone); mlp_bwd
+     gives a digest of its outputs and fails unless a second call on the
+     same inputs gives the same bits. Then
      one block-level check at N = 8: make_fused_block_train with the hybrid
      backward (path block_hybrid) and with pallas_bwd (path
      block_pallas_bwd), each against autograd through reference_block, all
@@ -62,19 +67,21 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    attention_sm90.cuh; bf16 K3, the wgmma + TMA backward of
    attention_bwd_sm90.cuh; f32 K1 at the origin ADM's T <= 64, the one-pass
    kernel of attention_wide.cu; f32 K1 and K3 at the DiT's heads and T <=
-   256, the one-pass kernels of attention_row_f32.cuh; f32 K1 past T = 256,
-   attention.cuh's; f32 K4 and f32 K3 past T = 256, the key-block and
-   whole-row kernels of attention_long_f32.cuh) with its ms, share of its
-   bound, ratio to SDPA and output digest, and the registers and spills of
-   each of the 12 wgmma kernel instances, the 14 instances of
-   attention_row_f32.cuh and the 7 of attention_long_f32.cuh from the
-   build's ptxas report; a spill fails the run. And one
-   gemm_redesign line: each NT GEMM of K2 at N and of K5's forward at the
-   train batch alone (the persistent wgmma + TMA GEMM of gemm_sm90.cuh,
-   through kernels/gemm.py; tools/bench_block.py's gemm_rows) with its ms,
-   TFLOP/s, share of its bound, tile width and torch.matmul's time for the
-   same product, and the registers and spills of its 8 instances; a spill
-   fails the run. And one int8_redesign line: P1's int8 GEMM alone at the
+   256, the one-pass kernels of attention_row_f32.cuh; f32 K4, K1 and K3
+   past T = 256, the key-block and whole-row kernels of
+   attention_long_f32.cuh; beside them f32 K1 at the ADM's D = 128 past T
+   = 64, attention.cuh's) with its ms, share of its bound, ratio to SDPA
+   and output digest, and the registers and spills of each of the 12
+   wgmma kernel instances, the 14 instances of attention_row_f32.cuh and
+   the 9 of attention_long_f32.cuh from the build's ptxas report; a spill
+   fails the run. And one gemm_redesign line: each NT GEMM of K2 at N and
+   of K5's forward at the train batch, and each NN and TN GEMM of K5's MLP
+   backward at the train batch, alone (the persistent wgmma + TMA GEMM of
+   gemm_sm90.cuh, through kernels/gemm.py; tools/bench_block.py's
+   gemm_rows and mlp_gemm_rows) with its ms, TFLOP/s, share of its bound,
+   tile width (and, for the MLP backward's, CTAs and splits of K) and
+   torch.matmul's time for the same product, and the registers and spills
+   of its 14 instances; a spill fails the run. And one int8_redesign line: P1's int8 GEMM alone at the
    int8 path's four products (M = 51200) and the probe step's two
    (tools/bench_int8.py's gemm_rows) with its ms, TOP/s, share of its
    bound, tile width and schedule, int8_dense's and torch._int_mm's times
@@ -122,6 +129,13 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    full width and depth, T = 4096 tokens, past the fused block's gate),
    euler at 2 steps, batch 2, VAE decode to 1024^2; flash_attention must
    launch 24 x 2 times and attention_small never.
+8b. long_f32: ``make_sampler`` on celeb256_dit at image_size 512 in f32
+   (an f32 DiT-L/2 at full width and depth from the same weights, T = 1024
+   tokens: f32 K1 past T = 256, attention_long_f32.cuh's key-block kernel
+   with its whole row one block), euler at 2 steps, batch 2, VAE decode to
+   512^2; attention_small must launch 24 x 2 times, all f32, and nothing
+   else; the velocity at one (t, x) must agree with the same f32 model's
+   with plain attention within F32_VEL_TOL.
 9. train: ``train(...)`` on the celeb256_dit preset (DiT-L/2 at full width
    and depth, batch 32, bf16 on f32 masters, grad checkpointing, EMA), from
    seeded non-zero weights given as a ``model_0.pth``, with a full-width
@@ -156,8 +170,9 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    (200, 16, 4, 128) as its own entry, attention_small_f32, with
    adm_main's launches; f32 K1 and K3 at the f32 DiT's (32, 256, 16, 64)
    as attention_small_f32_dit and attention_small_bwd_f32, with
-   train_f32's), then the card's name and power limit, then the last line
-   ``{"ok": true, "device": {...}}``.
+   train_f32's; f32 K1 at (2, 1024, 16, 64) as attention_small_f32_long,
+   with long_f32's), each with its source files, then the card's name and
+   power limit, then the last line ``{"ok": true, "device": {...}}``.
 
 Every path resets all launch counts just before it runs and reads them
 just after.
@@ -217,6 +232,10 @@ VEL_TOL = 5e-2
 # tighter than the JAX package's own 8e-2, tests/test_dit_fused.py:190: the
 # card reads 0.6-0.7% for both)
 GRAD_TOL = 5e-2
+# long_f32's f32 velocity through f32 K1 against the same f32 DiT-L/2 with
+# plain attention: max abs / max |plain|, f32 sums in another order carried
+# through 24 blocks (as F32_TOL for one kernel)
+F32_VEL_TOL = 1e-4
 # the same in f32 through f32 K1/K3: f32 sums in another order, carried
 # through two blocks of the backward (tests/test_torch_cuda.py's f32 case;
 # the card reads 3.8e-7)
@@ -276,6 +295,7 @@ TRAIN_STEPS = 12  # the first step is not timed
 TRAIN_F32_STEPS = 6  # timed steps of train_f32, after its first
 ADM_FUSED_STEPS = 4  # euler steps of the adm_fused_gn path
 LONG_T_SIZE = 1024  # image size of the long_t path: T = (1024 / 8 / 2)^2 = 4096
+LONG_F32_SIZE = 512  # image size of the long_f32 path: T = (512 / 8 / 2)^2 = 1024
 
 
 def emit(obj) -> None:
@@ -525,11 +545,17 @@ def run(torch, work: str) -> int:
     # f32: the DiT's heads (train_f32's shape among them), then the origin
     # ADM's (celeb256_adm's path first)
     f32_dit = [(8, 256, 16, 64), (train_batch, 256, 16, 64), (8, 256, 16, 72)]
-    # and past T = 256, where f32 K1 takes attention.cuh's kernel and f32 K3
-    # attention_long_f32.cuh's dq kernel (an f32 DiT-L/2 at 512 px)
+    # and past T = 256, where f32 K1 takes attention_long_f32.cuh's key-block
+    # kernel with its whole row one block (64 query rows up to T = 512, 32
+    # past it) and f32 K3 its dq kernel: an f32 DiT-L/2 at 512 px (the
+    # long_f32 path's shape), T = 512, ragged T (300) and DiT-XL/2's head
     f32_long = [(2, 1024, 16, 64)]
-    k1_f32 = [c + (f32,) for c in f32_dit + f32_long] + [
-        (batch, 16, 4, 128, f32), (16, 64, 4, 128, f32), (16, 16, 4, 256, f32)]
+    f32_long_k1 = f32_long + [(2, 512, 16, 64), (2, 300, 16, 64), (2, 1024, 16, 72)]
+    # then the origin ADM's heads (celeb256_adm's path first), and D = 128
+    # past T = 64 (attention.cuh's kernel, a model override)
+    k1_f32 = [c + (f32,) for c in f32_dit + f32_long_k1] + [
+        (batch, 16, 4, 128, f32), (16, 64, 4, 128, f32), (16, 16, 4, 256, f32),
+        (16, 256, 4, 128, f32)]
     # and K2's layout: q, k, v as the thirds of one (N, T, 3C) qkv row
     k1_qkv = [(batch, 256, 16, 64, bf)]
     for n, t, h, d, dt, layout in ([c + ("separate",) for c in k1_cases + k1_f32]
@@ -659,7 +685,8 @@ def run(torch, work: str) -> int:
     # the redesigned attention kernels: the wgmma + TMA forward (bf16 K1 and
     # K4) and backward (bf16 K3), the one-pass f32 K1 at the origin ADM's
     # short sequences, the one-pass f32 K1 and K3 at the DiT's heads, and f32
-    # K4 and f32 K3 past T = 256;
+    # K4, K1 and K3 past T = 256 (attention.cuh's f32 kernel, at the origin
+    # ADM's D = 128 past T = 64, is listed beside them, not redesigned);
     # time against bound and SDPA at every shape above, and ptxas's
     # registers and spills of each instance
     csrc = "lfm_tpu_torch/kernels/csrc/"
@@ -681,7 +708,10 @@ def run(torch, work: str) -> int:
                      lambda r: r["dtype"] == str(f32) and r["shape"][1] <= 64
                      and r["shape"][3] >= 128),
                     ("attention_small", "attention_row_f32.cuh", k1_rows, f32_dit_row),
-                    ("attention_small", "attention.cuh", k1_rows, f32_long_row),
+                    ("attention_small", "attention_long_f32.cuh", k1_rows, f32_long_row),
+                    ("attention_small", "attention.cuh", k1_rows,
+                     lambda r: r["dtype"] == str(f32) and r["shape"][1] > 64
+                     and r["shape"][3] >= 128),
                     ("attention_small_bwd", "attention_bwd_sm90.cuh", k3_rows,
                      lambda r: r["dtype"] == str(bf)),
                     ("attention_small_bwd", "attention_row_f32.cuh", k3_rows, f32_dit_row),
@@ -692,29 +722,31 @@ def run(torch, work: str) -> int:
                      lambda r: r["dtype"] == str(f32)))
                 for r in rows.values() if pick(r)]
     ptxas = {}
+    flash = r"long32\d+(flash_f32_kernel)ILi(\d+)ELi(\d+)ELi(\d+)E"
     for stem, pattern in (("attention_sm90", r"(attn_\w+_kernel)ILi(\d+)ELb([01])E"),
-                          ("attention_bwd", r"sm90\d+(attn_bwd_\w+_kernel)ILi(\d+)E()"),
+                          ("attention_bwd", r"sm90\d+(attn_bwd_\w+_kernel)ILi(\d+)E"),
                           ("attention_row_f32", r"row32\d+(attn_row_kernel)ILi(\d+)ELi(\d+)E"),
                           ("attention_bwd_row_f32",
                            r"row32\d+(attn_row_bwd_\w+_kernel)ILi(\d+)E(?:Li(\d+)E)?"),
-                          ("flash_attention_f32", r"long32\d+(flash_f32_kernel)ILi(\d+)E()"),
+                          ("flash_attention_f32", flash), ("attention_long_f32", flash),
                           ("attention_bwd_long_f32",
                            r"long32\d+(attn_long_bwd_dq_kernel)ILi(\d+)ELi(\d+)E")):
         for mangled, use in _build.ptxas_usage(stem).items():
             m = re.search(pattern, mangled)
             if m:
-                flag = ({"1": ", true", "0": ", false"}.get(m.group(3), "")
-                        if stem in ("attention_sm90", "attention_bwd")
-                        else f", {m.group(3)}" if m.group(3) else "")
-                ptxas[f"{m.group(1)}<{m.group(2)}{flag}>"] = use
+                args = [{"1": "true", "0": "false"}.get(a, a) if stem == "attention_sm90" else a
+                        for a in m.groups()[1:] if a]
+                ptxas[f"{m.group(1)}<{', '.join(args)}>"] = use
     emit({"phase": "attention_redesign", "shapes": redesign, "ptxas": ptxas})
     spilled = {k: u for k, u in ptxas.items() if u.get("spill_stores") or u.get("spill_loads")}
     # wgmma: 8 forward instances (2 modes x 2 padded head dims x NORM_P), 4
     # of K3 (2 kernels x 2 padded head dims); f32 one-pass: 6 of K1 (2
     # padded head dims x TK 64, 128, 256), 6 of K3's dq kernel, 2 of its
-    # dk/dv kernel; attention_long_f32.cuh: 3 of K4 (DP 64, 80, 128), 4 of
-    # K3's dq kernel past T = 256 (2 padded head dims x TK 512, 1024)
-    if len(ptxas) != 33 or spilled:
+    # dk/dv kernel; attention_long_f32.cuh: 3 of K4 (DP 64, 80, 128; f32 K1
+    # takes those at DP 64, 80 up to T = 512), 2 of f32 K1 past T = 512 (DP
+    # 64, 80 x 32 query rows, 1024 keys), 4 of K3's dq kernel past T = 256
+    # (2 padded head dims x TK 512, 1024)
+    if len(ptxas) != 35 or spilled:
         raise AssertionError(f"attention: {len(ptxas)} kernel instances, spills {spilled}")
 
     for n, hh, ww, c, dt, offset in ((batch, 32, 32, 256, bf, 0.0), (batch, 32, 32, 768, bf, 0.0),
@@ -786,8 +818,13 @@ def run(torch, work: str) -> int:
         t_case = time.time()
         margs = (x1, mod, h2, u, blk["w1"], blk["w2"], dy)
         got = mlp_bwd(*margs)
+        first = digest(torch, *got)
+        again = digest(torch, *mlp_bwd(*margs))
         want = reference_mlp_bwd(*margs)
         torch.cuda.synchronize()
+        if again != first:  # fixed-order sums, no atomics: the same bits each call
+            raise AssertionError(f"mlp_bwd N={n}: two calls on the same inputs differ "
+                                 f"({first} != {again})")
         errs = output_errors(("dx1", "dmod", "dw1", "db1", "dw2", "db2"), got, want, {"dx1": dy})
         check_errors(f"mlp_bwd N={n}", errs, K5_TOL)
         lib = backward_only(torch, lambda *a: library_mlp_half(F, *a)[0],
@@ -795,7 +832,7 @@ def run(torch, work: str) -> int:
         bms, by = bound_ms(2 * (4 * n * t * c + n * t * hid + 6 * n * c + 2 * c * hid)
                            + 4 * (3 * n * c + 2 * c * hid + hid + c), 8 * n * t * c * hid)
         row = {"shape": [n, t, c, hid, heads], "max_abs_err": max(e[0] for e in errs.values()),
-               "rel_err": {k: e[1] for k, e in errs.items()}, "tol": K5_TOL,
+               "rel_err": {k: e[1] for k, e in errs.items()}, "tol": K5_TOL, "digest": first,
                "ms": time_ms(torch, lambda: mlp_bwd(*margs)),
                "plain_ms": time_ms(torch, lambda: reference_mlp_bwd(*margs)),
                "library_ms": time_ms(torch, lib), "bound_ms": bms, "bound_by": by,
@@ -831,22 +868,26 @@ def run(torch, work: str) -> int:
         emit({"phase": "kernel", "name": "dit_block_train_attn_bwd", **row})
         del got, want, lib, blk, x, mod, out, x1, h2, pr, qkv, ao, u, dy, dx1
 
-    # the redesigned NT GEMM (gemm_sm90.cuh): each GEMM of K2 at the
-    # sampling batch and of K5's forward at the train batch alone, against
-    # its bound and torch.matmul of the same product; ptxas's registers and
-    # spills of its 8 instances
-    from lfm_tpu_torch.tools.bench_block import gemm_rows
+    # the redesigned GEMM (gemm_sm90.cuh): each NT GEMM of K2 at the sampling
+    # batch and of K5's forward at the train batch, and each NN / TN GEMM of
+    # K5's MLP backward at the train batch, alone, against its bound and
+    # torch.matmul of the same product; ptxas's registers and spills of its
+    # 8 NT and 6 NN / TN instances
+    from lfm_tpu_torch.tools.bench_block import gemm_rows, mlp_gemm_rows
 
     gemms = {"fused_dit_block": gemm_rows(batch, False, reps=10),
-             "dit_block_train_fwd": gemm_rows(train_batch, True, reps=10)}
-    gemm_ptxas = {re.sub(r"^_ZN3lfm4sm9014gemm_nt_kernelI(.*)EEv.*$", r"gemm_nt_kernel<\1>", k): u
-                  for k, u in _build.ptxas_usage("gemm_sm90").items() if "gemm_nt_kernel" in k}
+             "dit_block_train_fwd": gemm_rows(train_batch, True, reps=10),
+             "dit_block_train_mlp_bwd": mlp_gemm_rows(train_batch, reps=10)}
+    gemm_ptxas = {re.sub(r"^_ZN3lfm4sm9016gemm_sm90_kernelI(.*)EEv.*$", r"gemm_sm90_kernel<\1>",
+                         k): u
+                  for stem in ("gemm_sm90", "gemm_sm90_bwd")
+                  for k, u in _build.ptxas_usage(stem).items() if "gemm_sm90_kernel" in k}
     emit({"phase": "gemm_redesign", "source": csrc + "gemm_sm90.cuh", "gemms": gemms,
           "ptxas": gemm_ptxas})
     spilled = {k: u for k, u in gemm_ptxas.items()
                if u.get("spill_stores") or u.get("spill_loads")}
-    # 4 epilogue kinds x 2 tile widths
-    if len(gemm_ptxas) != 8 or spilled:
+    # NT: 4 epilogue kinds x 2 tile widths; NN dgelu, NN and TN store x 2
+    if len(gemm_ptxas) != 14 or spilled:
         raise AssertionError(f"wgmma GEMM: {len(gemm_ptxas)} kernel instances, spills {spilled}")
 
     # make_fused_block_train against autograd through reference_block, each
@@ -1289,6 +1330,53 @@ def run(torch, work: str) -> int:
     del long_model, lsampler, lres, limg, lnoise
     torch.cuda.empty_cache()
 
+    # 8b. long_f32: an f32 DiT-L/2 at 512 px (T = 1024), module path through
+    # f32 K1 past T = 256 (attention_long_f32.cuh)
+    t_lf = time.time()
+    fconfig = dataclasses.replace(
+        config, model=dataclasses.replace(config.model, image_size=LONG_F32_SIZE),
+        sample=dataclasses.replace(config.sample, method="euler", num_steps=2, batch_size=2))
+    f32_models = {}
+    for use_flash in (True, False):  # the kernels, and plain attention
+        f32_models[use_flash] = create_network(fconfig.model, dtype=f32, use_flash=use_flash,
+                                               device=dev)
+        f32_models[use_flash].load_state_dict(model.state_dict())
+    lf_tokens = (f32_models[True].img_resolution // f32_models[True].patch_size) ** 2
+    fnoise, fy = noise_and_labels(fconfig, SampleRNG(fconfig.sample.seed),
+                                  range(fconfig.sample.batch_size), device=dev)
+    fsampler = make_sampler(fconfig, f32_models[True], None, vae, None, device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fres = fsampler(fnoise, fy)
+    torch.cuda.synchronize()
+    lf_secs = time.time() - t0
+    lf_counts = counts()
+    lf_dtypes = dict(ATTENTION_SMALL.by_dtype)
+    fimg = fres.images
+    with torch.no_grad():
+        tt = torch.full((fconfig.sample.batch_size,), 0.5, device=dev)
+        v_lf, v_lf_plain = (f32_models[k](tt, fnoise) for k in (True, False))
+    lf_err = float((v_lf - v_lf_plain).abs().max()) / float(v_lf_plain.abs().max())
+    emit({"phase": "long_f32", "image_size": LONG_F32_SIZE, "tokens": lf_tokens,
+          "seconds": lf_secs, "method": "euler", "nfe": fres.nfe, "images": list(fimg.shape),
+          "launches": lf_counts, "launches_by_dtype": lf_dtypes,
+          "velocity_rel_err_vs_plain_attention": lf_err, "velocity_tol": F32_VEL_TOL,
+          "image_mean": float(fimg.float().mean()), "phase_seconds": time.time() - t_lf})
+    if tuple(fimg.shape) != (2, LONG_F32_SIZE, LONG_F32_SIZE, 3) or not bool(
+            torch.isfinite(fimg).all()) or v_lf.dtype != f32:
+        raise AssertionError(f"long_f32 images {tuple(fimg.shape)} are not finite or "
+                             f"mis-shaped, or the velocity is {v_lf.dtype}")
+    k1_lf = depth * fres.nfe
+    if lf_tokens != 1024 or lf_counts["attention_small"] != k1_lf or sum(
+            lf_counts.values()) != k1_lf or lf_dtypes != {"float32": k1_lf}:
+        raise AssertionError(f"long_f32: T = {lf_tokens}, {lf_counts} launches by dtype "
+                             f"{lf_dtypes} for NFE {fres.nfe} x depth {depth}")
+    if not lf_err <= F32_VEL_TOL:
+        raise AssertionError(f"long_f32 velocity vs plain attention: {lf_err} > {F32_VEL_TOL}")
+    del f32_models, fsampler, fres, fimg, fnoise, v_lf, v_lf_plain
+    torch.cuda.empty_cache()
+
     # 9. train: celeb256_dit through train(...), from the seeded weights above
     t_train = time.time()
     del model
@@ -1498,11 +1586,14 @@ def run(torch, work: str) -> int:
     # 11. the kernels line, the card, the last line
     by_path = {"main_fused": fused_counts, "main_module": module_counts,
                "int8_main": int8_counts, "p1_probe": probe_counts, "adm_main": adm_counts,
-               "adm_fused_gn": fgn_counts, "long_t": long_counts, "train": train_counts,
+               "adm_fused_gn": fgn_counts, "long_t": long_counts, "long_f32": lf_counts,
+               "train": train_counts,
                "train_fused": tf_counts, "train_f32": f32_counts, **block_counts}
     kdir, p1 = "lfm_tpu/kernels/", "tools/microbench_int8_pallas.py"
-    # name, source, TPU kernel, the path whose count is "launches", the row;
-    # the f32 K1 and K3 entries count under attention_small(_bwd)
+    # name, source (the C entry's or kernel's file first, then the files
+    # of the kernels it launches), TPU kernel, the path whose count is
+    # "launches", the row; the f32 K1 and K3 entries count under
+    # attention_small(_bwd)
     kernels = (
         ("attention_small", "attention_sm90.cuh", kdir + "flash_attention.py:163", "train",
          k1_rows[(train_batch, 256, 16, 64, bf)]),
@@ -1510,6 +1601,9 @@ def run(torch, work: str) -> int:
          k1_rows[(batch, 16, 4, 128, f32)]),
         ("attention_small_f32_dit", "attention_row_f32.cuh", kdir + "flash_attention.py:163",
          "train_f32", k1_rows[(train_batch, 256, 16, 64, f32)]),
+        ("attention_small_f32_long", ("attention_long_f32.cuh", "attention_long_f32.cu",
+                                      "flash_attention_f32.cu"),
+         kdir + "flash_attention.py:163", "long_f32", k1_rows[(2, 1024, 16, 64, f32)]),
         ("attention_small_bwd_f32", "attention_row_f32.cuh", kdir + "flash_attention.py:233",
          "train_f32", k3_rows[(train_batch, 256, 64, f32)]),
         ("fused_dit_block", "dit_block.cu", kdir + "dit_block.py:135", "main_fused",
@@ -1522,8 +1616,8 @@ def run(torch, work: str) -> int:
          k6_rows[(batch, 32, 32, 256, bf, 0.0)]),
         ("dit_block_train_fwd", "dit_block_train.cu", kdir + "dit_block_train.py:357",
          "train_fused", k5_rows[("fwd", "full", train_batch)]),
-        ("dit_block_train_mlp_bwd", "dit_block_train.cu", kdir + "dit_block_train.py:398",
-         "block_pallas_bwd", k5_rows[("mlp", train_batch)]),
+        ("dit_block_train_mlp_bwd", ("dit_block_train.cu", "gemm_sm90.cuh", "gemm_sm90_bwd.cu"),
+         kdir + "dit_block_train.py:398", "block_pallas_bwd", k5_rows[("mlp", train_batch)]),
         ("dit_block_train_attn_bwd", "dit_block_train.cu", kdir + "dit_block_train.py:429",
          "block_pallas_bwd", k5_rows[("attn", train_batch)]),
         ("quant_rows", "int8_gemm.cu", p1 + ":92", "int8_main", p1_rows["quant_rows"]),
@@ -1532,10 +1626,13 @@ def run(torch, work: str) -> int:
         ("bf16_mlp", "int8_gemm.cu", p1 + ":103", "p1_probe", p1_rows["bf16_mlp"]),
     )
     def counter(name):
-        return re.sub(r"_f32(_dit)?$", "", name)
+        return re.sub(r"_f32(_dit|_long)?$", "", name)
+
+    def sources(src):
+        return [csrc + f for f in ((src,) if isinstance(src, str) else src)]
 
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": f"lfm_tpu_torch/kernels/csrc/{src}",
+        {"name": name, "route": "cuda", "source": sources(src)[0], "sources": sources(src),
          "replaces": tpu, "launches": by_path[path][counter(name)],
          "launches_by_path": {p: c[counter(name)] for p, c in by_path.items()},
          **{key: row[key] for key in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -48,6 +48,7 @@ SIGNATURES = {
     "lfm_int8_gemm": [_P] * 6 + [_I] * 5 + [_P],
     "lfm_bf16_mlp": [_P] * 5 + [_I] * 3 + [_P],
     "lfm_gemm": [_P] * 8 + [_I] * 8 + [_P],
+    "lfm_gemm_bwd": [_P] * 6 + [_I] * 6 + [_P],
 }
 
 

@@ -1,7 +1,9 @@
 // C entry point of K1, the port of lfm_tpu/kernels/flash_attention.py::
 // attention_small: bf16 runs attention_sm90.cuh; f32 is split by shape, one
-// kernel for each: D 128/256 attention_wide.cu, T <= 256
-// attention_row_f32.cuh, past 256 attention.cuh.
+// kernel for each (kernels/flash_attention.py's f32_k1_route mirrors it):
+// D 128/256 attention_wide.cu; D 56-80 at T <= 256 attention_row_f32.cuh,
+// past it attention_long_f32.cuh (the whole row one key block of K4's
+// kernel, attention_long_f32.cu).
 #include "attention.cuh"
 
 // q, k, v, o: (N, T, H*D) slabs with row strides ldq/ldk/ldv/ldo
@@ -21,11 +23,11 @@ extern "C" int lfm_attention_small(const void* q, const void* k, const void* v, 
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), N, T, H, D, ldq, ldk, ldv, ldo, s));
   if (f32)
-    return static_cast<int>(lfm::launch_attention<false, float>(
+    return static_cast<int>(lfm::launch_attention_long_f32(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), N, T, H, D, ldq, ldk, ldv, ldo, s));
   using lfm::bf16;
-  return static_cast<int>(lfm::launch_attention<false, bf16>(
+  return static_cast<int>(lfm::launch_attention<false>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), N, T, H, D, ldq, ldk, ldv, ldo, s));
 }

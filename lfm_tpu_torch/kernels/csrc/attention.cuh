@@ -1,16 +1,18 @@
-// Whole-sequence softmax attention in f32 past T = 256 (the port of
-// lfm_tpu/kernels/flash_attention.py::attention_small, `_attn_small_kernel`,
-// for f32 models), the dispatch of K1 by element type, and the f32 warp-tile
-// products that this kernel uses. The bf16 forward (K1, and the attention
-// inside K2 and K5) is the wgmma + TMA kernel of attention_sm90.cuh:
-// launch_attention<NORM_P, bf16> launches it; bf16 K3 is
-// attention_bwd_sm90.cuh. f32 K1 is dispatched by shape in
-// lfm_attention_small (attention.cu): the origin ADM's wide heads (D 128,
-// 256) take attention_wide.cu; the DiT's heads (D 56-80) at T <= 256, the
-// f32 DiT train step's forward, take the one-pass kernel of
-// attention_row_f32.cuh; past T = 256 they take the kernel below. That is a
-// split by shape, as the wide heads' at T = 64, not a fallback: each shape
-// has one kernel.
+// The f32 FMA attention kernel that the origin ADM's wide heads (D 128,
+// 256) take past T = 64, the dispatch of the bf16 forward, and the
+// declarations of every attention launcher. The port of
+// lfm_tpu/kernels/flash_attention.py::attention_small (`_attn_small_kernel`)
+// runs, by element type and shape (lfm_attention_small, attention.cu):
+//  - bf16 (K1, and the attention inside K2 and K5): the wgmma + TMA kernel
+//    of attention_sm90.cuh, through launch_attention<NORM_P> below; bf16 K3
+//    is attention_bwd_sm90.cuh;
+//  - f32 at D 56-80 (the DiT's heads): the one-pass kernel of
+//    attention_row_f32.cuh at T <= 256, the key-block kernel of
+//    attention_long_f32.cuh past it, its whole row one block;
+//  - f32 at D 128/256 (the origin ADM's attention): attention_wide.cu's
+//    one-pass kernel at T <= 64 (celeb256_adm's T = 16 and 64), and past it
+//    (a model override that no preset reaches) the kernel below.
+// That is a split by shape, not a fallback: each shape has one kernel.
 //
 // q, k, v are read in place from (N, T, row) slabs: token t of sample n,
 // head h starts at ptr[(n*T + t)*ld + h*D]. So the kernel takes the
@@ -21,32 +23,26 @@
 // owns 16 rows. Key and value tiles of 64 rows stream through shared memory.
 // Pass 1 computes S = scale * Q K^T tile by tile (f32 accumulation) and keeps
 // each row's running max m and sum l = sum exp(s - m) in f32. Pass 2
-// recomputes S, forms p = exp(s - m) in f32 and accumulates P V in f32.
-// NORM_P = false divides the f32 result by l at the end (the rounding of
-// `_attn_small_kernel`, K1); NORM_P = true normalises p before the PV
-// product instead (the rounding of `_dit_block_kernel`, the attention
-// inside K2). The (T, T) scores never reach device memory. The head dim is
-// zero-padded to DP, a multiple of 16.
-//
-// f32 runs its products as f32 FMA on the CUDA cores, so an f32 model is
-// f32 throughout (no TF32 anywhere). WarpTile<float, DP> below holds them.
+// recomputes S, forms p = exp(s - m) in f32 and accumulates P V in f32, and
+// the f32 result is divided by l at the end (the rounding of
+// `_attn_small_kernel`). The (T, T) scores never reach device memory. The
+// head dim is zero-padded to DP, a multiple of 16. Its products are f32 FMA
+// on the CUDA cores (WarpTile<float, DP> below), so an f32 model is f32
+// throughout (no TF32 anywhere).
 //
 // What bounds it on the H100: at f32, T=256, D=64 the bytes it must move
 // are 4*T*H*D*4 per sample against 4*T*T*H*D flops on the 67 TFLOP/s f32
 // units: bound by operations. This design recomputes QK^T once (1.5x the
-// flops) and does not overlap loads with math; at T <= 256 the one-pass
-// kernel of attention_row_f32.cuh avoids both.
+// flops) and does not overlap loads with math; the DiT's heads take the
+// kernels of attention_row_f32.cuh and attention_long_f32.cuh, which avoid
+// both (at (2, 1024, 16, 64) this kernel took 1.49 ms on an H100 SXM at 700
+// W, 8.6% of its bound).
 //
-// Wide heads: the origin ADM runs its attention in f32 at D = 128
-// (celeb256_adm) and 256 (celeb512_adm, church_adm), at T = 16 or 64: the
-// one-pass kernel of attention_wide.cu. This kernel takes them past T = 64
-// (a model override). At f32 and DP 256 the q, k and v tiles and the stages
-// would take 277 KB, past the 227 KB a block may have, so there v follows k
-// through one tile buffer (AttnLayout::KV_SHARE): one more barrier and a
-// serial load per key tile.
+// At f32 and DP 256 the q, k and v tiles and the stages would take 277 KB,
+// past the 227 KB a block may have, so there v follows k through one tile
+// buffer (AttnLayout::KV_SHARE): one more barrier and a serial load per key
+// tile.
 #pragma once
-
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -150,13 +146,13 @@ struct WarpTile<float, DP> {
   };
 };
 
-// f32 only: bf16 runs attention_sm90.cuh
-template <typename T, int DP, bool NORM_P>
+// f32, o divided by l at the end (K1's rounding)
+template <int DP>
 __global__ void __launch_bounds__(ATT_THREADS)
-attn_small_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  T* __restrict__ o, int T_len, int D, long ldq, long ldk, long ldv, long ldo,
-                  float scale) {
-  static_assert(std::is_same<T, float>::value, "bf16 attention runs attention_sm90.cuh");
+attn_small_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o, int T_len, int D, long ldq,
+                  long ldk, long ldv, long ldo, float scale) {
+  using T = float;
   using L = AttnLayout<T, DP>;
   using W = WarpTile<T, DP>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -217,11 +213,8 @@ attn_small_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
     for (int c = 0; c < 32; ++c) {
       int col = half * 32 + c;
       float p = 0.0f;
-      if (kt * ATT_BK + col < T_len) {
-        p = expf(scale * stage[row * L::LDS + col] - m_run);
-        if (NORM_P) p = p / l;
-      }
-      pbuf[row * L::LDP + col] = from_f<T>(p);
+      if (kt * ATT_BK + col < T_len) p = expf(scale * stage[row * L::LDS + col] - m_run);
+      pbuf[row * L::LDP + col] = p;
     }
     __syncwarp();
     if constexpr (L::KV_SHARE) {  // every warp is done with k: v takes its buffer
@@ -238,19 +231,18 @@ attn_small_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   if (qrow < T_len) {
     T* orow = o + (long(n) * T_len + qrow) * ldo + long(h) * D;
     for (int d = half * (DP / 2); d < (half + 1) * (DP / 2) && d < D; ++d) {
-      float val = stage[row * L::LDS + d];
-      orow[d] = from_f<T>(NORM_P ? val : val * inv_l);
+      orow[d] = stage[row * L::LDS + d] * inv_l;
     }
   }
 }
 
-template <typename T, int DP, bool NORM_P>
-static cudaError_t launch_attn_dp(const T* q, const T* k, const T* v, T* o, int N, int T_len,
-                                  int H, int D, long ldq, long ldk, long ldv, long ldo,
+template <int DP>
+static cudaError_t launch_attn_dp(const float* q, const float* k, const float* v, float* o, int N,
+                                  int T_len, int H, int D, long ldq, long ldk, long ldv, long ldo,
                                   cudaStream_t stream) {
-  using L = AttnLayout<T, DP>;
+  using L = AttnLayout<float, DP>;
   static_assert(L::FWD_SMEM <= size_t(ATT_MAX_SMEM), "attention tiles exceed shared memory");
-  auto kernel = attn_small_kernel<T, DP, NORM_P>;
+  auto kernel = attn_small_kernel<DP>;
   const int bytes = int(L::FWD_SMEM);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -266,26 +258,14 @@ cudaError_t launch_attention_sm90(const bf16* q, const bf16* k, const bf16* v, b
                                   int T, int H, int D, long ldq, long ldk, long ldv, long ldo,
                                   int bk, bool norm_p, cudaStream_t stream);
 
-// D in {56, 64, 72, 80} (checked by the Python wrapper): the head dims of
-// the DiT configs, 64 (S, B, L) and 72 (XL). bf16 launches the wgmma
-// kernel of attention_sm90.cuh, f32 the FMA kernel above (lfm_attention_small
-// sends f32 at T <= 256 to launch_attention_row_f32 instead). The origin
-// ADM's wide f32 heads are in launch_attention_wide_f32 (attention_wide.cu).
-template <bool NORM_P, typename T = bf16>
-static cudaError_t launch_attention(const T* q, const T* k, const T* v, T* o, int N, int T_len,
-                                    int H, int D, long ldq, long ldk, long ldv, long ldo,
-                                    cudaStream_t s) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    return launch_attention_sm90(q, k, v, o, N, T_len, H, D, ldq, ldk, ldv, ldo, 0, NORM_P, s);
-  } else {
-    switch ((D + 15) / 16) {
-      case 4:
-        return launch_attn_dp<T, 64, NORM_P>(q, k, v, o, N, T_len, H, D, ldq, ldk, ldv, ldo, s);
-      case 5:
-        return launch_attn_dp<T, 80, NORM_P>(q, k, v, o, N, T_len, H, D, ldq, ldk, ldv, ldo, s);
-      default: return cudaErrorInvalidValue;
-    }
-  }
+// bf16 attention over whole rows, D in {56, 64, 72, 80} (checked by the
+// Python wrapper): the head dims of the DiT configs, 64 (S, B, L) and 72
+// (XL). NORM_P: p / l before P V (K2, K5), else o / l at the end (K1).
+template <bool NORM_P>
+static cudaError_t launch_attention(const bf16* q, const bf16* k, const bf16* v, bf16* o, int N,
+                                    int T_len, int H, int D, long ldq, long ldk, long ldv,
+                                    long ldo, cudaStream_t s) {
+  return launch_attention_sm90(q, k, v, o, N, T_len, H, D, ldq, ldk, ldv, ldo, 0, NORM_P, s);
 }
 
 // f32 K1 at D = 128 (celeb256_adm) and 256 (celeb512_adm, church_adm): the
@@ -316,9 +296,14 @@ cudaError_t launch_attn_bwd_long_f32(const float* q, const float* k, const float
                                      long ldv, long lddo, long ldg, cudaStream_t s);
 // f32 K4, BK a divisor of T and at most 512, D in {56, 64, 72, 80, 128}:
 // the key-block kernel of attention_long_f32.cuh (flash_attention_f32.cu).
+// f32 K1 at 256 < T <= 1024, D 8-80 a multiple of 8: the same kernel with
+// the whole row one key block (attention_long_f32.cu).
 cudaError_t launch_flash_f32(const float* q, const float* k, const float* v, float* o, int N,
                              int T, int H, int D, int BK, long ldq, long ldk, long ldv, long ldo,
                              cudaStream_t s);
+cudaError_t launch_attention_long_f32(const float* q, const float* k, const float* v, float* o,
+                                      int N, int T, int H, int D, long ldq, long ldk, long ldv,
+                                      long ldo, cudaStream_t s);
 // f32 K3 at T <= 256, D 8-80 a multiple of 8: the two kernels of
 // attention_row_f32.cuh (attention_bwd_row_f32.cu); the same stats layout.
 cudaError_t launch_attn_bwd_row_f32(const float* q, const float* k, const float* v,

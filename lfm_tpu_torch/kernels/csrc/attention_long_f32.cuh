@@ -1,18 +1,22 @@
-// f32 K4 and f32 K3 past T = 256: the port of
-// lfm_tpu/kernels/flash_attention.py::flash_attention (`_flash_kernel`) and
-// of ::attention_small_bwd (`_attn_small_bwd_kernel`) at long sequences, for
-// f32 models, redesigned for the H100's CUDA cores on the one-pass design of
-// attention_row_f32.cuh (its loads and products are shared). f32 K4 is the
-// forward of every f32 attention past T = 1024 (an f32 DiT at 1024 px, T =
-// 4096) and of the origin ADM's f32 attention at D = 128 past the gate;
-// f32 K3 past T = 256 is the backward of an f32 DiT whose patch grid has
-// 256 < T <= 1024 (512 px: T = 1024).
+// f32 K4, f32 K1 past T = 256 and f32 K3 past T = 256: the port of
+// lfm_tpu/kernels/flash_attention.py::flash_attention (`_flash_kernel`), of
+// ::attention_small (`_attn_small_kernel`) and of ::attention_small_bwd
+// (`_attn_small_bwd_kernel`) at long sequences, for f32 models, redesigned
+// for the H100's CUDA cores on the one-pass design of attention_row_f32.cuh
+// (its loads and products are shared). f32 K4 is the forward of every f32
+// attention past T = 1024 (an f32 DiT at 1024 px, T = 4096) and of the
+// origin ADM's f32 attention at D = 128 past the gate; f32 K1 and K3 past T
+// = 256 are the forward and backward of an f32 DiT whose patch grid has 256
+// < T <= 1024 (512 px: T = 1024).
 //
 // Per (sample, head), with s = scale q k^T (scale = 1/sqrt(D)):
 //   K4:  keys in blocks of BK (a divisor of T, at most 512); per block the
 //        exact block max, m_new = max(m, block max), p = exp(s - m_new),
 //        alpha = exp(m - m_new), l = alpha l + sum p, acc = alpha acc + p v;
 //        o = acc / l at the end
+//   K1:  the same kernel with one block of all T keys: alpha = exp(-inf -
+//        m) = 0, so l = sum p and acc = p v with m the row's exact max, and
+//        o = (p v) / l, K1's function at its rounding points
 //   K3:  m = max_k s, e = exp(s - m), l = sum_k e, p = e / l,
 //        dp = do v^T, delta = rowsum(dp * p), ds = p (dp - delta),
 //        dq = scale ds k, dk = scale ds^T q, dv = p^T do
@@ -51,7 +55,12 @@
 // thread; p v in two groups of 128 threads, each taking half of every
 // stage), 64 at DP 80 (4 x 4; p v on 160 threads), 32 at DP 128 (4 x 4 on
 // 128 threads; p v on all 256); shared memory 216 / 194 / 196 KB, one CTA
-// an SM: at (1, 4096, 4, 128) 256 CTAs, 1.94 waves on 132 SMs. K3's dq
+// an SM: at (1, 4096, 4, 128) 256 CTAs, 1.94 waves on 132 SMs. K1 takes
+// K4's instances at 256 < T <= 512 (BK = T <= 512); past 512 a row of 64 x
+// 1024 scores would take 264 KB, so K1_BQ = 32 query rows a CTA hold 32 x
+// 1024 (2 x 8 scores a thread at DP 64, 2 x 4 at DP 80, the dq kernel's
+// tiles; p v in 4 x 4 tiles, two groups at DP 64 as K4), 206 / 182 KB: at
+// (2, 1024, 16, 64) 1024 CTAs, 7.8 waves. K3's dq
 // kernel (DBQ = 32 query rows): the row's scores in shared memory (32 x TK,
 // TK = 512 or 1024), dp in registers (128 a thread at TK 1024), 2 x 8
 // scores a thread at DP 64 (KS = 128), 2 x 4 at DP 80 (KS = 64); dq = ds k
@@ -62,10 +71,10 @@
 // and dp^T are the dq kernel's s and dp bit for bit, and so is its p); l,
 // delta and a block's sum of p: each thread sums its keys (kg + TC j, in
 // order), the 4 quarter-warps of a warp a tree (xor 8, 16), the NW warps of
-// a row in order. p v (K4) and dq sum each stage's keys (each half stage,
+// a row in order. p v (K4, K1) and dq sum each stage's keys (each half stage,
 // in two groups, at DP 64) in a fresh partial added to the total in order;
-// K4 at DP 64 instead keeps two accumulators, one chain over each group's
-// half of every stage, added at the end. Against float64 these shorter
+// K4 and K1 at DP 64 instead keep two accumulators, one chain over each
+// group's half of every stage, added at the end. Against float64 these shorter
 // chains measured closer than one chain over the keys (the old kernels'
 // and the plain version's order), and so further from the plain version.
 // K4 adds alpha l + sum p and alpha acc + pv as one FMA each. The max is
@@ -73,6 +82,7 @@
 // s - m is one FMA, as in attention_row_f32.cuh.
 #pragma once
 
+#include "attention.cuh"
 #include "attention_row_f32.cuh"
 
 namespace lfm {
@@ -80,10 +90,11 @@ namespace long32 {
 
 using row32::THREADS;
 
-constexpr int FBQ = 64;      // query rows of a K4 CTA
+constexpr int FBQ = 64;      // query rows of a K4 CTA (and K1's up to T = 512)
 constexpr int BK_MAX = 512;  // K4's largest key block (flash_attention's default block_k)
 constexpr int DBQ = 32;      // query rows of a K3 dq CTA
-constexpr int MAX_T = 1024;  // K3's gate (_small_shape_ok)
+constexpr int K1_BQ = 32;    // query rows of a K1 CTA past T = 512
+constexpr int MAX_T = 1024;  // K1's and K3's gate (_small_shape_ok)
 
 // The scores of a thread: rows rg + 16 i, keys kg + TC j of a stage (TC key
 // groups). A warp holds 8 row groups x 4 key groups and a quarter-warp (8
@@ -120,39 +131,42 @@ __device__ __forceinline__ float row_total(const float* red, int row, int bq) {
   return t;
 }
 
-// K4: q (FBQ rows), the block's scores (FBQ x BK_MAX, then p), the ring, two
-// reductions
-template <int DP>
+// K4 and K1: q (BQ rows), the block's scores (BQ x KCAP, then p), the ring,
+// two reductions
+template <int DP, int BQ, int KCAP>
 struct FlashLayout {
   static constexpr int KS = DP <= 64 ? 128 : DP <= 80 ? 64 : 32;  // keys of a ring stage
-  static constexpr int RM = FBQ / 16, RN = DP <= 64 ? 8 : 4;     // scores of a thread
+  static constexpr int RM = BQ / 16, RN = DP <= 64 ? 8 : 4;      // scores of a thread
   static constexpr int TC = KS / RN;                             // key groups: 16, 16, 8
   static constexpr int S_THREADS = 16 * TC;                      // threads forming scores
   static constexpr int NW = TC / 4;                              // warps across a score row
-  // p v: 8 x 4 tiles (rows oy + 8 i); at DP 64 two groups of 128 threads
-  // each take one half of a stage's keys
-  static constexpr int RMO = 8, RG = FBQ / RMO, SPLIT = DP == 64 ? 2 : 1;
-  static constexpr int LD = DP + 4, LDS = BK_MAX + 4;
+  // p v: RMO x 4 tiles (rows oy + 8 i); where two groups of 128 threads
+  // cover the tiles (DP 64), each takes one half of a stage's keys
+  static constexpr int RG = 8, RMO = BQ / RG;
+  static constexpr int SPLIT = 2 * row32::OutTiles<DP, RG>::COUNT <= THREADS ? 2 : 1;
+  static constexpr int LD = DP + 4, LDS = KCAP + 4;
   static constexpr int STAGE = KS * LD;
-  static constexpr int S = FBQ * LD, RING = S + FBQ * LDS, RED = RING + 2 * STAGE;
-  static constexpr size_t BYTES = 4 * size_t(RED + 2 * NW * FBQ);
+  static constexpr int S = BQ * LD, RING = S + BQ * LDS, RED = RING + 2 * STAGE;
+  static constexpr size_t BYTES = 4 * size_t(RED + 2 * NW * BQ);
+  static_assert(KCAP % KS == 0, "a block's stages end inside the score rows");
 };
 
-// K4: one CTA per 64 query rows of one (sample, head); BK divides T, BK <=
-// BK_MAX.
-template <int DP>
+// One CTA per BQ query rows of one (sample, head); BK divides T, BK <= KCAP.
+// K4 runs <DP, FBQ, BK_MAX>; K1 its whole row as one block of BK = T keys:
+// <DP, FBQ, BK_MAX> at T <= 512, <DP, K1_BQ, MAX_T> past it.
+template <int DP, int BQ, int KCAP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int T, int D, int BK,
                  long ldq, long ldk, long ldv, long ldo, float scale) {
-  using L = FlashLayout<DP>;
+  using L = FlashLayout<DP, BQ, KCAP>;
   using O = row32::OutTiles<DP, L::RG>;
   constexpr int RM = L::RM, RN = L::RN, TC = L::TC, KS = L::KS, NW = L::NW;
   constexpr int RMO = L::RMO, RG = L::RG, HALF = KS / L::SPLIT;
   extern __shared__ __align__(16) float sm[];
   float *qs = sm, *ss = sm + L::S, *ring = sm + L::RING;
-  float *red_m = sm + L::RED, *red_l = red_m + NW * FBQ;
-  const int n = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * FBQ;
+  float *red_m = sm + L::RED, *red_l = red_m + NW * BQ;
+  const int n = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
   const long hd = long(h) * D;
   const float* kb = k + long(n) * T * ldk + hd;
   const float* vb = v + long(n) * T * ldv + hd;
@@ -168,7 +182,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     cp_async_commit();
   };
-  row32::load_rows<DP, FBQ>(qs, q + long(n) * T * ldq + hd, ldq, q0, T, D);
+  row32::load_rows<DP, BQ>(qs, q + long(n) * T * ldq + hd, ldq, q0, T, D);
   cp_async_commit();
   issue(0);
 
@@ -223,14 +237,14 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
       }
     }
-    if (s_active) row_partials<true>(part, red_m, rg, FBQ);
+    if (s_active) row_partials<true>(part, red_m, rg, BQ);
     __syncthreads();
     // m_new = max(m, block max); p = exp(s - m_new) in place; l's partials
     if (s_active) {
 #pragma unroll
       for (int i = 0; i < RM; ++i) {
         const float m_new =
-            fmaxf(m_s[i], __fmul_rn(scale, row_total<true, NW>(red_m, rg + 16 * i, FBQ)));
+            fmaxf(m_s[i], __fmul_rn(scale, row_total<true, NW>(red_m, rg + 16 * i, BQ)));
         float* srow = ss + (rg + 16 * i) * L::LDS + kg;
         part[i] = 0.0f;
 #pragma unroll 4
@@ -241,13 +255,13 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
         m_s[i] = m_new;
       }
-      row_partials<false>(part, red_l, rg, FBQ);
+      row_partials<false>(part, red_l, rg, BQ);
     }
     float alpha[RMO];
 #pragma unroll
     for (int i = 0; i < RMO; ++i) {
       const float m_new = fmaxf(
-          m_o[i], __fmul_rn(scale, row_total<true, NW>(red_m, oy + RG * i, FBQ)));
+          m_o[i], __fmul_rn(scale, row_total<true, NW>(red_m, oy + RG * i, BQ)));
       alpha[i] = expf(m_o[i] - m_new);  // 0 at the first block
       m_o[i] = m_new;
     }
@@ -284,7 +298,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < RMO; ++i) {
       const float a = alpha[i];
-      l_o[i] = fmaf(a, l_o[i], row_total<false, NW>(red_l, oy + RG * i, FBQ));
+      l_o[i] = fmaf(a, l_o[i], row_total<false, NW>(red_l, oy + RG * i, BQ));
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(a, acc[i][c], pv[i][c]);
     }
@@ -318,6 +332,24 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       *reinterpret_cast<float4*>(o + (long(n) * T + r) * ldo + hd + 4 * cg) =
           make_float4(acc[i][0] / l, acc[i][1] / l, acc[i][2] / l, acc[i][3] / l);
   }
+}
+
+// one instance of flash_f32_kernel on `s`: BK divides T, BK <= KCAP
+template <int DP, int BQ, int KCAP>
+cudaError_t launch_flash(const float* q, const float* k, const float* v, float* o, int N, int T,
+                         int H, int D, int BK, long ldq, long ldk, long ldv, long ldo,
+                         cudaStream_t s) {
+  using L = FlashLayout<DP, BQ, KCAP>;
+  static_assert(L::BYTES <= size_t(ATT_MAX_SMEM), "flash_f32_kernel's tiles exceed shared memory");
+  auto kernel = flash_f32_kernel<DP, BQ, KCAP>;
+  const int bytes = int(L::BYTES);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((T + BQ - 1) / BQ, H, N);
+  kernel<<<grid, THREADS, bytes, s>>>(q, k, v, o, T, D, BK, ldq, ldk, ldv, ldo,
+                                      1.0f / sqrtf(float(D)));
+  return cudaGetLastError();
 }
 
 // K3's dq kernel past T = 256: q and do (DBQ rows), the row's scores (DBQ x

@@ -189,9 +189,8 @@ cudaError_t launch_attention_wide_f32(const float* q, const float* k, const floa
     if (D == 128) return launch_short_dp<128>(q, k, v, o, N, T_len, H, ldq, ldk, ldv, ldo, s);
     return launch_short_dp<256>(q, k, v, o, N, T_len, H, ldq, ldk, ldv, ldo, s);
   }
-  if (D == 128)
-    return launch_attn_dp<float, 128, false>(q, k, v, o, N, T_len, H, D, ldq, ldk, ldv, ldo, s);
-  return launch_attn_dp<float, 256, false>(q, k, v, o, N, T_len, H, D, ldq, ldk, ldv, ldo, s);
+  if (D == 128) return launch_attn_dp<128>(q, k, v, o, N, T_len, H, D, ldq, ldk, ldv, ldo, s);
+  return launch_attn_dp<256>(q, k, v, o, N, T_len, H, D, ldq, ldk, ldv, ldo, s);
 }
 
 }  // namespace lfm

@@ -12,10 +12,10 @@
 //
 // lfm_dit_block_train_mlp_bwd (`_mlp_bwd_call`, `_mlp_bwd_kernel`):
 //   h2b = bf16(LN(x1) (1 + sc_mlp) + sh_mlp)             ln_modulate
-//   gb  = bf16(gelu(u))                                   gelu_kernel
 //   dg_mlp = sum_t dy h2;  dh2 = dy g_mlp (f32);  db2 = sum dh2 (f32)
 //                                                         gate_bwd_kernel
-//   du  = (bf16(dh2) W2) gelu'(u);  db1 = sum du (f32)    gemm NN, EPI_DGELU
+//   du  = (bf16(dh2) W2) gelu'(u);  db1 = sum du (f32);
+//   gb  = bf16(gelu(u)), from the same tanh as gelu'(u)   gemm NN, EPI_DGELU
 //   dW2 = bf16(dh2)^T gb                                  gemm TN
 //   dh  = bf16(du) W1 (f32)                               gemm NN
 //   dW1 = bf16(du)^T h2b                                  gemm TN
@@ -51,24 +51,19 @@
 // attention half 16 N T C^2 + 10 N T^2 C = 158.9 GFLOP (five T x T products
 // per head: logits, dv, dp, dq, dk; ao is a stream, so PV is not redone).
 // All three are bound by tensor-core operations (0.217, 0.278 and 0.161 ms
-// at 989 TFLOP/s). The forward's four GEMMs are K2's: gemm_sm90.cuh's
-// persistent wgmma + TMA kernel, the streams written from its register
-// epilogue. The backward's NN and TN GEMMs are gemm.cuh's WMMA tiles
-// (mma.sync); the element-wise passes and the recomputed LayerNorms
-// round-trip device memory. Those GEMMs on wgmma, split-K for the narrow
-// weight gradients and fusing the passes into the GEMMs are later work.
+// at 989 TFLOP/s). The forward's four GEMMs are K2's and the MLP half's
+// four (NN, TN) run on the same kernel: gemm_sm90.cuh's persistent wgmma +
+// TMA kernel, the streams, du and db1's column partials written from its
+// register epilogue. The attention half's NN and TN GEMMs are gemm.cuh's
+// WMMA tiles (mma.sync), the next to move onto it; the element-wise passes
+// and the recomputed LayerNorms round-trip device memory. Fusing those
+// passes into the GEMMs is later work.
 #include "attention.cuh"
 #include "gemm.cuh"
 
 namespace lfm {
 
 constexpr int COL_THREADS = 128;  // columns per block of the per-sample sums
-
-// out = bf16(gelu_tanh(f32(u))), n elements
-__global__ void gelu_kernel(const bf16* __restrict__ u, bf16* __restrict__ out, long n) {
-  for (long i = blockIdx.x * long(blockDim.x) + threadIdx.x; i < n; i += long(gridDim.x) * blockDim.x)
-    out[i] = from_f<bf16>(gelu_tanh(to_f(u[i])));
-}
 
 // grid (C / 128, N): column c of sample n over its T rows.
 //   dmod3[n, slot_g, c] = sum_t dy * s;  dpre = dy * mod[gate]  (f32)
@@ -233,14 +228,14 @@ extern "C" int lfm_dit_block_train_fwd(const void* x, const void* mod, const voi
                                       3L * C, 3L * C, C, s));
   LFM_TRY((lfm::launch_gemm_nt<lfm::EPI_GATED_AUX, bf16, float>(
       ao, bp(wproj), bp(bproj), x1, M, C, C, bp(x), m, 2, T, s,
-      lfm::GemmAux{mp(prs), mp(x1s), nullptr, nullptr})));
+      lfm::GemmAux{mp(prs), mp(x1s)})));
   LFM_CHECK((lfm::ln_modulate_kernel<float><<<M, lfm::LN_THREADS, 0, s>>>(x1, m, h, T, C, 3, 4)));
   LFM_TRY((lfm::launch_gemm_nt<lfm::EPI_GELU_AUX, bf16, bf16>(
       h, bp(w1), bp(b1), g, M, hidden, C, nullptr, nullptr, 0, T, s,
-      lfm::GemmAux{mp(us), nullptr, nullptr, nullptr})));
+      lfm::GemmAux{mp(us), nullptr})));
   LFM_TRY((lfm::launch_gemm_nt<lfm::EPI_GATED_AUX, float, bf16>(
       g, bp(w2), bp(b2), mp(out), M, C, hidden, x1, m, 5, T, s,
-      lfm::GemmAux{mp(h2s), nullptr, nullptr, nullptr})));
+      lfm::GemmAux{mp(h2s), nullptr})));
   return 0;
 }
 
@@ -249,7 +244,7 @@ extern "C" int lfm_dit_block_train_fwd(const void* x, const void* mod, const voi
 // C); dw1 f32 (hidden, C), db1 (hidden), dw2 (C, hidden), db2 (C). Scratch:
 // h2b, dh2b (N*T, C) bf16; gb, du (N*T, hidden) bf16; dh (N*T, C) f32;
 // stats (N*T, 2) f32; part f32 of max(N*C, ceil(N*T/128)*hidden).
-// (N*T) % 32 == 0, C <= 4096. Eleven kernels on `stream`.
+// (N*T) % 32 == 0, C <= 4096. Ten kernels on `stream`.
 extern "C" int lfm_dit_block_train_mlp_bwd(const void* x1, const void* mod, const void* h2,
                                            const void* u, const void* w1, const void* w2,
                                            const void* dy, void* dx1, void* dmod3, void* dw1,
@@ -274,20 +269,18 @@ extern "C" int lfm_dit_block_train_mlp_bwd(const void* x1, const void* mod, cons
   const dim3 cols(C / lfm::COL_THREADS, N);
 
   LFM_CHECK((lfm::ln_modulate_kernel<bf16><<<M, lfm::LN_THREADS, 0, s>>>(bp(x1), m, h2b, T, C, 3, 4)));
-  LFM_CHECK((lfm::gelu_kernel<<<2 * 132 * 8, 256, 0, s>>>(bp(u), gb, long(M) * hidden)));
   LFM_CHECK((lfm::gate_bwd_kernel<<<cols, lfm::COL_THREADS, 0, s>>>(bp(dy), bp(h2), m, 5, T, C, dh2b,
                                                                      fp(dmod3), 2, part)));
   LFM_CHECK((lfm::reduce_rows(part, N, C, fp(db2), s)));
-  LFM_CHECK((lfm::launch_gemm<lfm::EPI_DGELU, bf16, bf16, lfm::LAYOUT_NN>(
-      dh2b, bp(w2), nullptr, du, M, hidden, C, nullptr, nullptr, 0, T, s,
-      lfm::GemmAux{nullptr, nullptr, bp(u), part})));
+  LFM_TRY(lfm::launch_gemm_bwd(lfm::LAYOUT_NN, lfm::EPI_DGELU, dh2b, bp(w2), du, false, bp(u),
+                               part, gb, M, hidden, C, s));
   LFM_CHECK((lfm::reduce_rows(part, (M + lfm::GM - 1) / lfm::GM, hidden, fp(db1), s)));
-  LFM_CHECK((lfm::launch_gemm<lfm::EPI_STORE, bf16, float, lfm::LAYOUT_TN>(
-      dh2b, gb, nullptr, fp(dw2), C, hidden, M, nullptr, nullptr, 0, T, s)));
-  LFM_CHECK((lfm::launch_gemm<lfm::EPI_STORE, bf16, float, lfm::LAYOUT_NN>(
-      du, bp(w1), nullptr, dh, M, C, hidden, nullptr, nullptr, 0, T, s)));
-  LFM_CHECK((lfm::launch_gemm<lfm::EPI_STORE, bf16, float, lfm::LAYOUT_TN>(
-      du, h2b, nullptr, fp(dw1), hidden, C, M, nullptr, nullptr, 0, T, s)));
+  LFM_TRY(lfm::launch_gemm_bwd(lfm::LAYOUT_TN, lfm::EPI_STORE, dh2b, gb, dw2, true, nullptr,
+                               nullptr, nullptr, C, hidden, M, s));
+  LFM_TRY(lfm::launch_gemm_bwd(lfm::LAYOUT_NN, lfm::EPI_STORE, du, bp(w1), dh, true, nullptr,
+                               nullptr, nullptr, M, C, hidden, s));
+  LFM_TRY(lfm::launch_gemm_bwd(lfm::LAYOUT_TN, lfm::EPI_STORE, du, h2b, dw1, true, nullptr,
+                               nullptr, nullptr, hidden, C, M, s));
   LFM_CHECK((lfm::ln_bwd_rows_kernel<<<M, lfm::LN_THREADS, 0, s>>>(dh, bp(x1), m, 4, bp(dy), T, C,
                                                                    mp(dx1), fp(stats_buf))));
   LFM_CHECK((lfm::ln_bwd_cols_kernel<<<cols, lfm::COL_THREADS, 0, s>>>(dh, bp(x1), fp(stats_buf), T,
@@ -330,10 +323,8 @@ extern "C" int lfm_dit_block_train_attn_bwd(const void* x, const void* mod, cons
   LFM_CHECK((lfm::gate_bwd_kernel<<<cols, lfm::COL_THREADS, 0, s>>>(bp(dx1), bp(pr), m, 2, T, C, dpr,
                                                                      fp(dmod3), 2, part)));
   LFM_CHECK((lfm::reduce_rows(part, N, C, fp(dbproj), s)));
-  LFM_CHECK((lfm::launch_gemm<lfm::EPI_STORE, bf16, bf16, lfm::LAYOUT_NN>(
-      dpr, bp(wproj), nullptr, dao, M, C, C, nullptr, nullptr, 0, T, s)));
-  LFM_CHECK((lfm::launch_gemm<lfm::EPI_STORE, bf16, float, lfm::LAYOUT_TN>(
-      dpr, bp(ao), nullptr, fp(dwproj), C, C, M, nullptr, nullptr, 0, T, s)));
+  LFM_CHECK((lfm::launch_gemm<bf16, lfm::LAYOUT_NN>(dpr, bp(wproj), dao, M, C, C, s)));
+  LFM_CHECK((lfm::launch_gemm<float, lfm::LAYOUT_TN>(dpr, bp(ao), fp(dwproj), C, C, M, s)));
   const bf16* q = bp(qkv);
   cudaError_t err = lfm::launch_attn_bwd_sm90(q, q + C, q + 2 * C, dao, dqkv, dqkv + C,
                                               dqkv + 2 * C, fp(astats_buf), N, T, heads, D,
@@ -342,10 +333,8 @@ extern "C" int lfm_dit_block_train_attn_bwd(const void* x, const void* mod, cons
   LFM_CHECK((lfm::colsum_rows_kernel<<<dim3(3 * C / lfm::COL_THREADS, N), lfm::COL_THREADS, 0, s>>>(
       dqkv, T, 3 * C, part)));
   LFM_CHECK((lfm::reduce_rows(part, N, 3 * C, fp(dbqkv), s)));
-  LFM_CHECK((lfm::launch_gemm<lfm::EPI_STORE, bf16, float, lfm::LAYOUT_NN>(
-      dqkv, bp(wqkv), nullptr, dhb, M, C, 3 * C, nullptr, nullptr, 0, T, s)));
-  LFM_CHECK((lfm::launch_gemm<lfm::EPI_STORE, bf16, float, lfm::LAYOUT_TN>(
-      dqkv, hb, nullptr, fp(dwqkv), 3 * C, C, M, nullptr, nullptr, 0, T, s)));
+  LFM_CHECK((lfm::launch_gemm<float, lfm::LAYOUT_NN>(dqkv, bp(wqkv), dhb, M, C, 3 * C, s)));
+  LFM_CHECK((lfm::launch_gemm<float, lfm::LAYOUT_TN>(dqkv, hb, fp(dwqkv), 3 * C, C, M, s)));
   LFM_CHECK((lfm::ln_bwd_rows_kernel<<<M, lfm::LN_THREADS, 0, s>>>(dhb, bp(x), m, 1, bp(dx1), T, C,
                                                                    mp(dx), fp(stats_buf))));
   LFM_CHECK((lfm::ln_bwd_cols_kernel<<<cols, lfm::COL_THREADS, 0, s>>>(dhb, bp(x), fp(stats_buf), T,

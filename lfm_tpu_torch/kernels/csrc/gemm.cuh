@@ -1,22 +1,24 @@
 // GEMM and LayerNorm pieces shared by K2 (dit_block.cu) and K5
 // (dit_block_train.cu): the row-wise LayerNorm + adaLN modulate, the fused
-// epilogues, and the two GEMMs.
+// epilogues, the launchers of the wgmma GEMM and K5 attn's WMMA GEMM.
 //
-// The NT layout, out (M, N) = A (M, K) . W (N, K)^T (a torch.nn.Linear
-// forward: K2, K5's forward, lfm_bf16_mlp), runs on Hopper's wgmma + TMA:
-// launch_gemm_nt, the persistent warp-specialised kernel of gemm_sm90.cuh
-// (compiled in gemm_sm90.cu). N % 128 == 0, K % 64 == 0; rows m >= M are
-// masked.
+// Three layouts of row-major bf16 operands (LAYOUT_*):
+//   NT  out (M, N) = A (M, K) . W (N, K)^T   a torch.nn.Linear forward: K2,
+//                                            K5's forward, lfm_bf16_mlp
+//   NN  out (M, N) = A (M, K) . B (K, N)     an activation gradient
+//   TN  out (M, N) = A (K, M)^T . B (K, N)   a weight gradient, summed over
+//                                            all K token rows
+// All three run on Hopper's wgmma + TMA, the persistent warp-specialised
+// kernel of gemm_sm90.cuh: NT through launch_gemm_nt (gemm_sm90.cu; N % 128
+// == 0, K % 64 == 0), NN and TN through launch_gemm_bwd (gemm_sm90_bwd.cu;
+// N % 128 == 0, K % 8 == 0), rows m >= M masked. K5's MLP backward runs NN
+// and TN there.
 //
-// K5's backward keeps one WMMA GEMM template (gemm_kernel) for the other two
-// layouts, tiled 128x128x32: eight warps each compute 64x32 with WMMA bf16
-// -> f32 (mma.sync), a two-stage cp.async pipeline, and the epilogue fused
-// into the store (all row-major bf16, f32 accumulation):
-//   LAYOUT_NN  out (M, N) = A (M, K) . B (K, N)     an activation gradient
-//   LAYOUT_TN  out (M, N) = A (K, M)^T . B (K, N)   a weight gradient, summed
-//                                                   over all K token rows
-// N % 128 == 0 and K % 32 == 0; rows m >= M are masked (NN), TN needs
-// M % 128 == 0. Moving them onto wgmma is later work.
+// K5's attention backward keeps one WMMA GEMM template (gemm_kernel) for NN
+// and TN, tiled 128x128x32: eight warps each compute 64x32 with WMMA bf16 ->
+// f32 (mma.sync), a two-stage cp.async pipeline, the value stored as TOut.
+// N % 128 == 0 and K % 32 == 0; rows m >= M are masked (NN), TN needs M %
+// 128 == 0. Moving it onto launch_gemm_bwd is the next redesign.
 #pragma once
 
 #include <type_traits>
@@ -64,7 +66,7 @@ ln_modulate_kernel(const TIn* __restrict__ x, const bf16* __restrict__ mod,
 }
 
 // K2's epilogues (0-2), then K5's. The NT GEMM takes all but EPI_DGELU;
-// gemm_kernel (NN, TN) takes EPI_STORE and EPI_DGELU:
+// the NN and TN GEMM EPI_STORE and (NN) EPI_DGELU; gemm_kernel EPI_STORE:
 //   EPI_BIAS       out = value + bias
 //   EPI_GELU       out = gelu_tanh(value + bias)
 //   EPI_GATED      out = resid + mod[gate] * (value + bias)
@@ -72,18 +74,17 @@ ln_modulate_kernel(const TIn* __restrict__ x, const bf16* __restrict__ mod,
 //   EPI_GATED_AUX  EPI_GATED, aux = bf16(value + bias), aux2 = bf16(out)
 //                  when aux2 is set
 //   EPI_STORE      out = value (no bias)
-//   EPI_DGELU      du = value * gelu_tanh'(u), out = du, and colsum gets the
-//                  f32 sums of du over the block's 128 rows (one row of
-//                  colsum per blockIdx.y, in a fixed order)
+//   EPI_DGELU      du = value * gelu_tanh'(u), out = du, aux =
+//                  bf16(gelu_tanh(u)) when aux is set, and part gets the
+//                  f32 sums of du over each 128-row tile (one row of part
+//                  per tile, in a fixed order)
 enum { EPI_BIAS = 0, EPI_GELU = 1, EPI_GATED = 2, EPI_GELU_AUX = 3, EPI_GATED_AUX = 4,
        EPI_STORE = 5, EPI_DGELU = 6 };
-enum { LAYOUT_NN = 1, LAYOUT_TN = 2 };
+enum { LAYOUT_NT = 0, LAYOUT_NN = 1, LAYOUT_TN = 2 };
 
 struct GemmAux {
   bf16* aux;          // EPI_GELU_AUX, EPI_GATED_AUX
   bf16* aux2;         // EPI_GATED_AUX
-  const bf16* u;      // EPI_DGELU: the fc1 pre-activation, (M, N)
-  float* colsum;      // EPI_DGELU: (gridDim.y, N)
 };
 
 constexpr int GM = 128, GN = 128, GK = 32, GLD = GK + 8, G_THREADS = 256;
@@ -91,13 +92,15 @@ constexpr int GLD_KM = GM + 8;  // a (32 x 128) tile stored k-major
 
 constexpr float kGeluA = 0.7978845608028654f, kGeluK = 0.044715f;
 
-__device__ __forceinline__ float gelu_tanh(float u) {
-  return 0.5f * u * (1.0f + tanhf(kGeluA * (u + kGeluK * u * u * u)));
+// t = tanh(a (u + k u^3)), shared by gelu_tanh and its derivative
+__device__ __forceinline__ float gelu_tanh_t(float u) {
+  return tanhf(kGeluA * (u + kGeluK * u * u * u));
 }
+__device__ __forceinline__ float gelu_tanh(float u, float t) { return 0.5f * u * (1.0f + t); }
+__device__ __forceinline__ float gelu_tanh(float u) { return gelu_tanh(u, gelu_tanh_t(u)); }
 
-// d gelu_tanh(u) / du (dit_block_train.py::_gelu_tanh_grad)
-__device__ __forceinline__ float gelu_tanh_grad(float u) {
-  const float t = tanhf(kGeluA * (u + kGeluK * u * u * u));
+// d gelu_tanh(u) / du given t = gelu_tanh_t(u) (dit_block_train.py::_gelu_tanh_grad)
+__device__ __forceinline__ float gelu_tanh_grad(float u, float t) {
   return 0.5f * (1.0f + t) + 0.5f * u * (1.0f - t * t) * (kGeluA * (1.0f + 3.0f * kGeluK * u * u));
 }
 
@@ -112,15 +115,11 @@ struct GemmTiles {
   static_assert(A_TILE * 2 >= 8 * 256 * 4, "the epilogue stages its fragments in the A tiles");
 };
 
-// out[m, n] = epilogue(sum_k A[m, k] * B[k, n]) with A, B in LAYOUT (above);
-// a null bias adds nothing (EPI_STORE and EPI_DGELU never read it).
-// EPI_GATED*: resid[m, n] + mod[m / T, gate_idx * N + n] * value.
-template <int EPI, typename TRes, typename TOut, int LAYOUT>
+// out[m, n] = TOut(sum_k A[m, k] * B[k, n]) with A, B in LAYOUT (above)
+template <typename TOut, int LAYOUT>
 __global__ void __launch_bounds__(G_THREADS)
-gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-            const bf16* __restrict__ bias, TOut* __restrict__ out, int M, int N, int K,
-            const TRes* __restrict__ resid, const bf16* __restrict__ mod, int gate_idx, int T,
-            GemmAux ax) {
+gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, TOut* __restrict__ out,
+            int M, int N, int K) {
   using namespace nvcuda;
   using Tiles = GemmTiles<LAYOUT>;
   __shared__ __align__(128) bf16 as[2][Tiles::A_TILE];
@@ -193,7 +192,6 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
   // idle) A buffers; two lanes per row, 8 contiguous columns each
   float* scratch = reinterpret_cast<float*>(&as[0][0]) + warp * 256;
   const int r = lane >> 1, c0 = (lane & 1) * 8;
-  float csum[2] = {0.0f, 0.0f};  // EPI_DGELU: lane < 16 sums column lane of fragment j
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -205,58 +203,18 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
       if (gm < M) {
         const long o = long(gm) * N + gn;
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          float val = scratch[r * 16 + c0 + e];
-          if constexpr (EPI == EPI_DGELU) {
-            val *= gelu_tanh_grad(to_f(ax.u[o + e]));
-            scratch[r * 16 + c0 + e] = val;
-          } else if constexpr (EPI != EPI_STORE) {
-            if (bias) val += to_f(bias[gn + e]);
-          }
-          if constexpr (EPI == EPI_GELU_AUX) {
-            if (ax.aux) ax.aux[o + e] = from_f<bf16>(val);
-          }
-          if constexpr (EPI == EPI_GELU || EPI == EPI_GELU_AUX) val = gelu_tanh(val);
-          if constexpr (EPI == EPI_GATED || EPI == EPI_GATED_AUX) {
-            if constexpr (EPI == EPI_GATED_AUX) ax.aux[o + e] = from_f<bf16>(val);
-            val = to_f(resid[o + e]) + to_f(mod[long(gm / T) * 6 * N + long(gate_idx) * N + gn + e]) * val;
-            if constexpr (EPI == EPI_GATED_AUX) {
-              if (ax.aux2) ax.aux2[o + e] = from_f<bf16>(val);
-            }
-          }
-          out[o + e] = from_f<TOut>(val);
-        }
+        for (int e = 0; e < 8; ++e) out[o + e] = from_f<TOut>(scratch[r * 16 + c0 + e]);
       }
       __syncwarp();
-      if constexpr (EPI == EPI_DGELU) {
-        if (lane < 16) {
-#pragma unroll
-          for (int rr = 0; rr < 16; ++rr) csum[j] += scratch[rr * 16 + lane];
-        }
-        __syncwarp();
-      }
     }
-  }
-  if constexpr (EPI == EPI_DGELU) {
-    // the two warps along m add their 64-row sums, in order
-    float* part = reinterpret_cast<float*>(&bs[0][0]);  // 2 x 128 floats
-    if (lane < 16) {
-      part[wm * GN + wn * 32 + lane] = csum[0];
-      part[wm * GN + wn * 32 + 16 + lane] = csum[1];
-    }
-    __syncthreads();
-    if (threadIdx.x < GN)
-      ax.colsum[long(blockIdx.y) * N + n0 + threadIdx.x] = part[threadIdx.x] + part[GN + threadIdx.x];
   }
 }
 
-template <int EPI, typename TRes, typename TOut, int LAYOUT>
-static void launch_gemm(const bf16* A, const bf16* W, const bf16* bias, TOut* out, int M, int N,
-                        int K, const TRes* resid, const bf16* mod, int gate_idx, int T,
-                        cudaStream_t s, GemmAux ax = GemmAux{nullptr, nullptr, nullptr, nullptr}) {
+template <typename TOut, int LAYOUT>
+static void launch_gemm(const bf16* A, const bf16* W, TOut* out, int M, int N, int K,
+                        cudaStream_t s) {
   dim3 grid(N / GN, (M + GM - 1) / GM);
-  gemm_kernel<EPI, TRes, TOut, LAYOUT><<<grid, G_THREADS, 0, s>>>(A, W, bias, out, M, N, K, resid,
-                                                                  mod, gate_idx, T, ax);
+  gemm_kernel<TOut, LAYOUT><<<grid, G_THREADS, 0, s>>>(A, W, out, M, N, K);
 }
 
 // The NT GEMM on wgmma + TMA (gemm_sm90.cu): out (M, N) = epilogue(A (M, K)
@@ -273,11 +231,20 @@ cudaError_t launch_gemm_nt(int epi, const bf16* A, const bf16* W, const bf16* bi
 template <int EPI, typename TRes, typename TOut>
 cudaError_t launch_gemm_nt(const bf16* A, const bf16* W, const bf16* bias, TOut* out, int M,
                            int N, int K, const TRes* resid, const bf16* mod, int gate_idx, int T,
-                           cudaStream_t s,
-                           GemmAux ax = GemmAux{nullptr, nullptr, nullptr, nullptr}) {
+                           cudaStream_t s, GemmAux ax = GemmAux{nullptr, nullptr}) {
   return launch_gemm_nt(EPI, A, W, bias, out, std::is_same<TOut, float>::value, resid,
                         std::is_same<TRes, float>::value, mod, gate_idx, T, ax.aux, ax.aux2, M,
                         N, K, s);
 }
+
+// The NN and TN GEMMs on wgmma + TMA (gemm_sm90_bwd.cu), K5's MLP
+// backward: out (M, N) = A (M, K) . B (K, N) (LAYOUT_NN) or A (K, M)^T .
+// B (K, N) (LAYOUT_TN), with EPI_STORE into f32, or (NN) EPI_DGELU into bf16
+// with u (M, N), part (ceil(M / 128), N) and aux (M, N) bf16 or null.
+// Anything else, N % 128 != 0, K % 8 != 0 or (TN) M % 8 != 0 returns
+// cudaErrorInvalidValue and launches nothing.
+cudaError_t launch_gemm_bwd(int layout, int epi, const bf16* A, const bf16* B, void* out,
+                            bool out_f32, const bf16* u, float* part, bf16* aux, int M, int N,
+                            int K, cudaStream_t s);
 
 }  // namespace lfm

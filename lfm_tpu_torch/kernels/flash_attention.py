@@ -16,14 +16,15 @@ kernel for Hopper (``csrc/attention_sm90.cuh``: whole-row mode up to T =
 (``csrc/attention_bwd_sm90.cuh``); in f32 they are f32 FMA kernels
 split by shape: f32 K1 and K3 at T <= 256 and D 56-80 (the f32 DiT's
 attention, ``train --precision f32``) are one-pass, register-blocked
-kernels (``csrc/attention_row_f32.cuh``); f32 K4 and f32 K3 past T = 256
-keep a whole key block (K4, at most 512 keys) or a whole row (K3's dq
-kernel) of scores on chip with k and v streamed through a cp.async ring
+kernels (``csrc/attention_row_f32.cuh``); f32 K4, and f32 K1 and K3 past
+T = 256, keep a whole key block (K4, at most 512 keys; K1, whose whole row
+is one block of K4's kernel, at most 1024) or a whole row (K3's dq kernel)
+of scores on chip with k and v streamed through a cp.async ring
 (``csrc/attention_long_f32.cuh``; K3's dk/dv kernel is the row kernels');
-f32 K1 at T <= 64 and D = 128/256 (the origin ADM's attention) is a
-one-pass kernel sized to T (``csrc/attention_wide.cu``), and f32 K1 past
-T = 256 the kernel of ``csrc/attention.cuh``. What bounds each is noted in
-its source.
+f32 K1 at D = 128/256 (the origin ADM's attention) is a one-pass kernel
+sized to T up to 64 (``csrc/attention_wide.cu``) and the kernel of
+``csrc/attention.cuh`` past it. ``f32_k1_route`` states which f32 K1 kernel
+a shape takes. What bounds each is noted in its source.
 
 On a CPU tensor each wrapper computes its plain version; on a CUDA tensor
 it launches its kernel or raises. ``fused_attention_qkv`` is a
@@ -121,6 +122,23 @@ def _small_shape_ok(q: torch.Tensor) -> bool:
     """The JAX package's gate for the whole-sequence kernels."""
     n, t, h, d = q.shape
     return t <= 1024 and (3 * t * h * d * 4 + t * t * 4) < 96 * 1024 * 1024
+
+
+def f32_k1_route(t: int, d: int) -> Tuple[str, int, int]:
+    """The kernel that f32 ``attention_small`` launches at sequence length t
+    and head dim d (``lfm_attention_small``, csrc/attention.cu), with its
+    query rows a CTA and the keys it holds on chip at once: (kernel name,
+    rows, keys)."""
+    if d > 80:  # the origin ADM's heads (attention_wide.cu)
+        if t <= 64:
+            keys = 16 if t <= 16 else 32 if t <= 32 else 64
+            return "attn_short_f32_kernel", 16 if t <= 16 else 32, keys
+        return "attn_small_kernel", 64, 64  # 64-key tiles, two sweeps
+    if t <= 256:  # attention_row_f32.cuh
+        return "attn_row_kernel", 64, 64 if t <= 64 else 128 if t <= 128 else 256
+    if t <= 512:  # attention_long_f32.cuh, K4's instances, one block of T keys
+        return "flash_f32_kernel", 64, 512
+    return "flash_f32_kernel", 32, 1024
 
 
 def _ld(a: torch.Tensor) -> int:

@@ -1,6 +1,7 @@
-"""The NT GEMM of K2, K5's forward and P1-bf16, and its plain version.
+"""The wgmma + TMA GEMM of K2, K5 and P1-bf16 (``csrc/gemm_sm90.cuh``) in its
+three layouts, and their plain versions.
 
-``out (M, N) = epilogue(a (M, K) . w (N, K)^T)``, the products of
+NT, ``out (M, N) = epilogue(a (M, K) . w (N, K)^T)``: the products of
 lfm_tpu/kernels/dit_block.py::_dit_block_kernel (and of K5's `_fwd_kernel`)
 with their epilogues at the same rounding points: the product of bf16
 operands summed in f32, then in f32
@@ -12,13 +13,20 @@ operands summed in f32, then in f32
 - ``gated``      out = f32(resid) + f32(mod[m // tokens, gate * N + n]) * (value + bias)
 - ``gated_aux``  the same, aux = bf16(value + bias) and aux2 = bf16(out)
 
-with a null bias adding nothing and out rounded once to ``out_dtype``. The
-blocks call the kernel from C (``csrc/dit_block.cu``,
-``csrc/dit_block_train.cu``, ``csrc/int8_gemm.cu``); this wrapper gives the
-kernel, ``csrc/gemm_sm90.cuh``, a call of its own for the tests,
-``chip_smoke.py`` and ``tools/bench_block.py``. On a CPU tensor ``gemm``
-computes the plain version; on a CUDA tensor it launches the kernel or
-raises. Its checks do not depend on the device.
+with a null bias adding nothing and out rounded once to ``out_dtype``.
+
+NN, ``a (M, K) . b (K, N)``, and TN, ``a (K, M)^T . b (K, N)``: the four
+products of K5's MLP backward (`_mlp_bwd_kernel`), f32 out (``store``), or
+for NN ``dgelu``: du = value * gelu_tanh'(f32(u)) into bf16, the f32 sums
+of du over each 128-row tile (``part``, summed in the kernel's fixed order)
+and gb = bf16(gelu_tanh(f32(u))) from the same tanh.
+
+The blocks call the kernel from C (``csrc/dit_block.cu``,
+``csrc/dit_block_train.cu``, ``csrc/int8_gemm.cu``); these wrappers give it
+calls of its own for the tests, ``chip_smoke.py`` and
+``tools/bench_block.py``. On a CPU tensor each computes its plain version;
+on a CUDA tensor it launches the kernel or raises. Their checks do not
+depend on the device.
 """
 
 from __future__ import annotations
@@ -29,11 +37,16 @@ import torch
 import torch.nn.functional as F
 
 from lfm_tpu_torch.kernels._build import LaunchCounter, check_rc, load_library
+from lfm_tpu_torch.kernels.dit_block_train import _gelu_tanh, _gelu_tanh_grad
 
 GEMM = LaunchCounter()
 # the C epilogue codes (csrc/gemm.cuh): EPILOGUES[code]
 EPILOGUES = ("bias", "gelu", "gated", "gelu_aux", "gated_aux", "store")
 TILE_N, TILE_K = 128, 64
+TILE_M = 128  # rows of a tile; a "dgelu" part row sums one tile's rows
+LAYOUTS = {"nn": 1, "tn": 2}  # csrc/gemm.cuh's LAYOUT_NN, LAYOUT_TN
+BWD_EPILOGUES = {"store": 5, "dgelu": 6}  # EPI_STORE, EPI_DGELU
+SMS = 132  # streaming multiprocessors of an H100 SXM
 _BF, _F32 = torch.bfloat16, torch.float32
 
 Outputs = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]
@@ -136,3 +149,116 @@ def gemm(a, w, bias=None, *, epilogue: str = "bias", resid=None, mod=None, gate:
     GEMM.count += 1
     return out, aux_out, aux2_out
 
+
+
+def gemm_tile(m: int, n: int, sms: int = SMS) -> Tuple[int, int]:
+    """(tile width, CTAs) of the kernel for an (M, N) output on ``sms`` SMs,
+    in any layout (``tile_n`` and ``launch_bn``, csrc/gemm_sm90.cuh): 256
+    wide unless N % 256 != 0 or 128-wide tiles end the busiest SM's work
+    more than 1/8 sooner; one persistent CTA an SM, at most one a tile."""
+    m_tiles = -(-m // TILE_M)
+    if n % 256:
+        bn = 128
+    else:
+        def span(bn):
+            return -(-(m_tiles * (n // bn)) // sms) * bn
+        bn = 128 if 8 * span(128) < 7 * span(256) else 256
+    return bn, min(m_tiles * (n // bn), sms)
+
+
+def _check_bwd(layout: str, a, b, epilogue: str, u) -> Tuple[int, int, int]:
+    """Raise on what the NN / TN kernel does not take; (M, N, K)."""
+    if layout not in LAYOUTS:
+        _fail(f"layout must be one of {tuple(LAYOUTS)}, got {layout!r}")
+    if epilogue not in BWD_EPILOGUES or (epilogue == "dgelu" and layout != "nn"):
+        _fail(f"{layout} takes epilogue 'store'{' or dgelu' if layout == 'nn' else ''}, "
+              f"got {epilogue!r}")
+    a_dims = "(M, K)" if layout == "nn" else "(K, M)"
+    if a.dim() != 2 or b.dim() != 2 or a.shape[layout == "nn"] != b.shape[0]:
+        _fail(f"a must be {a_dims} and b (K, N), got {tuple(a.shape)} and {tuple(b.shape)}")
+    m, k = a.shape if layout == "nn" else a.shape[::-1]
+    n = b.shape[1]
+    if m < 1 or n % TILE_N or k < 8 or k % 8 or (layout == "tn" and m % 8):
+        _fail(f"the {layout} kernel needs N % {TILE_N} == 0, K % 8 == 0"
+              f"{' and M % 8 == 0' if layout == 'tn' else ''}, got M={m} N={n} K={k}")
+    operands = [("a", a, tuple(a.shape)), ("b", b, (k, n))]
+    if epilogue == "dgelu":
+        if u is None:
+            _fail("dgelu needs u")
+        operands.append(("u", u, (m, n)))
+    elif u is not None:
+        _fail("store takes no u")
+    for name, t, shape in operands:
+        if t.dtype != _BF or tuple(t.shape) != shape or t.device != a.device:
+            _fail(f"{name} must be {_BF} {shape} on {a.device}, got {t.dtype} "
+                  f"{tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            _fail(f"{name} must be contiguous")
+    return m, n, k
+
+
+def dgelu_parts(du: torch.Tensor) -> torch.Tensor:
+    """(ceil(M / 128), N): the f32 sum of du (M, N) over each 128-row tile
+    (plain order)."""
+    m, n = du.shape
+    rows = -(-m // TILE_M) * TILE_M
+    padded = torch.nn.functional.pad(du, (0, 0, 0, rows - m))
+    return padded.view(rows // TILE_M, TILE_M, n).sum(dim=1)
+
+
+def reference_gemm_nn(a, b, *, epilogue: str = "store", u=None):
+    """Plain version of ``gemm_nn``: the f32 product; ``store`` returns it,
+    ``dgelu`` (bf16(du), part, bf16(gelu(u))) with du = value *
+    gelu_tanh'(f32(u)) in f32."""
+    value = a.float() @ b.float()
+    if epilogue != "dgelu":
+        return value
+    gl, t = _gelu_tanh(u.float())
+    du = value * _gelu_tanh_grad(u.float(), t)
+    return du.to(_BF), dgelu_parts(du), gl.to(_BF)
+
+
+def reference_gemm_tn(a, b) -> torch.Tensor:
+    """Plain version of ``gemm_tn``: a^T b of bf16 operands in f32."""
+    return a.float().T @ b.float()
+
+
+def _gemm_bwd(layout: str, a, b, epilogue: str, u):
+    m, n, k = _check_bwd(layout, a, b, epilogue, u)
+    if a.device.type == "cpu":
+        if layout == "tn":
+            return reference_gemm_tn(a, b)
+        return reference_gemm_nn(a, b, epilogue=epilogue, u=u)
+    if a.device.type != "cuda":
+        _fail(f"unsupported device {a.device}")
+    dgelu = epilogue == "dgelu"
+    out = torch.empty((m, n), dtype=_BF if dgelu else _F32, device=a.device)
+    part = torch.empty((-(-m // TILE_M), n), dtype=_F32, device=a.device) if dgelu else None
+    gb = torch.empty((m, n), dtype=_BF, device=a.device) if dgelu else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    rc = load_library().lfm_gemm_bwd(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), ptr(u), ptr(part), ptr(gb), LAYOUTS[layout],
+        BWD_EPILOGUES[epilogue], int(not dgelu), m, n, k,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    check_rc(f"gemm_{layout}", rc)
+    GEMM.count += 1
+    return (out, part, gb) if dgelu else out
+
+
+def gemm_nn(a, b, *, epilogue: str = "store", u=None):
+    """a (M, K) . b (K, N), bf16 and contiguous: ``store`` returns the f32
+    (M, N) product; ``dgelu`` (du, part, gb): du = bf16(value *
+    gelu_tanh'(u)) with u (M, N) bf16, part (ceil(M / 128), N) f32 the sums
+    of the f32 du over each 128-row tile, gb = bf16(gelu_tanh(u)). N % 128
+    == 0, K % 8 == 0."""
+    return _gemm_bwd("nn", a, b, epilogue, u)
+
+
+def gemm_tn(a, b) -> torch.Tensor:
+    """a (K, M)^T . b (K, N) in f32 (M, N), bf16 contiguous operands: a
+    weight gradient summed over K token rows. N % 128 == 0, K % 8 == 0, M %
+    8 == 0."""
+    return _gemm_bwd("tn", a, b, "store", None)

@@ -9,10 +9,13 @@ the one imported; its kernels are built in that checkout):
     PYTHONPATH=<other checkout> python <this checkout>/lfm_tpu_torch/tools/bench_attention.py
 
 Shapes: ``attention_small`` in f32 at (200, 16, 4, 128) (celeb256_adm's
-path, batch 200), (16, 64, 4, 128) and (16, 16, 4, 256), and at the f32
-DiT's heads (8, 256, 16, 64), (32, 256, 16, 64) (DiT-L/2's train step
-with ``--precision f32``) and (8, 256, 16, 72) (DiT-XL/2's head), all on
-the thirds of a fused qkv row as the models call it; in bf16 at (8, 256,
+path, batch 200), (16, 64, 4, 128), (16, 16, 4, 256) and (16, 256, 4,
+128) (the origin ADM's head past T = 64), at the f32 DiT's heads (8, 256,
+16, 64), (32, 256, 16, 64) (DiT-L/2's train step with ``--precision
+f32``) and (8, 256, 16, 72) (DiT-XL/2's head), and past T = 256 at (2,
+1024, 16, 64) (an f32 DiT-L/2 at 512 px), (2, 512, 16, 64), the ragged
+(2, 300, 16, 64) and (2, 1024, 16, 72), all on the thirds of a fused qkv
+row as the models call it; in bf16 at (8, 256,
 16, 72) and (32, 256, 16, 72); ``attention_small_bwd`` in bf16 at (32,
 256, 16, 64) (the DiT-L/2 train step's shape) and (8, 1024, 16, 64), and
 in f32 at the three f32 DiT shapes and past T = 256 at (2, 1024, 16, 64)
@@ -34,7 +37,7 @@ float64 (``rel_err_f64``): the plain version's f32 GEMMs sum in an order
 of their own, so the error against them measures agreement with that
 order as much as accuracy. ``--timing-only`` keeps the event times alone (the repeated
 rounds of an A/B comparison); ``--long-f32`` keeps the f32 rows past T = 256
-(K4, and K3 past T = 256) alone; ``--f64-seeds N`` gives, for those rows
+(K4, and K1 and K3 past T = 256) alone; ``--f64-seeds N`` gives, for those rows
 alone, the kernel's and the plain version's error against float64 on N
 seeded inputs each (seed 0 is the other modes' input), since a tensor's
 largest error is one element's and varies from input to input. Prints one
@@ -52,11 +55,14 @@ import sys
 import torch
 
 F32_DIT = ((8, 256, 16, 64), (32, 256, 16, 64), (8, 256, 16, 72))
-K1_CASES = ([(s, torch.float32) for s in ((200, 16, 4, 128), (16, 64, 4, 128), (16, 16, 4, 256))
-             + F32_DIT] + [(s, torch.bfloat16) for s in ((8, 256, 16, 72), (32, 256, 16, 72))])
-# f32 past T = 256: an f32 DiT-L/2 at 512 px (K3) and at 1024 px (K4), and
-# ragged T; K4 also at the origin ADM's D = 128
+# f32 past T = 256: an f32 DiT-L/2 at 512 px (K1, K3) and at 1024 px (K4),
+# and ragged T; K1 also at T = 512 and DiT-XL/2's head, K4 at the origin
+# ADM's D = 128
+F32_LONG_K1 = ((2, 1024, 16, 64), (2, 512, 16, 64), (2, 300, 16, 64), (2, 1024, 16, 72))
 F32_LONG_K3 = ((2, 1024, 16, 64), (2, 300, 16, 64), (2, 300, 16, 80))
+K1_CASES = ([(s, torch.float32) for s in ((200, 16, 4, 128), (16, 64, 4, 128), (16, 16, 4, 256),
+                                          (16, 256, 4, 128)) + F32_DIT + F32_LONG_K1]
+            + [(s, torch.bfloat16) for s in ((8, 256, 16, 72), (32, 256, 16, 72))])
 F32_LONG_K4 = ((1, 4096, 4, 128), (2, 4096, 16, 64))
 K3_CASES = ([(s, torch.bfloat16) for s in ((32, 256, 16, 64), (8, 1024, 16, 64))]
             + [(s, torch.float32) for s in F32_DIT + F32_LONG_K3])
@@ -227,13 +233,24 @@ def bench_k3(shape, dtype, timing_only: bool):
 
 def f64_errors(seeds: int):
     """The f32 rows past T = 256, seed by seed: the errors of the kernel and
-    of the plain version against float64 (per output for K3)."""
-    from lfm_tpu_torch.kernels.flash_attention import (attention_small_bwd, flash_attention,
+    of the plain version against float64 (per output for K3). K1's inputs
+    are bench_k1's (the thirds of a qkv row)."""
+    from lfm_tpu_torch.kernels.flash_attention import (attention_small, attention_small_bwd,
+                                                       flash_attention, reference_attention,
                                                        reference_attention_bwd,
-                                                       reference_flash_attention)
+                                                       reference_flash_attention, split_qkv)
 
     rows = []
     for seed in range(seeds):
+        for shape in F32_LONG_K1:
+            n, t, h, d = shape
+            qkv = torch.randn(n, t, 3 * h * d, generator=generator(shape, seed), device="cuda")
+            q, k, v = split_qkv(qkv, h)
+            f64 = attention_f64(q, k, v)
+            rows.append({"kernel": "attention_small", "shape": list(shape), "seed": seed,
+                         "rel_err_f64": errors(attention_small(q, k, v), f64)[1],
+                         "plain_rel_err_f64": errors(reference_attention(q, k, v), f64)[1]})
+            del qkv, q, k, v, f64
         for shape in F32_LONG_K4:
             gen = generator(shape, seed)
             q, k, v = (torch.randn(*shape, generator=gen, device="cuda") for _ in range(3))
@@ -265,7 +282,8 @@ def main() -> int:
     if "--f64-seeds" in sys.argv[1:]:
         rows = f64_errors(int(sys.argv[sys.argv.index("--f64-seeds") + 1]))
     elif "--long-f32" in sys.argv[1:]:
-        rows = ([bench_k4(s, torch.float32, timing_only) for s in F32_LONG_K4]
+        rows = ([bench_k1(s, torch.float32, timing_only) for s in F32_LONG_K1]
+                + [bench_k4(s, torch.float32, timing_only) for s in F32_LONG_K4]
                 + [bench_k3(s, torch.float32, timing_only) for s in F32_LONG_K3])
     else:
         rows = ([bench_k1(s, dt, timing_only) for s, dt in K1_CASES]

@@ -49,15 +49,21 @@ CLASSES = (
     ("P1 int8_gemm", ("lfm::sm90::int8_gemm_sm90_kernel", "lfm::int8_gemm_kernel")),
     ("P1 quant_rows", ("lfm::quant_rows_kernel",)),
     # K2's GEMMs run gemm_sm90.cuh's kernel (the P1 probe's bf16_mlp too,
-    # which no sampling path runs)
-    (K2, ("lfm::sm90::gemm_nt_kernel", "lfm::ln_modulate_kernel")),
+    # which no sampling path runs; gemm_nt_kernel in an older checkout's
+    # trace)
+    (K2, ("lfm::sm90::gemm_sm90_kernel", "lfm::sm90::gemm_nt_kernel",
+          "lfm::ln_modulate_kernel")),
     # bf16 K1 and K4 are attention_sm90.cuh's two modes (K1 takes the
     # key-block one only past T = 256, which no shipped preset reaches);
-    # f32 K1 runs attn_row_kernel (D 56-80 at T <= 256), attn_short_f32_kernel
-    # (D 128/256 at T <= 64) or attn_small_kernel (the rest), f32 K4
+    # f32 K1 runs attn_row_kernel (D 56-80 at T <= 256),
+    # long32::flash_f32_kernel past it (its 32-row instances past T = 512
+    # are K1's alone; at 256 < T <= 512 K1 takes K4's instances, classed
+    # K4 below), attn_short_f32_kernel (D 128/256 at T <= 64) or
+    # attn_small_kernel (D 128/256 past T = 64); f32 K4
     # long32::flash_f32_kernel (flash_attn_kernel in an older checkout's trace)
     ("K1 attention_small", ("attn_small_kernel", "attn_short_f32_kernel",
-                            "row32::attn_row_kernel", "sm90::attn_whole_kernel")),
+                            "row32::attn_row_kernel", "sm90::attn_whole_kernel",
+                            "flash_f32_kernel<64, 32, 1024>", "flash_f32_kernel<80, 32, 1024>")),
     ("K4 flash_attention", ("long32::flash_f32_kernel", "flash_attn_kernel",
                             "sm90::attn_blocked_kernel")),
     ("K6 groupnorm_silu", ("gn_silu_kernel",)),

@@ -59,22 +59,24 @@ CONV, MATMUL, OPT = "convolution (cuDNN)", "matmul", "optimizer (foreach)"
 DIT_CLASSES = (MATMUL, K1, K3, K5)
 # kernel name -> class, first match wins: a key is a tuple of lower-case
 # substrings that must all be in the name. K5's forward is this package's
-# NT GEMM (``lfm::sm90::gemm_nt_kernel``) and LayerNorm kernels and its
-# attention that normalises p before
-# rounding it (``lfm::sm90::attn_whole_kernel<64, true>``; K1's is
+# GEMM (``lfm::sm90::gemm_sm90_kernel``; ``gemm_nt_kernel`` in an older
+# checkout's trace) and LayerNorm kernels and its attention that normalises
+# p before rounding it (``lfm::sm90::attn_whole_kernel<64, true>``; K1's is
 # ``false>``; f32 K1 is ``lfm::row32::attn_row_kernel`` at T <= 256 and D
-# 56-80, else ``attn_small_kernel`` or ``attn_short_f32_kernel``); K3 is
+# 56-80, ``lfm::long32::flash_f32_kernel`` past it (f32 K4's kernel, which a
+# train step past the gate also runs), else ``attn_small_kernel`` or
+# ``attn_short_f32_kernel``); K3 is
 # ``lfm::sm90::attn_bwd_dq_kernel`` and ``attn_bwd_dkdv_kernel`` (bf16),
 # ``lfm::row32::attn_row_bwd_dq_kernel`` and ``attn_row_bwd_dkdv_kernel``
 # (f32 at T <= 256), ``lfm::long32::attn_long_bwd_dq_kernel`` and the row
 # kernels' ``attn_row_bwd_dkdv_kernel`` (f32 past it; ``lfm::attn_bwd_*``
 # in an older checkout's trace)
 CLASSES = (
-    (K5, (("lfm::sm90::gemm_nt_kernel",), ("lfm::ln_modulate_kernel",),
-          ("lfm::sm90::attn_", "true>"))),
+    (K5, (("lfm::sm90::gemm_sm90_kernel",), ("lfm::sm90::gemm_nt_kernel",),
+          ("lfm::ln_modulate_kernel",), ("lfm::sm90::attn_", "true>"))),
     (K3, (("attn_bwd",), ("attn_row_bwd",), ("attn_long_bwd",))),
     (K1, (("lfm::sm90::attn_",), ("attn_small_kernel",), ("attn_short_f32_kernel",),
-          ("attn_row_kernel",))),
+          ("attn_row_kernel",), ("flash_f32_kernel",))),
     (CONV, (("cudnn",), ("implicit_gemm",), ("conv",))),
     (MATMUL, (("nvjet",), ("gemm",), ("cutlass",), ("cublas",))),
     (OPT, (("multi_tensor_apply",),)),

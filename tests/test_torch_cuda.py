@@ -275,14 +275,24 @@ def test_attention_row_f32_kernels_match_plain(cuda, shape):
 
 @pytest.mark.parametrize("t,fwd,bwd", [
     (256, "attn_row_kernel", ("attn_row_bwd_dq_kernel", "attn_row_bwd_dkdv_kernel")),
-    (257, "attn_small_kernel", ("attn_long_bwd_dq_kernel", "attn_row_bwd_dkdv_kernel"))])
+    (257, "flash_f32_kernel<64, 64, 512>", ("attn_long_bwd_dq_kernel",
+                                            "attn_row_bwd_dkdv_kernel")),
+    (600, "flash_f32_kernel<64, 32, 1024>", ("attn_long_bwd_dq_kernel",
+                                             "attn_row_bwd_dkdv_kernel"))])
 def test_f32_attention_dispatch_by_length(cuda, t, fwd, bwd):
-    """f32 at D 64: T <= 256 launches attention_row_f32.cuh's kernels; T =
-    257 K1 of attention.cuh and K3's dq kernel of attention_long_f32.cuh
-    with the row kernels' dk/dv kernel (the profiler's kernel names)."""
+    """f32 at D 64: T <= 256 launches attention_row_f32.cuh's kernels; past
+    it K1 launches attention_long_f32.cuh's key-block kernel with its whole
+    row one block (K4's instance up to T = 512, 32 query rows and 1024 keys
+    past it, as f32_k1_route says) and K3 the dq kernel of
+    attention_long_f32.cuh with the row kernels' dk/dv kernel (the
+    profiler's kernel names)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from lfm_tpu_torch.kernels.flash_attention import attention_small, attention_small_bwd
+    from lfm_tpu_torch.kernels.flash_attention import (attention_small, attention_small_bwd,
+                                                       f32_k1_route)
+
+    name, rows, keys = f32_k1_route(t, 64)
+    assert name in fwd and (t <= 256 or fwd.endswith(f"<64, {rows}, {keys}>")), (name, fwd)
 
     q, k, v, do = (torch.randn(1, t, 2, 64, generator=cuda, device="cuda") for _ in range(4))
     attention_small(q, k, v)
@@ -381,6 +391,55 @@ def test_attention_long_f32_builds_without_spills(cuda):
     assert len(k4) == 3 and len(k3) == 4, (sorted(k4), sorted(k3))
     for name, u in {**k4, **k3}.items():
         assert u["spill_stores"] == 0 and u["spill_loads"] == 0 and u["registers"] <= 255, name
+
+
+# f32 K1 past T = 256 (attention_long_f32.cuh, the whole row one key
+# block): K4's 64-row instances up to T = 512, 32 rows and 1024 keys past
+# it; ragged T (a block that ends inside a ring stage), every padded head dim
+@pytest.mark.parametrize("shape", [(2, 300, 2, 64), (1, 257, 3, 72), (2, 512, 2, 56),
+                                   (1, 513, 2, 64), (2, 700, 2, 80), (1, 1024, 3, 64),
+                                   (2, 1024, 2, 72)])
+def test_attention_long_f32_k1_matches_plain(cuda, shape):
+    from lfm_tpu_torch.kernels.flash_attention import (ATTENTION_SMALL, attention_small,
+                                                       reference_attention, split_qkv)
+
+    n, t, h, d = shape
+    q, k, v = (torch.randn(*shape, generator=cuda, device="cuda") for _ in range(3))
+    before = ATTENTION_SMALL.count
+    out = attention_small(q, k, v)
+    torch.cuda.synchronize()
+    assert ATTENTION_SMALL.count == before + 1
+    assert out.dtype == torch.float32 and out.shape == shape
+    assert _rel(out, reference_attention(q, k, v)) <= 1e-4
+    # the thirds of a fused qkv row, read in place, and a rerun's bits
+    qq, kk, vv = split_qkv(torch.randn(n, t, 3 * h * d, generator=cuda, device="cuda"), h)
+    first = attention_small(qq, kk, vv).clone()
+    assert _rel(first, reference_attention(qq, kk, vv)) <= 1e-4
+    assert torch.equal(first, attention_small(qq, kk, vv))
+
+
+def test_attention_long_f32_k1_builds_without_spills(cuda):
+    """ptxas's report of f32 K1's own instances of attention_long_f32.cuh's
+    key-block kernel (32 query rows, 1024 keys; DP 64, 80), none spills; and
+    no DP 64 or 80 instance of attention.cuh's f32 kernel is built (only the
+    origin ADM's DP 128 and 256, through attention_wide.cu)."""
+    import re
+
+    from lfm_tpu_torch.kernels import _build
+
+    _build.load_library()
+    k1 = {k: v for k, v in _build.ptxas_usage("attention_long_f32").items()
+          if "flash_f32_kernel" in k}
+    args = sorted(m.groups() for k in k1
+                  for m in [re.search(r"flash_f32_kernelILi(\d+)ELi(\d+)ELi(\d+)E", k)] if m)
+    assert args == [("64", "32", "1024"), ("80", "32", "1024")] and len(k1) == 2, sorted(k1)
+    for name, u in k1.items():
+        assert u["spill_stores"] == 0 and u["spill_loads"] == 0 and u["registers"] <= 255, name
+    small = [int(m.group(1)) for stem in ("attention", "attention_wide", "attention_long_f32",
+                                          "flash_attention_f32")
+             for k in _build.ptxas_usage(stem)
+             for m in [re.search(r"17attn_small_kernelILi(\d+)E", k)] if m]
+    assert sorted(small) == [128, 256], small
 
 
 def test_small_f32_dit_grads_through_kernels_match_plain(cuda):
@@ -670,13 +729,13 @@ def test_sm90_gemm_refuses_what_it_does_not_take(cuda):
 def test_sm90_gemm_builds_without_spills(cuda):
     """ptxas's report of the NT GEMM: its 8 instances (4 epilogue kinds x 2
     tile widths) built, none spills; and no NT instance of the WMMA
-    gemm_kernel is left (K5's backward keeps NN and TN ones)."""
+    gemm_kernel is left (K5's attention backward keeps NN and TN ones)."""
     import re
 
     from lfm_tpu_torch.kernels import _build
 
     _build.load_library()
-    usage = {k: v for k, v in _build.ptxas_usage("gemm_sm90").items() if "gemm_nt_kernel" in k}
+    usage = {k: v for k, v in _build.ptxas_usage("gemm_sm90").items() if "gemm_sm90_kernel" in k}
     assert len(usage) == 8
     for name, u in usage.items():
         assert u["spill_stores"] == 0 and u["spill_loads"] == 0 and u["registers"] <= 255, name
@@ -685,6 +744,118 @@ def test_sm90_gemm_builds_without_spills(cuda):
                for stem in ("dit_block", "dit_block_train", "int8_gemm")}
     assert layouts["dit_block"] == [] and layouts["int8_gemm"] == []
     assert layouts["dit_block_train"] and set(layouts["dit_block_train"]) <= {1, 2}
+
+
+# the NN and TN layouts of gemm_sm90.cuh through their own wrappers: (layout,
+# epilogue, M, K, N). M = 300 and K = 200 end inside a tile and a k step (K
+# zero-filled by TMA); N = 384 and 1152 take 128-wide tiles; K5 mlp's four
+# GEMMs at N = 8 (M = 2048 token rows, C 1024, hidden 4096)
+GEMM_BWD_CASES = [
+    ("nn", "store", 300, 256, 384), ("nn", "store", 2048, 4096, 1024),
+    ("nn", "dgelu", 300, 200, 512), ("nn", "dgelu", 2048, 1024, 4096),
+    ("nn", "dgelu", 256, 384, 1152),
+    ("tn", "store", 1024, 2048, 4096), ("tn", "store", 4096, 2048, 1024),
+    ("tn", "store", 384, 200, 1152), ("tn", "store", 136, 96, 256),
+]
+
+
+@pytest.mark.parametrize("layout,epilogue,m,k,n", GEMM_BWD_CASES)
+def test_sm90_gemm_nn_tn_match_plain(cuda, layout, epilogue, m, k, n):
+    """The NN and TN GEMMs against their plain versions: an f32 output
+    within 1e-4 of its largest plain value and dgelu's column sums within
+    1e-4 of their largest (f32 sums in another order), du and gb within one
+    bf16 ulp of their largest; a rerun gives the same bits (fixed-order
+    sums)."""
+    from lfm_tpu_torch.kernels.gemm import (GEMM, gemm_nn, gemm_tn, reference_gemm_nn,
+                                            reference_gemm_tn)
+
+    def rn(*s, scale=1.0):
+        return (scale * torch.randn(*s, generator=cuda, device="cuda")).bfloat16()
+
+    a = rn(m, k) if layout == "nn" else rn(k, m)
+    b = rn(k, n, scale=k ** -0.5)
+    u = rn(m, n) if epilogue == "dgelu" else None
+    before = GEMM.count
+    if layout == "nn":
+        got, again = (gemm_nn(a, b, epilogue=epilogue, u=u) for _ in range(2))
+        want = reference_gemm_nn(a, b, epilogue=epilogue, u=u)
+    else:
+        got, again = gemm_tn(a, b), gemm_tn(a, b)
+        want = reference_gemm_tn(a, b)
+    torch.cuda.synchronize()
+    assert GEMM.count == before + 2
+    got, again, want = ((x,) if torch.is_tensor(x) else x for x in (got, again, want))
+    for g, g2, w in zip(got, again, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, g2)
+        err, top = float((g.float() - w.float()).abs().max()), float(w.float().abs().max())
+        assert top > 0 and err <= (1e-4 if g.dtype == torch.float32 else 2.0 ** -7) * top, \
+            (err, top)
+
+
+def test_sm90_gemm_nn_tn_refuse_what_they_do_not_take(cuda):
+    """The wrappers' refusals on the card, and the C entry's own below them
+    (a TN M not a multiple of 8, dgelu into f32)."""
+    from lfm_tpu_torch.kernels import _build
+    from lfm_tpu_torch.kernels.gemm import gemm_nn, gemm_tn
+
+    a = torch.zeros(64, 128, device="cuda", dtype=torch.bfloat16)
+    b = torch.zeros(128, 256, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="N % 128"):
+        gemm_nn(a, b[:, :192].contiguous())
+    with pytest.raises(ValueError, match="K % 8"):
+        gemm_nn(a[:, :100].contiguous(), b[:100].contiguous())
+    with pytest.raises(ValueError, match="dgelu needs u"):
+        gemm_nn(a, b, epilogue="dgelu")
+    with pytest.raises(ValueError, match="M % 8"):
+        gemm_tn(b[:, :100].contiguous(), b)
+    out = torch.empty(64, 256, device="cuda")
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    assert lib.lfm_gemm_bwd(b.data_ptr(), b.data_ptr(), out.data_ptr(), None, None, None, 2, 5,
+                            1, 100, 256, 128, stream) != 0  # TN, M = 100
+    assert lib.lfm_gemm_bwd(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.data_ptr(),
+                            out.data_ptr(), None, 1, 6, 1, 64, 256, 128, stream) != 0  # to f32
+
+
+@pytest.mark.parametrize("layout,m,n", [("nn", 8192, 4096), ("tn", 1024, 4096),
+                                        ("nn", 512, 1152), ("tn", 1152, 4608)])
+def test_sm90_gemm_nn_tn_launch_the_tile_the_wrapper_names(cuda, layout, m, n):
+    """launch_gemm_bwd's tile width (the kernel's third template argument in
+    the profiler's name) and grid are gemm_tile's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lfm_tpu_torch.kernels.gemm import gemm_nn, gemm_tile, gemm_tn
+
+    k = 64
+    a = torch.zeros((m, k) if layout == "nn" else (k, m), device="cuda", dtype=torch.bfloat16)
+    b = torch.zeros(k, n, device="cuda", dtype=torch.bfloat16)
+    run = (lambda: gemm_nn(a, b)) if layout == "nn" else (lambda: gemm_tn(a, b))
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and "gemm_sm90_kernel" in e.name]
+    bn, _ = gemm_tile(m, n)
+    lay = 1 if layout == "nn" else 2
+    assert len(events) == 1 and f"gemm_sm90_kernel<{lay}, 0, {bn}, " in events[0].name, \
+        [e.name for e in events]
+
+
+def test_sm90_gemm_bwd_builds_without_spills(cuda):
+    """ptxas's report of the NN and TN GEMMs (gemm_sm90_bwd.cu): 6 instances
+    (NN dgelu into bf16, NN and TN store into f32, x 2 tile widths), none
+    spills."""
+    from lfm_tpu_torch.kernels import _build
+
+    _build.load_library()
+    usage = {k: v for k, v in _build.ptxas_usage("gemm_sm90_bwd").items()
+             if "gemm_sm90_kernel" in k}
+    assert len(usage) == 6, sorted(usage)
+    for name, u in usage.items():
+        assert u["spill_stores"] == 0 and u["spill_loads"] == 0 and u["registers"] <= 255, name
 
 
 @pytest.mark.parametrize("mode", ["full", "slim"])
@@ -736,6 +907,30 @@ def test_block_train_bwd_kernels_match_plain(cuda, n, t, c, heads):
     for name, g, w in zip(("dx", "dmod", "dwqkv", "dbqkv", "dwproj", "dbproj"), got, want):
         assert g.dtype == w.dtype and g.shape == w.shape, name
         assert _within(g, w, dx1 if name == "dx" else None), (name, _rel(g, w))
+
+
+def test_mlp_bwd_is_deterministic(cuda):
+    """K5 mlp at N = 8, DiT-L/2's block: two calls on the same inputs give the
+    same bits in all six outputs (fixed-order sums, no atomics), and its path
+    launches no WMMA GEMM (mma.sync)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lfm_tpu_torch.kernels.dit_block_train import block_train_fwd, mlp_bwd
+
+    args = _block_args(cuda, 8, 256, 1024)
+    _, x1, h2, pr, qkv, ao, u = block_train_fwd(**args, num_heads=16)
+    dy = torch.randn(8, 256, 1024, generator=cuda, device="cuda").bfloat16()
+    margs = (x1, args["mod"], h2, u, args["w1"], args["w2"], dy)
+    first = [g.clone() for g in mlp_bwd(*margs)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = mlp_bwd(*margs)
+        torch.cuda.synchronize()
+    for name, g, g2 in zip(("dx1", "dmod", "dw1", "db1", "dw2", "db2"), first, again):
+        assert torch.equal(g, g2), name
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("gemm_sm90_kernel" in name for name in names) == 4, names
+    assert not [name for name in names if "lfm::gemm_kernel" in name], names
 
 
 @pytest.mark.parametrize("mode", [dict(), dict(pallas_bwd=True), dict(save_streams="slim")])

@@ -3,8 +3,10 @@ on the demangled names the card's traces show: the wgmma attention of
 attention_sm90.cuh serves K1 (whole-row mode), K4 (key blocks) and, with
 p / l rounded (``true>``), the attention inside K2 and K5's forward; K3 is
 attention_bwd_sm90.cuh's two kernels; the f32 FMA kernels keep their names
-(f32 K4 is ``long32::flash_f32_kernel``, f32 K3's dq kernel past T = 256
-``long32::attn_long_bwd_dq_kernel``), and the origin ADM's short f32 K1 is
+(f32 K4 is ``long32::flash_f32_kernel``, which f32 K1 also runs past T =
+256, its instances of 32 query rows past T = 512 K1's alone; f32 K3's dq
+kernel past T = 256 ``long32::attn_long_bwd_dq_kernel``), the GEMM of K2
+and K5 ``sm90::gemm_sm90_kernel``, and the origin ADM's short f32 K1 is
 ``attn_short_f32_kernel``. Pure string
 functions: no card needed.
 """
@@ -66,23 +68,34 @@ def test_f32_kernels_keep_their_sampling_classes():
         == "K1 attention_small"
     for dp in (64, 80, 128):
         assert profile_sample.classify(
-            f"void lfm::long32::flash_f32_kernel<{dp}>(float const*, float const*, "
+            f"void lfm::long32::flash_f32_kernel<{dp}, 64, 512>(float const*, float const*, "
             "float const*, float*, int, int, int, long, long, long, long, float)") \
             == "K4 flash_attention"
+    # f32 K1 past T = 512 takes its own 32-row instances of the same kernel
+    for dp in (64, 80):
+        name = (f"void lfm::long32::flash_f32_kernel<{dp}, 32, 1024>(float const*, float const*, "
+                "float const*, float*, int, int, int, long, long, long, long, float)")
+        assert profile_sample.classify(name) == "K1 attention_small"
+        assert profile_train._classify(name) == profile_train.K1
 
 
-GEMM = "void lfm::sm90::gemm_nt_kernel<{}, {}, {}, {}>(CUtensorMap_st, CUtensorMap_st, " \
-       "lfm::sm90::GemmArgs)"
+GEMM = "void lfm::sm90::gemm_sm90_kernel<0, {}, {}, {}, {}>(CUtensorMap_st, CUtensorMap_st, " \
+       "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, lfm::sm90::GemmArgs)"
+# the NT GEMM's name in an older checkout's trace
+GEMM_NT = "void lfm::sm90::gemm_nt_kernel<{}, {}, {}, {}>(CUtensorMap_st, CUtensorMap_st, " \
+          "lfm::sm90::GemmArgs)"
 
 
-@pytest.mark.parametrize("kind,bn,tres,tout", [
-    (0, 256, "__nv_bfloat16", "__nv_bfloat16"), (1, 128, "__nv_bfloat16", "__nv_bfloat16"),
-    (2, 256, "__nv_bfloat16", "float"), (2, 128, "float", "__nv_bfloat16"),
+@pytest.mark.parametrize("kind,bn,tres,tout,form", [
+    (0, 256, "__nv_bfloat16", "__nv_bfloat16", GEMM),
+    (1, 128, "__nv_bfloat16", "__nv_bfloat16", GEMM),
+    (2, 256, "__nv_bfloat16", "float", GEMM), (2, 128, "float", "__nv_bfloat16", GEMM),
+    (0, 256, "__nv_bfloat16", "__nv_bfloat16", GEMM_NT),
 ])
-def test_profiles_count_the_nt_gemm_in_its_block(kind, bn, tres, tout):
-    """gemm_sm90.cuh's GEMM is K2's in a sampling trace and K5's forward's
-    in a fused training trace, not a library matmul."""
-    name = GEMM.format(kind, bn, tres, tout)
+def test_profiles_count_the_nt_gemm_in_its_block(kind, bn, tres, tout, form):
+    """gemm_sm90.cuh's NT GEMM is K2's in a sampling trace and K5's
+    forward's in a fused training trace, not a library matmul."""
+    name = form.format(kind, bn, tres, tout)
     assert profile_sample.classify(name) == "K2 fused_dit_block"
     assert profile_train._classify(name) == profile_train.K5
 
