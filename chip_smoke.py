@@ -21,8 +21,11 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
      block) at (2, 1024, 16, 64) (an f32 DiT-L/2 at 512 px, the long_f32
      path's shape), (2, 512, 16, 64), (2, 300, 16, 64) and (2, 1024, 16,
      72), and at the origin ADM's heads, (N, 16, 4, 128) (celeb256_adm's
-     path), (16, 64, 4, 128), (16, 16, 4, 256) and (16, 256, 4, 128)
-     (attention.cuh's kernel); library: scaled_dot_product_attention;
+     path), (16, 64, 4, 128), (16, 16, 4, 256), and past T = 64 (the
+     key-block kernel of attention_long_f32.cuh, the whole row one block)
+     at (16, 256, 4, 128) and (16, 1024, 4, 128) (the adm512_attn path's
+     shapes), (16, 256, 4, 256) and (16, 1024, 4, 256); library:
+     scaled_dot_product_attention;
    - fused_dit_block (K2) at T=256, C=1024, hidden 4096, 16 heads, N=8 and
      N, every weight non-zero; library: the same block composed of cuBLAS
      bf16 matmuls and scaled_dot_product_attention;
@@ -68,20 +71,21 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    attention_bwd_sm90.cuh; f32 K1 at the origin ADM's T <= 64, the one-pass
    kernel of attention_wide.cu; f32 K1 and K3 at the DiT's heads and T <=
    256, the one-pass kernels of attention_row_f32.cuh; f32 K4, K1 and K3
-   past T = 256, the key-block and whole-row kernels of
-   attention_long_f32.cuh; beside them f32 K1 at the ADM's D = 128 past T
-   = 64, attention.cuh's) with its ms, share of its bound, ratio to SDPA
-   and output digest, and the registers and spills of each of the 12
-   wgmma kernel instances, the 14 instances of attention_row_f32.cuh and
-   the 9 of attention_long_f32.cuh from the build's ptxas report; a spill
-   fails the run. And one gemm_redesign line: each NT GEMM of K2 at N and
-   of K5's forward at the train batch, and each NN and TN GEMM of K5's MLP
-   backward at the train batch, alone (the persistent wgmma + TMA GEMM of
-   gemm_sm90.cuh, through kernels/gemm.py; tools/bench_block.py's
-   gemm_rows and mlp_gemm_rows) with its ms, TFLOP/s, share of its bound,
-   tile width (and, for the MLP backward's, CTAs and splits of K) and
-   torch.matmul's time for the same product, and the registers and spills
-   of its 14 instances; a spill fails the run. And one int8_redesign line: P1's int8 GEMM alone at the
+   past T = 256, and f32 K1 at the ADM's D = 128/256 past T = 64, the
+   key-block and whole-row kernels of attention_long_f32.cuh) with its ms,
+   share of its bound, ratio to SDPA and output digest, and the registers
+   and spills of each of the 12 wgmma kernel instances, the 14 instances
+   of attention_row_f32.cuh, the 11 of attention_long_f32.cuh and the 6 of
+   attention_wide.cu's one-pass kernel from the build's ptxas report; a
+   spill fails the run. And one gemm_redesign line: each NT GEMM of K2 at
+   N and of K5's forward at the train batch, and each NN and TN GEMM of
+   K5's MLP and attention backward at the train batch, alone (the
+   persistent wgmma + TMA GEMM of gemm_sm90.cuh, through kernels/gemm.py;
+   tools/bench_block.py's gemm_rows, mlp_gemm_rows and attn_gemm_rows) with
+   its ms, TFLOP/s, share of its bound, tile width (and, for the
+   backward's, CTAs and splits of K) and torch.matmul's time for the same
+   product, and the registers and spills of its 16 instances; a spill
+   fails the run. And one int8_redesign line: P1's int8 GEMM alone at the
    int8 path's four products (M = 51200) and the probe step's two
    (tools/bench_int8.py's gemm_rows) with its ms, TOP/s, share of its
    bound, tile width and schedule, int8_dense's and torch._int_mm's times
@@ -125,6 +129,17 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
 7. adm_fused_gn: the same weights with use_fused_gn, euler at 4 steps;
    groupnorm_silu must launch (ResBlocks) x 4 times, and the velocity at
    one (t, x) must agree with the unfused model's.
+7b. adm512_attn: ``make_sampler`` on the celeb512_adm preset (the origin
+   ADM at full width: nf 256, ch_mult 1 2 2 2 4, 2 ResBlocks per level, 4
+   heads, bf16 with its f32 attention) with attention at ds 2, 4, 8 and 16
+   (guided-diffusion's habit of attending at 32x32 and 16x16: an
+   attn_resolutions override), seeded non-zero weights, the preset's batch
+   (16), euler at 2 steps, VAE decode to (16, 512, 512, 3); f32
+   attention_small must launch (attention layers) x NFE times and nothing
+   else, at D = 128 past T = 64 (T = 1024 and 256) through
+   attention_long_f32.cuh's key-block kernel, both counts from
+   ``build_unet_plan``; the velocity at one (t, x) must agree with the
+   same model's with plain attention within VEL_TOL.
 8. long_t: ``make_sampler`` on celeb256_dit at image_size 1024 (DiT-L/2 at
    full width and depth, T = 4096 tokens, past the fused block's gate),
    euler at 2 steps, batch 2, VAE decode to 1024^2; flash_attention must
@@ -171,8 +186,10 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    adm_main's launches; f32 K1 and K3 at the f32 DiT's (32, 256, 16, 64)
    as attention_small_f32_dit and attention_small_bwd_f32, with
    train_f32's; f32 K1 at (2, 1024, 16, 64) as attention_small_f32_long,
-   with long_f32's), each with its source files, then the card's name and
-   power limit, then the last line ``{"ok": true, "device": {...}}``.
+   with long_f32's; f32 K1 at (16, 1024, 4, 128) as
+   attention_small_f32_wide, with adm512_attn's), each with its source
+   files, then the card's name and power limit, then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Every path resets all launch counts just before it runs and reads them
 just after.
@@ -296,6 +313,9 @@ TRAIN_F32_STEPS = 6  # timed steps of train_f32, after its first
 ADM_FUSED_STEPS = 4  # euler steps of the adm_fused_gn path
 LONG_T_SIZE = 1024  # image size of the long_t path: T = (1024 / 8 / 2)^2 = 4096
 LONG_F32_SIZE = 512  # image size of the long_f32 path: T = (512 / 8 / 2)^2 = 1024
+# adm512_attn's attention: at ds 2, 4, 8, 16 of celeb512_adm's 64^2 latent, T
+# = 1024, 256 (D 128), 64 (D 128), 16 (D 256)
+ADM512_ATTN = (2, 4, 8, 16)
 
 
 def emit(obj) -> None:
@@ -551,11 +571,13 @@ def run(torch, work: str) -> int:
     # long_f32 path's shape), T = 512, ragged T (300) and DiT-XL/2's head
     f32_long = [(2, 1024, 16, 64)]
     f32_long_k1 = f32_long + [(2, 512, 16, 64), (2, 300, 16, 64), (2, 1024, 16, 72)]
-    # then the origin ADM's heads (celeb256_adm's path first), and D = 128
-    # past T = 64 (attention.cuh's kernel, a model override)
+    # then the origin ADM's heads (celeb256_adm's path first), and D =
+    # 128/256 past T = 64 (the key-block kernel with its whole row one
+    # block; adm512_attn's shapes first)
+    f32_wide = [(16, 256, 4, 128), (16, 1024, 4, 128), (16, 256, 4, 256), (16, 1024, 4, 256)]
     k1_f32 = [c + (f32,) for c in f32_dit + f32_long_k1] + [
-        (batch, 16, 4, 128, f32), (16, 64, 4, 128, f32), (16, 16, 4, 256, f32),
-        (16, 256, 4, 128, f32)]
+        (batch, 16, 4, 128, f32), (16, 64, 4, 128, f32), (16, 16, 4, 256, f32)] + [
+        c + (f32,) for c in f32_wide]
     # and K2's layout: q, k, v as the thirds of one (N, T, 3C) qkv row
     k1_qkv = [(batch, 256, 16, 64, bf)]
     for n, t, h, d, dt, layout in ([c + ("separate",) for c in k1_cases + k1_f32]
@@ -685,17 +707,16 @@ def run(torch, work: str) -> int:
     # the redesigned attention kernels: the wgmma + TMA forward (bf16 K1 and
     # K4) and backward (bf16 K3), the one-pass f32 K1 at the origin ADM's
     # short sequences, the one-pass f32 K1 and K3 at the DiT's heads, and f32
-    # K4, K1 and K3 past T = 256 (attention.cuh's f32 kernel, at the origin
-    # ADM's D = 128 past T = 64, is listed beside them, not redesigned);
-    # time against bound and SDPA at every shape above, and ptxas's
-    # registers and spills of each instance
+    # K4, K1 and K3 past T = 256 and f32 K1 at the origin ADM's D = 128/256
+    # past T = 64 (the key-block kernel); time against bound and SDPA at
+    # every shape above, and ptxas's registers and spills of each instance
     csrc = "lfm_tpu_torch/kernels/csrc/"
 
     def f32_dit_row(r):
         return r["dtype"] == str(f32) and r["shape"][1] <= 256 and r["shape"][3] <= 80
 
     def f32_long_row(r):
-        return r["dtype"] == str(f32) and r["shape"][1] > 256
+        return r["dtype"] == str(f32) and r["shape"][1] > (64 if r["shape"][3] >= 128 else 256)
 
     redesign = [{"kernel": name, "source": csrc + src, "shape": r["shape"], "dtype": r["dtype"],
                  "layout": r.get("layout", "separate"), "ms": r["ms"], "bound_ms": r["bound_ms"],
@@ -709,9 +730,6 @@ def run(torch, work: str) -> int:
                      and r["shape"][3] >= 128),
                     ("attention_small", "attention_row_f32.cuh", k1_rows, f32_dit_row),
                     ("attention_small", "attention_long_f32.cuh", k1_rows, f32_long_row),
-                    ("attention_small", "attention.cuh", k1_rows,
-                     lambda r: r["dtype"] == str(f32) and r["shape"][1] > 64
-                     and r["shape"][3] >= 128),
                     ("attention_small_bwd", "attention_bwd_sm90.cuh", k3_rows,
                      lambda r: r["dtype"] == str(bf)),
                     ("attention_small_bwd", "attention_row_f32.cuh", k3_rows, f32_dit_row),
@@ -729,6 +747,8 @@ def run(torch, work: str) -> int:
                           ("attention_bwd_row_f32",
                            r"row32\d+(attn_row_bwd_\w+_kernel)ILi(\d+)E(?:Li(\d+)E)?"),
                           ("flash_attention_f32", flash), ("attention_long_f32", flash),
+                          ("attention_wide", flash),
+                          ("attention_wide", r"(attn_short_f32_kernel)ILi(\d+)ELi(\d+)ELi(\d+)E"),
                           ("attention_bwd_long_f32",
                            r"long32\d+(attn_long_bwd_dq_kernel)ILi(\d+)ELi(\d+)E")):
         for mangled, use in _build.ptxas_usage(stem).items():
@@ -743,10 +763,11 @@ def run(torch, work: str) -> int:
     # of K3 (2 kernels x 2 padded head dims); f32 one-pass: 6 of K1 (2
     # padded head dims x TK 64, 128, 256), 6 of K3's dq kernel, 2 of its
     # dk/dv kernel; attention_long_f32.cuh: 3 of K4 (DP 64, 80, 128; f32 K1
-    # takes those at DP 64, 80 up to T = 512), 2 of f32 K1 past T = 512 (DP
-    # 64, 80 x 32 query rows, 1024 keys), 4 of K3's dq kernel past T = 256
-    # (2 padded head dims x TK 512, 1024)
-    if len(ptxas) != 35 or spilled:
+    # takes those up to T = 512), 4 of f32 K1's own (DP 64, 80 past T = 512,
+    # DP 128 past it and DP 256 past T = 64: 32 query rows, 1024 keys), 4 of
+    # K3's dq kernel past T = 256 (2 padded head dims x TK 512, 1024); 6 of
+    # attention_wide.cu's one-pass f32 K1 at T <= 64 (DP 128, 256 x 3 sizes)
+    if len(ptxas) != 43 or spilled:
         raise AssertionError(f"attention: {len(ptxas)} kernel instances, spills {spilled}")
 
     for n, hh, ww, c, dt, offset in ((batch, 32, 32, 256, bf, 0.0), (batch, 32, 32, 768, bf, 0.0),
@@ -870,14 +891,15 @@ def run(torch, work: str) -> int:
 
     # the redesigned GEMM (gemm_sm90.cuh): each NT GEMM of K2 at the sampling
     # batch and of K5's forward at the train batch, and each NN / TN GEMM of
-    # K5's MLP backward at the train batch, alone, against its bound and
-    # torch.matmul of the same product; ptxas's registers and spills of its
-    # 8 NT and 6 NN / TN instances
-    from lfm_tpu_torch.tools.bench_block import gemm_rows, mlp_gemm_rows
+    # K5's MLP and attention backward at the train batch, alone, against its
+    # bound and torch.matmul of the same product; ptxas's registers and
+    # spills of its 8 NT and 8 NN / TN instances
+    from lfm_tpu_torch.tools.bench_block import attn_gemm_rows, gemm_rows, mlp_gemm_rows
 
     gemms = {"fused_dit_block": gemm_rows(batch, False, reps=10),
              "dit_block_train_fwd": gemm_rows(train_batch, True, reps=10),
-             "dit_block_train_mlp_bwd": mlp_gemm_rows(train_batch, reps=10)}
+             "dit_block_train_mlp_bwd": mlp_gemm_rows(train_batch, reps=10),
+             "dit_block_train_attn_bwd": attn_gemm_rows(train_batch, reps=10)}
     gemm_ptxas = {re.sub(r"^_ZN3lfm4sm9016gemm_sm90_kernelI(.*)EEv.*$", r"gemm_sm90_kernel<\1>",
                          k): u
                   for stem in ("gemm_sm90", "gemm_sm90_bwd")
@@ -886,8 +908,9 @@ def run(torch, work: str) -> int:
           "ptxas": gemm_ptxas})
     spilled = {k: u for k, u in gemm_ptxas.items()
                if u.get("spill_stores") or u.get("spill_loads")}
-    # NT: 4 epilogue kinds x 2 tile widths; NN dgelu, NN and TN store x 2
-    if len(gemm_ptxas) != 14 or spilled:
+    # NT: 4 epilogue kinds x 2 tile widths; NN dgelu, NN store into f32 and
+    # bf16, TN store x 2
+    if len(gemm_ptxas) != 16 or spilled:
         raise AssertionError(f"wgmma GEMM: {len(gemm_ptxas)} kernel instances, spills {spilled}")
 
     # make_fused_block_train against autograd through reference_block, each
@@ -1297,6 +1320,61 @@ def run(torch, work: str) -> int:
     del adm, adm_fused, asampler, fsampler, ares, fres, aimg, anoise, v_fgn, v_plain
     torch.cuda.empty_cache()
 
+    # 7b. adm512_attn: celeb512_adm attending at ds 2, 4, 8 and 16, f32 K1
+    # at D = 128/256 past T = 64 through the key-block kernel
+    t_a5 = time.time()
+    a5config = get_preset("celeb512_adm")
+    a5config = dataclasses.replace(
+        a5config, model=dataclasses.replace(a5config.model, attn_resolutions=ADM512_ATTN),
+        sample=dataclasses.replace(a5config.sample, method="euler", num_steps=2))
+    a5m = a5config.model
+    a5_models = {}
+    for use_flash in (True, False):  # the kernels, and plain attention
+        a5_models[use_flash] = create_network(a5m, dtype=bf, use_flash=use_flash, device=dev)
+    seeded_init_(a5_models[True], SEED)
+    a5_models[False].load_state_dict(a5_models[True].state_dict())
+    a5_attn = [spec for spec in plan_layers(a5_models[True].plan) if spec.kind == "attn"]
+    a5_batch = a5config.sample.batch_size
+    a5noise, a5y = noise_and_labels(a5config, SampleRNG(a5config.sample.seed), range(a5_batch),
+                                    device=dev)
+    a5sampler = make_sampler(a5config, a5_models[True], None, vae, None, device=dev)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    a5res = a5sampler(a5noise, a5y)
+    torch.cuda.synchronize()
+    a5secs = time.time() - t0
+    a5_counts = counts()
+    a5_dtypes = dict(ATTENTION_SMALL.by_dtype)
+    a5_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    a5img = a5res.images
+    with torch.no_grad():
+        tt = torch.full((a5_batch,), 0.5, device=dev)
+        v_a5, v_a5_plain = (a5_models[k](tt, a5noise) for k in (True, False))
+    a5_err = float((v_a5 - v_a5_plain).abs().max()) / float(v_a5_plain.abs().max())
+    emit({"phase": "adm512_attn", "preset": "celeb512_adm", "attn_resolutions": ADM512_ATTN,
+          "seconds": a5secs, "method": "euler", "nfe": a5res.nfe, "images": list(a5img.shape),
+          "params": sum(p.numel() for p in a5_models[True].parameters()),
+          "attention_layers": len(a5_attn), "launches": a5_counts,
+          "launches_by_dtype": a5_dtypes, "peak_gib": a5_peak,
+          "velocity_rel_err_vs_plain_attention": a5_err, "velocity_tol": VEL_TOL,
+          "image_mean": float(a5img.float().mean()), "phase_seconds": time.time() - t_a5})
+    size = a5m.image_size
+    if tuple(a5img.shape) != (a5_batch, size, size, 3) or not bool(torch.isfinite(a5img).all()):
+        raise AssertionError(f"adm512_attn images {tuple(a5img.shape)} are not finite or "
+                             "mis-shaped")
+    k1_a5 = len(a5_attn) * a5res.nfe
+    if ({k: v for k, v in a5_counts.items() if v} != {"attention_small": k1_a5}
+            or a5_dtypes != {"float32": k1_a5}):
+        raise AssertionError(f"adm512_attn: launches {a5_counts} by dtype {a5_dtypes}, expected "
+                             f"{k1_a5} f32 attention_small ({len(a5_attn)} layers x NFE "
+                             f"{a5res.nfe})")
+    if not a5_err <= VEL_TOL:
+        raise AssertionError(f"adm512_attn: velocity {a5_err} off plain attention's > {VEL_TOL}")
+    del a5_models, a5sampler, a5res, a5img, a5noise, v_a5, v_a5_plain
+    torch.cuda.empty_cache()
+
     # 8. long_t: DiT-L/2 at 1024 px (T = 4096), module path through K4
     t_long = time.time()
     lconfig = dataclasses.replace(
@@ -1586,7 +1664,8 @@ def run(torch, work: str) -> int:
     # 11. the kernels line, the card, the last line
     by_path = {"main_fused": fused_counts, "main_module": module_counts,
                "int8_main": int8_counts, "p1_probe": probe_counts, "adm_main": adm_counts,
-               "adm_fused_gn": fgn_counts, "long_t": long_counts, "long_f32": lf_counts,
+               "adm_fused_gn": fgn_counts, "adm512_attn": a5_counts, "long_t": long_counts,
+               "long_f32": lf_counts,
                "train": train_counts,
                "train_fused": tf_counts, "train_f32": f32_counts, **block_counts}
     kdir, p1 = "lfm_tpu/kernels/", "tools/microbench_int8_pallas.py"
@@ -1604,6 +1683,9 @@ def run(torch, work: str) -> int:
         ("attention_small_f32_long", ("attention_long_f32.cuh", "attention_long_f32.cu",
                                       "flash_attention_f32.cu"),
          kdir + "flash_attention.py:163", "long_f32", k1_rows[(2, 1024, 16, 64, f32)]),
+        ("attention_small_f32_wide", ("attention_wide.cu", "attention_long_f32.cuh",
+                                      "flash_attention_f32.cu"),
+         kdir + "flash_attention.py:163", "adm512_attn", k1_rows[(16, 1024, 4, 128, f32)]),
         ("attention_small_bwd_f32", "attention_row_f32.cuh", kdir + "flash_attention.py:233",
          "train_f32", k3_rows[(train_batch, 256, 64, f32)]),
         ("fused_dit_block", "dit_block.cu", kdir + "dit_block.py:135", "main_fused",
@@ -1618,15 +1700,16 @@ def run(torch, work: str) -> int:
          "train_fused", k5_rows[("fwd", "full", train_batch)]),
         ("dit_block_train_mlp_bwd", ("dit_block_train.cu", "gemm_sm90.cuh", "gemm_sm90_bwd.cu"),
          kdir + "dit_block_train.py:398", "block_pallas_bwd", k5_rows[("mlp", train_batch)]),
-        ("dit_block_train_attn_bwd", "dit_block_train.cu", kdir + "dit_block_train.py:429",
-         "block_pallas_bwd", k5_rows[("attn", train_batch)]),
+        ("dit_block_train_attn_bwd", ("dit_block_train.cu", "gemm_sm90.cuh", "gemm_sm90_bwd.cu",
+                                      "attention_bwd_sm90.cuh"),
+         kdir + "dit_block_train.py:429", "block_pallas_bwd", k5_rows[("attn", train_batch)]),
         ("quant_rows", "int8_gemm.cu", p1 + ":92", "int8_main", p1_rows["quant_rows"]),
         ("int8_dense", "int8_gemm_sm90.cuh", p1 + ":92", "int8_main", p1_rows["fc2"]),
         ("int8_mlp", "int8_gemm_sm90.cuh", p1 + ":92", "p1_probe", p1_rows["int8_mlp"]),
         ("bf16_mlp", "int8_gemm.cu", p1 + ":103", "p1_probe", p1_rows["bf16_mlp"]),
     )
     def counter(name):
-        return re.sub(r"_f32(_dit|_long)?$", "", name)
+        return re.sub(r"_f32(_dit|_long|_wide)?$", "", name)
 
     def sources(src):
         return [csrc + f for f in ((src,) if isinstance(src, str) else src)]

@@ -1,9 +1,10 @@
 // C entry point of K1, the port of lfm_tpu/kernels/flash_attention.py::
 // attention_small: bf16 runs attention_sm90.cuh; f32 is split by shape, one
 // kernel for each (kernels/flash_attention.py's f32_k1_route mirrors it):
-// D 128/256 attention_wide.cu; D 56-80 at T <= 256 attention_row_f32.cuh,
-// past it attention_long_f32.cuh (the whole row one key block of K4's
-// kernel, attention_long_f32.cu).
+// D 128/256 attention_wide.cu (a one-pass kernel at T <= 64, past it
+// attention_long_f32.cuh's key-block kernel, the whole row one block); D
+// 56-80 at T <= 256 attention_row_f32.cuh, past it the same key-block
+// kernel (attention_long_f32.cu).
 #include "attention.cuh"
 
 // q, k, v, o: (N, T, H*D) slabs with row strides ldq/ldk/ldv/ldo

@@ -1,4 +1,5 @@
-// f32 K4, f32 K1 past T = 256 and f32 K3 past T = 256: the port of
+// f32 K4, f32 K1 past T = 256 (at the origin ADM's D = 128/256 past T =
+// 64) and f32 K3 past T = 256: the port of
 // lfm_tpu/kernels/flash_attention.py::flash_attention (`_flash_kernel`), of
 // ::attention_small (`_attn_small_kernel`) and of ::attention_small_bwd
 // (`_attn_small_bwd_kernel`) at long sequences, for f32 models, redesigned
@@ -7,7 +8,9 @@
 // attention past T = 1024 (an f32 DiT at 1024 px, T = 4096) and of the
 // origin ADM's f32 attention at D = 128 past the gate; f32 K1 and K3 past T
 // = 256 are the forward and backward of an f32 DiT whose patch grid has 256
-// < T <= 1024 (512 px: T = 1024).
+// < T <= 1024 (512 px: T = 1024); f32 K1 at D = 128/256 past T = 64 is the
+// origin ADM's f32 attention at 8x8 to 32x32 latents (celeb512_adm with
+// attention at ds 2 and 4: (16, 1024, 4, 128) and (16, 256, 4, 128)).
 //
 // Per (sample, head), with s = scale q k^T (scale = 1/sqrt(D)):
 //   K4:  keys in blocks of BK (a divisor of T, at most 512); per block the
@@ -60,7 +63,17 @@
 // 1024 scores would take 264 KB, so K1_BQ = 32 query rows a CTA hold 32 x
 // 1024 (2 x 8 scores a thread at DP 64, 2 x 4 at DP 80, the dq kernel's
 // tiles; p v in 4 x 4 tiles, two groups at DP 64 as K4), 206 / 182 KB: at
-// (2, 1024, 16, 64) 1024 CTAs, 7.8 waves. K3's dq
+// (2, 1024, 16, 64) 1024 CTAs, 7.8 waves. The origin ADM's f32 K1
+// (attention_wide.cu) at D = 128 takes K4's <128, 64, 512> up to T = 512
+// and <128, 32, 1024> past it: 32 rows x 1024 keys of scores are 32 x 1028
+// x 4 = 131.6 KB, q 32 x 132 x 4 = 16.9 KB, so the ring can take stages of
+// KS = 64 keys (2 x 64 x 132 x 4 = 67.6 KB; 2 x 4 scores a thread on all
+// 256 threads): 217,088 bytes of the 232,448 a CTA may have. At D = 256
+// one instance, <256, 32, 1024>, takes every T in (64, 1024]: q 33.3 KB,
+// scores 131.6 KB, a ring of two 32-key stages 66.6 KB (2 x 4 scores a
+// thread on 128 threads): 231,936 bytes, 512 to spare (64 query rows, or
+// 64-key stages, would not fit); p v's 32 x 256 outputs in 8 x 4 tiles
+// (rows oy + 4 i) on all 256 threads. K3's dq
 // kernel (DBQ = 32 query rows): the row's scores in shared memory (32 x TK,
 // TK = 512 or 1024), dp in registers (128 a thread at TK 1024), 2 x 8
 // scores a thread at DP 64 (KS = 128), 2 x 4 at DP 80 (KS = 64); dq = ds k
@@ -135,25 +148,31 @@ __device__ __forceinline__ float row_total(const float* red, int row, int bq) {
 // two reductions
 template <int DP, int BQ, int KCAP>
 struct FlashLayout {
-  static constexpr int KS = DP <= 64 ? 128 : DP <= 80 ? 64 : 32;  // keys of a ring stage
-  static constexpr int RM = BQ / 16, RN = DP <= 64 ? 8 : 4;      // scores of a thread
-  static constexpr int TC = KS / RN;                             // key groups: 16, 16, 8
-  static constexpr int S_THREADS = 16 * TC;                      // threads forming scores
-  static constexpr int NW = TC / 4;                              // warps across a score row
-  // p v: RMO x 4 tiles (rows oy + 8 i); where two groups of 128 threads
-  // cover the tiles (DP 64), each takes one half of a stage's keys
-  static constexpr int RG = 8, RMO = BQ / RG;
+  // keys of a ring stage: 128 at DP 64, 64 at DP 80 and at DP 128 with 32
+  // query rows, 32 at DP 128 with 64 rows and at DP 256
+  static constexpr int KS = DP <= 64 ? 128 : DP <= 80 || (DP <= 128 && BQ <= 32) ? 64 : 32;
+  static constexpr int RM = BQ / 16, RN = DP <= 64 ? 8 : 4;  // scores of a thread
+  static constexpr int TC = KS / RN;                         // key groups: 16 or 8
+  static constexpr int S_THREADS = 16 * TC;                  // threads forming scores
+  static constexpr int NW = TC / 4;                          // warps across a score row
+  // p v: RMO x 4 tiles (rows oy + RG i; RG 8, or 4 where 8-row groups of
+  // DP / 4 tiles would outnumber the threads, DP 256); where two groups of
+  // 128 threads cover the tiles (DP 64), each takes one half of a stage's keys
+  static constexpr int RG = 2 * DP <= THREADS ? 8 : 4, RMO = BQ / RG;
   static constexpr int SPLIT = 2 * row32::OutTiles<DP, RG>::COUNT <= THREADS ? 2 : 1;
   static constexpr int LD = DP + 4, LDS = KCAP + 4;
   static constexpr int STAGE = KS * LD;
   static constexpr int S = BQ * LD, RING = S + BQ * LDS, RED = RING + 2 * STAGE;
   static constexpr size_t BYTES = 4 * size_t(RED + 2 * NW * BQ);
   static_assert(KCAP % KS == 0, "a block's stages end inside the score rows");
+  static_assert(S_THREADS <= THREADS && row32::OutTiles<DP, RG>::COUNT <= THREADS,
+                "a thread a score tile and an output tile");
 };
 
 // One CTA per BQ query rows of one (sample, head); BK divides T, BK <= KCAP.
 // K4 runs <DP, FBQ, BK_MAX>; K1 its whole row as one block of BK = T keys:
-// <DP, FBQ, BK_MAX> at T <= 512, <DP, K1_BQ, MAX_T> past it.
+// <DP, FBQ, BK_MAX> at T <= 512, <DP, K1_BQ, MAX_T> past it (D <= 128), and
+// <256, K1_BQ, MAX_T> at every T past 64 (D = 256).
 template <int DP, int BQ, int KCAP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,

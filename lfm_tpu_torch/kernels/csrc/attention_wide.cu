@@ -2,9 +2,16 @@
 // (celeb512_adm, church_adm): `_attn_small_kernel` of
 // lfm_tpu/kernels/flash_attention.py in f32, s = scale q k^T, p = exp(s - m)
 // with the row's exact max, o = (p v) / l, all f32. Compiled apart from the
-// DiT's instances (attention.cu) so that the two build in parallel.
+// DiT's instances (attention.cu) so that the two build in parallel. Split by
+// shape, one kernel for each (flash_attention.f32_k1_route mirrors it):
+//  - T <= 64: attn_short_f32_kernel below, sized to T;
+//  - past it: attention_long_f32.cuh's key-block kernel with the whole row
+//    one block (QK^T once, the exact max, k and v through a cp.async ring
+//    under the math): at D = 128 K4's <128, 64, 512> up to T = 512
+//    (flash_attention_f32.cu) and <128, 32, 1024> past it; at D = 256
+//    <256, 32, 1024> (the shared-memory arithmetic is in that header).
 //
-// The ADM attends at T = 16 (celeb256_adm: (200, 16, 4, 128), 6 calls an
+// The presets attend at T = 16 (celeb256_adm: (200, 16, 4, 128), 6 calls an
 // evaluation) and T = 64. There the work is tiny (at (200, 16, 4, 128) 105
 // MFLOP, 1.6 us on the 67 TFLOP/s f32 units) and the bytes set the bound:
 // q, k, v read and o written once, 26 MB, 7.8 us at 3.35 TB/s. So
@@ -19,16 +26,14 @@
 //    banks), written to shared memory; each warp takes whole rows for the
 //    exact max, exp and sum; then O = P V by f32 FMA (each thread 4 columns
 //    of BQ * 4 * DP / 512 rows, v read as float4 along D), times 1 / l.
-//    The sums of S, l and O run in attn_small_kernel's order and O is
-//    scaled by 1 / l as there, so the two differ only where the compiler
-//    contracts a product into an FMA in one and not the other;
+//    l is summed in two chains of 32 keys, added, and O is scaled by 1 / l;
 //  - shared memory 26 KB at (T 16, D 128), so up to eight CTAs share an SM
 //    (800 CTAs at (200, 16, 4, 128): one wave with every load in flight).
 // Products stay f32 FMA on the CUDA cores (no TF32, as the TPU kernel's
 // f32 products), and no tensor core or TMA is used: they buy nothing at
-// this size. Past T = 64, attn_small_kernel (attention.cuh) takes the rows
-// in 64-row tiles with two passes over the keys.
+// this size.
 #include "attention.cuh"
+#include "attention_long_f32.cuh"
 
 namespace lfm {
 namespace {
@@ -103,8 +108,8 @@ attn_short_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __syncthreads();
 
   // the exact row max, p = exp(s - m), l = sum p, 1 / l: warp w takes rows
-  // w, w + 4, ... l is summed as attn_small_kernel sums it (keys 0-31 and
-  // 32-63 each in order, then the two)
+  // w, w + 4, ... l is summed in two chains (keys 0-31 and 32-63 each in
+  // order), then the two added
   {
     const int lane = tid % 32;
     for (int r = tid / 32; r < BQ; r += SHORT_THREADS / 32) {
@@ -184,13 +189,21 @@ cudaError_t launch_short_dp(const float* q, const float* k, const float* v, floa
 cudaError_t launch_attention_wide_f32(const float* q, const float* k, const float* v, float* o,
                                       int N, int T_len, int H, int D, long ldq, long ldk,
                                       long ldv, long ldo, cudaStream_t s) {
-  if (D != 128 && D != 256) return cudaErrorInvalidValue;
+  if ((D != 128 && D != 256) || N < 1 || H < 1 || T_len < 1 || T_len > long32::MAX_T)
+    return cudaErrorInvalidValue;
   if (T_len <= SHORT_MAX_T) {
     if (D == 128) return launch_short_dp<128>(q, k, v, o, N, T_len, H, ldq, ldk, ldv, ldo, s);
     return launch_short_dp<256>(q, k, v, o, N, T_len, H, ldq, ldk, ldv, ldo, s);
   }
-  if (D == 128) return launch_attn_dp<128>(q, k, v, o, N, T_len, H, D, ldq, ldk, ldv, ldo, s);
-  return launch_attn_dp<256>(q, k, v, o, N, T_len, H, D, ldq, ldk, ldv, ldo, s);
+  // the whole row one key block of BK = T keys
+  using long32::K1_BQ, long32::MAX_T, long32::launch_flash;
+  if (D == 128 && T_len <= long32::BK_MAX)
+    return launch_flash_f32(q, k, v, o, N, T_len, H, D, T_len, ldq, ldk, ldv, ldo, s);
+  if (D == 128)
+    return launch_flash<128, K1_BQ, MAX_T>(q, k, v, o, N, T_len, H, D, T_len, ldq, ldk, ldv,
+                                           ldo, s);
+  return launch_flash<256, K1_BQ, MAX_T>(q, k, v, o, N, T_len, H, D, T_len, ldq, ldk, ldv, ldo,
+                                         s);
 }
 
 }  // namespace lfm

@@ -24,7 +24,7 @@
 // lfm_dit_block_train_attn_bwd (`_attn_bwd_call`, `_attn_bwd_kernel`):
 //   hb  = bf16(LN(x) (1 + sc_msa) + sh_msa)               ln_modulate
 //   dg_msa = sum_t dx1 pr;  dpr = dx1 g_msa;  dbproj = sum dpr (f32)
-//   do  = bf16(bf16(dpr) Wproj)                           gemm NN
+//   do  = bf16(bf16(dpr) Wproj)                           gemm NN into bf16
 //   dWproj = bf16(dpr)^T ao                               gemm TN
 //   dq, dk, dv (bf16) from qkv and do, the probs recomputed per head
 //                                                         K3's kernels
@@ -51,13 +51,15 @@
 // attention half 16 N T C^2 + 10 N T^2 C = 158.9 GFLOP (five T x T products
 // per head: logits, dv, dp, dq, dk; ao is a stream, so PV is not redone).
 // All three are bound by tensor-core operations (0.217, 0.278 and 0.161 ms
-// at 989 TFLOP/s). The forward's four GEMMs are K2's and the MLP half's
-// four (NN, TN) run on the same kernel: gemm_sm90.cuh's persistent wgmma +
-// TMA kernel, the streams, du and db1's column partials written from its
-// register epilogue. The attention half's NN and TN GEMMs are gemm.cuh's
-// WMMA tiles (mma.sync), the next to move onto it; the element-wise passes
-// and the recomputed LayerNorms round-trip device memory. Fusing those
-// passes into the GEMMs is later work.
+// at 989 TFLOP/s). Every GEMM of the three runs on one kernel,
+// gemm_sm90.cuh's persistent wgmma + TMA kernel: the forward's four are
+// K2's (NT), the MLP half's and the attention half's four each NN and TN
+// (gemm_sm90_bwd.cu), the streams, du and db1's column partials written
+// from its register epilogue. The weight gradients of the attention half
+// are small at N = 32 (dWproj (C, C): 64 tiles of 128 x 128 at C = 1024 for
+// 132 SMs); each tile walks all N T token rows, with no split of K. The
+// element-wise passes and the recomputed LayerNorms round-trip device
+// memory. Fusing those passes into the GEMMs is later work.
 #include "attention.cuh"
 #include "gemm.cuh"
 
@@ -190,7 +192,7 @@ static cudaError_t reduce_rows(const float* part, int P, int ncols, float* out, 
     cudaError_t e_ = cudaGetLastError();                  \
     if (e_ != cudaSuccess) return static_cast<int>(e_);   \
   } while (0)
-// a launcher that returns its error (the NT GEMM, the attention)
+// a launcher that returns its error (the GEMMs, the attention)
 #define LFM_TRY(call)                                     \
   do {                                                    \
     cudaError_t e_ = (call);                              \
@@ -323,18 +325,21 @@ extern "C" int lfm_dit_block_train_attn_bwd(const void* x, const void* mod, cons
   LFM_CHECK((lfm::gate_bwd_kernel<<<cols, lfm::COL_THREADS, 0, s>>>(bp(dx1), bp(pr), m, 2, T, C, dpr,
                                                                      fp(dmod3), 2, part)));
   LFM_CHECK((lfm::reduce_rows(part, N, C, fp(dbproj), s)));
-  LFM_CHECK((lfm::launch_gemm<bf16, lfm::LAYOUT_NN>(dpr, bp(wproj), dao, M, C, C, s)));
-  LFM_CHECK((lfm::launch_gemm<float, lfm::LAYOUT_TN>(dpr, bp(ao), fp(dwproj), C, C, M, s)));
+  LFM_TRY(lfm::launch_gemm_bwd(lfm::LAYOUT_NN, lfm::EPI_STORE, dpr, bp(wproj), dao, false,
+                               nullptr, nullptr, nullptr, M, C, C, s));
+  LFM_TRY(lfm::launch_gemm_bwd(lfm::LAYOUT_TN, lfm::EPI_STORE, dpr, bp(ao), dwproj, true, nullptr,
+                               nullptr, nullptr, C, C, M, s));
   const bf16* q = bp(qkv);
-  cudaError_t err = lfm::launch_attn_bwd_sm90(q, q + C, q + 2 * C, dao, dqkv, dqkv + C,
-                                              dqkv + 2 * C, fp(astats_buf), N, T, heads, D,
-                                              3L * C, 3L * C, 3L * C, C, 3L * C, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  LFM_TRY(lfm::launch_attn_bwd_sm90(q, q + C, q + 2 * C, dao, dqkv, dqkv + C, dqkv + 2 * C,
+                                    fp(astats_buf), N, T, heads, D, 3L * C, 3L * C, 3L * C, C,
+                                    3L * C, s));
   LFM_CHECK((lfm::colsum_rows_kernel<<<dim3(3 * C / lfm::COL_THREADS, N), lfm::COL_THREADS, 0, s>>>(
       dqkv, T, 3 * C, part)));
   LFM_CHECK((lfm::reduce_rows(part, N, 3 * C, fp(dbqkv), s)));
-  LFM_CHECK((lfm::launch_gemm<float, lfm::LAYOUT_NN>(dqkv, bp(wqkv), dhb, M, C, 3 * C, s)));
-  LFM_CHECK((lfm::launch_gemm<float, lfm::LAYOUT_TN>(dqkv, hb, fp(dwqkv), 3 * C, C, M, s)));
+  LFM_TRY(lfm::launch_gemm_bwd(lfm::LAYOUT_NN, lfm::EPI_STORE, dqkv, bp(wqkv), dhb, true, nullptr,
+                               nullptr, nullptr, M, C, 3 * C, s));
+  LFM_TRY(lfm::launch_gemm_bwd(lfm::LAYOUT_TN, lfm::EPI_STORE, dqkv, hb, dwqkv, true, nullptr,
+                               nullptr, nullptr, 3 * C, C, M, s));
   LFM_CHECK((lfm::ln_bwd_rows_kernel<<<M, lfm::LN_THREADS, 0, s>>>(dhb, bp(x), m, 1, bp(dx1), T, C,
                                                                    mp(dx), fp(stats_buf))));
   LFM_CHECK((lfm::ln_bwd_cols_kernel<<<cols, lfm::COL_THREADS, 0, s>>>(dhb, bp(x), fp(stats_buf), T,

@@ -1,6 +1,6 @@
 // GEMM and LayerNorm pieces shared by K2 (dit_block.cu) and K5
 // (dit_block_train.cu): the row-wise LayerNorm + adaLN modulate, the fused
-// epilogues, the launchers of the wgmma GEMM and K5 attn's WMMA GEMM.
+// epilogues and the launchers of the wgmma GEMM.
 //
 // Three layouts of row-major bf16 operands (LAYOUT_*):
 //   NT  out (M, N) = A (M, K) . W (N, K)^T   a torch.nn.Linear forward: K2,
@@ -11,14 +11,8 @@
 // All three run on Hopper's wgmma + TMA, the persistent warp-specialised
 // kernel of gemm_sm90.cuh: NT through launch_gemm_nt (gemm_sm90.cu; N % 128
 // == 0, K % 64 == 0), NN and TN through launch_gemm_bwd (gemm_sm90_bwd.cu;
-// N % 128 == 0, K % 8 == 0), rows m >= M masked. K5's MLP backward runs NN
-// and TN there.
-//
-// K5's attention backward keeps one WMMA GEMM template (gemm_kernel) for NN
-// and TN, tiled 128x128x32: eight warps each compute 64x32 with WMMA bf16 ->
-// f32 (mma.sync), a two-stage cp.async pipeline, the value stored as TOut.
-// N % 128 == 0 and K % 32 == 0; rows m >= M are masked (NN), TN needs M %
-// 128 == 0. Moving it onto launch_gemm_bwd is the next redesign.
+// N % 128 == 0, K % 8 == 0), rows m >= M masked. K5's two backward halves
+// run their eight GEMMs as NN and TN there.
 #pragma once
 
 #include <type_traits>
@@ -66,7 +60,7 @@ ln_modulate_kernel(const TIn* __restrict__ x, const bf16* __restrict__ mod,
 }
 
 // K2's epilogues (0-2), then K5's. The NT GEMM takes all but EPI_DGELU;
-// the NN and TN GEMM EPI_STORE and (NN) EPI_DGELU; gemm_kernel EPI_STORE:
+// the NN and TN GEMM EPI_STORE and (NN) EPI_DGELU:
 //   EPI_BIAS       out = value + bias
 //   EPI_GELU       out = gelu_tanh(value + bias)
 //   EPI_GATED      out = resid + mod[gate] * (value + bias)
@@ -87,8 +81,7 @@ struct GemmAux {
   bf16* aux2;         // EPI_GATED_AUX
 };
 
-constexpr int GM = 128, GN = 128, GK = 32, GLD = GK + 8, G_THREADS = 256;
-constexpr int GLD_KM = GM + 8;  // a (32 x 128) tile stored k-major
+constexpr int GM = 128;  // rows of a GEMM tile: EPI_DGELU's part has one row a tile
 
 constexpr float kGeluA = 0.7978845608028654f, kGeluK = 0.044715f;
 
@@ -102,119 +95,6 @@ __device__ __forceinline__ float gelu_tanh(float u) { return gelu_tanh(u, gelu_t
 // d gelu_tanh(u) / du given t = gelu_tanh_t(u) (dit_block_train.py::_gelu_tanh_grad)
 __device__ __forceinline__ float gelu_tanh_grad(float u, float t) {
   return 0.5f * (1.0f + t) + 0.5f * u * (1.0f - t * t) * (kGeluA * (1.0f + 3.0f * kGeluK * u * u));
-}
-
-template <int LAYOUT>
-struct GemmTiles {
-  static_assert(LAYOUT == LAYOUT_NN || LAYOUT == LAYOUT_TN, "NT runs in gemm_sm90.cuh");
-  static constexpr int A_TILE = LAYOUT == LAYOUT_TN ? GK * GLD_KM : GM * GLD;
-  static constexpr int B_TILE = GK * GLD_KM;
-  using ALayout = typename std::conditional<LAYOUT == LAYOUT_TN, nvcuda::wmma::col_major,
-                                            nvcuda::wmma::row_major>::type;
-  using BLayout = nvcuda::wmma::row_major;
-  static_assert(A_TILE * 2 >= 8 * 256 * 4, "the epilogue stages its fragments in the A tiles");
-};
-
-// out[m, n] = TOut(sum_k A[m, k] * B[k, n]) with A, B in LAYOUT (above)
-template <typename TOut, int LAYOUT>
-__global__ void __launch_bounds__(G_THREADS)
-gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, TOut* __restrict__ out,
-            int M, int N, int K) {
-  using namespace nvcuda;
-  using Tiles = GemmTiles<LAYOUT>;
-  __shared__ __align__(128) bf16 as[2][Tiles::A_TILE];
-  __shared__ __align__(128) bf16 bs[2][Tiles::B_TILE];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 4, wn = warp % 4;  // 2 x 4 warps of 64 x 32
-  const int m0 = blockIdx.y * GM, n0 = blockIdx.x * GN;
-
-  auto load_stage = [&](int stage, int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      int id = threadIdx.x + i * G_THREADS;  // 512 chunks of 8 bf16 per operand
-      if constexpr (LAYOUT == LAYOUT_TN) {   // A^T: 32 k-rows of 128 m
-        int r = id >> 4, c = (id & 15) * 8;
-        cp_async16(&as[stage][r * GLD_KM + c], A + long(k0 + r) * M + m0 + c, true);
-      } else {                               // A: 128 m-rows of 32 k
-        int r = id >> 2, c = (id & 3) * 8;
-        bool ok = m0 + r < M;
-        cp_async16(&as[stage][r * GLD + c], A + (ok ? long(m0 + r) * K + k0 + c : 0), ok);
-      }
-      {                                      // B: 32 k-rows of 128 n
-        int r = id >> 4, c = (id & 15) * 8;
-        cp_async16(&bs[stage][r * GLD_KM + c], W + long(k0 + r) * N + n0 + c, true);
-      }
-    }
-    cp_async_commit();
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int k_tiles = K / GK;
-  load_stage(0, 0);
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    if (kt + 1 < k_tiles) {
-      load_stage((kt + 1) & 1, (kt + 1) * GK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* a_s = as[kt & 1];
-    const bf16* b_s = bs[kt & 1];
-#pragma unroll
-    for (int kk = 0; kk < GK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, typename Tiles::ALayout> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, typename Tiles::BLayout> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if constexpr (LAYOUT == LAYOUT_TN)
-          wmma::load_matrix_sync(a[i], a_s + kk * GLD_KM + wm * 64 + i * 16, GLD_KM);
-        else
-          wmma::load_matrix_sync(a[i], a_s + (wm * 64 + i * 16) * GLD + kk, GLD);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], b_s + kk * GLD_KM + wn * 32 + j * 16, GLD_KM);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: each warp stages one 16x16 fragment at a time in the (now
-  // idle) A buffers; two lanes per row, 8 contiguous columns each
-  float* scratch = reinterpret_cast<float*>(&as[0][0]) + warp * 256;
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(scratch, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gm = m0 + wm * 64 + i * 16 + r;
-      const int gn = n0 + wn * 32 + j * 16 + c0;
-      if (gm < M) {
-        const long o = long(gm) * N + gn;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) out[o + e] = from_f<TOut>(scratch[r * 16 + c0 + e]);
-      }
-      __syncwarp();
-    }
-  }
-}
-
-template <typename TOut, int LAYOUT>
-static void launch_gemm(const bf16* A, const bf16* W, TOut* out, int M, int N, int K,
-                        cudaStream_t s) {
-  dim3 grid(N / GN, (M + GM - 1) / GM);
-  gemm_kernel<TOut, LAYOUT><<<grid, G_THREADS, 0, s>>>(A, W, out, M, N, K);
 }
 
 // The NT GEMM on wgmma + TMA (gemm_sm90.cu): out (M, N) = epilogue(A (M, K)
@@ -237,10 +117,10 @@ cudaError_t launch_gemm_nt(const bf16* A, const bf16* W, const bf16* bias, TOut*
                         N, K, s);
 }
 
-// The NN and TN GEMMs on wgmma + TMA (gemm_sm90_bwd.cu), K5's MLP
-// backward: out (M, N) = A (M, K) . B (K, N) (LAYOUT_NN) or A (K, M)^T .
-// B (K, N) (LAYOUT_TN), with EPI_STORE into f32, or (NN) EPI_DGELU into bf16
-// with u (M, N), part (ceil(M / 128), N) and aux (M, N) bf16 or null.
+// The NN and TN GEMMs on wgmma + TMA (gemm_sm90_bwd.cu), K5's backward:
+// out (M, N) = A (M, K) . B (K, N) (LAYOUT_NN) or A (K, M)^T . B (K, N)
+// (LAYOUT_TN), with EPI_STORE into f32 or (NN) bf16, or (NN) EPI_DGELU into
+// bf16 with u (M, N), part (ceil(M / 128), N) and aux (M, N) bf16 or null.
 // Anything else, N % 128 != 0, K % 8 != 0 or (TN) M % 8 != 0 returns
 // cudaErrorInvalidValue and launches nothing.
 cudaError_t launch_gemm_bwd(int layout, int epi, const bf16* A, const bf16* B, void* out,

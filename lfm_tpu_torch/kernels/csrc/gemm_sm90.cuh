@@ -25,8 +25,8 @@
 // a null bias adding nothing, and out rounded once to TOut (bf16 or f32);
 // resid is TRes (bf16 or f32). The instances are those the callers use: NT
 // KIND_BIAS and KIND_GELU into bf16, KIND_GATED bf16 -> f32 and f32 -> bf16;
-// NN KIND_DGELU into bf16 and KIND_BIAS (no bias) into f32; TN KIND_BIAS (no
-// bias) into f32.
+// NN KIND_DGELU into bf16 and KIND_BIAS (no bias) into f32 and bf16; TN
+// KIND_BIAS (no bias) into f32.
 //
 // What bounds it on the H100: K2's four products at N = 200, T = 256 (M =
 // 51200), C = 1024, hidden 4096 are 2 M C (3C + C + 4C + 4C) = 1.288 TFLOP,

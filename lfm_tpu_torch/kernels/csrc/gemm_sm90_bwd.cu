@@ -1,12 +1,17 @@
-// The NN and TN layouts of gemm_sm90.cuh's wgmma + TMA GEMM: the four
-// GEMMs of K5's MLP backward (dit_block_train.cu, lfm_dit_block_train_mlp_bwd)
-// and a C entry point of their own (kernels/gemm.py's gemm_nn, gemm_tn).
-// They replace gemm.cuh's WMMA template on that path:
+// The NN and TN layouts of gemm_sm90.cuh's wgmma + TMA GEMM: the eight
+// GEMMs of K5's backward (dit_block_train.cu) and a C entry point of their
+// own (kernels/gemm.py's gemm_nn, gemm_tn). The MLP half
+// (lfm_dit_block_train_mlp_bwd):
 //   du  = (bf16(dh2) W2) gelu'(u)   NN, EPI_DGELU into bf16, db1's partials,
 //                                   and gb = bf16(gelu(u)) from the same tanh
 //   dW2 = bf16(dh2)^T gb            TN, EPI_STORE into f32
 //   dh  = bf16(du) W1               NN, EPI_STORE into f32
 //   dW1 = bf16(du)^T h2b            TN, EPI_STORE into f32
+// and the attention half (lfm_dit_block_train_attn_bwd):
+//   do  = bf16(bf16(dpr) Wproj)     NN, EPI_STORE into bf16
+//   dWproj = bf16(dpr)^T ao         TN, EPI_STORE into f32
+//   dhb = dqkv Wqkv                 NN, EPI_STORE into f32
+//   dWqkv = dqkv^T hb               TN, EPI_STORE into f32
 // Compiled apart from the NT instances (gemm_sm90.cu) so that the two build
 // in parallel.
 #include "gemm_sm90.cuh"
@@ -29,6 +34,8 @@ cudaError_t launch_gemm_bwd(int layout, int epi, const bf16* A, const bf16* B, v
     if (layout == LAYOUT_NN) return launch_kind<LAYOUT_NN, sm90::KIND_BIAS, bf16, float>(A, B, g, s);
     if (layout == LAYOUT_TN) return launch_kind<LAYOUT_TN, sm90::KIND_BIAS, bf16, float>(A, B, g, s);
   }
+  if (epi == EPI_STORE && layout == LAYOUT_NN)
+    return launch_kind<LAYOUT_NN, sm90::KIND_BIAS, bf16, bf16>(A, B, g, s);
   if (epi == EPI_DGELU && !out_f32 && layout == LAYOUT_NN && u != nullptr && part != nullptr &&
       aligned(u, 4) && aligned(aux, 16))
     return launch_kind<LAYOUT_NN, sm90::KIND_DGELU, bf16, bf16>(A, B, g, s);
@@ -39,7 +46,8 @@ cudaError_t launch_gemm_bwd(int layout, int epi, const bf16* A, const bf16* B, v
 
 // out = a (M, K) . b (K, N) (layout LAYOUT_NN = 1) or a (K, M)^T . b (K, N)
 // (LAYOUT_TN = 2): a, b bf16 row-major; epi EPI_STORE (5) into f32 (out_f32
-// = 1), or, NN only, EPI_DGELU (6) into bf16 with u (M, N) bf16, part
+// = 1) or, NN only, into bf16 (out_f32 = 0), or, NN only, EPI_DGELU (6)
+// into bf16 with u (M, N) bf16, part
 // (ceil(M / 128), N) f32 and aux (M, N) bf16 or null (du = value *
 // gelu_tanh'(u), part the column sums of du over each 128-row tile, aux =
 // bf16(gelu_tanh(u))). N % 128 == 0, K % 8 == 0, TN M % 8 == 0. One launch

@@ -22,9 +22,10 @@ is one block of K4's kernel, at most 1024) or a whole row (K3's dq kernel)
 of scores on chip with k and v streamed through a cp.async ring
 (``csrc/attention_long_f32.cuh``; K3's dk/dv kernel is the row kernels');
 f32 K1 at D = 128/256 (the origin ADM's attention) is a one-pass kernel
-sized to T up to 64 (``csrc/attention_wide.cu``) and the kernel of
-``csrc/attention.cuh`` past it. ``f32_k1_route`` states which f32 K1 kernel
-a shape takes. What bounds each is noted in its source.
+sized to T up to 64 (``csrc/attention_wide.cu``) and past it the same
+key-block kernel with the whole row one block. ``f32_k1_route`` states
+which f32 K1 kernel a shape takes. What bounds each is noted in its
+source.
 
 On a CPU tensor each wrapper computes its plain version; on a CUDA tensor
 it launches its kernel or raises. ``fused_attention_qkv`` is a
@@ -129,14 +130,14 @@ def f32_k1_route(t: int, d: int) -> Tuple[str, int, int]:
     and head dim d (``lfm_attention_small``, csrc/attention.cu), with its
     query rows a CTA and the keys it holds on chip at once: (kernel name,
     rows, keys)."""
-    if d > 80:  # the origin ADM's heads (attention_wide.cu)
-        if t <= 64:
-            keys = 16 if t <= 16 else 32 if t <= 32 else 64
-            return "attn_short_f32_kernel", 16 if t <= 16 else 32, keys
-        return "attn_small_kernel", 64, 64  # 64-key tiles, two sweeps
-    if t <= 256:  # attention_row_f32.cuh
+    if d > 80 and t <= 64:  # the origin ADM's heads at short T (attention_wide.cu)
+        keys = 16 if t <= 16 else 32 if t <= 32 else 64
+        return "attn_short_f32_kernel", 16 if t <= 16 else 32, keys
+    if d <= 80 and t <= 256:  # attention_row_f32.cuh
         return "attn_row_kernel", 64, 64 if t <= 64 else 128 if t <= 128 else 256
-    if t <= 512:  # attention_long_f32.cuh, K4's instances, one block of T keys
+    # attention_long_f32.cuh, one block of T keys: K4's instances up to T =
+    # 512, 32 query rows past it and at every T at D = 256
+    if t <= 512 and d <= 128:
         return "flash_f32_kernel", 64, 512
     return "flash_f32_kernel", 32, 1024
 

@@ -16,10 +16,12 @@ operands summed in f32, then in f32
 with a null bias adding nothing and out rounded once to ``out_dtype``.
 
 NN, ``a (M, K) . b (K, N)``, and TN, ``a (K, M)^T . b (K, N)``: the four
-products of K5's MLP backward (`_mlp_bwd_kernel`), f32 out (``store``), or
-for NN ``dgelu``: du = value * gelu_tanh'(f32(u)) into bf16, the f32 sums
-of du over each 128-row tile (``part``, summed in the kernel's fixed order)
-and gb = bf16(gelu_tanh(f32(u))) from the same tanh.
+products of K5's MLP backward (`_mlp_bwd_kernel`) and the four of its
+attention backward (`_attn_bwd_kernel`), f32 out (``store``; NN also into
+bf16, K5 attn's do), or for NN ``dgelu``: du = value * gelu_tanh'(f32(u))
+into bf16, the f32 sums of du over each 128-row tile (``part``, summed in
+the kernel's fixed order) and gb = bf16(gelu_tanh(f32(u))) from the same
+tanh.
 
 The blocks call the kernel from C (``csrc/dit_block.cu``,
 ``csrc/dit_block_train.cu``, ``csrc/int8_gemm.cu``); these wrappers give it
@@ -166,13 +168,17 @@ def gemm_tile(m: int, n: int, sms: int = SMS) -> Tuple[int, int]:
     return bn, min(m_tiles * (n // bn), sms)
 
 
-def _check_bwd(layout: str, a, b, epilogue: str, u) -> Tuple[int, int, int]:
+def _check_bwd(layout: str, a, b, epilogue: str, u, out_dtype=_F32) -> Tuple[int, int, int]:
     """Raise on what the NN / TN kernel does not take; (M, N, K)."""
     if layout not in LAYOUTS:
         _fail(f"layout must be one of {tuple(LAYOUTS)}, got {layout!r}")
     if epilogue not in BWD_EPILOGUES or (epilogue == "dgelu" and layout != "nn"):
         _fail(f"{layout} takes epilogue 'store'{' or dgelu' if layout == 'nn' else ''}, "
               f"got {epilogue!r}")
+    # the built instances: store into f32 (NN, TN) or bf16 (NN)
+    if epilogue == "store" and out_dtype not in ((_F32, _BF) if layout == "nn" else (_F32,)):
+        _fail(f"{layout} store writes {'float32 or bfloat16' if layout == 'nn' else 'float32'}, "
+              f"got {out_dtype}")
     a_dims = "(M, K)" if layout == "nn" else "(K, M)"
     if a.dim() != 2 or b.dim() != 2 or a.shape[layout == "nn"] != b.shape[0]:
         _fail(f"a must be {a_dims} and b (K, N), got {tuple(a.shape)} and {tuple(b.shape)}")
@@ -206,13 +212,13 @@ def dgelu_parts(du: torch.Tensor) -> torch.Tensor:
     return padded.view(rows // TILE_M, TILE_M, n).sum(dim=1)
 
 
-def reference_gemm_nn(a, b, *, epilogue: str = "store", u=None):
-    """Plain version of ``gemm_nn``: the f32 product; ``store`` returns it,
-    ``dgelu`` (bf16(du), part, bf16(gelu(u))) with du = value *
-    gelu_tanh'(f32(u)) in f32."""
+def reference_gemm_nn(a, b, *, epilogue: str = "store", u=None, out_dtype=_F32):
+    """Plain version of ``gemm_nn``: the f32 product; ``store`` returns it
+    rounded once to ``out_dtype``, ``dgelu`` (bf16(du), part,
+    bf16(gelu(u))) with du = value * gelu_tanh'(f32(u)) in f32."""
     value = a.float() @ b.float()
     if epilogue != "dgelu":
-        return value
+        return value.to(out_dtype)
     gl, t = _gelu_tanh(u.float())
     du = value * _gelu_tanh_grad(u.float(), t)
     return du.to(_BF), dgelu_parts(du), gl.to(_BF)
@@ -223,16 +229,16 @@ def reference_gemm_tn(a, b) -> torch.Tensor:
     return a.float().T @ b.float()
 
 
-def _gemm_bwd(layout: str, a, b, epilogue: str, u):
-    m, n, k = _check_bwd(layout, a, b, epilogue, u)
+def _gemm_bwd(layout: str, a, b, epilogue: str, u, out_dtype=_F32):
+    m, n, k = _check_bwd(layout, a, b, epilogue, u, out_dtype)
     if a.device.type == "cpu":
         if layout == "tn":
             return reference_gemm_tn(a, b)
-        return reference_gemm_nn(a, b, epilogue=epilogue, u=u)
+        return reference_gemm_nn(a, b, epilogue=epilogue, u=u, out_dtype=out_dtype)
     if a.device.type != "cuda":
         _fail(f"unsupported device {a.device}")
     dgelu = epilogue == "dgelu"
-    out = torch.empty((m, n), dtype=_BF if dgelu else _F32, device=a.device)
+    out = torch.empty((m, n), dtype=_BF if dgelu else out_dtype, device=a.device)
     part = torch.empty((-(-m // TILE_M), n), dtype=_F32, device=a.device) if dgelu else None
     gb = torch.empty((m, n), dtype=_BF, device=a.device) if dgelu else None
 
@@ -241,20 +247,20 @@ def _gemm_bwd(layout: str, a, b, epilogue: str, u):
 
     rc = load_library().lfm_gemm_bwd(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), ptr(u), ptr(part), ptr(gb), LAYOUTS[layout],
-        BWD_EPILOGUES[epilogue], int(not dgelu), m, n, k,
+        BWD_EPILOGUES[epilogue], int(out.dtype == _F32), m, n, k,
         torch.cuda.current_stream(a.device).cuda_stream)
     check_rc(f"gemm_{layout}", rc)
     GEMM.count += 1
     return (out, part, gb) if dgelu else out
 
 
-def gemm_nn(a, b, *, epilogue: str = "store", u=None):
-    """a (M, K) . b (K, N), bf16 and contiguous: ``store`` returns the f32
-    (M, N) product; ``dgelu`` (du, part, gb): du = bf16(value *
-    gelu_tanh'(u)) with u (M, N) bf16, part (ceil(M / 128), N) f32 the sums
-    of the f32 du over each 128-row tile, gb = bf16(gelu_tanh(u)). N % 128
-    == 0, K % 8 == 0."""
-    return _gemm_bwd("nn", a, b, epilogue, u)
+def gemm_nn(a, b, *, epilogue: str = "store", u=None, out_dtype=_F32):
+    """a (M, K) . b (K, N), bf16 and contiguous: ``store`` returns the (M,
+    N) product rounded once to ``out_dtype`` (float32 or bfloat16);
+    ``dgelu`` (du, part, gb): du = bf16(value * gelu_tanh'(u)) with u (M, N)
+    bf16, part (ceil(M / 128), N) f32 the sums of the f32 du over each
+    128-row tile, gb = bf16(gelu_tanh(u)). N % 128 == 0, K % 8 == 0."""
+    return _gemm_bwd("nn", a, b, epilogue, u, out_dtype)
 
 
 def gemm_tn(a, b) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Times the port's attention kernels on the card, with each one's error
 against its plain version.
 
-    python -m lfm_tpu_torch.tools.bench_attention [--timing-only] [--long-f32] [--f64-seeds N]
+    python -m lfm_tpu_torch.tools.bench_attention [--timing-only] [--long-f32 | --wide-f32]
+                                                  [--f64-seeds N]
 
 or, to time another checkout's kernels on the same inputs (its package is
 the one imported; its kernels are built in that checkout):
@@ -9,8 +10,10 @@ the one imported; its kernels are built in that checkout):
     PYTHONPATH=<other checkout> python <this checkout>/lfm_tpu_torch/tools/bench_attention.py
 
 Shapes: ``attention_small`` in f32 at (200, 16, 4, 128) (celeb256_adm's
-path, batch 200), (16, 64, 4, 128), (16, 16, 4, 256) and (16, 256, 4,
-128) (the origin ADM's head past T = 64), at the f32 DiT's heads (8, 256,
+path, batch 200), (16, 64, 4, 128), (16, 16, 4, 256), and past T = 64 at
+(16, 256, 4, 128), (16, 1024, 4, 128), (16, 256, 4, 256) and (16, 1024,
+4, 256) (the origin ADM's heads at celeb512_adm's batch with attention at
+ds 4 and 2, and D = 256 at the same T), at the f32 DiT's heads (8, 256,
 16, 64), (32, 256, 16, 64) (DiT-L/2's train step with ``--precision
 f32``) and (8, 256, 16, 72) (DiT-XL/2's head), and past T = 256 at (2,
 1024, 16, 64) (an f32 DiT-L/2 at 512 px), (2, 512, 16, 64), the ragged
@@ -37,7 +40,8 @@ float64 (``rel_err_f64``): the plain version's f32 GEMMs sum in an order
 of their own, so the error against them measures agreement with that
 order as much as accuracy. ``--timing-only`` keeps the event times alone (the repeated
 rounds of an A/B comparison); ``--long-f32`` keeps the f32 rows past T = 256
-(K4, and K1 and K3 past T = 256) alone; ``--f64-seeds N`` gives, for those rows
+(K4, and K1 and K3 past T = 256) alone, ``--wide-f32`` the f32 K1 rows at
+D = 128/256 past T = 64 alone; ``--f64-seeds N`` gives, for those rows
 alone, the kernel's and the plain version's error against float64 on N
 seeded inputs each (seed 0 is the other modes' input), since a tensor's
 largest error is one element's and varies from input to input. Prints one
@@ -60,8 +64,11 @@ F32_DIT = ((8, 256, 16, 64), (32, 256, 16, 64), (8, 256, 16, 72))
 # ADM's D = 128
 F32_LONG_K1 = ((2, 1024, 16, 64), (2, 512, 16, 64), (2, 300, 16, 64), (2, 1024, 16, 72))
 F32_LONG_K3 = ((2, 1024, 16, 64), (2, 300, 16, 64), (2, 300, 16, 80))
-K1_CASES = ([(s, torch.float32) for s in ((200, 16, 4, 128), (16, 64, 4, 128), (16, 16, 4, 256),
-                                          (16, 256, 4, 128)) + F32_DIT + F32_LONG_K1]
+# f32 K1 at the origin ADM's D = 128/256 past T = 64: celeb512_adm's batch
+# with attention at ds 4 and 2 (T = 256, 1024), and D = 256 at the same T
+F32_WIDE_K1 = ((16, 256, 4, 128), (16, 1024, 4, 128), (16, 256, 4, 256), (16, 1024, 4, 256))
+K1_CASES = ([(s, torch.float32) for s in ((200, 16, 4, 128), (16, 64, 4, 128), (16, 16, 4, 256))
+             + F32_WIDE_K1 + F32_DIT + F32_LONG_K1]
             + [(s, torch.bfloat16) for s in ((8, 256, 16, 72), (32, 256, 16, 72))])
 F32_LONG_K4 = ((1, 4096, 4, 128), (2, 4096, 16, 64))
 K3_CASES = ([(s, torch.bfloat16) for s in ((32, 256, 16, 64), (8, 1024, 16, 64))]
@@ -231,10 +238,11 @@ def bench_k3(shape, dtype, timing_only: bool):
             **device(sdpa_bwd, "library_")}
 
 
-def f64_errors(seeds: int):
-    """The f32 rows past T = 256, seed by seed: the errors of the kernel and
-    of the plain version against float64 (per output for K3). K1's inputs
-    are bench_k1's (the thirds of a qkv row)."""
+def f64_errors(seeds: int, wide: bool = False):
+    """The f32 rows past T = 256 (``wide``: f32 K1's at D = 128/256 past T =
+    64), seed by seed: the errors of the kernel and of the plain version
+    against float64 (per output for K3). K1's inputs are bench_k1's (the
+    thirds of a qkv row)."""
     from lfm_tpu_torch.kernels.flash_attention import (attention_small, attention_small_bwd,
                                                        flash_attention, reference_attention,
                                                        reference_attention_bwd,
@@ -242,7 +250,7 @@ def f64_errors(seeds: int):
 
     rows = []
     for seed in range(seeds):
-        for shape in F32_LONG_K1:
+        for shape in F32_WIDE_K1 if wide else F32_LONG_K1:
             n, t, h, d = shape
             qkv = torch.randn(n, t, 3 * h * d, generator=generator(shape, seed), device="cuda")
             q, k, v = split_qkv(qkv, h)
@@ -251,6 +259,9 @@ def f64_errors(seeds: int):
                          "rel_err_f64": errors(attention_small(q, k, v), f64)[1],
                          "plain_rel_err_f64": errors(reference_attention(q, k, v), f64)[1]})
             del qkv, q, k, v, f64
+            torch.cuda.empty_cache()
+        if wide:
+            continue
         for shape in F32_LONG_K4:
             gen = generator(shape, seed)
             q, k, v = (torch.randn(*shape, generator=gen, device="cuda") for _ in range(3))
@@ -280,7 +291,10 @@ def main() -> int:
 
     timing_only = "--timing-only" in sys.argv[1:]
     if "--f64-seeds" in sys.argv[1:]:
-        rows = f64_errors(int(sys.argv[sys.argv.index("--f64-seeds") + 1]))
+        rows = f64_errors(int(sys.argv[sys.argv.index("--f64-seeds") + 1]),
+                          wide="--wide-f32" in sys.argv[1:])
+    elif "--wide-f32" in sys.argv[1:]:
+        rows = [bench_k1(s, torch.float32, timing_only) for s in F32_WIDE_K1]
     elif "--long-f32" in sys.argv[1:]:
         rows = ([bench_k1(s, torch.float32, timing_only) for s in F32_LONG_K1]
                 + [bench_k4(s, torch.float32, timing_only) for s in F32_LONG_K4]

@@ -56,14 +56,16 @@ CLASSES = (
     # bf16 K1 and K4 are attention_sm90.cuh's two modes (K1 takes the
     # key-block one only past T = 256, which no shipped preset reaches);
     # f32 K1 runs attn_row_kernel (D 56-80 at T <= 256),
-    # long32::flash_f32_kernel past it (its 32-row instances past T = 512
-    # are K1's alone; at 256 < T <= 512 K1 takes K4's instances, classed
-    # K4 below), attn_short_f32_kernel (D 128/256 at T <= 64) or
-    # attn_small_kernel (D 128/256 past T = 64); f32 K4
+    # attn_short_f32_kernel (D 128/256 at T <= 64) and past those
+    # long32::flash_f32_kernel (its 32-row instances are K1's alone; at D <=
+    # 128 and T <= 512 K1 takes K4's instances, classed K4 below;
+    # attn_small_kernel in an older checkout's trace); f32 K4
     # long32::flash_f32_kernel (flash_attn_kernel in an older checkout's trace)
     ("K1 attention_small", ("attn_small_kernel", "attn_short_f32_kernel",
                             "row32::attn_row_kernel", "sm90::attn_whole_kernel",
-                            "flash_f32_kernel<64, 32, 1024>", "flash_f32_kernel<80, 32, 1024>")),
+                            "flash_f32_kernel<64, 32, 1024>", "flash_f32_kernel<80, 32, 1024>",
+                            "flash_f32_kernel<128, 32, 1024>",
+                            "flash_f32_kernel<256, 32, 1024>")),
     ("K4 flash_attention", ("long32::flash_f32_kernel", "flash_attn_kernel",
                             "sm90::attn_blocked_kernel")),
     ("K6 groupnorm_silu", ("gn_silu_kernel",)),

@@ -63,9 +63,10 @@ DIT_CLASSES = (MATMUL, K1, K3, K5)
 # checkout's trace) and LayerNorm kernels and its attention that normalises
 # p before rounding it (``lfm::sm90::attn_whole_kernel<64, true>``; K1's is
 # ``false>``; f32 K1 is ``lfm::row32::attn_row_kernel`` at T <= 256 and D
-# 56-80, ``lfm::long32::flash_f32_kernel`` past it (f32 K4's kernel, which a
-# train step past the gate also runs), else ``attn_small_kernel`` or
-# ``attn_short_f32_kernel``); K3 is
+# 56-80, ``attn_short_f32_kernel`` at T <= 64 and D 128/256, else
+# ``lfm::long32::flash_f32_kernel`` (f32 K4's kernel, which a train step
+# past the gate also runs; ``attn_small_kernel`` in an older checkout's
+# trace)); K3 is
 # ``lfm::sm90::attn_bwd_dq_kernel`` and ``attn_bwd_dkdv_kernel`` (bf16),
 # ``lfm::row32::attn_row_bwd_dq_kernel`` and ``attn_row_bwd_dkdv_kernel``
 # (f32 at T <= 256), ``lfm::long32::attn_long_bwd_dq_kernel`` and the row

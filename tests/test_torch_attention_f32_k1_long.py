@@ -120,10 +120,17 @@ def test_emulated_f32_k1_long_matches_plain_and_pallas(t, d):
     assert rel_err(to_np(got), _pallas(t, d)) < F32_TOL
 
 
-def _flash_bytes(dp, bq, kcap):
+def flash_stage_keys(dp, bq):
+    """FlashLayout<DP, BQ, KCAP>::KS, the keys of a ring stage: 128 at DP 64,
+    64 at DP 80 and at DP 128 with 32 query rows, else 32."""
+    return 128 if dp <= 64 else 64 if dp <= 80 or (dp <= 128 and bq <= 32) else 32
+
+
+def _flash_bytes(dp, bq, kcap, ks=None):
     """FlashLayout<DP, BQ, KCAP>::BYTES: q (BQ rows of DP + 4 floats), the
-    scores (BQ x KCAP + 4), two ring stages of KS rows, two reductions."""
-    ks = 128 if dp <= 64 else 64 if dp <= 80 else 32
+    scores (BQ x KCAP + 4), two ring stages of KS rows (``ks``, or the
+    layout's), two reductions."""
+    ks = ks or flash_stage_keys(dp, bq)
     tc = ks // (8 if dp <= 64 else 4)
     ld = dp + 4
     return 4 * (bq * ld + bq * (kcap + 4) + 2 * ks * ld + 2 * (tc // 4) * bq)
@@ -131,12 +138,13 @@ def _flash_bytes(dp, bq, kcap):
 
 def test_f32_k1_route_mirrors_attention_cu():
     """f32_k1_route, the Python mirror of lfm_attention_small's f32 route:
-    D 128/256 take attention_wide.cu (one pass to T = 64, attention.cuh's
-    kernel past it), D 56-80 the row kernels to T = 256, then
-    attention_long_f32.cuh's kernel with 64 query rows and 512 keys to T =
-    512 and 32 rows and 1024 keys to the gate; every instance holds the
-    whole row and fits one CTA's shared memory, and 64 rows of 1024 keys
-    would not."""
+    D 128/256 take attention_wide.cu (one pass to T = 64, past it
+    attention_long_f32.cuh's key-block kernel: tests/
+    test_torch_attention_f32_k1_wide.py), D 56-80 the row kernels to T =
+    256, then attention_long_f32.cuh's kernel with 64 query rows and 512
+    keys to T = 512 and 32 rows and 1024 keys to the gate; every instance
+    holds the whole row and fits one CTA's shared memory, and 64 rows of
+    1024 keys would not."""
     for d in (56, 64, 72, 80):
         dp = 64 if d <= 64 else 80
         for t in (1, 64, 65, 128, 129, 256):
@@ -152,6 +160,6 @@ def test_f32_k1_route_mirrors_attention_cu():
         assert (2 * 8 * (dp // 4) <= THREADS) == (dp == 64)
     assert tattn.f32_k1_route(16, 128) == ("attn_short_f32_kernel", 16, 16)
     assert tattn.f32_k1_route(64, 256) == ("attn_short_f32_kernel", 32, 64)
-    assert tattn.f32_k1_route(256, 128) == ("attn_small_kernel", 64, 64)
+    assert tattn.f32_k1_route(256, 128) == ("flash_f32_kernel", 64, 512)
     # the byte counts attention_long_f32.cuh's header states (206 / 182 KB)
     assert _flash_bytes(64, 32, 1024) == 210944 and _flash_bytes(80, 32, 1024) == 186368

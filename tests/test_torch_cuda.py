@@ -241,8 +241,8 @@ def test_attention_small_wide_f32_heads_match_plain(cuda, shape):
 
 # f32 K1 and K3 at the DiT's head dims: the one-pass kernels of
 # attention_row_f32.cuh at T <= 256 (TK 64, 128, 256; D 64 and 72 pad to 64
-# and 80); past it K1 runs attention.cuh and K3 attention_long_f32.cuh's dq
-# kernel
+# and 80); past it K1 runs attention_long_f32.cuh's key-block kernel and K3
+# its dq kernel
 ROW_F32_SHAPES = [(2, t, 16, d) for t in (64, 100, 256) for d in (64, 72)]
 
 
@@ -273,39 +273,53 @@ def test_attention_row_f32_kernels_match_plain(cuda, shape):
         assert _rel(g, w) <= 1e-4 and torch.equal(g, again)
 
 
-@pytest.mark.parametrize("t,fwd,bwd", [
-    (256, "attn_row_kernel", ("attn_row_bwd_dq_kernel", "attn_row_bwd_dkdv_kernel")),
-    (257, "flash_f32_kernel<64, 64, 512>", ("attn_long_bwd_dq_kernel",
-                                            "attn_row_bwd_dkdv_kernel")),
-    (600, "flash_f32_kernel<64, 32, 1024>", ("attn_long_bwd_dq_kernel",
-                                             "attn_row_bwd_dkdv_kernel"))])
-def test_f32_attention_dispatch_by_length(cuda, t, fwd, bwd):
+@pytest.mark.parametrize("t,d,fwd,bwd", [
+    (256, 64, "attn_row_kernel", ("attn_row_bwd_dq_kernel", "attn_row_bwd_dkdv_kernel")),
+    (257, 64, "flash_f32_kernel<64, 64, 512>", ("attn_long_bwd_dq_kernel",
+                                                "attn_row_bwd_dkdv_kernel")),
+    (600, 64, "flash_f32_kernel<64, 32, 1024>", ("attn_long_bwd_dq_kernel",
+                                                 "attn_row_bwd_dkdv_kernel")),
+    (64, 128, "attn_short_f32_kernel<128, 64, 32>", ()),
+    (65, 128, "flash_f32_kernel<128, 64, 512>", ()),
+    (513, 128, "flash_f32_kernel<128, 32, 1024>", ()),
+    (64, 256, "attn_short_f32_kernel<256, 64, 32>", ()),
+    (65, 256, "flash_f32_kernel<256, 32, 1024>", ())])
+def test_f32_attention_dispatch_by_length(cuda, t, d, fwd, bwd):
     """f32 at D 64: T <= 256 launches attention_row_f32.cuh's kernels; past
     it K1 launches attention_long_f32.cuh's key-block kernel with its whole
     row one block (K4's instance up to T = 512, 32 query rows and 1024 keys
     past it, as f32_k1_route says) and K3 the dq kernel of
-    attention_long_f32.cuh with the row kernels' dk/dv kernel (the
+    attention_long_f32.cuh with the row kernels' dk/dv kernel. At the
+    origin ADM's D = 128/256 (forward only) K1 launches attention_wide.cu's
+    one-pass kernel up to T = 64 and past it the same key-block kernel: K4's
+    instance at D = 128 up to T = 512, else 32 query rows and 1024 keys (the
     profiler's kernel names)."""
     from torch.profiler import ProfilerActivity, profile
 
     from lfm_tpu_torch.kernels.flash_attention import (attention_small, attention_small_bwd,
                                                        f32_k1_route)
 
-    name, rows, keys = f32_k1_route(t, 64)
-    assert name in fwd and (t <= 256 or fwd.endswith(f"<64, {rows}, {keys}>")), (name, fwd)
+    name, rows, keys = f32_k1_route(t, d)
+    assert name in fwd, (name, fwd)
+    if name == "flash_f32_kernel":
+        assert fwd.endswith(f"<{d}, {rows}, {keys}>"), (rows, keys, fwd)
 
-    q, k, v, do = (torch.randn(1, t, 2, 64, generator=cuda, device="cuda") for _ in range(4))
-    attention_small(q, k, v)
-    attention_small_bwd(q, k, v, do)
+    q, k, v, do = (torch.randn(1, t, 2, d, generator=cuda, device="cuda") for _ in range(4))
+
+    def run():
+        attention_small(q, k, v)
+        if bwd:
+            attention_small_bwd(q, k, v, do)
+
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        attention_small(q, k, v)
-        attention_small_bwd(q, k, v, do)
+        run()
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     lfm = [name for name in names if "lfm::" in name]
-    assert len(lfm) == 3, names
-    assert fwd in lfm[0] and bwd[0] in lfm[1] and bwd[1] in lfm[2], lfm
+    assert len(lfm) == 1 + len(bwd), names
+    assert fwd in lfm[0] and all(b in got for b, got in zip(bwd, lfm[1:])), lfm
 
 
 def test_profilers_class_the_long_f32_kernels(cuda):
@@ -420,9 +434,11 @@ def test_attention_long_f32_k1_matches_plain(cuda, shape):
 
 def test_attention_long_f32_k1_builds_without_spills(cuda):
     """ptxas's report of f32 K1's own instances of attention_long_f32.cuh's
-    key-block kernel (32 query rows, 1024 keys; DP 64, 80), none spills; and
-    no DP 64 or 80 instance of attention.cuh's f32 kernel is built (only the
-    origin ADM's DP 128 and 256, through attention_wide.cu)."""
+    key-block kernel at the DiT's heads (32 query rows, 1024 keys; DP 64,
+    80), none spills; and no instance of the old two-sweep f32 kernel
+    (attn_small_kernel) is built in any attention source: the origin ADM's
+    D = 128/256 past T = 64 runs the key-block kernel too
+    (test_attention_wide_f32_k1_builds_without_spills)."""
     import re
 
     from lfm_tpu_torch.kernels import _build
@@ -435,11 +451,61 @@ def test_attention_long_f32_k1_builds_without_spills(cuda):
     assert args == [("64", "32", "1024"), ("80", "32", "1024")] and len(k1) == 2, sorted(k1)
     for name, u in k1.items():
         assert u["spill_stores"] == 0 and u["spill_loads"] == 0 and u["registers"] <= 255, name
-    small = [int(m.group(1)) for stem in ("attention", "attention_wide", "attention_long_f32",
-                                          "flash_attention_f32")
-             for k in _build.ptxas_usage(stem)
-             for m in [re.search(r"17attn_small_kernelILi(\d+)E", k)] if m]
-    assert sorted(small) == [128, 256], small
+    small = [k for stem in ("attention", "attention_wide", "attention_long_f32",
+                            "flash_attention_f32")
+             for k in _build.ptxas_usage(stem) if "attn_small_kernel" in k]
+    assert small == [], small
+
+
+# f32 K1 at the origin ADM's D = 128/256 past T = 64: the key-block kernel
+# with its whole row one block (K4's <128, 64, 512> at D = 128 up to T =
+# 512, else 32 query rows and 1024 keys), at celeb512_adm's T = 256 and
+# 1024 and at ragged T either side of the instances' edges
+WIDE_K1_SHAPES = [(1, 65, 2, 128), (2, 256, 4, 128), (1, 300, 3, 128), (1, 512, 2, 128),
+                  (1, 513, 2, 128), (1, 1024, 2, 128), (1, 65, 2, 256), (2, 256, 2, 256),
+                  (1, 513, 2, 256), (1, 1024, 2, 256)]
+
+
+@pytest.mark.parametrize("shape", WIDE_K1_SHAPES)
+def test_attention_wide_f32_k1_matches_plain(cuda, shape):
+    """On separate tensors and on the thirds of a fused qkv row (the ADM's
+    layout), within 1e-4 of the largest plain value; a rerun gives the same
+    bits."""
+    from lfm_tpu_torch.kernels.flash_attention import (ATTENTION_SMALL, attention_small,
+                                                       reference_attention, split_qkv)
+
+    n, t, h, d = shape
+    q, k, v = (torch.randn(*shape, generator=cuda, device="cuda") for _ in range(3))
+    before = ATTENTION_SMALL.count
+    out = attention_small(q, k, v)
+    torch.cuda.synchronize()
+    assert ATTENTION_SMALL.count == before + 1
+    assert out.dtype == torch.float32 and out.shape == shape
+    assert _rel(out, reference_attention(q, k, v)) <= 1e-4
+    qq, kk, vv = split_qkv(torch.randn(n, t, 3 * h * d, generator=cuda, device="cuda"), h)
+    first = attention_small(qq, kk, vv).clone()
+    assert _rel(first, reference_attention(qq, kk, vv)) <= 1e-4
+    assert torch.equal(first, attention_small(qq, kk, vv))
+
+
+def test_attention_wide_f32_k1_builds_without_spills(cuda):
+    """ptxas's report of attention_wide.cu: its 6 instances of the one-pass
+    kernel (DP 128, 256 x 16/32/64 keys) and f32 K1's two 32-row instances
+    of attention_long_f32.cuh's key-block kernel (DP 128 and 256, 1024
+    keys), none spills."""
+    import re
+
+    from lfm_tpu_torch.kernels import _build
+
+    _build.load_library()
+    usage = _build.ptxas_usage("attention_wide")
+    flash = sorted(m.groups() for k in usage
+                   for m in [re.search(r"flash_f32_kernelILi(\d+)ELi(\d+)ELi(\d+)E", k)] if m)
+    short = [k for k in usage if "attn_short_f32_kernel" in k]
+    assert flash == [("128", "32", "1024"), ("256", "32", "1024")] and len(short) == 6, \
+        sorted(usage)
+    for name, u in usage.items():
+        assert u["spill_stores"] == 0 and u["spill_loads"] == 0 and u["registers"] <= 255, name
 
 
 def test_small_f32_dit_grads_through_kernels_match_plain(cuda):
@@ -728,8 +794,9 @@ def test_sm90_gemm_refuses_what_it_does_not_take(cuda):
 
 def test_sm90_gemm_builds_without_spills(cuda):
     """ptxas's report of the NT GEMM: its 8 instances (4 epilogue kinds x 2
-    tile widths) built, none spills; and no NT instance of the WMMA
-    gemm_kernel is left (K5's attention backward keeps NN and TN ones)."""
+    tile widths) built, none spills; and no instance of the WMMA
+    gemm_kernel is left in any source (K5's attention backward runs the NN
+    and TN wgmma GEMM too)."""
     import re
 
     from lfm_tpu_torch.kernels import _build
@@ -742,8 +809,7 @@ def test_sm90_gemm_builds_without_spills(cuda):
     layouts = {stem: [int(m.group(1)) for k in _build.ptxas_usage(stem)
                       for m in [re.search(r"11gemm_kernelI.*?Li(\d)EEEv", k)] if m]
                for stem in ("dit_block", "dit_block_train", "int8_gemm")}
-    assert layouts["dit_block"] == [] and layouts["int8_gemm"] == []
-    assert layouts["dit_block_train"] and set(layouts["dit_block_train"]) <= {1, 2}
+    assert layouts == {"dit_block": [], "dit_block_train": [], "int8_gemm": []}
 
 
 # the NN and TN layouts of gemm_sm90.cuh through their own wrappers: (layout,
@@ -791,6 +857,25 @@ def test_sm90_gemm_nn_tn_match_plain(cuda, layout, epilogue, m, k, n):
         err, top = float((g.float() - w.float()).abs().max()), float(w.float().abs().max())
         assert top > 0 and err <= (1e-4 if g.dtype == torch.float32 else 2.0 ** -7) * top, \
             (err, top)
+
+
+@pytest.mark.parametrize("m,k,n", [(300, 256, 384), (2048, 1024, 1024), (8192, 1024, 1024)])
+def test_sm90_gemm_nn_into_bf16_matches_plain(cuda, m, k, n):
+    """The NN store into bf16 (K5 attn's do = bf16(dpr Wproj); at N = 8 and
+    32 of DiT-L/2's block) against its plain version within one bf16 ulp of
+    the largest value; a rerun gives the same bits."""
+    from lfm_tpu_torch.kernels.gemm import GEMM, gemm_nn, reference_gemm_nn
+
+    a = torch.randn(m, k, generator=cuda, device="cuda").bfloat16()
+    b = (k ** -0.5 * torch.randn(k, n, generator=cuda, device="cuda")).bfloat16()
+    before = GEMM.count
+    got, again = (gemm_nn(a, b, out_dtype=torch.bfloat16) for _ in range(2))
+    torch.cuda.synchronize()
+    assert GEMM.count == before + 2
+    want = reference_gemm_nn(a, b, out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n) and torch.equal(got, again)
+    err, top = float((got.float() - want.float()).abs().max()), float(want.float().abs().max())
+    assert top > 0 and err <= 2.0 ** -7 * top, (err, top)
 
 
 def test_sm90_gemm_nn_tn_refuse_what_they_do_not_take(cuda):
@@ -845,15 +930,15 @@ def test_sm90_gemm_nn_tn_launch_the_tile_the_wrapper_names(cuda, layout, m, n):
 
 
 def test_sm90_gemm_bwd_builds_without_spills(cuda):
-    """ptxas's report of the NN and TN GEMMs (gemm_sm90_bwd.cu): 6 instances
-    (NN dgelu into bf16, NN and TN store into f32, x 2 tile widths), none
-    spills."""
+    """ptxas's report of the NN and TN GEMMs (gemm_sm90_bwd.cu): 8 instances
+    (NN dgelu into bf16, NN store into f32 and bf16, TN store into f32, x 2
+    tile widths), none spills."""
     from lfm_tpu_torch.kernels import _build
 
     _build.load_library()
     usage = {k: v for k, v in _build.ptxas_usage("gemm_sm90_bwd").items()
              if "gemm_sm90_kernel" in k}
-    assert len(usage) == 6, sorted(usage)
+    assert len(usage) == 8, sorted(usage)
     for name, u in usage.items():
         assert u["spill_stores"] == 0 and u["spill_loads"] == 0 and u["registers"] <= 255, name
 
@@ -930,6 +1015,40 @@ def test_mlp_bwd_is_deterministic(cuda):
         assert torch.equal(g, g2), name
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     assert sum("gemm_sm90_kernel" in name for name in names) == 4, names
+    assert not [name for name in names if "lfm::gemm_kernel" in name], names
+
+
+@pytest.mark.parametrize("n", [8, 32])
+def test_attn_bwd_matches_plain_and_is_deterministic(cuda, n):
+    """K5 attn at N = 8 and 32, DiT-L/2's block, on the kernel forward's
+    streams: all six outputs against the plain version (2e-2 of the largest
+    plain value; dx against the update |plain - dx1|), two calls give the
+    same bits (no atomics, no split of K), and its path launches its four
+    GEMMs on the wgmma kernel (two NN, two TN) and no WMMA GEMM."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lfm_tpu_torch.kernels.dit_block_train import (attn_bwd, block_train_fwd,
+                                                       reference_attn_bwd)
+
+    args = _block_args(cuda, n, 256, 1024)
+    _, _, _, pr, qkv, ao, _ = block_train_fwd(**args, num_heads=16)
+    dx1 = torch.randn(n, 256, 1024, generator=cuda, device="cuda").bfloat16()
+    aargs = (args["x"], args["mod"], pr, qkv, ao, args["wqkv"], args["wproj"], dx1)
+    first = [g.clone() for g in attn_bwd(*aargs, num_heads=16)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = attn_bwd(*aargs, num_heads=16)
+        torch.cuda.synchronize()
+    want = reference_attn_bwd(*aargs, num_heads=16)
+    for name, g, g2, w in zip(("dx", "dmod", "dwqkv", "dbqkv", "dwproj", "dbproj"), first, again,
+                              want):
+        assert torch.equal(g, g2), name
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert _within(g, w, dx1 if name == "dx" else None), (name, _rel(g, w))
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    gemms = [name for name in names if "gemm_sm90_kernel" in name]
+    assert len(gemms) == 4, names
+    assert sorted(name.split("gemm_sm90_kernel<")[1][0] for name in gemms) == ["1", "1", "2", "2"]
     assert not [name for name in names if "lfm::gemm_kernel" in name], names
 
 

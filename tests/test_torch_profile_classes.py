@@ -4,7 +4,9 @@ attention_sm90.cuh serves K1 (whole-row mode), K4 (key blocks) and, with
 p / l rounded (``true>``), the attention inside K2 and K5's forward; K3 is
 attention_bwd_sm90.cuh's two kernels; the f32 FMA kernels keep their names
 (f32 K4 is ``long32::flash_f32_kernel``, which f32 K1 also runs past T =
-256, its instances of 32 query rows past T = 512 K1's alone; f32 K3's dq
+256 and, at the origin ADM's D = 128/256, past T = 64, its instances of 32
+query rows K1's alone; ``attn_small_kernel``, the ADM's f32 K1 past T = 64
+in an older checkout's trace, stays K1's; f32 K3's dq
 kernel past T = 256 ``long32::attn_long_bwd_dq_kernel``), the GEMM of K2
 and K5 ``sm90::gemm_sm90_kernel``, and the origin ADM's short f32 K1 is
 ``attn_short_f32_kernel``. Pure string
@@ -71,8 +73,9 @@ def test_f32_kernels_keep_their_sampling_classes():
             f"void lfm::long32::flash_f32_kernel<{dp}, 64, 512>(float const*, float const*, "
             "float const*, float*, int, int, int, long, long, long, long, float)") \
             == "K4 flash_attention"
-    # f32 K1 past T = 512 takes its own 32-row instances of the same kernel
-    for dp in (64, 80):
+    # f32 K1 past T = 512 (and at D = 256 past T = 64) takes its own 32-row
+    # instances of the same kernel
+    for dp in (64, 80, 128, 256):
         name = (f"void lfm::long32::flash_f32_kernel<{dp}, 32, 1024>(float const*, float const*, "
                 "float const*, float*, int, int, int, long, long, long, long, float)")
         assert profile_sample.classify(name) == "K1 attention_small"
