@@ -40,8 +40,10 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
      library: scaled_dot_product_attention;
    - groupnorm_silu (K6), bf16 at (N, 32, 32, 256), (N, 32, 32, 768) (the
      largest in-norm input of celeb256_adm), (N, 4, 4, 1024) and
-     (N, 32, 32, 256) offset by +8, f32 at (8, 32, 32, 256); library:
-     silu(group_norm) on an f32 channels-last view;
+     (N, 32, 32, 256) offset by +8, f32 at (8, 32, 32, 256), each with its
+     launch (gn_plan); where x fits the L2 the timed calls cycle over
+     copies of it; library: silu(group_norm) on an f32 channels-last view,
+     and (library_bf16_ms) on the bf16 one;
    - K5, the differentiable fused block, at the train step's batch (32) and
      at 8, T=256, C=1024, hidden 4096, 16 heads, every weight non-zero:
      block_train_fwd with full and slim streams (library: the block
@@ -91,7 +93,14 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    bound, tile width and schedule, int8_dense's and torch._int_mm's times
    for the same int32 product, and the output's digest; it fails unless
    the output equals the plain version's and int8_dense's bit for bit, and
-   on a spill in any of its 8 instances.
+   on a spill in any of its 8 instances. And one groupnorm_redesign line:
+   each K6 shape above with its ms, share of its bound, library times and
+   digest; gn_eval, the 22 GroupNorm + SiLU calls of one celeb256_adm
+   evaluation at batch N (tools/bench_groupnorm.py's bench_gn_eval: each
+   on its own seeded input, timed as one chain) with its ms, bound,
+   plain and library times; and the registers and spills of K6's 8
+   instances; a spill, or a gn_eval call off its plain version by more
+   than K6_TOL, fails the run.
 3. grad: a 2-block DiT at DiT-L width (C = 1024, 16 heads, T = 256), batch
    8, bf16 compute on f32 masters; the flow-matching loss's parameter
    gradients with attention through K1/K3, and through
@@ -203,6 +212,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import itertools
 import json
 import math
 import os
@@ -477,7 +487,7 @@ def run(torch, work: str) -> int:
                                                        reference_attention,
                                                        reference_attention_bwd,
                                                        reference_flash_attention)
-    from lfm_tpu_torch.kernels.groupnorm_silu import (GROUPNORM_SILU, groupnorm_silu,
+    from lfm_tpu_torch.kernels.groupnorm_silu import (GROUPNORM_SILU, gn_plan, groupnorm_silu,
                                                       reference_groupnorm_silu)
     from lfm_tpu_torch.kernels.int8_matmul import (BF16_MLP, INT8_DENSE, INT8_MLP, QUANT_ROWS,
                                                    bf16_mlp, int8_dense, int8_mlp, quant_rows,
@@ -487,7 +497,7 @@ def run(torch, work: str) -> int:
                                         calculate_frechet_distance)
     from lfm_tpu_torch.eval.inception import seeded_inception_state_dict
     from lfm_tpu_torch.nn.dit_int8 import dit_int8_apply, quantize_params_int8, quantize_weight
-    from lfm_tpu_torch.tools import bench_train, microbench_int8
+    from lfm_tpu_torch.tools import bench_groupnorm, bench_train, microbench_int8
     from lfm_tpu_torch.nn.adm_unet import plan_layers
     from lfm_tpu_torch.nn.dit import DiT
     from lfm_tpu_torch.nn.dit_fused import (cast_params_bf16, dit_fused_apply,
@@ -784,19 +794,57 @@ def run(torch, work: str) -> int:
         if not rel <= tol:
             raise AssertionError(f"groupnorm_silu {(n, hh, ww, c, dt, offset)}: max abs err {err} "
                                  f"is {rel} of max |plain| > {tol}")
-        xl = x.float().permute(0, 3, 1, 2)  # f32, channels-last
+        # where x fits the L2, the timed calls cycle over copies of it, so
+        # that no call finds its input there; library: silu(group_norm) on
+        # the f32 channels-last view, and on x's own (bf16) view
+        xs = bench_groupnorm.rotation(x)
+        cyc = itertools.cycle(xs)
+        lib = itertools.cycle([bench_groupnorm.library(a, scale, bias, f32) for a in xs])
+        lib_own = itertools.cycle([bench_groupnorm.library(a, scale, bias, dt) for a in xs])
         bms, by = bound_ms(2 * x.numel() * x.element_size() + 2 * c * 4, 10 * x.numel(),
                            F32_FLOPS)
         row = {"shape": [n, hh, ww, c], "dtype": str(dt), "offset": offset, "max_abs_err": err,
-               "rel_err": rel, "tol": tol,
-               "ms": time_ms(torch, lambda: groupnorm_silu(x, scale, bias)),
-               "plain_ms": time_ms(torch, lambda: reference_groupnorm_silu(x, scale, bias)),
-               "library_ms": time_ms(torch, lambda: F.silu(F.group_norm(xl, 32, scale, bias,
-                                                                        1e-5))),
+               "rel_err": rel, "tol": tol, "digest": digest(torch, out),
+               "differ_from_plain": int((out != ref).sum()), "copies": len(xs),
+               "plan": gn_plan(n, hh * ww, c, 32, dt)._asdict(),
+               "ms": time_ms(torch, lambda: groupnorm_silu(next(cyc), scale, bias)),
+               "plain_ms": time_ms(torch, lambda: reference_groupnorm_silu(next(cyc), scale,
+                                                                           bias)),
+               "library_ms": time_ms(torch, lambda: next(lib)()),
+               "library_bf16_ms": time_ms(torch, lambda: next(lib_own)()) if dt == bf else None,
                "bound_ms": bms, "bound_by": by, "seconds": time.time() - t_case}
         k6_rows[(n, hh, ww, c, dt, offset)] = row
         emit({"phase": "kernel", "name": "groupnorm_silu", **row})
-        del x, xl, out, ref
+        del x, xs, cyc, lib, lib_own, out, ref
+
+    # the redesigned K6: each shape above against its bound and its library
+    # calls; gn_eval, the 22 calls of one celeb256_adm evaluation at batch N
+    # as one chain; ptxas's registers and spills of its 8 instances (bf16 and
+    # f32 x 16-byte and one-element chunks x held and streamed)
+    t_case = time.time()
+    gn_eval = bench_groupnorm.bench_gn_eval(timing_only=False)
+    gn_eval["ms_median"] = sorted(gn_eval["ms"])[len(gn_eval["ms"]) // 2]
+    gn_ptxas = {}
+    for mangled, use in _build.ptxas_usage("groupnorm_silu").items():
+        m = re.search(r"gn_silu_kernelI(13__nv_bfloat16|f)Li(\d+)ELb([01])E", mangled)
+        if m:
+            gn_ptxas[f"gn_silu_kernel<{'float' if m.group(1) == 'f' else 'bf16'}, {m.group(2)}, "
+                     f"{'true' if m.group(3) == '1' else 'false'}>"] = use
+    emit({"phase": "groupnorm_redesign",
+          "shapes": [{"shape": r["shape"], "dtype": r["dtype"], "offset": r["offset"],
+                      "ms": r["ms"], "bound_ms": r["bound_ms"],
+                      "bound_share": r["bound_ms"] / r["ms"], "library_ms": r["library_ms"],
+                      "library_bf16_ms": r["library_bf16_ms"], "digest": r["digest"],
+                      "plan": r["plan"]} for r in k6_rows.values()],
+          "gn_eval": {**gn_eval, "bound_share": gn_eval["bound_ms"] / gn_eval["ms_median"]},
+          "ptxas": gn_ptxas, "seconds": time.time() - t_case})
+    if gn_eval["launches"] != 22 or not gn_eval["rel_err"] <= K6_TOL:
+        raise AssertionError(f"gn_eval: {gn_eval['launches']} calls, max abs err "
+                             f"{gn_eval['max_abs_err']} is {gn_eval['rel_err']} of max |plain| "
+                             f"> {K6_TOL}")
+    spilled = {k: u for k, u in gn_ptxas.items() if u.get("spill_stores") or u.get("spill_loads")}
+    if len(gn_ptxas) != 8 or spilled:
+        raise AssertionError(f"groupnorm_silu: {len(gn_ptxas)} kernel instances, spills {spilled}")
 
     # K5: the forward with its streams, then each backward half on the
     # kernel forward's own streams (t and c as K2's; the loops above rebound

@@ -44,6 +44,9 @@ SIGNATURES = {
     "lfm_flash_attention": [_P] * 4 + [_I] * 10 + [_P],
     "lfm_flash_f32_max_block": [],
     "lfm_groupnorm_silu": [_P] * 4 + [_I] * 4 + [_F, _I, _P],
+    "lfm_groupnorm_silu_plan": [_I] * 6 + [_P],
+    "lfm_groupnorm_silu_layout": [_P] * 4 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
+    "lfm_groupnorm_silu_div_check": [_P] * 5 + [_I, _P],
     "lfm_quant_rows": [_P] * 3 + [_I] * 3 + [_P],
     "lfm_int8_gemm": [_P] * 6 + [_I] * 5 + [_P],
     "lfm_bf16_mlp": [_P] * 5 + [_I] * 3 + [_P],

@@ -4,10 +4,13 @@ of lfm_tpu/kernels/groupnorm_silu.py).
 K6 ports ``groupnorm_silu`` (the Pallas kernel `_gn_silu_kernel`): per
 sample, GroupNorm over NHWC with f32 statistics (32 groups, eps 1e-5), then
 the affine, then SiLU, in one kernel (``csrc/groupnorm_silu.cu``, where
-what bounds it is noted). It reads x in its own type (bf16 or f32) and
-writes the same type, with f32 inside: the values of the JAX module, which
-casts to f32 around its kernel. Its statistics are two-pass, as
+what bounds it and the design are noted). It reads x once, in its own type
+(bf16 or f32), holds it on chip between the statistics and the normalise,
+and writes the same type, with f32 inside: the values of the JAX module,
+which casts to f32 around its kernel. Its statistics are two-pass, as
 ``reference_groupnorm_silu``'s are; the TPU kernel's are E[x^2] - mean^2.
+``gn_plan`` states the launch the kernel makes for a shape (the C rule
+``gn_make_plan``, which ``lfm_groupnorm_silu_plan`` returns on the card).
 
 On a CPU tensor ``groupnorm_silu`` computes the plain version; on a CUDA
 tensor it launches K6 or raises. The ADM UNet's ResBlocks reach it through
@@ -16,12 +19,82 @@ tensor it launches K6 or raises. The ADM UNet's ResBlocks reach it through
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from lfm_tpu_torch.kernels._build import LaunchCounter, check_rc, load_library
 
 GROUPNORM_SILU = LaunchCounter()
 DTYPES = (torch.bfloat16, torch.float32)
+# csrc/groupnorm_silu.cu's constants
+MAX_THREADS, MIN_THREADS, CHUNKS_PER_THREAD = 512, 64, 16
+SPAN_BYTES, CTA_BYTES, SMEM_MAX, MAX_CLUSTER = 64, 65536, 232448, 8
+
+
+class GnPlan(NamedTuple):
+    """K6's launch for one shape (``GnPlan`` of csrc/groupnorm_silu.cu, in its
+    order): elements of a chunk (16 bytes, or 1 at the scalar edge), groups
+    an item, chunks of a pixel's span, lanes of a pixel, threads, CTAs of a
+    cluster, whether the slab is held in shared memory, pixels a CTA,
+    dynamic shared bytes, items (samples times group spans; the grid is
+    items x cluster CTAs)."""
+
+    vec: int
+    gpc: int
+    cpp: int
+    p2: int
+    threads: int
+    cluster: int
+    hold: int
+    hwc: int
+    smem: int
+    items: int
+
+
+def _pow2_at_least(v: int) -> int:
+    p = 1
+    while p < v:
+        p *= 2
+    return p
+
+
+def gn_plan(n: int, hw: int, c: int, groups: int, dtype: torch.dtype,
+            aligned: bool = True) -> GnPlan:
+    """The launch K6 makes for x (n, hw, c) in ``dtype`` (``gn_make_plan``):
+    an item is one sample and ``gpc`` whole groups, a CTA its ``hwc``
+    pixels. Chunks are 16 bytes where a group's bytes are a multiple of 16
+    and x and out are 16-byte aligned, else one element. The span is the
+    fewest groups that make SPAN_BYTES or more a pixel, in whole 32-byte
+    sectors where the chunks are 16 bytes; the smallest cluster whose CTAs
+    hold at most CTA_BYTES of the slab splits its pixels (else the largest,
+    which streams x where its part does not fit SMEM_MAX); the threads give
+    each about CHUNKS_PER_THREAD chunks."""
+    if groups < 1 or c % groups or n < 1 or hw < 1 or n * groups * MAX_CLUSTER > 2 ** 31 - 1:
+        raise ValueError(f"groupnorm_silu: no launch for N {n}, HW {hw}, C {c}, groups {groups}")
+    esize = torch.empty((), dtype=dtype).element_size()
+    cg = c // groups
+    vector = aligned and (cg * esize) % 16 == 0
+    cbytes = 16 if vector else esize
+    cpg = cg * esize // cbytes
+    gbytes = hw * cg * esize
+    gpc = 1
+    while ((gpc * cg * esize < SPAN_BYTES or (vector and (gpc * cg * esize) % 32))
+           and groups % (2 * gpc) == 0 and 2 * gpc * cpg <= MAX_THREADS):
+        gpc *= 2
+    cl = 1
+    while cl < MAX_CLUSTER and -(-gpc * gbytes // cl) > CTA_BYTES:
+        cl *= 2
+    cpp = gpc * cpg
+    p2 = _pow2_at_least(min(cpp, MAX_THREADS))
+    hwc = -(-hw // cl)
+    threads = min(max(_pow2_at_least(-(-hwc * p2 // CHUNKS_PER_THREAD)), p2, MIN_THREADS),
+                  MAX_THREADS)
+    slab = -(-hwc * cpp * cbytes // 16) * 16
+    scratch = (2 * threads + 2 * gpc) * 4
+    hold = int(slab + scratch <= SMEM_MAX)
+    return GnPlan(cbytes // esize, gpc, cpp, p2, threads, cl, hold, hwc,
+                  slab + scratch if hold else scratch, n * (groups // gpc))
 
 
 def reference_groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -599,10 +599,19 @@ def test_fused_attention_past_the_gate_launches_k4(cuda):
     assert _rel(out.detach(), ref.detach()) <= 2e-2 and _rel(a.grad, b.grad) <= 2e-2
 
 
+# K6 by plan regime (kernels/groupnorm_silu.gn_plan): a CTA of four packed
+# groups (cg = 8, 64 KB), two groups of cg = 24 split over a cluster of two
+# (96 KB), 16 pixels a CTA (4 x 4), the +8 offset, f32, the scalar edge
+# (cg = 3), a cluster of eight splitting celeb512_adm's (64, 64, 768) in
+# bf16 and in f32 (384 KB a group, past one SM), a cluster of eight
+# streaming x (8 MB a span), and a group wider than a CTA's 512 lanes
+# (cg = 521 at the scalar edge)
 @pytest.mark.parametrize("dtype,shape,offset", [
     (torch.bfloat16, (4, 32, 32, 256), 0.0), (torch.bfloat16, (2, 32, 32, 768), 0.0),
     (torch.bfloat16, (8, 4, 4, 1024), 0.0), (torch.bfloat16, (4, 32, 32, 256), 8.0),
-    (torch.float32, (2, 32, 32, 256), 0.0), (torch.float32, (3, 5, 7, 96), 8.0)])
+    (torch.float32, (2, 32, 32, 256), 0.0), (torch.float32, (3, 5, 7, 96), 8.0),
+    (torch.bfloat16, (2, 64, 64, 768), 0.0), (torch.float32, (1, 64, 64, 768), 8.0),
+    (torch.bfloat16, (1, 512, 512, 256), 0.0), (torch.bfloat16, (1, 2, 3, 32 * 521), 8.0)])
 def test_groupnorm_silu_kernel_matches_plain(cuda, dtype, shape, offset):
     from lfm_tpu_torch.kernels.groupnorm_silu import (GROUPNORM_SILU, groupnorm_silu,
                                                       reference_groupnorm_silu)
@@ -617,8 +626,143 @@ def test_groupnorm_silu_kernel_matches_plain(cuda, dtype, shape, offset):
     torch.cuda.synchronize()
     assert GROUPNORM_SILU.count == before + 1 and out.dtype == dtype
     assert _rel(out, reference_groupnorm_silu(x, scale, bias)) <= tol
+    # fixed-order sums: the same bits again
+    assert torch.equal(out, groupnorm_silu(x, scale, bias))
     with pytest.raises(ValueError, match="contiguous"):
         groupnorm_silu(x.transpose(1, 2), scale, bias)
+
+
+def test_groupnorm_silu_unaligned_input_takes_the_scalar_edge(cuda):
+    """x one element past a 16-byte boundary (contiguous, so it is taken):
+    the one-element chunks of the same kernel, within the same tolerance as
+    the aligned call."""
+    from lfm_tpu_torch.kernels.groupnorm_silu import groupnorm_silu, reference_groupnorm_silu
+
+    shape = (2, 16, 16, 256)
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        flat = torch.randn(1 + 2 * 16 * 16 * 256, generator=cuda, device="cuda").to(dtype)
+        x = flat[1:].view(shape)
+        assert x.is_contiguous() and x.data_ptr() % 16
+        scale = 1.0 + 0.1 * torch.randn(256, generator=cuda, device="cuda")
+        bias = 0.1 * torch.randn(256, generator=cuda, device="cuda")
+        out = groupnorm_silu(x, scale, bias)
+        assert _rel(out, reference_groupnorm_silu(x, scale, bias)) <= tol
+
+
+def test_groupnorm_silu_plan_is_the_kernels(cuda):
+    """gn_plan (Python) equals gn_make_plan (C, lfm_groupnorm_silu_plan) at
+    every GroupNorm + SiLU shape of celeb256_adm and celeb512_adm, in bf16
+    and f32, aligned or not, and at the regimes' edges; and the profiler
+    names the instance the plan picks (chunk elements, held or streamed)."""
+    import ctypes
+
+    from lfm_tpu_torch.core.config import get_preset
+    from lfm_tpu_torch.kernels import _build
+    from lfm_tpu_torch.kernels.groupnorm_silu import gn_plan, groupnorm_silu
+    from lfm_tpu_torch.tools.bench_groupnorm import gn_silu_shapes
+
+    lib = _build.load_library()
+    shapes = {s for p in ("celeb256_adm", "celeb512_adm") for s in gn_silu_shapes(
+        get_preset(p).model)} | {(5, 7, 96), (512, 512, 256), (1, 1, 32), (3, 1, 64)}
+    for h, w, c in sorted(shapes):
+        for dtype in (torch.bfloat16, torch.float32):
+            for aligned in (True, False):
+                got = (ctypes.c_int * 10)()
+                assert lib.lfm_groupnorm_silu_plan(16, h * w, c, 32, int(dtype == torch.float32),
+                                                   int(aligned), got) == 0
+                assert tuple(got) == tuple(gn_plan(16, h * w, c, 32, dtype, aligned)), (h, w, c)
+    from torch.profiler import ProfilerActivity, profile
+
+    for shape, dtype, name in (((2, 32, 32, 768), torch.bfloat16, "<__nv_bfloat16, 8, true>"),
+                               ((3, 5, 7, 96), torch.float32, "<float, 1, true>"),
+                               ((1, 512, 512, 256), torch.bfloat16, "<__nv_bfloat16, 8, false>")):
+        x = torch.randn(*shape, generator=cuda, device="cuda").to(dtype)
+        ones = torch.ones(shape[-1], device="cuda")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            groupnorm_silu(x, ones, ones)
+            torch.cuda.synchronize()
+        kernels = [e.key for e in prof.key_averages() if "gn_silu_kernel" in e.key]
+        assert len(kernels) == 1 and name in kernels[0], kernels
+
+
+def test_groupnorm_silu_layouts_match_plain(cuda):
+    """lfm_groupnorm_silu_layout (tools/bench_groupnorm.py --layouts): other
+    layouts than the plan's (one CTA of two groups, a cluster of four, one
+    group a CTA, four groups over a cluster of two) agree with the plain
+    version as the plan's launch does, and a layout that does not exist
+    (groups that do not divide 32, a cluster of 16, fewer threads than a
+    pixel's lanes, a thread count not a power of two) is refused."""
+    import ctypes
+
+    from lfm_tpu_torch.kernels import _build
+    from lfm_tpu_torch.kernels.groupnorm_silu import reference_groupnorm_silu
+
+    lib = _build.load_library()
+    shape = (2, 32, 32, 768)
+    x = torch.randn(*shape, generator=cuda, device="cuda").bfloat16()
+    scale = 1.0 + 0.1 * torch.randn(768, generator=cuda, device="cuda")
+    bias = 0.1 * torch.randn(768, generator=cuda, device="cuda")
+    ref = reference_groupnorm_silu(x, scale, bias)
+    stream = torch.cuda.current_stream().cuda_stream
+    for layout in ((2, 1, 512), (2, 4, 128), (1, 1, 256), (4, 2, 256)):
+        out = torch.empty_like(x)
+        assert lib.lfm_groupnorm_silu_layout(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                                             out.data_ptr(), 2, 1024, 768, 32,
+                                             ctypes.c_float(1e-5), 0, *layout, stream) == 0
+        torch.cuda.synchronize()
+        assert _rel(out, ref) <= 2e-2, layout
+    for layout in ((3, 1, 256), (2, 16, 256), (2, 1, 4), (2, 1, 384)):
+        assert lib.lfm_groupnorm_silu_layout(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                                             out.data_ptr(), 2, 1024, 768, 32,
+                                             ctypes.c_float(1e-5), 0, *layout, stream) != 0
+
+
+def test_groupnorm_silu_fast_division_is_ieee_division(cuda):
+    """K6's SiLU divides without the IEEE division's per-element range check
+    where gn_div_safe holds; there its quotient must have the division's
+    bits. 2^24 pairs a round: y of every exponent in [-50, 50] and both
+    signs, and the SiLU's own y ~ N(0, 8^2), over d = 1 + exp(-y) and d
+    spread over [1, 2^45)."""
+    from lfm_tpu_torch.kernels import _build
+
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    m, checked = 1 << 24, 0
+    for rnd in range(4):
+        if rnd % 2:
+            y = 8.0 * torch.randn(m, generator=cuda, device="cuda")
+        else:
+            e = torch.randint(-50, 51, (m,), generator=cuda, device="cuda").float()
+            sign = torch.randint(0, 2, (m,), generator=cuda, device="cuda") * 2 - 1
+            y = (1 + torch.rand(m, generator=cuda, device="cuda")) * torch.exp2(e) * sign
+        if rnd < 2:
+            d = 1 + torch.exp(-y)
+        else:
+            spread = torch.randint(0, 45, (m,), generator=cuda, device="cuda").float()
+            d = 1 + torch.rand(m, generator=cuda, device="cuda") * torch.exp2(spread)
+        fast, exact = torch.empty_like(y), torch.empty_like(y)
+        safe = torch.empty(m, dtype=torch.int32, device="cuda")
+        assert lib.lfm_groupnorm_silu_div_check(y.data_ptr(), d.data_ptr(), fast.data_ptr(),
+                                                exact.data_ptr(), safe.data_ptr(), m,
+                                                stream) == 0
+        ok = safe.bool()
+        assert torch.equal(fast.view(torch.int32)[ok], exact.view(torch.int32)[ok])
+        checked += int(ok.sum())
+    assert checked > 2 * m
+
+
+def test_groupnorm_silu_builds_without_spills(cuda):
+    """ptxas's report of K6: its 8 instances (bf16 and f32 x 16-byte and
+    one-element chunks x held and streamed), none spills, each within the
+    64 registers that two CTAs of 512 threads on an SM leave it."""
+    from lfm_tpu_torch.kernels import _build
+
+    _build.load_library()
+    usage = {k: v for k, v in _build.ptxas_usage("groupnorm_silu").items()
+             if "gn_silu_kernel" in k}
+    assert len(usage) == 8, sorted(usage)
+    for name, u in usage.items():
+        assert u["spill_stores"] == 0 and u["spill_loads"] == 0 and u["registers"] <= 64, name
 
 
 def test_small_adm_runs_its_kernels_and_matches_plain(cuda):
