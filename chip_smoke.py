@@ -7,7 +7,8 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
 
 1. build: nvcc builds ``lfm_tpu_torch/kernels/csrc/*.cu`` into one library,
    in a thread, while the main path's DiT-L/2 is made with seeded non-zero
-   weights and saved as the ``model_0.pth`` that phase 6 starts from.
+   weights and saved as the ``model_0.pth`` that phases 5e and 9 start
+   from.
 2. kernels: each hand-written kernel against its plain PyTorch version on
    the same seeded inputs, with the error against the stated tolerance, the
    kernel's time, the plain version's time, the bound and the time of one
@@ -26,9 +27,10 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
      at (16, 256, 4, 128) and (16, 1024, 4, 128) (the adm512_attn path's
      shapes), (16, 256, 4, 256) and (16, 1024, 4, 256); library:
      scaled_dot_product_attention;
-   - fused_dit_block (K2) at T=256, C=1024, hidden 4096, 16 heads, N=8 and
-     N, every weight non-zero; library: the same block composed of cuBLAS
-     bf16 matmuls and scaled_dot_product_attention;
+   - fused_dit_block (K2) at T=256, C=1024, hidden 4096, 16 heads, N=1
+     (cli_eval's nfe and time), N=8 and N, every weight non-zero;
+     library: the same block composed of cuBLAS bf16 matmuls and
+     scaled_dot_product_attention;
    - attention_small_bwd (K3), bf16 at (32, 256, 16, 64) and
      (8, 1024, 16, 64), f32 at (8, 256, 16, 64), (32, 256, 16, 64),
      (8, 256, 16, 72) and (2, 1024, 16, 64) (past T = 256: the dq kernel of
@@ -123,12 +125,23 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    bf16 velocity within the JAX package's 8%.
 5c. fid: FIDInceptionV3 with seeded weights (eval/inception.py) on the
    card over main_module's and int8_main's 200 images; its activations on
-   2 images against the same module on the CPU; the Fréchet distance
-   int8-vs-bf16 must be finite. With seeded weights it is a protocol-level
-   number, not an image-quality one.
+   2 images against the same module on the CPU. main_module's statistics
+   are written as the file that cli_eval's fid command scores against
+   (that command computes the one Fréchet distance of the run); the int8
+   images' activations and statistics must be finite, and their mean term
+   and trace difference against the bf16 ones are printed.
 5d. p1_probe: tools/microbench_int8.py's measure() (P1's probe: int8_mlp
    against bf16_mlp, each chained 8 times per call); int8_mlp and bf16_mlp
    must each launch 8 x (1 + REPS) times and nothing else.
+5e. cli_eval: ``lfm_tpu_torch.cli.main.main`` in-process on the
+   celeb256_dit preset from phase 1's model_0.pth (the VAE and Inception
+   seeded as above): ``fid`` (euler at 4 steps, 400 samples in batches of
+   200, against 5c's statistics, with --output_log), ``nfe`` (3 trials of
+   dopri5 at batch 1) and ``time`` (a warm-up and 5 timed runs at batch
+   1). The FID must be finite and the log line the reference's; each
+   command must launch fused_dit_block exactly depth x its NFE (fid:
+   steps x batches; nfe and time: the NFE each run returned) and nothing
+   else.
 6. adm_main: ``make_sampler`` on the celeb256_adm preset, a bf16 origin-ADM
    UNet at full width (nf 256, ch_mult 1 2 2 2, 2 ResBlocks per level, 4
    heads, attention through K1) with seeded non-zero weights, dopri5 at
@@ -149,6 +162,18 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    attention_long_f32.cuh's key-block kernel, both counts from
    ``build_unet_plan``; the velocity at one (t, x) must agree with the
    same model's with plain attention within VEL_TOL.
+7c. edm_cfg: ``make_sampler`` on the imnet_adm preset, EDM's DhariwalUNet
+   at full width (nf 256, ch_mult 1 2 3 4, 2 blocks a level, attention at
+   16, 8 and 4, 1000 classes; 407.4 M parameters) with seeded non-zero
+   weights, bf16, batch 16 doubled to 32 by CFG 1.25 (null label -1),
+   euler at 2 steps, VAE decode to (16, 256, 256, 3); it must launch no
+   hand-written kernel (JAX's EDM attention and GroupNorm are plain). One
+   CFG evaluation is timed alone, beside its bound (its operations counted
+   on the meta device: bf16 convolutions, f32 products). The same weights in f32 on the card (TF32
+   off) must give the CPU's velocity at batch 2 within F32_VEL_TOL; the
+   bf16 velocity must be within VEL_TOL of the f32 one; the guided
+   velocity from one doubled batch must equal uncond + s (cond - uncond)
+   from two calls within CFG_TOL in f32.
 8. long_t: ``make_sampler`` on celeb256_dit at image_size 1024 (DiT-L/2 at
    full width and depth, T = 4096 tokens, past the fused block's gate),
    euler at 2 steps, batch 2, VAE decode to 1024^2; flash_attention must
@@ -210,6 +235,7 @@ any result.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import hashlib
 import itertools
@@ -326,6 +352,15 @@ LONG_F32_SIZE = 512  # image size of the long_f32 path: T = (512 / 8 / 2)^2 = 10
 # adm512_attn's attention: at ds 2, 4, 8, 16 of celeb512_adm's 64^2 latent, T
 # = 1024, 256 (D 128), 64 (D 128), 16 (D 256)
 ADM512_ATTN = (2, 4, 8, 16)
+# cli_eval: the fid command's samples and euler steps, nfe's trials and
+# time's timed repetitions
+CLI_FID_SAMPLES, CLI_FID_STEPS, CLI_NFE_TRIALS, CLI_TIME_REPS = 400, 4, 3, 5
+# edm_cfg: imnet_adm's sampling batch (doubled by CFG) and euler steps
+EDM_BATCH, EDM_STEPS = 16, 2
+# the guided velocity from one doubled batch against uncond + s (cond -
+# uncond) from two calls, f32: the same arithmetic at other batch sizes,
+# where cuDNN may take other algorithms
+CFG_TOL = 1e-5
 
 
 def emit(obj) -> None:
@@ -493,8 +528,11 @@ def run(torch, work: str) -> int:
                                                    bf16_mlp, int8_dense, int8_mlp, quant_rows,
                                                    reference_bf16_mlp, reference_int8_dense,
                                                    reference_int8_mlp, reference_quant_rows)
-    from lfm_tpu_torch.eval.fid import (ActivationExtractor, activation_statistics,
-                                        calculate_frechet_distance)
+    import numpy as np
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from lfm_tpu_torch.cli.main import main as cli_main
+    from lfm_tpu_torch.eval.fid import ActivationExtractor, activation_statistics, save_statistics
     from lfm_tpu_torch.eval.inception import seeded_inception_state_dict
     from lfm_tpu_torch.nn.dit_int8 import dit_int8_apply, quantize_params_int8, quantize_weight
     from lfm_tpu_torch.tools import bench_groupnorm, bench_train, microbench_int8
@@ -506,7 +544,8 @@ def run(torch, work: str) -> int:
     from lfm_tpu_torch.nn.init import seeded_init_
     from lfm_tpu_torch.nn import layers as nn_layers
     from lfm_tpu_torch.ode.flow import interpolate
-    from lfm_tpu_torch.sample.sample import make_sampler, noise_and_labels
+    from lfm_tpu_torch.sample import sharded
+    from lfm_tpu_torch.sample.sample import build_velocity, make_sampler, noise_and_labels
     from lfm_tpu_torch.train.loop import train
     from lfm_tpu_torch.train.state import create_train_state, make_optimizer
     from lfm_tpu_torch.train.train import make_train_step
@@ -631,7 +670,9 @@ def run(torch, work: str) -> int:
                     w1=rn(hid, c, scale=c ** -0.5), b1=rn(hid, scale=0.02),
                     w2=rn(c, hid, scale=hid ** -0.5), b2=rn(c, scale=0.02))
 
-    for n in sorted({8, batch}):
+    # N = 1 is cli_eval's nfe and time (batch 1), whose fc1 takes other
+    # tiles (gemm_tile at M = 256 rows) than N = 8 and the sampling batch
+    for n in sorted({1, 8, batch}):
         t_case = time.time()
         blk = block_inputs(n)
         out = fused_dit_block(**blk, num_heads=heads)
@@ -1249,7 +1290,8 @@ def run(torch, work: str) -> int:
     del isampler, ires, qparams, v_int8, v_int8_plain, v_module, noise
     torch.cuda.empty_cache()
 
-    # 5c. fid: seeded Inception over the bf16 module's and the int8 images
+    # 5c. fid: seeded Inception over the bf16 module's images, whose
+    # statistics cli_eval scores the CLI's fid command against
     t_fid = time.time()
     inception_sd = seeded_inception_state_dict(SEED)
     extractor = ActivationExtractor(inception_sd, device=dev)
@@ -1259,27 +1301,34 @@ def run(torch, work: str) -> int:
     extractor(mimg[:50])  # warm-up (cuDNN's algorithm choice)
     torch.cuda.synchronize()
     t0 = time.time()
-    acts = {name: extractor.over_batches(images.split(50)) for name, images in
-            (("bf16", mimg), ("int8", iimg))}
+    acts, acts_int8 = (extractor.over_batches(images.split(50)) for images in (mimg, iimg))
     torch.cuda.synchronize()
     extract_s = time.time() - t0
-    t0 = time.time()
-    fid = calculate_frechet_distance(*activation_statistics(acts["int8"]),
-                                     *activation_statistics(acts["bf16"]))
-    sqrtm_s = time.time() - t0
+    stats_path = os.path.join(work, "main_module_stats.npy")
+    mu, sigma = activation_statistics(acts)
+    save_statistics(stats_path, mu, sigma)
+    # the int8 images' statistics against the bf16 ones: the Fréchet
+    # distance's mean term and trace difference (its sqrtm is cli_eval's)
+    mu8, sigma8 = activation_statistics(acts_int8)
+    mean_sq = float(((mu8 - mu) ** 2).sum())
+    trace_diff = float(np.trace(sigma8) - np.trace(sigma))
     emit({"phase": "fid", "images": [int(mimg.shape[0]), int(iimg.shape[0])],
-          "features": int(acts["int8"].shape[1]), "fid_int8_vs_bf16": fid,
+          "features": int(acts.shape[1]),
           "weights": "seeded (no pt_inception checkpoint in the repository): a "
                      "protocol-level number, not image quality",
           "activation_rel_err_vs_cpu": act_err, "activation_tol": FID_ACT_TOL,
-          "extract_ms_per_image": 1e3 * extract_s / (2 * batch), "sqrtm_seconds": sqrtm_s,
+          "int8_vs_bf16_mean_sq": mean_sq, "int8_vs_bf16_trace_diff": trace_diff,
+          "extract_ms_per_image": 1e3 * extract_s / (2 * batch),
           "phase_seconds": time.time() - t_fid})
-    if not math.isfinite(fid):
-        raise AssertionError(f"Fréchet distance int8 vs bf16 is not finite: {fid}")
+    for name, a, m, sg in (("bf16", acts, mu, sigma), ("int8", acts_int8, mu8, sigma8)):
+        if not (a.shape == (batch, 2048) and np.isfinite(a).all() and np.isfinite(m).all()
+                and np.isfinite(sg).all()):
+            raise AssertionError(f"{name} Inception activations {a.shape} or their statistics "
+                                 "are not finite")
     if not act_err <= FID_ACT_TOL:
         raise AssertionError(f"Inception activations on the card vs the CPU: {act_err} > "
                              f"{FID_ACT_TOL}")
-    del extractor, acts, mimg, iimg, inception_sd
+    del extractor, acts, acts_int8, mimg, iimg, inception_sd
     torch.cuda.empty_cache()
 
     # 5d. p1_probe: P1's probe tool, int8_mlp against bf16_mlp
@@ -1290,6 +1339,74 @@ def run(torch, work: str) -> int:
     emit({"phase": "p1_probe", **p1_line, "launches": probe_counts})
     if {k: v for k, v in probe_counts.items() if v} != {"int8_mlp": calls, "bf16_mlp": calls}:
         raise AssertionError(f"p1_probe: launches {probe_counts}, expected {calls} of each")
+
+    # 5e. cli_eval: the CLI's fid, nfe and time on celeb256_dit from model_0.pth
+    t_cli = time.time()
+    cli_args = ["--preset", "celeb256_dit", "--ckpt", ckpt_path]
+    fid_log = os.path.join(work, "fid_log.txt")
+    cli_counts, cli_seconds, score_s = {}, {}, []
+    score = sharded.fid_from_activations
+
+    def timed_score(acts, path):  # the host sqrtm, timed apart from the generation
+        t0 = time.time()
+        try:
+            return score(acts, path)
+        finally:
+            score_s.append(time.time() - t0)
+
+    sharded.fid_from_activations = timed_score
+    for cmd, args in (("fid", ["--method", "euler", "--steps", str(CLI_FID_STEPS),
+                               "--n_sample", str(CLI_FID_SAMPLES), "--batch_size", str(batch),
+                               "--real_img_dir", stats_path, "--output_log", fid_log,
+                               "--epoch_id", "0"]),
+                      ("nfe", ["--n_sample", str(CLI_NFE_TRIALS)]),
+                      ("time", ["--n_sample", str(CLI_TIME_REPS)])):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        cli_out = cli_main([cmd, *cli_args, *args])
+        torch.cuda.synchronize()
+        cli_seconds[cmd] = time.time() - t0
+        cli_counts[cmd] = counts()
+        if cmd == "fid":
+            cli_fid = cli_out
+        elif cmd == "nfe":
+            cli_nfes = cli_out
+        else:
+            cli_time = cli_out
+    sharded.fid_from_activations = score
+    # fused_dit_block, depth launches an evaluation: the fid command's euler
+    # steps for each of its batches, every nfe trial's and every time run's
+    # (the warm-up's and each repetition's) NFE
+    cli_nfe = {"fid": CLI_FID_STEPS * math.ceil(CLI_FID_SAMPLES / batch),
+               "nfe": sum(cli_nfes), "time": sum(cli_time["nfe"])}
+    with open(fid_log) as f:
+        log_text = f.read()
+    emit({"phase": "cli_eval", "preset": "celeb256_dit", "commands": ["fid", "nfe", "time"],
+          "fid": cli_fid, "fid_samples": CLI_FID_SAMPLES, "fid_steps": CLI_FID_STEPS,
+          "fid_seconds": cli_seconds["fid"], "fid_score_seconds": score_s[0],
+          "fid_samples_per_s_without_score": CLI_FID_SAMPLES
+          / (cli_seconds["fid"] - score_s[0]), "log_line": log_text.strip(), "nfe_trials": cli_nfes,
+          "nfe_seconds": cli_seconds["nfe"], "time_ms": cli_time["ms"],
+          "time_ms_mean": float(np.mean(cli_time["ms"])),
+          "time_ms_std": float(np.std(cli_time["ms"])), "time_nfe": cli_time["nfe"],
+          "time_seconds": cli_seconds["time"], "launches": cli_counts,
+          "weights": "seeded DiT-L/2, VAE and Inception: a protocol-level FID",
+          "phase_seconds": time.time() - t_cli})
+    if not math.isfinite(cli_fid):
+        raise AssertionError(f"cli_eval: FID {cli_fid} is not finite")
+    if log_text != f"Epoch = 0, FID = {cli_fid}\n":
+        raise AssertionError(f"cli_eval: --output_log holds {log_text!r}")
+    if len(cli_nfes) != CLI_NFE_TRIALS or len(cli_time["nfe"]) != 1 + CLI_TIME_REPS:
+        raise AssertionError(f"cli_eval: {len(cli_nfes)} nfe trials, {len(cli_time['nfe'])} "
+                             "time runs")
+    for cmd, c in cli_counts.items():
+        if {k: v for k, v in c.items() if v} != {"fused_dit_block": depth * cli_nfe[cmd]}:
+            raise AssertionError(f"cli_eval {cmd}: launches {c}, expected "
+                                 f"{depth * cli_nfe[cmd]} fused_dit_block ({depth} x NFE "
+                                 f"{cli_nfe[cmd]})")
+    cli_all = {k: sum(c[k] for c in cli_counts.values()) for k in counters}
+    cli_batch1 = {k: cli_counts["nfe"][k] + cli_counts["time"][k] for k in counters}
 
     # 6. adm_main: celeb256_adm, bf16 origin-ADM UNet, dopri5, VAE decode
     t_adm = time.time()
@@ -1421,6 +1538,87 @@ def run(torch, work: str) -> int:
     if not a5_err <= VEL_TOL:
         raise AssertionError(f"adm512_attn: velocity {a5_err} off plain attention's > {VEL_TOL}")
     del a5_models, a5sampler, a5res, a5img, a5noise, v_a5, v_a5_plain
+    torch.cuda.empty_cache()
+
+    # 7c. edm_cfg: imnet_adm, EDM's DhariwalUNet at full width, CFG 1.25
+    t_edm = time.time()
+    econfig = get_preset("imnet_adm")
+    econfig = dataclasses.replace(econfig, sample=dataclasses.replace(
+        econfig.sample, method="euler", num_steps=EDM_STEPS, batch_size=EDM_BATCH))
+    em, escale = econfig.model, econfig.sample.cfg_scale
+    edm = seeded_init_(create_network(em, dtype=bf, device=dev), SEED)
+    enoise, ey = noise_and_labels(econfig, SampleRNG(econfig.sample.seed), range(EDM_BATCH),
+                                  device=dev)
+    esampler = make_sampler(econfig, edm, None, vae, None, device=dev)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    eres = esampler(enoise, ey)
+    torch.cuda.synchronize()
+    esecs = time.time() - t0
+    edm_counts = counts()
+    e_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    eimg = eres.images
+    with torch.no_grad():
+        # one bf16 CFG evaluation at the doubled batch, alone
+        evel = build_velocity(edm, ey, escale)
+        eval_ms = time_ms(torch, lambda: evel(0.5, enoise), reps=5, warmup=1)
+        edm32 = create_network(em, dtype=f32, device=dev)
+        edm32.load_state_dict(edm.state_dict())
+        tt = torch.full((EDM_BATCH,), 0.5, device=dev)
+        v_bf, v_32 = edm(tt, enoise, ey), edm32(tt, enoise, ey)
+        # f32 on the card (TF32 off within forward) against the CPU
+        edm_cpu = copy.deepcopy(edm32).cpu()
+        t0 = time.time()
+        v_cpu = edm_cpu(tt[:2].cpu(), enoise[:2].cpu(), ey[:2].cpu())
+        cpu_s = time.time() - t0
+        card_err = rel_err(edm32(tt[:2], enoise[:2], ey[:2]).cpu(), v_cpu)[1]
+        # the guided velocity (one doubled batch, null label -1) against two calls
+        guided = build_velocity(edm32, ey, escale)(0.5, enoise)
+        cond = v_32
+        uncond = edm32(tt, enoise, torch.full_like(ey, edm32.null_label))
+        cfg_err = rel_err(guided, uncond + escale * (cond - uncond))[1]
+    bf_err = rel_err(v_bf, v_32)[1]
+    # one CFG evaluation's operations, counted on the meta device: the bf16
+    # convolutions, and the f32 products of the attention and the embedding
+    with FlopCounterMode(display=False) as flops, torch.no_grad():
+        n2, s = 2 * EDM_BATCH, em.latent_size
+        create_network(em, dtype=bf, device="meta")(
+            torch.zeros(n2, device="meta"), torch.zeros(n2, s, s, em.num_in_channels,
+                                                         device="meta"),
+            torch.zeros(n2, dtype=torch.long, device="meta"))
+    eops = {str(k): v for k, v in flops.get_flop_counts()["Global"].items()}
+    conv_ops = eops.pop("aten.convolution")
+    eval_bound_ms = 1e3 * (conv_ops / BF16_FLOPS + sum(eops.values()) / F32_FLOPS)
+    emit({"phase": "edm_cfg", "preset": "imnet_adm", "model": "DhariwalUNet",
+          "params": sum(p.numel() for p in edm.parameters()), "batch": EDM_BATCH,
+          "evaluated_batch": 2 * EDM_BATCH, "cfg_scale": escale, "seconds": esecs,
+          "samples_per_s": EDM_BATCH / esecs, "method": "euler", "nfe": eres.nfe,
+          "ms_per_evaluation": eval_ms, "bf16_conv_tflop_per_evaluation": conv_ops / 1e12,
+          "f32_tflop_per_evaluation": sum(eops.values()) / 1e12,
+          "bound_ms_per_evaluation": eval_bound_ms, "bound_by": "operations",
+          "images": list(eimg.shape), "launches": edm_counts,
+          "peak_gib": e_peak, "f32_card_vs_cpu_rel_err": card_err, "f32_tol": F32_VEL_TOL,
+          "cpu_seconds_batch2": cpu_s, "bf16_vs_f32_rel_err": bf_err, "bf16_tol": VEL_TOL,
+          "cfg_vs_two_calls_rel_err": cfg_err, "cfg_tol": CFG_TOL,
+          "image_mean": float(eimg.float().mean()), "phase_seconds": time.time() - t_edm})
+    if tuple(eimg.shape) != (EDM_BATCH, em.image_size, em.image_size, 3) or not (
+            bool(torch.isfinite(eimg).all()) and float(eimg.min()) >= 0.0
+            and float(eimg.max()) <= 1.0 and bool(torch.isfinite(eres.latents).all())):
+        raise AssertionError(f"edm_cfg images {tuple(eimg.shape)} are not finite values in "
+                             "[0, 1]")
+    if eres.nfe != EDM_STEPS or any(edm_counts.values()):
+        raise AssertionError(f"edm_cfg: NFE {eres.nfe}, launches {edm_counts}; expected "
+                             f"{EDM_STEPS} and no hand-written kernel")
+    if not card_err <= F32_VEL_TOL:
+        raise AssertionError(f"edm_cfg: f32 velocity on the card vs the CPU {card_err} > "
+                             f"{F32_VEL_TOL}")
+    if not bf_err <= VEL_TOL:
+        raise AssertionError(f"edm_cfg: bf16 velocity vs f32 {bf_err} > {VEL_TOL}")
+    if not cfg_err <= CFG_TOL:
+        raise AssertionError(f"edm_cfg: guided velocity vs two calls {cfg_err} > {CFG_TOL}")
+    del edm, edm32, edm_cpu, esampler, eres, eimg, enoise, v_bf, v_32, v_cpu, guided, uncond
     torch.cuda.empty_cache()
 
     # 8. long_t: DiT-L/2 at 1024 px (T = 4096), module path through K4
@@ -1712,7 +1910,8 @@ def run(torch, work: str) -> int:
     # 11. the kernels line, the card, the last line
     by_path = {"main_fused": fused_counts, "main_module": module_counts,
                "int8_main": int8_counts, "p1_probe": probe_counts, "adm_main": adm_counts,
-               "adm_fused_gn": fgn_counts, "adm512_attn": a5_counts, "long_t": long_counts,
+               "cli_eval": cli_all, "cli_eval_batch1": cli_batch1, "adm_fused_gn": fgn_counts,
+               "adm512_attn": a5_counts, "edm_cfg": edm_counts, "long_t": long_counts,
                "long_f32": lf_counts,
                "train": train_counts,
                "train_fused": tf_counts, "train_f32": f32_counts, **block_counts}
@@ -1738,6 +1937,8 @@ def run(torch, work: str) -> int:
          "train_f32", k3_rows[(train_batch, 256, 64, f32)]),
         ("fused_dit_block", "dit_block.cu", kdir + "dit_block.py:135", "main_fused",
          k2_rows[batch]),
+        ("fused_dit_block_n1", "dit_block.cu", kdir + "dit_block.py:135", "cli_eval_batch1",
+         k2_rows[1]),
         ("attention_small_bwd", "attention_bwd_sm90.cuh", kdir + "flash_attention.py:233", "train",
          k3_rows[(train_batch, 256, 64, bf)]),
         ("flash_attention", "attention_sm90.cuh", kdir + "flash_attention.py:74", "long_t",
@@ -1757,7 +1958,7 @@ def run(torch, work: str) -> int:
         ("bf16_mlp", "int8_gemm.cu", p1 + ":103", "p1_probe", p1_rows["bf16_mlp"]),
     )
     def counter(name):
-        return re.sub(r"_f32(_dit|_long|_wide)?$", "", name)
+        return re.sub(r"(_f32(_dit|_long|_wide)?|_n1)$", "", name)
 
     def sources(src):
         return [csrc + f for f in ((src,) if isinstance(src, str) else src)]

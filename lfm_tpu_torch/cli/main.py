@@ -1,39 +1,62 @@
-"""Command-line entry point of the port: the ``sample`` and ``train``
-subcommands.
+"""Command-line entry point of the port: the ``sample``, ``fid``, ``nfe``,
+``time`` and ``train`` subcommands (the reference's test_flow_latent.py
+modes and train_flow_latent.py).
 
     python -m lfm_tpu_torch.cli.main sample --preset celeb256_dit
-    python -m lfm_tpu_torch.cli.main sample --preset celeb256_adm
+    python -m lfm_tpu_torch.cli.main fid --argfile test_args/imnet_adm.txt --real_img_dir stats.npz
+    python -m lfm_tpu_torch.cli.main nfe --preset ffhq_adm
+    python -m lfm_tpu_torch.cli.main time --preset celeb256_dit
     python -m lfm_tpu_torch.cli.main train --preset celeb256_dit --dataset synthetic
 
-``sample`` builds the preset's network in bf16 with attention through the
-attention kernels, as ``lfm_tpu.cli.main sample`` does: a DiT (fused DiT
-blocks unless ``--no_fused_dit``; w8a8 int8 blocks with ``--int8_dit``) or,
-with ``use_origin_adm``, the ADM UNet.
-It samples one batch and writes the images in [0, 1] as a ``.npy``
-(N, H, W, 3) float32 file. ``--ckpt`` takes a reference ``model_{E}.pth``
-(with or without the DDP ``module.`` prefix, and a DiT's fixed
-``pos_embed``), ``--vae_ckpt`` a diffusers AutoencoderKL checkpoint
-(``.bin`` / ``.pth`` / ``.safetensors``, either attention naming). Without
-them it warns and uses seeded random weights (every tensor non-zero). Both
-subcommands take the JAX CLI's model overrides (``--model_type
---image_size --nf --ch_mult --attn_resolutions --num_res_blocks
---use_origin_adm --num_classes --label_dropout --scale_factor --dataset
---exp``), on top of ``--preset`` or ``--argfile``.
+The sampling subcommands build the preset's network in bf16 with attention
+through the attention kernels, as ``lfm_tpu.cli.main`` does: a DiT (fused
+DiT blocks unless ``--no_fused_dit``; w8a8 int8 blocks with ``--int8_dit``),
+with ``use_origin_adm`` the ADM UNet, else EDM's DhariwalUNet.
+``--ckpt`` takes a reference ``model_{E}.pth`` (with or without the DDP
+``module.`` prefix, and a DiT's fixed ``pos_embed``); without it the
+experiment's ``model_{epoch_id}.pth`` is read where it exists, else they
+warn and use seeded random weights (every tensor non-zero). ``--vae_ckpt``
+takes a diffusers AutoencoderKL checkpoint (``.bin`` / ``.pth`` /
+``.safetensors``, either attention naming), else seeded random weights.
+
+* ``sample`` samples one batch and writes the images in [0, 1] as a
+  ``.npy`` (N, H, W, 3) float32 file.
+* ``fid`` generates ``--n_sample`` images (sample/sharded.py) and prints
+  ``FID = x`` against the statistics file ``--real_img_dir`` (the
+  reference's ``.npy`` / ``.npz`` format), appending ``Epoch = E, FID = x``
+  to ``--output_log``. ``--inception_ckpt`` takes pytorch-fid's Inception
+  weights, else seeded random ones (a protocol check, not image quality);
+  ``--save_dir`` writes each image as ``{index}.jpg``, which needs PIL.
+* ``nfe`` samples ``--n_sample`` (default 300) single images and prints
+  ``Average NFE over N trials: K``.
+* ``time`` samples one image once, then ``--n_sample`` (default 300) times
+  more, each timed to the images on the host, and prints
+  ``Inference time: m+/-s ms``.
+
+They take the JAX CLI's model overrides (``--model_type --image_size --nf
+--ch_mult --attn_resolutions --num_res_blocks --use_origin_adm
+--num_classes --label_dropout --scale_factor --dataset --exp``) on top of
+``--preset`` or ``--argfile``. ``--use_karras_samplers`` and
+``--eval_noise`` raise (ROADMAP Queue 1 item 4), as do mesh flags other
+than 1 (item 8). ``--generator`` takes ``determ`` and ``determ-indiv``,
+which ``SampleRNG`` realises alike, and raises on the stateful ``dummy``
+(item 9).
 
 ``train`` runs ``train/loop.py::train`` on one card with the JAX CLI's
 single-device flags; mesh flags other than 1 raise. Images are encoded by
 the frozen VAE (``--vae_ckpt``, else seeded random weights) unless the
 dataset is pre-encoded latents (``latent_*``, ``synthetic_latent``). The
 datasets ported so far are ``synthetic``, ``synthetic_latent`` and
-``latent_*``. The other subcommands of the JAX CLI (fid, nfe, time,
-downstream tasks) are later slices.
+``latent_*``. The JAX CLI's downstream subcommands are later slices.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -43,9 +66,11 @@ from lfm_tpu_torch.core.checkpoint import reference_state_dict
 from lfm_tpu_torch.core.config import Config, get_preset, load_argfile
 from lfm_tpu_torch.core.device import resolve_device
 from lfm_tpu_torch.core.rng import SampleRNG
+from lfm_tpu_torch.eval.inception import load_inception_params, seeded_inception_state_dict
 from lfm_tpu_torch.nn.factory import create_network
 from lfm_tpu_torch.nn.init import seeded_init_
 from lfm_tpu_torch.sample.sample import make_sampler, noise_and_labels
+from lfm_tpu_torch.sample.sharded import compute_fid
 from lfm_tpu_torch.vae.autoencoder_kl import create_vae
 from lfm_tpu_torch.vae.convert import load_vae_state_dict
 
@@ -66,26 +91,34 @@ def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="lfm_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     _train_parser(sub.add_parser("train"))
-    s = sub.add_parser("sample")
+    for name in ("sample", "fid", "nfe", "time"):
+        _sample_parser(sub.add_parser(name))
+    return p
+
+
+def _sample_parser(s: argparse.ArgumentParser) -> None:
+    """The flags of ``lfm_tpu.cli.main sample|fid|nfe|time``
+    (lfm_tpu/cli/main.py:143-183)."""
     _model_flags(s)
-    s.add_argument("--ckpt", type=str, default=None)
-    s.add_argument("--vae_ckpt", type=str, default=None)
-    s.add_argument("--method", type=str, default=None)
+    for name, typ in (("ckpt", str), ("vae_ckpt", str), ("method", str), ("atol", float),
+                      ("rtol", float), ("cfg_scale", float), ("batch_size", int), ("seed", int),
+                      ("epoch_id", int), ("n_sample", int), ("generator", str),
+                      ("real_img_dir", str), ("output_log", str), ("inception_ckpt", str),
+                      ("save_dir", str), ("eval_noise", str)):
+        s.add_argument(f"--{name}", type=typ, default=None)
     s.add_argument("--num_steps", "--steps", type=int, default=None, dest="num_steps")
-    s.add_argument("--atol", type=float, default=None)
-    s.add_argument("--rtol", type=float, default=None)
-    s.add_argument("--cfg_scale", type=float, default=None)
-    s.add_argument("--batch_size", type=int, default=None)
-    s.add_argument("--seed", type=int, default=None)
+    s.add_argument("--use_karras_samplers", action="store_true", default=None)
     s.add_argument("--no_fused_dit", action="store_true")
     s.add_argument("--int8_dit", action="store_true",
                    help="w8a8 int8 DiT sampling (nn/dit_int8.py; wins over the fused "
                         "blocks)")
+    for name in ("sp", "pp", "pp_chunks", "num_procs"):
+        s.add_argument(f"--{name}", type=int, default=None,
+                       help="mesh axis or process count; only 1 is ported")
     s.add_argument("--device", type=str, default=None,
                    help="default: the card; pass cpu to run on the CPU")
     s.add_argument("--out", type=str, default=None,
-                   help="output .npy (default ./samples_torch_<dataset>_<method>.npy)")
-    return p
+                   help="sample: output .npy (default ./samples_torch_<dataset>_<method>.npy)")
 
 
 def _train_parser(t: argparse.ArgumentParser) -> None:
@@ -166,35 +199,111 @@ def train_main(args) -> None:
 
 
 def _resolve_config(args) -> Config:
+    """The sampling subcommands' config; the flags the port does not
+    implement raise instead of being ignored."""
+    if args.use_karras_samplers or args.eval_noise is not None:
+        raise NotImplementedError("--use_karras_samplers and --eval_noise are not ported yet "
+                                  "(ROADMAP Queue 1 item 4)")
+    if args.generator not in (None, "determ", "determ-indiv"):
+        # SampleRNG realises both per-sample generators (lfm_tpu/core/rng.py:88-99)
+        raise NotImplementedError(f"--generator {args.generator}: only determ and "
+                                  "determ-indiv are ported; the stateful dummy generator is "
+                                  "ROADMAP Queue 1 item 9")
+    mesh = {k: getattr(args, k) for k in ("sp", "pp", "pp_chunks", "num_procs")}
+    if any(v not in (None, 1) for v in mesh.values()):
+        raise NotImplementedError(f"{mesh}: sampling on more than one device is not ported yet "
+                                  "(ROADMAP Queue 1 item 8)")
     config = _base_config(args)
     sample = _over(config.sample, method=args.method, num_steps=args.num_steps,
                    atol=args.atol, rtol=args.rtol, cfg_scale=args.cfg_scale,
-                   batch_size=args.batch_size, seed=args.seed,
+                   batch_size=args.batch_size, seed=args.seed, epoch_id=args.epoch_id,
+                   n_sample=args.n_sample, generator=args.generator,
+                   real_img_dir=args.real_img_dir, output_log=args.output_log,
                    use_fused_dit=False if args.no_fused_dit else None,
                    use_int8_dit=True if args.int8_dit else None)
     return dataclasses.replace(config, sample=sample)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Optional[str]:
+def _load_model(config: Config, args, device: torch.device):
+    """The bf16 network and its weights: ``--ckpt``, else the experiment's
+    ``model_{epoch_id}.pth`` where it exists (lfm_tpu/cli/main.py:268-304),
+    else seeded random weights with a warning. Returns (model, state dict
+    or None)."""
+    m = config.model
+    model = create_network(m, dtype=torch.bfloat16, use_flash=m.use_flash_attention,
+                           device=device)
+    path = args.ckpt or os.path.join(config.exp_path, f"model_{config.sample.epoch_id}.pth")
+    if args.ckpt or os.path.isfile(path):
+        return model, reference_state_dict(path)
+    name = ("origin-ADM UNet" if m.use_origin_adm else m.model_type if m.is_dit
+            else "EDM DhariwalUNet")
+    print(f"[warn] no --ckpt and no {path}; using seeded random {name} weights",
+          file=sys.stderr)
+    seeded_init_(model, seed=0)
+    return model, None
+
+
+def _inception_params(path: Optional[str]):
+    if path:
+        return load_inception_params(path)
+    print("[warn] no --inception_ckpt; using seeded random Inception weights (a protocol "
+          "check, not image quality)", file=sys.stderr)
+    return seeded_inception_state_dict(0)
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    """Runs one subcommand. Returns what it wrote or measured: ``sample``
+    the ``.npy`` path; ``fid`` the distance; ``nfe`` the NFE of each trial;
+    ``time`` {"ms": each repetition's milliseconds, "nfe": the NFE of the
+    warm-up and of each repetition}."""
     args = _build_parser().parse_args(argv)
     if args.cmd == "train":
         return train_main(args)
     config = _resolve_config(args)
-    device = resolve_device(args.device)
-    model = create_network(config.model, dtype=torch.bfloat16,
-                           use_flash=config.model.use_flash_attention, device=device)
-    vae = _load_vae(args.vae_ckpt, device)
-    params = None
-    if args.ckpt:
-        params = reference_state_dict(args.ckpt)
-    else:
-        name = "origin-ADM UNet" if config.model.use_origin_adm else config.model.model_type
-        print(f"[warn] no --ckpt; using seeded random {name} weights", file=sys.stderr)
-        seeded_init_(model, seed=0)
-
     sc = config.sample
-    sampler = make_sampler(config, model, params, vae, None, device=device)
+    if args.cmd == "fid" and not sc.real_img_dir:
+        raise SystemExit("fid needs --real_img_dir: the dataset's precomputed statistics "
+                         "(.npy / .npz)")
+    device = resolve_device(args.device)
+    model, params = _load_model(config, args, device)
+    vae = _load_vae(args.vae_ckpt, device)
     rng = SampleRNG(seed=sc.seed, num_samples=sc.n_sample)
+
+    if args.cmd == "fid":
+        fid = compute_fid(config, model, params, vae, None, _inception_params(args.inception_ckpt),
+                          stats_path=sc.real_img_dir, save_dir=args.save_dir, device=device)
+        print(f"FID = {fid}")
+        if sc.output_log:
+            with open(sc.output_log, "a") as f:
+                f.write(f"Epoch = {sc.epoch_id}, FID = {fid}\n")
+        return fid
+
+    sampler = make_sampler(config, model, params, vae, None, device=device)
+    if args.cmd == "nfe":
+        # average NFE over trials at batch 1 (test_flow_latent.py:196-221)
+        trials = 300 if args.n_sample is None else args.n_sample
+        nfes = [sampler(*noise_and_labels(config, rng, [i], device=device)).nfe
+                for i in range(trials)]
+        print(f"Average NFE over {trials} trials: {int(sum(nfes) / trials)}")
+        return nfes
+
+    if args.cmd == "time":
+        # batch-1 latency (test_flow_latent.py:223-246); copying the images to
+        # the host waits for the card
+        noise, y = noise_and_labels(config, rng, [0], device=device)
+        out = sampler(noise, y)
+        out.images.cpu()
+        reps = 300 if args.n_sample is None else args.n_sample
+        times, nfes = [], [out.nfe]
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = sampler(noise, y)
+            out.images.cpu()
+            times.append((time.perf_counter() - t0) * 1e3)
+            nfes.append(out.nfe)
+        print(f"Inference time: {np.mean(times):.2f}+/-{np.std(times):.2f}ms")
+        return {"ms": times, "nfe": nfes}
+
     noise, y = noise_and_labels(config, rng, range(sc.batch_size), device=device)
     out = sampler(noise, y)
     path = args.out or f"./samples_torch_{config.dataset}_{sc.method}.npy"

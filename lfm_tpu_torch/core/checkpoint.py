@@ -39,10 +39,11 @@ def strip_ddp_prefix(sd: Mapping) -> Dict:
 
 
 def reference_state_dict(src: Union[str, Mapping]) -> Dict[str, torch.Tensor]:
-    """A reference ``model_{E}.pth`` (a path or the loaded dict) of a DiT or
-    an origin-ADM UNet, ready for a strict ``load_state_dict``: the DDP
-    ``module.`` prefix stripped and a DiT's fixed ``pos_embed`` dropped
-    (lfm_tpu/nn/convert_dit.py:3-9,27)."""
+    """A reference ``model_{E}.pth`` (a path or the loaded dict) of a DiT,
+    an origin-ADM UNet or EDM's DhariwalUNet (whose ``resample_filter``
+    buffers the port's module holds too), ready for a strict
+    ``load_state_dict``: the DDP ``module.`` prefix stripped and a DiT's
+    fixed ``pos_embed`` dropped (lfm_tpu/nn/convert_dit.py:3-9,27)."""
     if isinstance(src, str):
         src = torch.load(src, map_location="cpu", weights_only=True)
     sd = strip_ddp_prefix(src)

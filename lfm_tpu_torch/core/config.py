@@ -8,9 +8,9 @@ METHOD / STEPS / CH_MULT / ATTN_RES / CFG knobs) so a reference user can address
 experiments by the same names (celeb_f8_dit, imnet_f8_ditb2, ...).
 
 The port keeps its own copy so that it never imports ``lfm_tpu``. The DiT
-and ADM presets are here; of the ADM ones, the port builds the origin-ADM
-UNet (``use_origin_adm``: celeb256_adm, celeb512_adm, church_adm), and EDM's
-DhariwalUNet (ffhq_adm, bed_adm, imnet_adm) is not ported yet.
+and ADM presets are here; of the ADM ones, ``use_origin_adm`` builds the
+origin-ADM UNet (celeb256_adm, celeb512_adm, church_adm) and the others
+EDM's DhariwalUNet (ffhq_adm, bed_adm, imnet_adm).
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Model factory: config -> velocity network (port of lfm_tpu/nn/factory.py,
 reference models/__init__.py:6-70): ``use_origin_adm`` -> the ADM UNet,
-DiT-* -> DiT. EDM's networks (DhariwalUNet, SongUNet) are not ported yet."""
+DiT-* -> DiT, else EDM's networks (``adm``: DhariwalUNet; SongUNet and the
+context DhariwalUNet raise)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from lfm_tpu_torch.core.config import ModelConfig
 from lfm_tpu_torch.core.device import DeviceLike
 from lfm_tpu_torch.nn.adm_unet import create_adm_unet
 from lfm_tpu_torch.nn.dit import create_dit
+from lfm_tpu_torch.nn.edm_unet import create_edm_network
 
 
 def create_network(cfg: ModelConfig, *, dtype: torch.dtype = torch.float32,
@@ -22,7 +24,9 @@ def create_network(cfg: ModelConfig, *, dtype: torch.dtype = torch.float32,
     ``device="cpu"``). ``remat`` recomputes each DiT block in backward (grad
     checkpointing; the JAX package ignores it for the ADM UNet, as this
     does); ``use_fused_gn`` sends the ADM ResBlocks' GroupNorm + SiLU
-    through the fused kernel."""
+    through the fused kernel. EDM's networks take neither ``use_flash`` nor
+    ``use_fused_gn``: their attention and GroupNorm are plain in the JAX
+    package too."""
     if cfg.use_origin_adm:
         return create_adm_unet(cfg, dtype=dtype, use_flash=use_flash,
                                use_fused_gn=use_fused_gn, device=device)
@@ -33,6 +37,4 @@ def create_network(cfg: ModelConfig, *, dtype: torch.dtype = torch.float32,
                           num_classes=cfg.num_classes, dtype=dtype,
                           use_flash=use_flash, remat=remat,
                           remat_policy=remat_policy, device=device)
-    raise NotImplementedError(
-        f"model_type {cfg.model_type!r} without use_origin_adm is EDM's network "
-        "(DhariwalUNet / SongUNet), which is not ported yet")
+    return create_edm_network(cfg, dtype=dtype, device=device)

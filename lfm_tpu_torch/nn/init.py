@@ -4,11 +4,11 @@ with every tensor non-zero.
 ``dit_init_`` gives a fresh DiT the JAX package's initializers (those of the
 reference DiT, models/DiT.py:197-229), with other draws. The repository
 holds no trained checkpoint, so the checks use ``seeded_init_``, for the
-DiT and the ADM UNet alike: adaLN-Zero's zero init makes every DiT block an
+DiT and the UNets alike: adaLN-Zero's zero init makes every DiT block an
 identity, and the ADM's zero-initialised ``out_layers.3``, ``out.2`` and
-attention ``proj_out`` hide their block, so a wrong attention, MLP or
-GroupNorm would still pass a check; these weights give every tensor
-signal instead: weights N(0, 1/fan_in) (fan_in = in channels x kernel
+attention ``proj_out`` (EDM's ``conv1``, ``proj`` and ``out_conv``) hide
+their block, so a wrong attention, MLP or GroupNorm would still pass a
+check; these weights give every tensor signal instead: weights N(0, 1/fan_in) (fan_in = in channels x kernel
 size for a convolution), biases and embedding tables N(0, 0.02^2), norm
 scales 1 + N(0, 0.02^2). The draws come from a generator
 on the module's device, so the same seed gives other numbers on the CPU

@@ -37,14 +37,20 @@ def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tenso
     return dense(x, layer.weight, layer.bias, dtype)
 
 
-def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
+def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                dtype: torch.dtype, stride=1, padding=0) -> torch.Tensor:
     """flax ``Conv(dtype=...)`` on NHWC x with the reference's (O, I, kh, kw)
     weight: the product rounded to ``dtype``, then the bias added in
     ``dtype``, as ``dense`` does. The convolution runs on the channels-last
     view of x, which cuDNN takes without a copy."""
-    y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), conv.weight.to(dtype), None,
-                 conv.stride, conv.padding).permute(0, 2, 3, 1)
-    return y + conv.bias.to(dtype)
+    y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), weight.to(dtype), None,
+                 stride, padding).permute(0, 2, 3, 1)
+    return y + bias.to(dtype)
+
+
+def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
+    """``conv(x)`` on NHWC x computed in ``dtype`` (``conv2d_nhwc``)."""
+    return conv2d_nhwc(x, conv.weight, conv.bias, dtype, conv.stride, conv.padding)
 
 
 def group_norm_f32(x: torch.Tensor, gn: nn.GroupNorm) -> torch.Tensor:

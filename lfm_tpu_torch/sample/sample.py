@@ -4,16 +4,17 @@
 ``make_sampler`` returns ``fn(noise, y) -> SampleOutput``: per-sample latent
 noise (core/rng.py), optional CFG as one doubled batch (ode/cfg.py), the
 ODE from t=1 to t=0 (ode/solvers.py), the latent unscale, the VAE decode and
-the [0, 1] clamp. The model is a DiT or the origin-ADM UNet. With
-``use_int8_dit`` a DiT evaluates every block's four matmuls in int8
-(nn/dit_int8.py, through the int8 GEMM kernel), and this wins over
-``use_fused_dit``, with which a bf16 DiT evaluates every block through the
-fused block kernel (nn/dit_fused.py); otherwise, and for a UNet under
-either flag, the module path runs, whose attention goes through the
-attention kernels when the model has ``use_flash``. Labels are drawn only
-when ``num_classes > 1``, and CFG's null label is the model's
-``null_label``. The sequence- and pipeline-parallel paths, Karras samplers
-and the ``eval_noise`` floor are not ported yet.
+the [0, 1] clamp. The model is a DiT, the origin-ADM UNet or EDM's
+DhariwalUNet. With ``use_int8_dit`` a DiT evaluates every block's four
+matmuls in int8 (nn/dit_int8.py, through the int8 GEMM kernel), and this
+wins over ``use_fused_dit``, with which a bf16 DiT evaluates every block
+through the fused block kernel (nn/dit_fused.py); otherwise, and for a UNet
+under either flag, the module path runs, whose attention goes through the
+attention kernels when the model has ``use_flash``. Labels are drawn in
+``[0, num_classes)`` only when ``num_classes > 1``, and CFG's null label is
+the model's ``null_label``: the DiT's null class, 0 for the origin ADM, -1
+(the zero one-hot row) for EDM. The sequence- and pipeline-parallel paths,
+Karras samplers and the ``eval_noise`` floor are not ported yet.
 """
 
 from __future__ import annotations
@@ -77,9 +78,10 @@ def sample_latents(velocity: Callable, x_noise: torch.Tensor, *, method: str = "
                    eval_noise=0.0) -> Tuple[torch.Tensor, float]:
     """Integrate t: 1 -> 0. Returns (z_0, nfe)."""
     if use_karras:
-        raise NotImplementedError("Karras samplers are not ported yet")
+        raise NotImplementedError("Karras samplers are not ported yet (ROADMAP Queue 1 item 4)")
     if eval_noise not in (None, 0, 0.0):
-        raise NotImplementedError("the eval_noise floor is not ported yet")
+        raise NotImplementedError("the eval_noise floor is not ported yet (ROADMAP Queue 1 "
+                                  "item 4)")
     if method in ADAPTIVE_SOLVERS:
         res = odeint(velocity, x_noise, 1.0, 0.0, method=method, atol=atol, rtol=rtol)
     else:

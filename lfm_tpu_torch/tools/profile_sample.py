@@ -1,12 +1,13 @@
 """Where the time of a sampling run goes on the card.
 
     python -m lfm_tpu_torch.tools.profile_sample [--preset celeb256_adm] [--fused_gn]
-        [--int8_dit] [--out DIR]
+        [--int8_dit] [--batch_size N] [--out DIR]
 
 Builds the preset's network in bf16 as ``cli.main sample`` does (attention
 through the kernels; a DiT through the fused block kernel), with seeded
 non-zero weights, and a seeded full-width VAE. Then, at the preset's
-sampling batch, it runs ``make_sampler``'s ODE (euler, ``STEPS``
+sampling batch (or ``--batch_size``; CFG doubles it where the preset
+guides), it runs ``make_sampler``'s ODE (euler, ``STEPS``
 evaluations, no VAE) and the VAE decode of its latents, each once untimed
 to warm up and once under ``torch.profiler`` with device activity only,
 after an untraced timed run of the same call. From each trace:
@@ -128,6 +129,7 @@ def main(argv=None) -> int:
     p.add_argument("--preset", type=str, default="celeb256_adm")
     p.add_argument("--fused_gn", action="store_true")
     p.add_argument("--int8_dit", action="store_true")
+    p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--out", type=str, default="saved_info/profile_sample")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -143,7 +145,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     preset = get_preset(args.preset)
     sample = dataclasses.replace(preset.sample, method="euler", num_steps=STEPS,
-                                 use_int8_dit=args.int8_dit)
+                                 use_int8_dit=args.int8_dit,
+                                 batch_size=args.batch_size or preset.sample.batch_size)
     config = dataclasses.replace(preset, sample=sample)
     model = create_network(config.model, dtype=torch.bfloat16,
                            use_flash=config.model.use_flash_attention,
@@ -161,7 +164,8 @@ def main(argv=None) -> int:
     nfe = int(res.nfe)
     line = {
         "phase": "profile_sample", "preset": args.preset, "model": type(model).__name__,
-        "batch": sample.batch_size, "method": "euler", "nfe": nfe, "fused_gn": args.fused_gn,
+        "batch": sample.batch_size, "cfg_scale": sample.cfg_scale, "method": "euler", "nfe": nfe,
+        "fused_gn": args.fused_gn,
         "use_fused_dit": sample.use_fused_dit, "use_int8_dit": sample.use_int8_dit,
         "ode_seconds_untraced": ode_s, "decode_seconds_untraced": dec_s,
         "ode_per_nfe": summarize(ode_kernels, per=nfe), "decode": summarize(dec_kernels),
@@ -170,7 +174,8 @@ def main(argv=None) -> int:
     }
     print(json.dumps(line), flush=True)
     os.makedirs(args.out, exist_ok=True)
-    tag = f"{args.preset}{'_fused_gn' if args.fused_gn else ''}{'_int8' if args.int8_dit else ''}"
+    tag = (f"{args.preset}_b{sample.batch_size}{'_fused_gn' if args.fused_gn else ''}"
+           f"{'_int8' if args.int8_dit else ''}")
     with open(os.path.join(args.out, f"profile_sample_{tag}.json"), "w") as f:
         f.write(json.dumps(line, indent=1))
     ode_prof.export_chrome_trace(os.path.join(args.out, f"trace_ode_{tag}.json"))

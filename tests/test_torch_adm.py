@@ -209,8 +209,9 @@ def test_factory_builds_the_adm_and_names_what_is_missing():
     model = create_network(cfg, dtype=torch.bfloat16, use_flash=True, device="cpu")
     assert isinstance(model, tadm.UNetModel) and model.use_flash and model.null_label == 0
     assert model.num_classes is None and model.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="DhariwalUNet"):
-        create_network(tconfig.get_preset("ffhq_adm").model, device="cpu")
+    with pytest.raises(NotImplementedError, match="SongUNet"):
+        create_network(dataclasses.replace(cfg, use_origin_adm=False, model_type="ncsn++"),
+                       device="cpu")
     with pytest.raises(NotImplementedError, match="layout"):
         create_network(dataclasses.replace(cfg, layout=True), device="cpu")
 

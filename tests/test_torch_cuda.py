@@ -17,7 +17,9 @@ through K1/K3 are held to 5e-2 of the largest plain gradient of each
 tensor, the bf16 tolerance of the CPU parity tests. K4 is held to its plain
 version on the same key blocks, and K6 to its plain version, at the same
 2e-2 (bf16) and 1e-4 (f32); the small origin ADM through K1 and K6 to 5e-2
-of its plain paths' largest output (bf16 roundings over the UNet's depth).
+of its plain paths' largest output (bf16 roundings over the UNet's depth);
+EDM's DhariwalUNet in f32 on the card to 1e-4 of its largest output on the
+CPU (f32 convolutions and sums in other orders).
 """
 
 import importlib.util
@@ -76,7 +78,7 @@ def test_attention_small_kernel_matches_plain(cuda, shape):
 
 
 @pytest.mark.parametrize("n,t,c,heads", [(2, 64, 128, 2), (3, 100, 256, 4), (1, 256, 384, 6),
-                                         (1, 64, 1152, 16)])
+                                         (1, 64, 1152, 16), (1, 256, 1024, 16)])
 def test_fused_dit_block_kernel_matches_plain(cuda, n, t, c, heads):
     from lfm_tpu_torch.kernels.dit_block import FUSED_DIT_BLOCK, fused_dit_block, reference_block
 
@@ -792,6 +794,35 @@ def test_small_adm_runs_its_kernels_and_matches_plain(cuda):
     assert ATTENTION_SMALL.count - k1 == sum(s.kind == "attn" for s in layers)
     assert GROUPNORM_SILU.count - k6 == sum(s.kind.startswith("res") for s in layers)
     assert torch.isfinite(got).all() and _rel(got, want) <= 5e-2
+
+
+def test_small_edm_unet_on_the_card_matches_the_cpu(cuda):
+    """EDM's DhariwalUNet with two levels at imnet_adm's widths (C = 256 and
+    512, attention at 4x4 with 8 heads of 64), 10 classes and CFG's null
+    label -1, in f32: on the card (TF32 off within forward) within 1e-4 of
+    the largest output of the same weights on the CPU, and no hand-written
+    kernel launched (JAX's EDM attention and GroupNorm are plain)."""
+    from lfm_tpu_torch.kernels.flash_attention import ATTENTION_SMALL, FLASH_ATTENTION
+    from lfm_tpu_torch.kernels.groupnorm_silu import GROUPNORM_SILU
+    from lfm_tpu_torch.nn.edm_unet import DhariwalUNet
+    from lfm_tpu_torch.nn.init import seeded_init_
+
+    kw = dict(img_resolution=8, model_channels=256, channel_mult=(1, 2), num_blocks=1,
+              attn_resolutions=(4,), dropout=0.0, label_dim=10)
+    cpu = seeded_init_(DhariwalUNet(**kw), 0)
+    card = DhariwalUNet(**kw).cuda()
+    card.load_state_dict(cpu.state_dict())
+    t = torch.rand(4, generator=cuda, device="cuda")
+    x = torch.randn(4, 8, 8, 4, generator=cuda, device="cuda")
+    y = torch.tensor([0, 9, -1, -1], device="cuda")
+    counters = (ATTENTION_SMALL, FLASH_ATTENTION, GROUPNORM_SILU)
+    before = [c.count for c in counters]
+    with torch.no_grad():
+        got = card(t, x, y)
+        want = cpu(t.cpu(), x.cpu(), y.cpu())
+    torch.cuda.synchronize()
+    assert [c.count for c in counters] == before
+    assert torch.isfinite(got).all() and _rel(got.cpu(), want) <= 1e-4
 
 
 # K5: the differentiable fused block (kernels/dit_block_train.py). Shapes:

@@ -59,6 +59,8 @@ def test_port_imports_nothing_of_jax_or_lfm_tpu():
                 "lfm_tpu_torch.core.checkpoint", "lfm_tpu_torch.core.preemption",
                 "lfm_tpu_torch.data.datasets", "lfm_tpu_torch.data.loader",
                 "lfm_tpu_torch.nn.adm_unet", "lfm_tpu_torch.nn.convert_adm",
+                "lfm_tpu_torch.nn.edm_unet", "lfm_tpu_torch.nn.convert_edm",
+                "lfm_tpu_torch.sample.sharded",
                 "lfm_tpu_torch.kernels.groupnorm_silu", "lfm_tpu_torch.kernels.dit_block_train",
                 "lfm_tpu_torch.kernels.int8_matmul", "lfm_tpu_torch.nn.dit_int8",
                 "lfm_tpu_torch.eval.inception", "lfm_tpu_torch.eval.fid",
@@ -86,6 +88,7 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_cuda):
         lambda: create_dit("DiT-S/8", img_resolution=32),
         lambda: create_network(cfg.model),
         lambda: create_network(get_preset("celeb256_adm").model),
+        lambda: create_network(get_preset("imnet_adm").model),
         lambda: create_vae((32, 32)),
         lambda: make_sampler(cfg, tiny),
         lambda: noise_and_labels(cfg, SampleRNG(0), [0]),
@@ -93,6 +96,9 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_cuda):
         lambda: SampleRNG(0).randint([0], 0, 2),
         lambda: cli.main(["sample", "--preset", "celeb256_dit"]),
         lambda: cli.main(["sample", "--preset", "celeb256_adm"]),
+        lambda: cli.main(["nfe", "--preset", "imnet_adm"]),
+        lambda: cli.main(["time", "--preset", "ffhq_adm"]),
+        lambda: cli.main(["fid", "--preset", "celeb256_dit", "--real_img_dir", "stats.npz"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
