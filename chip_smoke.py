@@ -34,8 +34,12 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    - attention_small_bwd (K3), bf16 at (32, 256, 16, 64) and
      (8, 1024, 16, 64), f32 at (8, 256, 16, 64), (32, 256, 16, 64),
      (8, 256, 16, 72) and (2, 1024, 16, 64) (past T = 256: the dq kernel of
-     attention_long_f32.cuh); library: the backward of scaled_dot_product_attention
-     through autograd (its saved forward graph, backward alone);
+     attention_long_f32.cuh), and f32 at the origin ADM's heads (the two
+     kernels of attention_bwd_wide_f32.cu) at (112, 16, 4, 128) (celeb256_adm's
+     train step, the adm_train path), (24, 64, 4, 128) and (24, 16, 4, 256)
+     (celeb512_adm's at its batch), (16, 256, 4, 128) and (16, 1024, 4, 256);
+     library: the backward of scaled_dot_product_attention through autograd
+     (its saved forward graph, backward alone);
    - flash_attention (K4), bf16 at (2, 4096, 16, 64) (DiT-L/2 at 1024 px,
      the long_t path) and (4, 2048, 16, 64), f32 at (1, 4096, 4, 128) and
      (2, 4096, 16, 64) (an f32 DiT-L/2 at 1024 px);
@@ -79,9 +83,10 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    key-block and whole-row kernels of attention_long_f32.cuh) with its ms,
    share of its bound, ratio to SDPA and output digest, and the registers
    and spills of each of the 12 wgmma kernel instances, the 14 instances
-   of attention_row_f32.cuh, the 11 of attention_long_f32.cuh and the 6 of
-   attention_wide.cu's one-pass kernel from the build's ptxas report; a
-   spill fails the run. And one gemm_redesign line: each NT GEMM of K2 at
+   of attention_row_f32.cuh, the 11 of attention_long_f32.cuh, the 6 of
+   attention_wide.cu's one-pass kernel and the 4 of attention_bwd_wide_f32.cu
+   (f32 K3 at D 128/256) from the build's ptxas report; a spill fails the
+   run. And one gemm_redesign line: each NT GEMM of K2 at
    N and of K5's forward at the train batch, and each NN and TN GEMM of
    K5's MLP and attention backward at the train batch, alone (the
    persistent wgmma + TMA GEMM of gemm_sm90.cuh, through kernels/gemm.py;
@@ -215,13 +220,34 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    the same f32 model's with plain attention (use_flash_attention=False)
    on the same batch and draws, while the same plain step with attention's
    products in TF32 lands outside it.
+10c. adm_train: a raw-RGB NVAE LMDB (``train.lmdb``) of 224 seeded 256^2
+   records written with the port's ``minilmdb.write_db``, and ``cli.main
+   train --preset celeb256_adm --datadir <it>`` in-process for 3 steps: the
+   origin ADM at full width (153.1 M parameters), bf16 on f32 masters, the
+   preset's batch of 112 read through ``LMDBDataset`` and encoded by the
+   seeded VAE, initialised as the JAX package initialises it. Each step is
+   timed alone and its launch counts reset just before it and read just
+   after: exactly one f32 attention_small and one f32 attention_small_bwd
+   (attention_bwd_wide_f32.cu) per attention layer (6, from
+   ``build_unet_plan``) and nothing else; the losses and parameters must
+   be finite. Two batches make an epoch, so step 3 follows epoch 0's demo
+   plot (dopri5 through K1) and checkpoint. Then one f32 step of the same
+   model (seeded non-zero weights) on the LMDB's first batch through K1 /
+   K3 and through their plain versions, TF32 off: every gradient within
+   F32_GRAD_TOL. Then ``train(...)`` for 2 steps of celeb512_adm at full
+   width (362.7 M, bf16, batch 24, seeded 512^2 images: K3 at (24, 64, 4,
+   128) and (24, 16, 4, 256)) and of imnet_adm (EDM's DhariwalUNet, 407.4 M,
+   bf16, 1000 classes, batch 16: no kernel, as in JAX), each step timed and
+   counted as above.
 11. a ``kernels`` line with every ported kernel (f32 K1 at celeb256_adm's
    (200, 16, 4, 128) as its own entry, attention_small_f32, with
    adm_main's launches; f32 K1 and K3 at the f32 DiT's (32, 256, 16, 64)
    as attention_small_f32_dit and attention_small_bwd_f32, with
    train_f32's; f32 K1 at (2, 1024, 16, 64) as attention_small_f32_long,
    with long_f32's; f32 K1 at (16, 1024, 4, 128) as
-   attention_small_f32_wide, with adm512_attn's), each with its source
+   attention_small_f32_wide, with adm512_attn's; f32 K3 at celeb256_adm's
+   (112, 16, 4, 128) as attention_small_bwd_f32_wide, with adm_train's),
+   each with its source
    files, then the card's name and power limit, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -357,6 +383,18 @@ ADM512_ATTN = (2, 4, 8, 16)
 CLI_FID_SAMPLES, CLI_FID_STEPS, CLI_NFE_TRIALS, CLI_TIME_REPS = 400, 4, 3, 5
 # edm_cfg: imnet_adm's sampling batch (doubled by CFG) and euler steps
 EDM_BATCH, EDM_STEPS = 16, 2
+# adm_train: the NVAE LMDB's seeded 256^2 records and the steps of
+# celeb256_adm's CLI run (at the preset's batch of 112: two batches an
+# epoch, so step 3 follows the end of epoch 0, its demo plot and
+# checkpoint); celeb512_adm's and imnet_adm's batches and steps
+ADM_TRAIN_RECORDS, ADM_TRAIN_STEPS = 224, 3
+ADM512_TRAIN_BATCH, ADM512_TRAIN_STEPS = 24, 2
+EDM_TRAIN_BATCH, EDM_TRAIN_STEPS = 16, 2
+# f32 K3 at the origin ADM's heads (attention_bwd_wide_f32.cu): celeb256_adm's
+# train step at its batch, celeb512_adm's two at its batch of 24, and past
+# T = 64 at D = 128 and at the gate at D = 256
+K3_WIDE = [(112, 16, 4, 128), (24, 64, 4, 128), (24, 16, 4, 256), (16, 256, 4, 128),
+           (16, 1024, 4, 256)]
 # the guided velocity from one doubled batch against uncond + s (cond -
 # uncond) from two calls, f32: the same arithmetic at other batch sizes,
 # where cuDNN may take other algorithms
@@ -506,6 +544,7 @@ def run(torch, work: str) -> int:
 
     from lfm_tpu_torch.core.checkpoint import reference_state_dict
     from lfm_tpu_torch.core.config import get_preset
+    from lfm_tpu_torch.core.device import no_tf32
     from lfm_tpu_torch.core.rng import SampleRNG
     from lfm_tpu_torch.data import DataLoader, SyntheticImageDataset
     from lfm_tpu_torch.kernels import _build
@@ -697,7 +736,7 @@ def run(torch, work: str) -> int:
         del blk, out, ref
 
     for n, t, h, d, dt in ([(train_batch, 256, 16, 64, bf), (8, 1024, 16, 64, bf)]
-                           + [c + (f32,) for c in f32_dit + f32_long]):
+                           + [c + (f32,) for c in f32_dit + f32_long + K3_WIDE]):
         t_case = time.time()
         q, k, v, do = (rn(n, t, h, d, dtype=dt) for _ in range(4))
         got = attention_small_bwd(q, k, v, do)
@@ -784,7 +823,10 @@ def run(torch, work: str) -> int:
                     ("attention_small_bwd", "attention_bwd_sm90.cuh", k3_rows,
                      lambda r: r["dtype"] == str(bf)),
                     ("attention_small_bwd", "attention_row_f32.cuh", k3_rows, f32_dit_row),
-                    ("attention_small_bwd", "attention_long_f32.cuh", k3_rows, f32_long_row),
+                    ("attention_small_bwd", "attention_long_f32.cuh", k3_rows,
+                     lambda r: f32_long_row(r) and r["shape"][3] <= 80),
+                    ("attention_small_bwd", "attention_bwd_wide_f32.cu", k3_rows,
+                     lambda r: r["dtype"] == str(f32) and r["shape"][3] >= 128),
                     ("flash_attention", "attention_sm90.cuh", k4_rows,
                      lambda r: r["dtype"] == str(bf)),
                     ("flash_attention", "attention_long_f32.cuh", k4_rows,
@@ -801,7 +843,8 @@ def run(torch, work: str) -> int:
                           ("attention_wide", flash),
                           ("attention_wide", r"(attn_short_f32_kernel)ILi(\d+)ELi(\d+)ELi(\d+)E"),
                           ("attention_bwd_long_f32",
-                           r"long32\d+(attn_long_bwd_dq_kernel)ILi(\d+)ELi(\d+)E")):
+                           r"long32\d+(attn_long_bwd_dq_kernel)ILi(\d+)ELi(\d+)E"),
+                          ("attention_bwd_wide_f32", r"wide32\d+(attn_wide_bwd_\w+_kernel)ILi(\d+)E")):
         for mangled, use in _build.ptxas_usage(stem).items():
             m = re.search(pattern, mangled)
             if m:
@@ -817,8 +860,9 @@ def run(torch, work: str) -> int:
     # takes those up to T = 512), 4 of f32 K1's own (DP 64, 80 past T = 512,
     # DP 128 past it and DP 256 past T = 64: 32 query rows, 1024 keys), 4 of
     # K3's dq kernel past T = 256 (2 padded head dims x TK 512, 1024); 6 of
-    # attention_wide.cu's one-pass f32 K1 at T <= 64 (DP 128, 256 x 3 sizes)
-    if len(ptxas) != 43 or spilled:
+    # attention_wide.cu's one-pass f32 K1 at T <= 64 (DP 128, 256 x 3 sizes);
+    # 4 of f32 K3 at D 128/256 (attention_bwd_wide_f32.cu: 2 kernels x DP)
+    if len(ptxas) != 47 or spilled:
         raise AssertionError(f"attention: {len(ptxas)} kernel instances, spills {spilled}")
 
     for n, hh, ww, c, dt, offset in ((batch, 32, 32, 256, bf, 0.0), (batch, 32, 32, 768, bf, 0.0),
@@ -1907,6 +1951,207 @@ def run(torch, work: str) -> int:
         raise AssertionError(f"train_f32: {f32_steps} steps, launches {f32_counts} by dtype "
                              f"{f32_dtypes}, expected {want_dtypes}; plain step {plain_counts}")
 
+    # 10c. adm_train: celeb256_adm trained through the CLI from an NVAE LMDB
+    # written here; its f32 gradients with and without the kernels;
+    # celeb512_adm (K3 at D = 256) and imnet_adm (EDM, labels) through train(...)
+    t_at = time.time()
+    del f32_run
+    torch.cuda.empty_cache()
+    from lfm_tpu_torch.cli import main as cli_module
+    from lfm_tpu_torch.data import minilmdb
+    from lfm_tpu_torch.kernels import flash_attention as fa_module
+    from lfm_tpu_torch.train import loop as loop_module
+    from lfm_tpu_torch.train.train import fm_train_loss
+
+    def timed_steps(run):
+        """Run ``run()`` with each train step of ``train/loop.py`` timed
+        alone (synchronised before and after), its loss read and the launch
+        counts reset just before it and read just after; returns (what run
+        returned, [{"seconds", "loss", "launches"}, ...], the launches of the
+        whole run, its peak GiB)."""
+        steps = []
+        real = loop_module.make_train_step
+
+        def make(*args, **kwargs):
+            step = real(*args, **kwargs)
+
+            def timed(state, b):
+                before = counts()
+                reset_counts()
+                torch.cuda.synchronize()
+                t_step = time.time()
+                loss, gnorm = step(state, b)
+                loss = float(loss)
+                steps.append({"seconds": time.time() - t_step, "loss": loss,
+                              "launches": {k: v for k, v in counts().items() if v}})
+                for name, c in counters.items():  # the run's counts go on
+                    c.count += before[name]
+                return loss, gnorm
+
+            return timed
+
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        loop_module.make_train_step = make
+        try:
+            out = run()
+        finally:
+            loop_module.make_train_step = real
+        torch.cuda.synchronize()
+        return out, steps, counts(), torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def step_summary(steps):
+        later = [st["seconds"] for st in steps[1:]] or [steps[0]["seconds"]]
+        return {"seconds_per_step": sum(later) / len(later),
+                "step_seconds": [st["seconds"] for st in steps],
+                "losses": [st["loss"] for st in steps],
+                "launches_per_step": [st["launches"] for st in steps]}
+
+    acfg = get_preset("celeb256_adm")
+    a_layers = list(plan_layers(create_network(acfg.model, dtype=bf, device="meta").plan))
+    a_attn = sum(spec.kind == "attn" for spec in a_layers)
+    db_root = os.path.join(work, "celeba")
+    rec_rng = np.random.default_rng(SEED)
+    minilmdb.write_db(os.path.join(db_root, "train.lmdb"), {
+        str(i).encode(): rec_rng.integers(0, 256, (256, 256, 3), dtype=np.uint8).tobytes()
+        for i in range(ADM_TRAIN_RECORDS)})
+    cwd = os.getcwd()
+    os.chdir(work)  # the run's experiment directory goes under work
+    try:
+        a_state, a_steps, at_counts, a_peak = timed_steps(lambda: cli_main(
+            ["train", "--preset", "celeb256_adm", "--datadir", db_root,
+             "--max_steps", str(ADM_TRAIN_STEPS)]))
+    finally:
+        os.chdir(cwd)
+    a_batch = acfg.train.batch_size
+    a_finite = all(bool(torch.isfinite(p).all()) for p in a_state.params)
+    a_params = sum(p.numel() for p in a_state.params)
+    emit({"phase": "adm_train", "preset": "celeb256_adm", "data": "NVAE LMDB (minilmdb)",
+          "records": ADM_TRAIN_RECORDS, "batch": a_batch, "precision": acfg.train.precision,
+          "steps": a_state.step, "params": a_params, "attention_layers": a_attn,
+          **step_summary(a_steps), "images_per_s": a_batch / step_summary(a_steps)[
+              "seconds_per_step"], "peak_gib": a_peak, "launches": at_counts,
+          "params_finite": a_finite, "seconds": time.time() - t_at})
+    want_step = {"attention_small": a_attn, "attention_small_bwd": a_attn}
+    if not (a_state.step == ADM_TRAIN_STEPS == len(a_steps) and a_finite
+            and all(math.isfinite(st["loss"]) for st in a_steps)):
+        raise AssertionError(f"adm_train: {a_state.step} steps, losses "
+                             f"{[st['loss'] for st in a_steps]}, parameters finite {a_finite}")
+    if any(st["launches"] != want_step for st in a_steps):
+        raise AssertionError(f"adm_train: launches per step "
+                             f"{[st['launches'] for st in a_steps]}, expected {want_step}")
+    # the whole run: the steps' K3, and K1 also in the demo plot's sampling
+    # after epoch 0 (a multiple of the attention layers)
+    demo_k1 = at_counts["attention_small"] - a_attn * ADM_TRAIN_STEPS
+    if (at_counts["attention_small_bwd"] != a_attn * ADM_TRAIN_STEPS or demo_k1 < 0
+            or demo_k1 % a_attn or sum(at_counts.values()) != at_counts["attention_small"]
+            + at_counts["attention_small_bwd"]):
+        raise AssertionError(f"adm_train: launches {at_counts} for {ADM_TRAIN_STEPS} steps of "
+                             f"{a_attn} attention layers")
+    del a_state
+    torch.cuda.empty_cache()
+
+    # the f32 gradient gate: one f32 step of the same model (seeded non-zero
+    # weights: the preset's zero-initialised projections would give attention
+    # no gradient) on the first batch of the LMDB, through K1 / K3 and through
+    # their plain versions, twice (the second plain run gives the floor);
+    # TF32 off and cuDNN's deterministic algorithms in all three, so that
+    # the convolutions' backward sums alike in each
+    t_gate = time.time()
+    from lfm_tpu_torch.data.lmdb_datasets import LMDBDataset
+
+    gate_ds = LMDBDataset(db_root, train=True, image_size=256, seed=SEED)
+    gx = torch.from_numpy(np.stack([gate_ds[i][0] for i in range(a_batch)])).to(dev)
+    gg = torch.Generator(device=dev)
+    gg.manual_seed(SEED + 3)
+    with torch.no_grad():
+        gz0 = vae.encode_sample(gx, gg).float() * acfg.scale_factor
+    gt = torch.rand(a_batch, generator=gg, device=dev)
+    gz1 = torch.randn(gz0.shape, generator=gg, device=dev)
+    del gx
+    gate_grads, gate_counts = {}, {}
+
+    def plain_k3(q, k, v, do):
+        return torch.stack(reference_attention_bwd(q, k, v, do), dim=2)
+
+    deterministic = torch.backends.cudnn.deterministic
+    for variant in ("kernels", "plain", "plain_again"):
+        gmodel = create_network(acfg.model, dtype=f32, use_flash=True, device=dev)
+        seeded_init_(gmodel, SEED)
+        real_fwd, real_bwd = fa_module._forward, fa_module._backward_packed
+        if variant != "kernels":
+            fa_module._forward, fa_module._backward_packed = reference_attention, plain_k3
+        reset_counts()
+        torch.backends.cudnn.deterministic = True
+        try:
+            with no_tf32():
+                gloss = fm_train_loss(gmodel, gz0, None, gt, gz1)
+                gloss.backward()
+        finally:
+            fa_module._forward, fa_module._backward_packed = real_fwd, real_bwd
+            torch.backends.cudnn.deterministic = deterministic
+        torch.cuda.synchronize()
+        gate_counts[variant] = {k: v for k, v in counts().items() if v}
+        gate_grads[variant] = {name: p.grad.detach().clone()
+                               for name, p in gmodel.named_parameters()}
+        gate_grads[variant + "_loss"] = float(gloss.detach())
+        del gmodel, gloss
+        torch.cuda.empty_cache()
+    g_worst, g_floor = (max((rel_err(gate_grads[variant][name], want)[1], name)
+                            for name, want in gate_grads["plain"].items())
+                        for variant in ("kernels", "plain_again"))
+    emit({"phase": "adm_train_f32_grad", "preset": "celeb256_adm", "batch": a_batch,
+          "tensors": len(gate_grads["plain"]), "max_rel_err": g_worst[0], "tensor": g_worst[1],
+          "tol": F32_GRAD_TOL, "plain_rerun_max_rel_err": g_floor[0],
+          "loss": gate_grads["kernels_loss"],
+          "plain_loss": gate_grads["plain_loss"], "launches": gate_counts,
+          "seconds": time.time() - t_gate})
+    if gate_counts != {"kernels": want_step, "plain": {}, "plain_again": {}}:
+        raise AssertionError(f"adm_train f32 gradients: launches {gate_counts}, expected "
+                             f"{want_step} with the kernels and none without")
+    if not g_worst[0] <= F32_GRAD_TOL:
+        raise AssertionError(f"adm_train f32 gradient of {g_worst[1]}: {g_worst[0]} > "
+                             f"{F32_GRAD_TOL}")
+    del gate_grads, gz0, gz1, gt, gate_ds
+    torch.cuda.empty_cache()
+
+    # celeb512_adm (K3 at (24, 64, 4, 128) and (24, 16, 4, 256)) and imnet_adm
+    # (EDM with labels, no kernel) through train(...) on seeded images
+    other_train = {}
+    for preset, batch_n, steps_n, size, classes in (
+            ("celeb512_adm", ADM512_TRAIN_BATCH, ADM512_TRAIN_STEPS, 512, 1),
+            ("imnet_adm", EDM_TRAIN_BATCH, EDM_TRAIN_STEPS, 256, 1000)):
+        t_ot = time.time()
+        ocfg = get_preset(preset)
+        ocfg = dataclasses.replace(ocfg, output_dir=work, train=dataclasses.replace(
+            ocfg.train, batch_size=batch_n))
+        ods = SyntheticImageDataset(n=batch_n * (steps_n + 1), image_size=size,
+                                    num_classes=classes, seed=SEED)
+        o_layers = ([] if not ocfg.model.use_origin_adm else list(plan_layers(
+            create_network(ocfg.model, dtype=bf, device="meta").plan)))
+        o_attn = sum(spec.kind == "attn" for spec in o_layers)
+        o_state, o_steps, o_counts, o_peak = timed_steps(lambda: train(
+            ocfg, dataset=ods, vae=vae, device=dev, max_steps=steps_n, log_fn=lambda line: None))
+        o_finite = all(bool(torch.isfinite(p).all()) for p in o_state.params)
+        summary = step_summary(o_steps)
+        emit({"phase": "adm_train", "preset": preset, "data": f"synthetic {size}^2",
+              "labels": classes > 1, "batch": batch_n, "precision": ocfg.train.precision,
+              "steps": o_state.step, "params": sum(p.numel() for p in o_state.params),
+              "attention_layers": o_attn, **summary,
+              "images_per_s": batch_n / summary["seconds_per_step"], "peak_gib": o_peak,
+              "launches": o_counts, "params_finite": o_finite, "seconds": time.time() - t_ot})
+        want = ({"attention_small": o_attn, "attention_small_bwd": o_attn} if o_attn else {})
+        if not (o_state.step == steps_n == len(o_steps) and o_finite
+                and all(math.isfinite(st["loss"]) for st in o_steps)):
+            raise AssertionError(f"{preset} train: {o_state.step} steps, losses "
+                                 f"{summary['losses']}, parameters finite {o_finite}")
+        if any(st["launches"] != want for st in o_steps):
+            raise AssertionError(f"{preset} train: launches per step "
+                                 f"{summary['launches_per_step']}, expected {want}")
+        other_train[preset] = o_counts
+        del o_state, ods
+        torch.cuda.empty_cache()
+
     # 11. the kernels line, the card, the last line
     by_path = {"main_fused": fused_counts, "main_module": module_counts,
                "int8_main": int8_counts, "p1_probe": probe_counts, "adm_main": adm_counts,
@@ -1914,7 +2159,9 @@ def run(torch, work: str) -> int:
                "adm512_attn": a5_counts, "edm_cfg": edm_counts, "long_t": long_counts,
                "long_f32": lf_counts,
                "train": train_counts,
-               "train_fused": tf_counts, "train_f32": f32_counts, **block_counts}
+               "train_fused": tf_counts, "train_f32": f32_counts, "adm_train": at_counts,
+               "adm512_train": other_train["celeb512_adm"],
+               "edm_train": other_train["imnet_adm"], **block_counts}
     kdir, p1 = "lfm_tpu/kernels/", "tools/microbench_int8_pallas.py"
     # name, source (the C entry's or kernel's file first, then the files
     # of the kernels it launches), TPU kernel, the path whose count is
@@ -1935,6 +2182,8 @@ def run(torch, work: str) -> int:
          kdir + "flash_attention.py:163", "adm512_attn", k1_rows[(16, 1024, 4, 128, f32)]),
         ("attention_small_bwd_f32", "attention_row_f32.cuh", kdir + "flash_attention.py:233",
          "train_f32", k3_rows[(train_batch, 256, 64, f32)]),
+        ("attention_small_bwd_f32_wide", "attention_bwd_wide_f32.cu",
+         kdir + "flash_attention.py:233", "adm_train", k3_rows[(a_batch, 16, 128, f32)]),
         ("fused_dit_block", "dit_block.cu", kdir + "dit_block.py:135", "main_fused",
          k2_rows[batch]),
         ("fused_dit_block_n1", "dit_block.cu", kdir + "dit_block.py:135", "cli_eval_batch1",

@@ -19,7 +19,9 @@ warn and use seeded random weights (every tensor non-zero). ``--vae_ckpt``
 takes a diffusers AutoencoderKL checkpoint (``.bin`` / ``.pth`` /
 ``.safetensors``, either attention naming), else seeded random weights.
 
-* ``sample`` samples one batch and writes the images in [0, 1] as a
+* ``sample`` samples one batch and writes the JAX CLI's image grid,
+  ``./samples_{dataset}_{method}_{atol}_{rtol}[_cfg{scale}].jpg`` (a JPEG,
+  which needs Pillow), or with ``--out F`` the images in [0, 1] as a
   ``.npy`` (N, H, W, 3) float32 file.
 * ``fid`` generates ``--n_sample`` images (sample/sharded.py) and prints
   ``FID = x`` against the statistics file ``--real_img_dir`` (the
@@ -43,11 +45,14 @@ which ``SampleRNG`` realises alike, and raises on the stateful ``dummy``
 (item 9).
 
 ``train`` runs ``train/loop.py::train`` on one card with the JAX CLI's
-single-device flags; mesh flags other than 1 raise. Images are encoded by
-the frozen VAE (``--vae_ckpt``, else seeded random weights) unless the
-dataset is pre-encoded latents (``latent_*``, ``synthetic_latent``). The
-datasets ported so far are ``synthetic``, ``synthetic_latent`` and
-``latent_*``. The JAX CLI's downstream subcommands are later slices.
+single-device flags, for every preset (the DiTs, the origin ADMs, EDM's
+DhariwalUNets); mesh flags other than 1 raise. It reads the preset's
+dataset from ``--datadir`` (data/__init__.py: image folders, CIFAR-10,
+the NVAE / LSUN / image LMDBs, latents; ``--dataset synthetic`` or
+``synthetic_latent`` for seeded data). Images are encoded by the frozen
+VAE (``--vae_ckpt``, else seeded random weights) unless the dataset is
+pre-encoded latents (``latent_*``, ``synthetic_latent``). The JAX CLI's
+downstream subcommands are later slices.
 """
 
 from __future__ import annotations
@@ -66,11 +71,13 @@ from lfm_tpu_torch.core.checkpoint import reference_state_dict
 from lfm_tpu_torch.core.config import Config, get_preset, load_argfile
 from lfm_tpu_torch.core.device import resolve_device
 from lfm_tpu_torch.core.rng import SampleRNG
+from lfm_tpu_torch.data.transforms import require_pil
 from lfm_tpu_torch.eval.inception import load_inception_params, seeded_inception_state_dict
 from lfm_tpu_torch.nn.factory import create_network
 from lfm_tpu_torch.nn.init import seeded_init_
 from lfm_tpu_torch.sample.sample import make_sampler, noise_and_labels
 from lfm_tpu_torch.sample.sharded import compute_fid
+from lfm_tpu_torch.train.loop import save_image_grid
 from lfm_tpu_torch.vae.autoencoder_kl import create_vae
 from lfm_tpu_torch.vae.convert import load_vae_state_dict
 
@@ -118,7 +125,8 @@ def _sample_parser(s: argparse.ArgumentParser) -> None:
     s.add_argument("--device", type=str, default=None,
                    help="default: the card; pass cpu to run on the CPU")
     s.add_argument("--out", type=str, default=None,
-                   help="sample: output .npy (default ./samples_torch_<dataset>_<method>.npy)")
+                   help="sample: write the images as this .npy instead of the JAX CLI's "
+                        "./samples_<dataset>_<method>_<atol>_<rtol>[_cfg<scale>].jpg grid")
 
 
 def _train_parser(t: argparse.ArgumentParser) -> None:
@@ -189,13 +197,14 @@ def _load_vae(path: Optional[str], device: torch.device):
     return vae
 
 
-def train_main(args) -> None:
+def train_main(args):
+    """``train``; returns the final TrainState."""
     from lfm_tpu_torch.train.loop import train
 
     config = _resolve_train_config(args)
     device = resolve_device(args.device)
     vae = None if "latent" in config.dataset else _load_vae(args.vae_ckpt, device)
-    train(config, vae=vae, device=device, max_steps=args.max_steps)
+    return train(config, vae=vae, device=device, max_steps=args.max_steps)
 
 
 def _resolve_config(args) -> Config:
@@ -252,10 +261,10 @@ def _inception_params(path: Optional[str]):
 
 
 def main(argv: Optional[Sequence[str]] = None):
-    """Runs one subcommand. Returns what it wrote or measured: ``sample``
-    the ``.npy`` path; ``fid`` the distance; ``nfe`` the NFE of each trial;
-    ``time`` {"ms": each repetition's milliseconds, "nfe": the NFE of the
-    warm-up and of each repetition}."""
+    """Runs one subcommand. Returns what it wrote or measured: ``train`` the
+    final TrainState; ``sample`` the path it wrote; ``fid`` the distance;
+    ``nfe`` the NFE of each trial; ``time`` {"ms": each repetition's
+    milliseconds, "nfe": the NFE of the warm-up and of each repetition}."""
     args = _build_parser().parse_args(argv)
     if args.cmd == "train":
         return train_main(args)
@@ -304,12 +313,32 @@ def main(argv: Optional[Sequence[str]] = None):
         print(f"Inference time: {np.mean(times):.2f}+/-{np.std(times):.2f}ms")
         return {"ms": times, "nfe": nfes}
 
+    # the JAX CLI's image grid (lfm_tpu/cli/main.py:505-513); --out keeps
+    # the raw images as .npy instead
+    path = args.out or sample_grid_path(config)
+    if not args.out:
+        require_pil("the sample grid's JPEG")  # before sampling, not after
     noise, y = noise_and_labels(config, rng, range(sc.batch_size), device=device)
     out = sampler(noise, y)
-    path = args.out or f"./samples_torch_{config.dataset}_{sc.method}.npy"
-    np.save(path, out.images.cpu().numpy())
+    images = out.images.cpu().numpy()
+    if args.out:
+        np.save(path, images)
+    else:
+        save_image_grid(images, path)
     print(f"Samples are saved at {path} (NFE {out.nfe:.0f})")
     return path
+
+
+def sample_grid_path(config: Config) -> str:
+    """The JAX CLI's ``sample`` file name,
+    ``./samples_{dataset}_{method}_{atol}_{rtol}[_cfg{scale}].jpg``
+    (lfm_tpu/cli/main.py:505-512; the Karras name comes with the Karras
+    samplers, ROADMAP Queue 1 item 4)."""
+    sc = config.sample
+    path = f"./samples_{config.dataset}_{sc.method}_{sc.atol}_{sc.rtol}"
+    if (config.model.num_classes or 0) > 1:
+        path += f"_cfg{sc.cfg_scale}"
+    return path + ".jpg"
 
 
 if __name__ == "__main__":

@@ -11,7 +11,8 @@
 //  - f32 at D 128/256 (the origin ADM's attention, attention_wide.cu): a
 //    one-pass kernel sized to T at T <= 64 (celeb256_adm's T = 16 and 64),
 //    and past it (a model override, such as celeb512_adm attending at ds 2
-//    and 4) the same key-block kernel of attention_long_f32.cuh.
+//    and 4) the same key-block kernel of attention_long_f32.cuh; its
+//    backward (f32 K3) is attention_bwd_wide_f32.cu at every T.
 // That is a split by shape, not a fallback: each shape has one kernel.
 //
 // q, k, v are read in place from (N, T, row) slabs: token t of sample n,
@@ -79,6 +80,13 @@ cudaError_t launch_flash_f32(const float* q, const float* k, const float* v, flo
 cudaError_t launch_attention_long_f32(const float* q, const float* k, const float* v, float* o,
                                       int N, int T, int H, int D, long ldq, long ldk, long ldv,
                                       long ldo, cudaStream_t s);
+// f32 K3 at D = 128 and 256, T <= 1024: the origin ADM's attention
+// backward, the two kernels of attention_bwd_wide_f32.cu; the same stats
+// layout.
+cudaError_t launch_attn_bwd_wide_f32(const float* q, const float* k, const float* v,
+                                     const float* dout, float* dq, float* dk, float* dv,
+                                     float* stats, int N, int T, int H, int D, long ldq, long ldk,
+                                     long ldv, long lddo, long ldg, cudaStream_t s);
 // f32 K3 at T <= 256, D 8-80 a multiple of 8: the two kernels of
 // attention_row_f32.cuh (attention_bwd_row_f32.cu); the same stats layout.
 cudaError_t launch_attn_bwd_row_f32(const float* q, const float* k, const float* v,

@@ -63,7 +63,8 @@ cudaError_t launch_attn_bwd_sm90(const bf16* q, const bf16* k, const bf16* v, co
 // q, k, v, dout: (N, T, H*D) slabs with row strides ldq/ldk/ldv/lddo
 // (elements); dq, dk, dv: slabs with row stride ldg; stats: f32 scratch of
 // 3 * N * H * Tp floats, Tp = T rounded up to 64 (bf16 uses 2 * N * H * Tp
-// of it, f32 3 * N * H * T). bf16 when f32 == 0, float otherwise. Launches
+// of it, f32 3 * N * H * T). bf16 when f32 == 0, float otherwise. D: 8-80 a
+// multiple of 8 in both types, 128 and 256 in float. Launches
 // both kernels on `stream`, allocates nothing, returns the first error.
 extern "C" int lfm_attention_small_bwd(const void* q, const void* k, const void* v,
                                        const void* dout, void* dq, void* dk, void* dv,
@@ -74,6 +75,10 @@ extern "C" int lfm_attention_small_bwd(const void* q, const void* k, const void*
   if (f32) {
     auto c = [](const void* p) { return static_cast<const float*>(p); };
     auto m = [](void* p) { return static_cast<float*>(p); };
+    if (D > 80)
+      return static_cast<int>(lfm::launch_attn_bwd_wide_f32(c(q), c(k), c(v), c(dout), m(dq),
+                                                             m(dk), m(dv), st, N, T, H, D, ldq,
+                                                             ldk, ldv, lddo, ldg, s));
     if (T <= 256)
       return static_cast<int>(lfm::launch_attn_bwd_row_f32(c(q), c(k), c(v), c(dout), m(dq),
                                                             m(dk), m(dv), st, N, T, H, D, ldq,

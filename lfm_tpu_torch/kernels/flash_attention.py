@@ -23,8 +23,12 @@ of scores on chip with k and v streamed through a cp.async ring
 (``csrc/attention_long_f32.cuh``; K3's dk/dv kernel is the row kernels');
 f32 K1 at D = 128/256 (the origin ADM's attention) is a one-pass kernel
 sized to T up to 64 (``csrc/attention_wide.cu``) and past it the same
-key-block kernel with the whole row one block. ``f32_k1_route`` states
-which f32 K1 kernel a shape takes. What bounds each is noted in its
+key-block kernel with the whole row one block; its backward, f32 K3 at D =
+128/256, is a dq kernel holding 16 query rows' whole rows of s and dp on
+chip and a dk/dv kernel streaming the queries
+(``csrc/attention_bwd_wide_f32.cu``) at every T of the gate.
+``f32_k1_route`` and ``f32_k3_route`` state which f32 kernels a shape
+takes. What bounds each is noted in its
 source.
 
 On a CPU tensor each wrapper computes its plain version; on a CUDA tensor
@@ -53,8 +57,9 @@ FLASH_ATTENTION = LaunchCounter()
 # DiT-XL 72
 HEAD_DIMS = (56, 64, 72, 80)
 # and in f32 only: the origin ADM's f32 attention at 128 (celeb256_adm) and
-# 256 (celeb512_adm, church_adm)
-F32_HEAD_DIMS = {"attention_small": (128, 256), "flash_attention": (128,)}
+# 256 (celeb512_adm, church_adm), forward and backward
+F32_HEAD_DIMS = {"attention_small": (128, 256), "attention_small_bwd": (128, 256),
+                 "flash_attention": (128,)}
 DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -140,6 +145,20 @@ def f32_k1_route(t: int, d: int) -> Tuple[str, int, int]:
     if t <= 512 and d <= 128:
         return "flash_f32_kernel", 64, 512
     return "flash_f32_kernel", 32, 1024
+
+
+def f32_k3_route(t: int, d: int) -> Tuple[str, str, int, int]:
+    """The two kernels that f32 ``attention_small_bwd`` launches at sequence
+    length t and head dim d (``lfm_attention_small_bwd``,
+    csrc/attention_bwd.cu), with the query rows of a dq CTA and the keys of a
+    dk/dv CTA: (dq kernel, dk/dv kernel, rows, keys)."""
+    if d > 80:  # the origin ADM's heads, every T (attention_bwd_wide_f32.cu)
+        return ("attn_wide_bwd_dq_kernel", "attn_wide_bwd_dkdv_kernel", 16,
+                64 if d <= 128 else 32)
+    keys = 128 if d <= 64 else 64  # attention_row_f32.cuh's dk/dv kernel
+    if t <= 256:
+        return "attn_row_bwd_dq_kernel", "attn_row_bwd_dkdv_kernel", 64, keys
+    return "attn_long_bwd_dq_kernel", "attn_row_bwd_dkdv_kernel", 32, keys
 
 
 def _ld(a: torch.Tensor) -> int:

@@ -119,6 +119,12 @@ def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         return reference_groupnorm_silu(x, scale, bias, groups, eps)
     if x.device.type != "cuda":
         raise ValueError(f"groupnorm_silu: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(a.requires_grad for a in (x, scale, bias)):
+        # the kernel's output has no grad_fn: training through it would give
+        # x, scale and bias no gradient at all (the JAX kernel has no VJP either)
+        raise RuntimeError("groupnorm_silu: K6 has no backward; an operand requires grad "
+                           "(ROADMAP Queue 1 item 10, K6 backward). Train with "
+                           "use_fused_gn=False, as the JAX package does")
     n, h, w, c = x.shape
     if x.dtype not in DTYPES:
         raise ValueError(f"groupnorm_silu: dtype {x.dtype} is not one of {DTYPES}")
@@ -141,7 +147,8 @@ def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 class FusedGNSiLU:
     """What modules call (the JAX package's ``FusedGNSiLU``): the plain
-    version on a CPU tensor, K6 on a CUDA tensor. Callers own the scale and
-    bias (the GroupNorm's weight and bias)."""
+    version on a CPU tensor, K6 on a CUDA tensor, where it raises under grad
+    if an operand requires grad (K6 has no backward). Callers own the scale
+    and bias (the GroupNorm's weight and bias)."""
 
     apply = staticmethod(groupnorm_silu)

@@ -23,7 +23,11 @@ With ``use_flash`` attention goes through ``fused_attention`` (K1 on a
 CUDA tensor, K4 past T = 1024) with the single 1/sqrt(d) scale, otherwise
 the reference's two-sided 1/sqrt(sqrt(d)) einsum. With ``use_fused_gn`` the
 ResBlocks' GroupNorm + SiLU go through ``FusedGNSiLU`` (K6 on a CUDA
-tensor). TF32 is off within ``forward``, so an f32 UNet is f32 on the card.
+tensor, which has no backward: under grad it raises, so a UNet trains with
+it off, as the JAX package's does). TF32 is off within ``forward``, so an
+f32 UNet is f32 on the card. In train mode the ResBlocks' dropout (flax's
+``nn.Dropout``: keep with probability 1 - p, kept values over 1 - p) draws
+its masks from the generator the caller passes.
 The SpatialTransformer layout variant is not ported.
 """
 
@@ -41,8 +45,8 @@ from lfm_tpu_torch.core.config import ModelConfig
 from lfm_tpu_torch.core.device import DeviceLike, no_tf32, resolve_device
 from lfm_tpu_torch.kernels.flash_attention import fused_attention, fused_attention_qkv
 from lfm_tpu_torch.kernels.groupnorm_silu import FusedGNSiLU
-from lfm_tpu_torch.nn.layers import (GroupNorm32, conv_nhwc, dense, group_norm_f32, linear,
-                                     timestep_embedding)
+from lfm_tpu_torch.nn.layers import (GroupNorm32, conv_nhwc, dense, dropout, group_norm_f32,
+                                     linear, timestep_embedding)
 
 
 # ---------------------------------------------------------------------------
@@ -195,7 +199,8 @@ class ADMResBlock(nn.Module):
         self.skip_connection = nn.Conv2d(in_ch, out_ch, 1) if out_ch != in_ch else nn.Identity()
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor, dtype: torch.dtype,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         h = self.in_layers[0](x)
         if self.up or self.down:
             resample = _upsample if self.up else _avg_pool
@@ -208,7 +213,8 @@ class ADMResBlock(nn.Module):
             h = F.silu(h)
         else:
             h = self.out_layers[0](h + e[:, None, None, :])
-        h = F.dropout(h, self.dropout, training=train)
+        if train:
+            h = dropout(h, self.dropout, generator)
         h = conv_nhwc(h, self.out_layers[3], dtype)
         if isinstance(self.skip_connection, nn.Conv2d):
             x = conv_nhwc(x, self.skip_connection, dtype)
@@ -329,9 +335,9 @@ class UNetModel(nn.Module):
         return 0
 
     def _run_layer(self, layer: nn.Module, spec: LayerSpec, h: torch.Tensor, emb: torch.Tensor,
-               train: bool) -> torch.Tensor:
+                   train: bool, generator: Optional[torch.Generator]) -> torch.Tensor:
         if spec.kind in ("res", "res_down", "res_up"):
-            return layer(h, emb, self.dtype, train)
+            return layer(h, emb, self.dtype, train, generator)
         if spec.kind == "conv_in":
             return conv_nhwc(h, layer, self.dtype)
         if spec.kind == "attn":
@@ -339,8 +345,10 @@ class UNetModel(nn.Module):
         return layer(h, self.dtype)
 
     def forward(self, t: torch.Tensor, x: torch.Tensor, y: Optional[torch.Tensor] = None,
-                train: bool = False) -> torch.Tensor:
-        """v(t, x, y) in f32; ``train`` turns dropout on."""
+                train: bool = False, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """v(t, x, y) in f32; ``train`` turns dropout on, its masks drawn from
+        ``generator`` in layer order."""
         n = x.shape[0]
         dt = self.dtype
         plan = self.plan
@@ -358,14 +366,14 @@ class UNetModel(nn.Module):
             hs = []
             for layers, specs in zip(self.input_blocks, plan.input_blocks):
                 for layer, spec in zip(layers, specs):
-                    h = self._run_layer(layer, spec, h, emb, train)
+                    h = self._run_layer(layer, spec, h, emb, train, generator)
                 hs.append(h)
             for layer, spec in zip(self.middle_block, plan.middle_block):
-                h = self._run_layer(layer, spec, h, emb, train)
+                h = self._run_layer(layer, spec, h, emb, train, generator)
             for layers, specs in zip(self.output_blocks, plan.output_blocks):
                 h = torch.cat([h, hs.pop()], dim=-1)
                 for layer, spec in zip(layers, specs):
-                    h = self._run_layer(layer, spec, h, emb, train)
+                    h = self._run_layer(layer, spec, h, emb, train, generator)
             h = F.silu(self.out[0](h))
             h = conv_nhwc(h, self.out[2], dt)
         return h.float()

@@ -43,7 +43,7 @@ from torch import nn
 
 from lfm_tpu_torch.core.config import ModelConfig
 from lfm_tpu_torch.core.device import DeviceLike, no_tf32, resolve_device
-from lfm_tpu_torch.nn.layers import conv2d_nhwc, dense, group_norm_f32, linear
+from lfm_tpu_torch.nn.layers import conv2d_nhwc, dense, dropout, group_norm_f32, linear
 
 
 # DhariwalUNet's resampling filter (EDM.py:725)
@@ -164,11 +164,14 @@ class EDMUNetBlock(nn.Module):
             self.proj = EDMConv(out_channels, out_channels, 1, init_scale=0.0)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor, dtype: torch.dtype,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         h = self.conv0(F.silu(self.norm0(x)), dtype)
         scale, shift = linear(emb, self.affine, dtype).chunk(2, dim=-1)
         h = F.silu(shift[:, None, None, :] + self.norm1(h) * (scale[:, None, None, :] + 1.0))
-        h = self.conv1(F.dropout(h, self.dropout, training=train), dtype)
+        if train:
+            h = dropout(h, self.dropout, generator)
+        h = self.conv1(h, dtype)
         x = h + (x if self.skip is None else self.skip(x, dtype))
         if not self.num_heads:
             return x
@@ -243,10 +246,12 @@ class DhariwalUNet(nn.Module):
         return -1
 
     def forward(self, t: torch.Tensor, x: torch.Tensor, y: Optional[torch.Tensor] = None,
-                train: bool = False, drop_half_label: bool = False) -> torch.Tensor:
-        """v(t, x, y) in f32. ``train`` turns dropout and label dropout on;
-        ``drop_half_label`` zeroes the second half's labels (CFG on a
-        doubled batch)."""
+                train: bool = False, drop_half_label: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """v(t, x, y) in f32. ``train`` turns dropout and label dropout on,
+        their masks drawn from ``generator`` (the label mask first, then the
+        blocks' in order); ``drop_half_label`` zeroes the second half's
+        labels (CFG on a doubled batch)."""
         n = x.shape[0]
         dt = self.dtype
         t = torch.as_tensor(t, dtype=torch.float32, device=x.device).reshape(-1).expand(n)
@@ -258,7 +263,8 @@ class DhariwalUNet(nn.Module):
                 classes = torch.arange(self.label_dim, device=x.device)
                 onehot = (y.reshape(-1, 1) == classes).float()
                 if train and self.label_dropout > 0:
-                    keep = torch.rand(n, 1, device=x.device) >= self.label_dropout
+                    keep = torch.rand((n, 1), generator=generator,
+                                      device=x.device) >= self.label_dropout
                     onehot = onehot * keep
                 elif drop_half_label:
                     onehot = onehot * (torch.arange(n, device=x.device) < n // 2)[:, None]
@@ -268,12 +274,13 @@ class DhariwalUNet(nn.Module):
             h = x.to(dt)
             skips = []
             for name, layer in self.enc.items():
-                h = layer(h, dt) if name.endswith("_conv") else layer(h, emb, dt, train)
+                h = (layer(h, dt) if name.endswith("_conv")
+                     else layer(h, emb, dt, train, generator))
                 skips.append(h)
             for name, layer in self.dec.items():
                 if "_block" in name:
                     h = torch.cat([h, skips.pop()], dim=-1)
-                h = layer(h, emb, dt, train)
+                h = layer(h, emb, dt, train, generator)
             h = self.out_conv(F.silu(self.out_norm(h)), dt)
         return h.float()
 

@@ -1,8 +1,10 @@
-"""Weight initialisation: the DiT's training init, and seeded random weights
-with every tensor non-zero.
+"""Weight initialisation: the DiT's and the UNets' training inits, and seeded
+random weights with every tensor non-zero.
 
 ``dit_init_`` gives a fresh DiT the JAX package's initializers (those of the
-reference DiT, models/DiT.py:197-229), with other draws. The repository
+reference DiT, models/DiT.py:197-229), with other draws; ``unet_init_`` the
+same for the origin ADM and EDM's DhariwalUNet (flax's defaults and their
+zero-initialised layers). The repository
 holds no trained checkpoint, so the checks use ``seeded_init_``, for the
 DiT and the UNets alike: adaLN-Zero's zero init makes every DiT block an
 identity, and the ADM's zero-initialised ``out_layers.3``, ``out.2`` and
@@ -66,4 +68,47 @@ def dit_init_(model: nn.Module, seed: int) -> nn.Module:
             fan_out, fan_in = p.shape[0], p[0].numel()
             bound = math.sqrt(6.0 / (fan_in + fan_out))
             p.copy_((2.0 * torch.rand(p.shape, generator=gen, device=p.device) - 1.0) * bound)
+    return model
+
+
+# the zero-initialised layers of the UNets: the origin ADM's ResBlock out
+# conv, attention projection and final conv (lfm_tpu/nn/adm_unet.py:202,
+# 269, 406), EDM's block conv1, attention proj and out_conv
+# (lfm_tpu/nn/edm_unet.py:199, 223, 614)
+_UNET_ZERO = ("out_layers.3.weight", "proj_out.weight", "out.2.weight", "conv1.weight",
+              "proj.weight", "out_conv.weight")
+
+
+@torch.no_grad()
+def unet_init_(model: nn.Module, seed: int) -> nn.Module:
+    """The JAX package's initializers for a fresh origin-ADM UNet or EDM
+    DhariwalUNet, with other draws: flax's default lecun_normal (a normal of
+    variance 1 / fan_in truncated at two standard deviations) for
+    convolution and dense weights, EDM's convolutions N(0, 1 / fan_in)
+    (``EDMConv``), the ADM's label table N(0, 1 / classes) (flax ``Embed``),
+    zero biases, norm scales 1, and the zero-initialised layers at zero."""
+    from lfm_tpu_torch.nn.edm_unet import EDMConv
+
+    params = dict(model.named_parameters())
+    if not params:
+        return model
+    gen = torch.Generator(device=next(iter(params.values())).device)
+    gen.manual_seed(int(seed))
+    norms = {f"{name}.weight" for name, m in model.named_modules()
+             if isinstance(m, nn.GroupNorm)}
+    edm_convs = {f"{name}.weight" for name, m in model.named_modules()
+                 if isinstance(m, EDMConv)}
+    for name, p in sorted(params.items()):
+        if name.endswith(".bias") or name.endswith(_UNET_ZERO):
+            p.zero_()
+        elif name in norms:
+            p.fill_(1.0)
+        elif name == "label_emb.weight":
+            p.copy_(torch.randn(p.shape, generator=gen, device=p.device) / math.sqrt(p.shape[0]))
+        elif name in edm_convs:
+            p.copy_(torch.randn(p.shape, generator=gen, device=p.device)
+                    / math.sqrt(p[0].numel()))
+        else:
+            std = math.sqrt(1.0 / p[0].numel()) / 0.87962566103423978
+            nn.init.trunc_normal_(p, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
     return model

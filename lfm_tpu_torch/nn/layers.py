@@ -74,6 +74,17 @@ class GroupNorm32(nn.GroupNorm):
         return group_norm_f32(x, self).to(x.dtype)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax ``nn.Dropout`` in train mode: each element kept with probability
+    1 - rate (a uniform draw from ``generator`` below it) and scaled by
+    1 / (1 - rate), else zero; x's type."""
+    if rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """No-affine LayerNorm in float32 with flax's fast variance,
     max(E[x^2] - E[x]^2, 0); returns float32."""

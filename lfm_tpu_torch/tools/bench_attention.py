@@ -1,7 +1,8 @@
 """Times the port's attention kernels on the card, with each one's error
 against its plain version.
 
-    python -m lfm_tpu_torch.tools.bench_attention [--timing-only] [--long-f32 | --wide-f32]
+    python -m lfm_tpu_torch.tools.bench_attention [--timing-only]
+                                                  [--long-f32 | --wide-f32 | --wide-bwd]
                                                   [--f64-seeds N]
 
 or, to time another checkout's kernels on the same inputs (its package is
@@ -23,7 +24,10 @@ row as the models call it; in bf16 at (8, 256,
 256, 16, 64) (the DiT-L/2 train step's shape) and (8, 1024, 16, 64), and
 in f32 at the three f32 DiT shapes and past T = 256 at (2, 1024, 16, 64)
 (an f32 DiT-L/2 at 512 px) and the ragged (2, 300, 16, 64) and (2, 300,
-16, 80); ``flash_attention`` in f32 at (1, 4096, 4, 128) and (2, 4096, 16,
+16, 80), and at the origin ADM's heads (attention_bwd_wide_f32.cu) at (112,
+16, 4, 128) (celeb256_adm's train step), (24, 64, 4, 128) and (24, 16, 4,
+256) (celeb512_adm's), (16, 256, 4, 128) and (16, 1024, 4, 256);
+``flash_attention`` in f32 at (1, 4096, 4, 128) and (2, 4096, 16,
 64) (an f32 DiT-L/2 at 1024 px), its default key blocks of 512. Inputs come
 from a CUDA generator seeded per shape, so two checkouts see the same
 values. Each kernel is timed with CUDA events, the mean of REPS
@@ -41,8 +45,9 @@ of their own, so the error against them measures agreement with that
 order as much as accuracy. ``--timing-only`` keeps the event times alone (the repeated
 rounds of an A/B comparison); ``--long-f32`` keeps the f32 rows past T = 256
 (K4, and K1 and K3 past T = 256) alone, ``--wide-f32`` the f32 K1 rows at
-D = 128/256 past T = 64 alone; ``--f64-seeds N`` gives, for those rows
-alone, the kernel's and the plain version's error against float64 on N
+D = 128/256 past T = 64 alone, ``--wide-bwd`` the f32 K3 rows at D =
+128/256 alone; ``--f64-seeds N`` gives, for the rows of the mode
+(``--long-f32`` by default), the kernel's and the plain version's error against float64 on N
 seeded inputs each (seed 0 is the other modes' input), since a tensor's
 largest error is one element's and varies from input to input. Prints one
 JSON line with the card's name and power limit and the file of the package
@@ -71,8 +76,12 @@ K1_CASES = ([(s, torch.float32) for s in ((200, 16, 4, 128), (16, 64, 4, 128), (
              + F32_WIDE_K1 + F32_DIT + F32_LONG_K1]
             + [(s, torch.bfloat16) for s in ((8, 256, 16, 72), (32, 256, 16, 72))])
 F32_LONG_K4 = ((1, 4096, 4, 128), (2, 4096, 16, 64))
+# f32 K3 at the origin ADM's D = 128/256: celeb256_adm's train step at its
+# batch, celeb512_adm's two at its batch, past T = 64 and at the gate
+F32_WIDE_K3 = ((112, 16, 4, 128), (24, 64, 4, 128), (24, 16, 4, 256), (16, 256, 4, 128),
+               (16, 1024, 4, 256))
 K3_CASES = ([(s, torch.bfloat16) for s in ((32, 256, 16, 64), (8, 1024, 16, 64))]
-            + [(s, torch.float32) for s in F32_DIT + F32_LONG_K3])
+            + [(s, torch.float32) for s in F32_DIT + F32_LONG_K3 + F32_WIDE_K3])
 WARMUP, REPS, REPEATS = 3, 50, 3
 # H100 SXM peaks (NVIDIA data sheet), as chip_smoke.py: HBM bytes/s, f32
 # flop/s outside the tensor cores, dense bf16 tensor-core flop/s
@@ -238,9 +247,10 @@ def bench_k3(shape, dtype, timing_only: bool):
             **device(sdpa_bwd, "library_")}
 
 
-def f64_errors(seeds: int, wide: bool = False):
-    """The f32 rows past T = 256 (``wide``: f32 K1's at D = 128/256 past T =
-    64), seed by seed: the errors of the kernel and of the plain version
+def f64_errors(seeds: int, mode: str = "long"):
+    """The f32 rows of ``mode``, seed by seed: past T = 256 (``long``), f32
+    K1's at D = 128/256 past T = 64 (``wide``), f32 K3's at D = 128/256
+    (``wide_bwd``); the errors of the kernel and of the plain version
     against float64 (per output for K3). K1's inputs are bench_k1's (the
     thirds of a qkv row)."""
     from lfm_tpu_torch.kernels.flash_attention import (attention_small, attention_small_bwd,
@@ -249,8 +259,11 @@ def f64_errors(seeds: int, wide: bool = False):
                                                        reference_flash_attention, split_qkv)
 
     rows = []
+    k1_shapes = {"long": F32_LONG_K1, "wide": F32_WIDE_K1, "wide_bwd": ()}[mode]
+    k4_shapes = F32_LONG_K4 if mode == "long" else ()
+    k3_shapes = {"long": F32_LONG_K3, "wide": (), "wide_bwd": F32_WIDE_K3}[mode]
     for seed in range(seeds):
-        for shape in F32_WIDE_K1 if wide else F32_LONG_K1:
+        for shape in k1_shapes:
             n, t, h, d = shape
             qkv = torch.randn(n, t, 3 * h * d, generator=generator(shape, seed), device="cuda")
             q, k, v = split_qkv(qkv, h)
@@ -260,9 +273,7 @@ def f64_errors(seeds: int, wide: bool = False):
                          "plain_rel_err_f64": errors(reference_attention(q, k, v), f64)[1]})
             del qkv, q, k, v, f64
             torch.cuda.empty_cache()
-        if wide:
-            continue
-        for shape in F32_LONG_K4:
+        for shape in k4_shapes:
             gen = generator(shape, seed)
             q, k, v = (torch.randn(*shape, generator=gen, device="cuda") for _ in range(3))
             f64 = attention_f64(q, k, v)
@@ -271,7 +282,7 @@ def f64_errors(seeds: int, wide: bool = False):
                          "plain_rel_err_f64": errors(reference_flash_attention(q, k, v), f64)[1]})
             del q, k, v, f64
             torch.cuda.empty_cache()
-        for shape in F32_LONG_K3:
+        for shape in k3_shapes:
             gen = generator(shape, seed)
             q, k, v, do = (torch.randn(*shape, generator=gen, device="cuda") for _ in range(4))
             f64 = attention_bwd_f64(q, k, v, do)
@@ -281,6 +292,8 @@ def f64_errors(seeds: int, wide: bool = False):
                             for key, got in (("rel_err_f64", attention_small_bwd(q, k, v, do)),
                                              ("plain_rel_err_f64",
                                               reference_attention_bwd(q, k, v, do)))}})
+            del q, k, v, do, f64
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -290,9 +303,12 @@ def main() -> int:
     import lfm_tpu_torch
 
     timing_only = "--timing-only" in sys.argv[1:]
+    mode = ("wide" if "--wide-f32" in sys.argv[1:]
+            else "wide_bwd" if "--wide-bwd" in sys.argv[1:] else "long")
     if "--f64-seeds" in sys.argv[1:]:
-        rows = f64_errors(int(sys.argv[sys.argv.index("--f64-seeds") + 1]),
-                          wide="--wide-f32" in sys.argv[1:])
+        rows = f64_errors(int(sys.argv[sys.argv.index("--f64-seeds") + 1]), mode)
+    elif mode == "wide_bwd":
+        rows = [bench_k3(s, torch.float32, timing_only) for s in F32_WIDE_K3]
     elif "--wide-f32" in sys.argv[1:]:
         rows = [bench_k1(s, torch.float32, timing_only) for s in F32_WIDE_K1]
     elif "--long-f32" in sys.argv[1:]:

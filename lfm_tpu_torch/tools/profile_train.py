@@ -1,12 +1,15 @@
-"""Where the time of the celeb256_dit train loop goes on the card.
+"""Where the time of a preset's train loop goes on the card.
 
     python -m lfm_tpu_torch.tools.profile_train [--out DIR] [--fused | --precision f32]
+                                               [--preset P]
 
 Runs the training loop itself, ``train(...)`` of ``train/loop.py``, on the
 celeb256_dit preset (DiT-L/2, batch 32, bf16 on f32 masters, grad
 checkpointing, EMA; ``--precision f32``: f32 compute, every attention
-through f32 K1 and K3) from its fresh initialisation, with a seeded
-full-width VAE encoder over synthetic 256^2 images, for
+through f32 K1 and K3), or on ``--preset P`` at its batch: an origin ADM (celeb256_adm: its f32 attention through
+f32 K1 and K3) or EDM's DhariwalUNet, from its fresh initialisation, with a
+seeded full-width VAE encoder over synthetic images at the preset's size
+(labelled where the preset trains on labels), for
 ``WARMUP + STEPS + 1`` steps, all under ``torch.profiler`` with device
 activity only (no host events, which would slow the host). With
 ``--fused`` the same steps go through ``make_train_step(model_apply=
@@ -26,9 +29,12 @@ Every number comes from the kernels of that one trace:
   the idle before it lies within the step (launches the device waits
   for);
 - the stages follow the kernels' order within a step: the VAE encode ends
-  at the step's last convolution; the optimizer runs from the first to the
-  last ``multi_tensor_apply`` (foreach) kernel; the DiT forward, its
-  recompute and the backward lie between the two, by kernel class; what
+  at the step's last convolution (a UNet's own convolutions follow it, so
+  there the encode ends before the step's second random draw, t's; the
+  first is the encoder's noise); the optimizer runs from the first to the
+  last ``multi_tensor_apply`` (foreach) kernel; the network's forward, its
+  recompute and the backward lie between the two, by kernel class (stages
+  ``dit ...`` or, for a UNet, ``net ...``); what
   runs after the optimizer (the next batch's copy and cast) is
   ``between steps``.
 
@@ -56,7 +62,8 @@ WARMUP, STEPS = 3, 8  # steps left out, then steps read
 K3, K1 = "K3 attention_small_bwd", "K1 attention_small"
 K5 = "K5 block_train_fwd"
 CONV, MATMUL, OPT = "convolution (cuDNN)", "matmul", "optimizer (foreach)"
-DIT_CLASSES = (MATMUL, K1, K3, K5)
+GN, RNG = "GroupNorm (ATen)", "random draws"
+NET_CLASSES = (MATMUL, K1, K3, K5, CONV, GN)
 # kernel name -> class, first match wins: a key is a tuple of lower-case
 # substrings that must all be in the name. K5's forward is this package's
 # GEMM (``lfm::sm90::gemm_sm90_kernel``; ``gemm_nt_kernel`` in an older
@@ -71,16 +78,19 @@ DIT_CLASSES = (MATMUL, K1, K3, K5)
 # ``lfm::row32::attn_row_bwd_dq_kernel`` and ``attn_row_bwd_dkdv_kernel``
 # (f32 at T <= 256), ``lfm::long32::attn_long_bwd_dq_kernel`` and the row
 # kernels' ``attn_row_bwd_dkdv_kernel`` (f32 past it; ``lfm::attn_bwd_*``
-# in an older checkout's trace)
+# in an older checkout's trace), and ``lfm::wide32::attn_wide_bwd_dq_kernel``
+# and ``attn_wide_bwd_dkdv_kernel`` (f32 at the origin ADM's D 128/256)
 CLASSES = (
     (K5, (("lfm::sm90::gemm_sm90_kernel",), ("lfm::sm90::gemm_nt_kernel",),
           ("lfm::ln_modulate_kernel",), ("lfm::sm90::attn_", "true>"))),
-    (K3, (("attn_bwd",), ("attn_row_bwd",), ("attn_long_bwd",))),
+    (K3, (("attn_bwd",), ("attn_row_bwd",), ("attn_long_bwd",), ("attn_wide_bwd",))),
     (K1, (("lfm::sm90::attn_",), ("attn_small_kernel",), ("attn_short_f32_kernel",),
           ("attn_row_kernel",), ("flash_f32_kernel",))),
     (CONV, (("cudnn",), ("implicit_gemm",), ("conv",))),
     (MATMUL, (("nvjet",), ("gemm",), ("cutlass",), ("cublas",))),
     (OPT, (("multi_tensor_apply",),)),
+    (GN, (("rowwisemoments",), ("computefusedparams",), ("groupnorm",))),
+    (RNG, (("distribution_elementwise",),)),
     ("copy / cast", (("copy_kernel",),)),
     ("reduction", (("reduce_kernel",),)),
 )
@@ -109,21 +119,25 @@ def _split_steps(kernels):
     return steps
 
 
-def _stage_names(step) -> list:
+def _stage_names(step, unet: bool = False) -> list:
     """The stage of each kernel of one step (see the module docstring)."""
     classes = [_classify(k.name) for k in step]
-    last_conv = max(i for i, c in enumerate(classes) if c == CONV)
+    if unet:
+        vae_end = [i for i, c in enumerate(classes) if c == RNG][1] - 1
+    else:
+        vae_end = max(i for i, c in enumerate(classes) if c == CONV)
     opt = [i for i, c in enumerate(classes) if c == OPT]
+    net = "net " if unet else "dit "
     names = []
     for i, c in enumerate(classes):
-        if i <= last_conv:
+        if i <= vae_end:
             names.append("vae_encode")
         elif i > opt[-1]:
             names.append("between steps")
         elif i >= opt[0]:
             names.append("optimizer")
         else:
-            names.append("dit " + (c if c in DIT_CLASSES else "other"))
+            names.append(net + (c if c in NET_CLASSES else "other"))
     return names
 
 
@@ -162,9 +176,10 @@ def main(argv=None) -> int:
                    help="train through dit_fused_model_apply (K5) instead of the module")
     p.add_argument("--precision", choices=("bf16", "f32"), default="bf16",
                    help="the module path's compute dtype (the fused blocks are bf16)")
+    p.add_argument("--preset", default="celeb256_dit")
     args = p.parse_args(argv)
-    if args.fused and args.precision != "bf16":
-        p.error("--fused runs bf16 blocks only")
+    if args.fused and (args.precision != "bf16" or args.preset != "celeb256_dit"):
+        p.error("--fused runs celeb256_dit's bf16 blocks only")
     if not torch.cuda.is_available():
         print("profile_train: CUDA is not available", file=sys.stderr)
         return 1
@@ -178,11 +193,13 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     total = WARMUP + STEPS + 1
-    preset = get_preset("celeb256_dit")
+    preset = get_preset(args.preset)
+    unet = preset.model.use_origin_adm or not preset.model.is_dit
     batch = preset.train.batch_size
     vae = create_vae(dtype=torch.bfloat16, device=dev)
     seeded_init_(vae, 1)
-    dataset = SyntheticImageDataset(n=batch * (total + 1), image_size=256)
+    dataset = SyntheticImageDataset(n=batch * (total + 1), image_size=preset.model.image_size,
+                                    num_classes=preset.model.num_classes or 1)
     work = tempfile.mkdtemp(prefix="profile_train_")
     try:
         config = dataclasses.replace(preset, output_dir=work, train=dataclasses.replace(
@@ -212,7 +229,7 @@ def main(argv=None) -> int:
         wall += nxt - step[0].time_range.start
         end = step[0].time_range.start
         # the device idles before a kernel from the end of the kernels before it
-        for k, stage in zip(step, _stage_names(step)):
+        for k, stage in zip(step, _stage_names(step, unet)):
             a, b = k.time_range.start, k.time_range.end
             idle_by_stage[stage] += max(a - end, 0.0)
             by_stage[stage] += b - a
@@ -223,7 +240,7 @@ def main(argv=None) -> int:
     between = idle_by_stage["between steps"]
     ms = lambda us: us / STEPS / 1e3  # noqa: E731  per step
     line = {
-        "phase": "profile_train", "preset": "celeb256_dit",
+        "phase": "profile_train", "preset": args.preset,
         "path": "fused (K5)" if args.fused else "module", "precision": args.precision,
         "steps_read": STEPS,
         "warmup_steps": WARMUP, "batch": batch,
@@ -240,8 +257,8 @@ def main(argv=None) -> int:
     }
     print(json.dumps(line), flush=True)
     os.makedirs(args.out, exist_ok=True)
-    stem = "profile_train" + ("_fused" if args.fused else "") + (
-        "_f32" if args.precision == "f32" else "")
+    stem = "profile_train" + ("" if args.preset == "celeb256_dit" else "_" + args.preset) + (
+        "_fused" if args.fused else "") + ("_f32" if args.precision == "f32" else "")
     with open(os.path.join(args.out, f"{stem}.json"), "w") as f:
         f.write(json.dumps(line, indent=1))
     prof.export_chrome_trace(os.path.join(args.out, f"{stem}_trace.json"))

@@ -7,7 +7,11 @@ logged every 100 iterations, a 4-sample dopri5 demo grid every
 and ``model_{E}.pth`` (EMA weights) every ``save_ckpt_every`` epochs
 (reference train_flow_latent.py:48-216). A ``content.pth`` in the
 experiment directory resumes the run; SIGTERM saves one at the current
-epoch and returns. The multi-device, shard_map and pipeline-parallel
+epoch and returns. Every network of ``create_network`` trains: the DiT,
+the origin ADM (its attention an f32 island through K1 and K3 on the card)
+and EDM's DhariwalUNet, built in the ``precision`` policy's dtype and
+initialised as the JAX package initialises it (``dit_init_``,
+``unet_init_``). The multi-device, shard_map and pipeline-parallel
 branches of the JAX loop are not ported: a mesh other than one device
 raises.
 """
@@ -29,8 +33,9 @@ from lfm_tpu_torch.core.device import DeviceLike, resolve_device
 from lfm_tpu_torch.core.preemption import PreemptionGuard
 from lfm_tpu_torch.core.rng import SampleRNG
 from lfm_tpu_torch.data import DataLoader, get_dataset
+from lfm_tpu_torch.data.transforms import require_pil
 from lfm_tpu_torch.nn.factory import create_network
-from lfm_tpu_torch.nn.init import dit_init_
+from lfm_tpu_torch.nn.init import dit_init_, unet_init_
 from lfm_tpu_torch.train.state import TrainState, create_train_state, make_optimizer
 from lfm_tpu_torch.train.train import make_train_step
 
@@ -51,9 +56,9 @@ def _write_png(path: str, img: np.ndarray) -> None:
                 + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
 
 
-def save_image_grid(images: np.ndarray, path: str, nrow: int = 8) -> None:
-    """[-1, 1] or [0, 1] NHWC batch -> one PNG grid (torchvision save_image,
-    train_flow_latent.py:185-190)."""
+def image_grid(images: np.ndarray, nrow: int = 8) -> np.ndarray:
+    """[-1, 1] or [0, 1] NHWC batch -> one uint8 grid image, ``nrow`` images
+    a row (torchvision save_image, train_flow_latent.py:185-190)."""
     imgs = np.asarray(images, np.float32)
     if imgs.min() < -0.01:  # normalise from [-1, 1]
         imgs = (imgs + 1.0) / 2.0
@@ -64,7 +69,18 @@ def save_image_grid(images: np.ndarray, path: str, nrow: int = 8) -> None:
     for i in range(n):
         r, col = divmod(i, nrow)
         grid[r * h:(r + 1) * h, col * w:(col + 1) * w] = imgs[i]
-    _write_png(path, (grid * 255).astype(np.uint8).squeeze())
+    return (grid * 255).astype(np.uint8).squeeze()
+
+
+def save_image_grid(images: np.ndarray, path: str, nrow: int = 8) -> None:
+    """``image_grid`` written to ``path``: a ``.png`` by this module's own
+    encoder, any other name through Pillow by its extension, as the JAX
+    package's ``save_image_grid`` writes every name (a ``.jpg`` is JPEG)."""
+    grid = image_grid(images, nrow)
+    if path.endswith(".png"):
+        _write_png(path, grid)
+    else:
+        require_pil(f"writing {path}").fromarray(grid).save(path)
 
 
 def _check_single_device(mesh: MeshConfig) -> None:
@@ -84,9 +100,6 @@ def train(config: Config, *, dataset=None, vae=None, device: DeviceLike = None,
     device = resolve_device(device)
     tc = config.train
     _check_single_device(config.mesh)
-    if config.model.use_origin_adm or not config.model.is_dit:
-        raise NotImplementedError("only the DiT family trains in this package yet; ADM and "
-                                  "EDM training are not ported")
     dataset = dataset if dataset is not None else get_dataset(config, seed=tc.seed)
     loader = DataLoader(dataset, tc.batch_size, shuffle=True, drop_last=True, seed=tc.seed)
     steps_per_epoch = tc.steps_per_epoch or max(len(loader), 1)
@@ -98,7 +111,8 @@ def train(config: Config, *, dataset=None, vae=None, device: DeviceLike = None,
                            use_flash=config.model.use_flash_attention,
                            remat=tc.use_grad_checkpointing, remat_policy=tc.remat_policy,
                            device=device)
-    dit_init_(model, tc.seed)
+    is_dit = config.model.is_dit and not config.model.use_origin_adm
+    (dit_init_ if is_dit else unet_init_)(model, tc.seed)
     content = None
     if tc.model_ckpt and os.path.exists(tc.model_ckpt):
         loaded = torch.load(tc.model_ckpt, map_location="cpu", weights_only=False)
@@ -121,7 +135,8 @@ def train(config: Config, *, dataset=None, vae=None, device: DeviceLike = None,
     step_fn = make_train_step(
         model, tx, ema_decay=tc.ema_decay, use_ema=tc.use_ema, encode_fn=encode_fn,
         scale_factor=config.scale_factor, is_latent_data=is_latent,
-        label_dropout=config.model.label_dropout > 0, seed=tc.seed + 1)
+        label_dropout=config.model.label_dropout > 0, dropout=config.model.dropout > 0,
+        seed=tc.seed + 1)
 
     exp_path = config.exp_path
     os.makedirs(exp_path, exist_ok=True)

@@ -510,6 +510,97 @@ def test_attention_wide_f32_k1_builds_without_spills(cuda):
         assert u["spill_stores"] == 0 and u["spill_loads"] == 0 and u["registers"] <= 255, name
 
 
+# f32 K3 at the origin ADM's D = 128/256 (attention_bwd_wide_f32.cu): the
+# presets' T = 16 and 64, the dq kernel's 16-row and the stages' 64 / 32-key
+# boundaries, past T = 256 and at the gate
+WIDE_K3_SHAPES = ([(4, 16, 4, 128), (2, 64, 4, 128), (2, 16, 2, 256), (1, 100, 2, 128),
+                   (1, 257, 2, 256), (1, 1024, 2, 128)]
+                  + [(2, t, 2, d) for d in (128, 256) for t in (1, 15, 17, 33, 65)])
+
+
+@pytest.mark.parametrize("shape", WIDE_K3_SHAPES)
+def test_attention_small_bwd_wide_f32_matches_plain(cuda, shape):
+    """On separate tensors and on the thirds of a fused qkv row: one
+    launch, within 1e-4 of the plain version, the same bits on a rerun."""
+    from lfm_tpu_torch.kernels.flash_attention import (ATTENTION_SMALL_BWD, attention_small_bwd,
+                                                       reference_attention_bwd, split_qkv)
+
+    n, t, h, d = shape
+    q, k, v, do = (torch.randn(*shape, generator=cuda, device="cuda") for _ in range(4))
+    before = ATTENTION_SMALL_BWD.count
+    got = [g.clone() for g in attention_small_bwd(q, k, v, do)]
+    torch.cuda.synchronize()
+    assert ATTENTION_SMALL_BWD.count == before + 1
+    def close(g, w):  # at T = 1, dq and dk are zero: softmax over one key
+        scale = float(w.abs().max())
+        return _rel(g, w) <= 1e-4 if scale else bool((g == 0).all())
+
+    for g, again, w in zip(got, attention_small_bwd(q, k, v, do),
+                           reference_attention_bwd(q, k, v, do)):
+        assert close(g, w) and torch.equal(g, again)
+    qq, kk, vv = split_qkv(torch.randn(n, t, 3 * h * d, generator=cuda, device="cuda"), h)
+    for g, w in zip(attention_small_bwd(qq, kk, vv, do), reference_attention_bwd(qq, kk, vv, do)):
+        assert close(g, w)
+
+
+@pytest.mark.parametrize("t,d", [(16, 128), (1024, 256)])
+def test_f32_k3_wide_dispatch(cuda, t, d):
+    """At D = 128/256 f32 K3 launches the two kernels f32_k3_route names
+    (the profiler's kernel names), at every T."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lfm_tpu_torch.kernels.flash_attention import attention_small_bwd, f32_k3_route
+
+    q, k, v, do = (torch.randn(1, t, 2, d, generator=cuda, device="cuda") for _ in range(4))
+    attention_small_bwd(q, k, v, do)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        attention_small_bwd(q, k, v, do)
+        torch.cuda.synchronize()
+    lfm = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA and "lfm::" in e.name]
+    dq, dkdv = f32_k3_route(t, d)[:2]
+    assert len(lfm) == 2 and dq in lfm[0] and dkdv in lfm[1] and f"<{d}>" in lfm[0], lfm
+
+
+def test_attention_bwd_wide_f32_builds_without_spills(cuda):
+    """ptxas's report of attention_bwd_wide_f32.cu: its dq and dk/dv kernels
+    at DP 128 and 256, none spills."""
+    from lfm_tpu_torch.kernels import _build
+
+    _build.load_library()
+    usage = _build.ptxas_usage("attention_bwd_wide_f32")
+    kernels = {k: u for k, u in usage.items() if "attn_wide_bwd_" in k}
+    assert len(kernels) == 4, sorted(usage)
+    for name, u in kernels.items():
+        assert u["spill_stores"] == 0 and u["spill_loads"] == 0 and u["registers"] <= 255, name
+
+
+def test_groupnorm_silu_raises_under_grad(cuda):
+    """K6 has no backward: on a CUDA tensor it raises when grad is enabled
+    and an operand requires grad (training through it would give x, scale
+    and bias no gradient), and runs under no_grad or without such operands;
+    an origin ADM with use_fused_gn raises in a train step's forward."""
+    from lfm_tpu_torch.kernels.groupnorm_silu import FusedGNSiLU
+    from lfm_tpu_torch.nn.adm_unet import UNetModel
+
+    x = torch.randn(2, 4, 4, 64, generator=cuda, device="cuda")
+    scale = torch.ones(64, device="cuda", requires_grad=True)
+    bias = torch.zeros(64, device="cuda")
+    with pytest.raises(RuntimeError, match="K6 backward"):
+        FusedGNSiLU.apply(x, scale, bias)
+    with pytest.raises(RuntimeError, match="K6 backward"):
+        FusedGNSiLU.apply(x.requires_grad_(True), scale.detach(), bias)
+    with torch.no_grad():
+        out = FusedGNSiLU.apply(x, scale, bias)
+    assert out.grad_fn is None and torch.isfinite(out).all()
+    assert torch.isfinite(FusedGNSiLU.apply(x.detach(), scale.detach(), bias)).all()
+    model = UNetModel(image_size=8, model_channels=64, channel_mult=(1,), num_res_blocks=1,
+                      attention_resolutions=(), use_fused_gn=True).cuda()
+    with pytest.raises(RuntimeError, match="K6 backward"):
+        model(torch.rand(2, device="cuda"), torch.randn(2, 8, 8, 4, device="cuda"), train=True)
+
+
 def test_small_f32_dit_grads_through_kernels_match_plain(cuda):
     """The 2-block DiT at DiT-L width in f32 (f32 compute, as train
     --precision f32): the FM loss's parameter gradients with attention

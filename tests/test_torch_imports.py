@@ -58,6 +58,8 @@ def test_port_imports_nothing_of_jax_or_lfm_tpu():
                 "lfm_tpu_torch.train.train", "lfm_tpu_torch.train.state",
                 "lfm_tpu_torch.core.checkpoint", "lfm_tpu_torch.core.preemption",
                 "lfm_tpu_torch.data.datasets", "lfm_tpu_torch.data.loader",
+                "lfm_tpu_torch.data.transforms", "lfm_tpu_torch.data.minilmdb",
+                "lfm_tpu_torch.data.lmdb_datasets", "lfm_tpu_torch.tools.prepare_latent_dataset",
                 "lfm_tpu_torch.nn.adm_unet", "lfm_tpu_torch.nn.convert_adm",
                 "lfm_tpu_torch.nn.edm_unet", "lfm_tpu_torch.nn.convert_edm",
                 "lfm_tpu_torch.sample.sharded",
@@ -111,12 +113,19 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_cuda):
 def test_train_refuses_the_cpu_unless_asked(no_cuda, tmp_path):
     from lfm_tpu_torch.cli import main as cli
     from lfm_tpu_torch.core.config import get_preset
+    from lfm_tpu_torch.tools import prepare_latent_dataset
     from lfm_tpu_torch.train.loop import train
 
     cfg = get_preset("celeb256_dit").replace(output_dir=str(tmp_path))
     for call in (lambda: train(cfg),
+                 lambda: train(get_preset("celeb256_adm").replace(output_dir=str(tmp_path))),
                  lambda: cli.main(["train", "--preset", "celeb256_dit", "--dataset",
-                                   "synthetic_latent", "--max_steps", "1"])):
+                                   "synthetic_latent", "--max_steps", "1"]),
+                 lambda: cli.main(["train", "--preset", "celeb256_adm", "--dataset",
+                                   "synthetic", "--max_steps", "1"]),
+                 lambda: prepare_latent_dataset.main(
+                     ["--dataset", "synthetic", "--datadir", str(tmp_path), "--vae_ckpt",
+                      "vae.bin", "--out", str(tmp_path / "latents")])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert not os.listdir(tmp_path)

@@ -53,6 +53,10 @@ def test_sampling_profile_classes_the_sm90_attention(mode, dp, norm_p, sample_cl
      "float const*, float const*, float*, float*, int, int, int, long, long, long, long, long, "
      "float)", profile_train.K3),
     ("void lfm::long32::attn_long_bwd_dq_kernel<80, 512>(float const*, ...)", profile_train.K3),
+    ("void lfm::wide32::attn_wide_bwd_dq_kernel<128>(float const*, float const*, float const*, "
+     "float const*, float*, float*, int, int, int, long, long, long, long, long, float)",
+     profile_train.K3),
+    ("void lfm::wide32::attn_wide_bwd_dkdv_kernel<256>(float const*, ...)", profile_train.K3),
 ])
 def test_train_profile_classes_the_sm90_attention(name, train_class):
     assert profile_train._classify(name) == train_class
@@ -130,3 +134,26 @@ def test_sampling_profile_counts_quant_rows_as_p1():
 def test_library_matmuls_stay_matmuls(name):
     assert profile_sample.classify(name) == "matmul"
     assert profile_train._classify(name) == profile_train.MATMUL
+
+
+class _Kernel:
+    def __init__(self, name):
+        self.name = name
+
+
+def test_train_profile_stages_of_a_unet_step():
+    """A UNet's own convolutions follow the VAE encode, so its encode ends
+    before the step's second random draw (t's; the first is the encoder's
+    noise); the DiT's ends at its last convolution."""
+    names = ["implicit_convolve_sgemm", "RowwiseMomentsCUDAKernel<float>",
+             "distribution_elementwise_grid_stride_kernel<float, 4>", "elementwise_kernel",
+             "distribution_elementwise_grid_stride_kernel<float, 4>",
+             "distribution_elementwise_grid_stride_kernel<float, 4>", "implicit_convolve_sgemm",
+             "void lfm::wide32::attn_wide_bwd_dq_kernel<128>(...)", "nvjet_tst_256x128",
+             "multi_tensor_apply_kernel", "copy_kernel"]
+    step = [_Kernel(n) for n in names]
+    assert profile_train._stage_names(step, unet=True) == [
+        "vae_encode"] * 4 + ["net other", "net other",
+                             "net " + profile_train.CONV, "net " + profile_train.K3,
+                             "net " + profile_train.MATMUL, "optimizer", "between steps"]
+    assert profile_train._stage_names(step)[:7] == ["vae_encode"] * 7
