@@ -34,10 +34,13 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    - attention_small_bwd (K3), bf16 at (32, 256, 16, 64) and
      (8, 1024, 16, 64), f32 at (8, 256, 16, 64), (32, 256, 16, 64),
      (8, 256, 16, 72) and (2, 1024, 16, 64) (past T = 256: the dq kernel of
-     attention_long_f32.cuh), and f32 at the origin ADM's heads (the two
-     kernels of attention_bwd_wide_f32.cu) at (112, 16, 4, 128) (celeb256_adm's
-     train step, the adm_train path), (24, 64, 4, 128) and (24, 16, 4, 256)
-     (celeb512_adm's at its batch), (16, 256, 4, 128) and (16, 1024, 4, 256);
+     attention_long_f32.cuh), and f32 at the origin ADM's heads
+     (attention_bwd_wide_f32.cu: its one-pass kernel at T <= 64, 48 at D =
+     256, its dq and dk/dv kernels past it) at (112, 16, 4, 128)
+     (celeb256_adm's train step, the adm_train path), (24, 64, 4, 128) and
+     (24, 16, 4, 256) (celeb512_adm's at its batch), (16, 256, 4, 128) and
+     (16, 1024, 4, 256), and at batch 16 on the routes' edges: T = 33, 65,
+     257 and 513 at D = 128, 48, 49 and 257 at D = 256;
      library: the backward of scaled_dot_product_attention through autograd
      (its saved forward graph, backward alone);
    - flash_attention (K4), bf16 at (2, 4096, 16, 64) (DiT-L/2 at 1024 px,
@@ -84,7 +87,7 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    share of its bound, ratio to SDPA and output digest, and the registers
    and spills of each of the 12 wgmma kernel instances, the 14 instances
    of attention_row_f32.cuh, the 11 of attention_long_f32.cuh, the 6 of
-   attention_wide.cu's one-pass kernel and the 4 of attention_bwd_wide_f32.cu
+   attention_wide.cu's one-pass kernel and the 13 of attention_bwd_wide_f32.cu
    (f32 K3 at D 128/256) from the build's ptxas report; a spill fails the
    run. And one gemm_redesign line: each NT GEMM of K2 at
    N and of K5's forward at the train batch, and each NN and TN GEMM of
@@ -391,10 +394,15 @@ ADM_TRAIN_RECORDS, ADM_TRAIN_STEPS = 224, 3
 ADM512_TRAIN_BATCH, ADM512_TRAIN_STEPS = 24, 2
 EDM_TRAIN_BATCH, EDM_TRAIN_STEPS = 16, 2
 # f32 K3 at the origin ADM's heads (attention_bwd_wide_f32.cu): celeb256_adm's
-# train step at its batch, celeb512_adm's two at its batch of 24, and past
-# T = 64 at D = 128 and at the gate at D = 256
+# train step at its batch, celeb512_adm's two at its batch of 24 (the
+# one-pass kernel), past T = 64 at D = 128 and at the gate at D = 256 (the
+# dq and dk/dv kernels); then the routes' edges: the one-pass kernel's 33
+# keys at D = 128 and last T at D = 256 (48), the first T of the two
+# kernels at each head dim (65, 49) and of their dq kernel's second and
+# third instances (257, and 513 at D = 128)
 K3_WIDE = [(112, 16, 4, 128), (24, 64, 4, 128), (24, 16, 4, 256), (16, 256, 4, 128),
-           (16, 1024, 4, 256)]
+           (16, 1024, 4, 256), (16, 33, 4, 128), (16, 65, 4, 128), (16, 257, 4, 128),
+           (16, 513, 4, 128), (16, 48, 4, 256), (16, 49, 4, 256), (16, 257, 4, 256)]
 # the guided velocity from one doubled batch against uncond + s (cond -
 # uncond) from two calls, f32: the same arithmetic at other batch sizes,
 # where cuDNN may take other algorithms
@@ -844,7 +852,9 @@ def run(torch, work: str) -> int:
                           ("attention_wide", r"(attn_short_f32_kernel)ILi(\d+)ELi(\d+)ELi(\d+)E"),
                           ("attention_bwd_long_f32",
                            r"long32\d+(attn_long_bwd_dq_kernel)ILi(\d+)ELi(\d+)E"),
-                          ("attention_bwd_wide_f32", r"wide32\d+(attn_wide_bwd_\w+_kernel)ILi(\d+)E")):
+                          ("attention_bwd_wide_f32",
+                           r"wide32\d+(attn_wide_bwd_\w+_kernel)ILi(\d+)E(?:Li(\d+)E)?"
+                           r"(?:Li(\d+)E)?(?:Li(\d+)E)?")):
         for mangled, use in _build.ptxas_usage(stem).items():
             m = re.search(pattern, mangled)
             if m:
@@ -861,8 +871,10 @@ def run(torch, work: str) -> int:
     # DP 128 past it and DP 256 past T = 64: 32 query rows, 1024 keys), 4 of
     # K3's dq kernel past T = 256 (2 padded head dims x TK 512, 1024); 6 of
     # attention_wide.cu's one-pass f32 K1 at T <= 64 (DP 128, 256 x 3 sizes);
-    # 4 of f32 K3 at D 128/256 (attention_bwd_wide_f32.cu: 2 kernels x DP)
-    if len(ptxas) != 47 or spilled:
+    # 13 of f32 K3 at D 128/256 (attention_bwd_wide_f32.cu: 6 of the
+    # one-pass kernel, DP 128 x TK 16, 32, 64 and DP 256 x 16, 32, 48; 5 of
+    # the dq kernel, DP x its rows and whole-row keys; 2 of the dk/dv kernel)
+    if len(ptxas) != 56 or spilled:
         raise AssertionError(f"attention: {len(ptxas)} kernel instances, spills {spilled}")
 
     for n, hh, ww, c, dt, offset in ((batch, 32, 32, 256, bf, 0.0), (batch, 32, 32, 768, bf, 0.0),

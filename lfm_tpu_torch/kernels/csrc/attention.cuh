@@ -81,8 +81,8 @@ cudaError_t launch_attention_long_f32(const float* q, const float* k, const floa
                                       int N, int T, int H, int D, long ldq, long ldk, long ldv,
                                       long ldo, cudaStream_t s);
 // f32 K3 at D = 128 and 256, T <= 1024: the origin ADM's attention
-// backward, the two kernels of attention_bwd_wide_f32.cu; the same stats
-// layout.
+// backward, attention_bwd_wide_f32.cu: one kernel at T <= 64 (48 at D =
+// 256; stats unused), past it two with the same stats layout.
 cudaError_t launch_attn_bwd_wide_f32(const float* q, const float* k, const float* v,
                                      const float* dout, float* dq, float* dk, float* dv,
                                      float* stats, int N, int T, int H, int D, long ldq, long ldk,

@@ -1,6 +1,7 @@
 // C entry point of K3, the port of lfm_tpu/kernels/flash_attention.py::
 // attention_small_bwd: bf16 runs the wgmma + TMA kernels of
-// attention_bwd_sm90.cuh (launched here); f32 is split by shape: at T <= 256
+// attention_bwd_sm90.cuh (launched here); f32 is split by shape: at D 128 /
+// 256 (the origin ADM) attention_bwd_wide_f32.cu; at D <= 80 and T <= 256
 // the one-pass kernels of attention_row_f32.cuh (attention_bwd_row_f32.cu),
 // past it the dq kernel of attention_long_f32.cuh with the same dk/dv kernel
 // (attention_bwd_long_f32.cu).

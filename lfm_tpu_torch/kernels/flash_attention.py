@@ -24,9 +24,11 @@ of scores on chip with k and v streamed through a cp.async ring
 f32 K1 at D = 128/256 (the origin ADM's attention) is a one-pass kernel
 sized to T up to 64 (``csrc/attention_wide.cu``) and past it the same
 key-block kernel with the whole row one block; its backward, f32 K3 at D =
-128/256, is a dq kernel holding 16 query rows' whole rows of s and dp on
-chip and a dk/dv kernel streaming the queries
-(``csrc/attention_bwd_wide_f32.cu``) at every T of the gate.
+128/256 (``csrc/attention_bwd_wide_f32.cu``), is one kernel that holds a
+whole (sample, head) on chip and forms s and dp once at T <= 64 (48 at D =
+256: every preset shape), and past it a dq kernel holding its query rows'
+whole rows of s on chip and a dk/dv kernel streaming the queries, both
+with register-blocked score tiles summed over slices of D.
 ``f32_k1_route`` and ``f32_k3_route`` state which f32 kernels a shape
 takes. What bounds each is noted in its
 source.
@@ -147,18 +149,24 @@ def f32_k1_route(t: int, d: int) -> Tuple[str, int, int]:
     return "flash_f32_kernel", 32, 1024
 
 
-def f32_k3_route(t: int, d: int) -> Tuple[str, str, int, int]:
-    """The two kernels that f32 ``attention_small_bwd`` launches at sequence
+def f32_k3_route(t: int, d: int) -> Tuple[Tuple[str, ...], int, int]:
+    """The kernels that f32 ``attention_small_bwd`` launches at sequence
     length t and head dim d (``lfm_attention_small_bwd``,
-    csrc/attention_bwd.cu), with the query rows of a dq CTA and the keys of a
-    dk/dv CTA: (dq kernel, dk/dv kernel, rows, keys)."""
-    if d > 80:  # the origin ADM's heads, every T (attention_bwd_wide_f32.cu)
-        return ("attn_wide_bwd_dq_kernel", "attn_wide_bwd_dkdv_kernel", 16,
-                64 if d <= 128 else 32)
+    csrc/attention_bwd.cu), in launch order, with the query rows of a dq
+    CTA and the keys of a dk/dv CTA (of the one-pass kernel: the rows and
+    keys it holds, T rounded up): (kernels, rows, keys)."""
+    if d > 80:  # the origin ADM's heads (attention_bwd_wide_f32.cu)
+        if t <= (64 if d <= 128 else 48):  # one pass, sized to T
+            tk = 16 if t <= 16 else 32 if t <= 32 else 64 if d <= 128 else 48
+            return ("attn_wide_bwd_short_kernel",), tk, tk
+        rows = (64 if t <= 256 else 32 if t <= 512 else 16) if d <= 128 else \
+            32 if t <= 256 else 16
+        return ("attn_wide_bwd_dq_kernel", "attn_wide_bwd_dkdv_kernel"), rows, \
+            64 if d <= 128 else 32
     keys = 128 if d <= 64 else 64  # attention_row_f32.cuh's dk/dv kernel
     if t <= 256:
-        return "attn_row_bwd_dq_kernel", "attn_row_bwd_dkdv_kernel", 64, keys
-    return "attn_long_bwd_dq_kernel", "attn_row_bwd_dkdv_kernel", 32, keys
+        return ("attn_row_bwd_dq_kernel", "attn_row_bwd_dkdv_kernel"), 64, keys
+    return ("attn_long_bwd_dq_kernel", "attn_row_bwd_dkdv_kernel"), 32, keys
 
 
 def _ld(a: torch.Tensor) -> int:

@@ -26,7 +26,9 @@ in f32 at the three f32 DiT shapes and past T = 256 at (2, 1024, 16, 64)
 (an f32 DiT-L/2 at 512 px) and the ragged (2, 300, 16, 64) and (2, 300,
 16, 80), and at the origin ADM's heads (attention_bwd_wide_f32.cu) at (112,
 16, 4, 128) (celeb256_adm's train step), (24, 64, 4, 128) and (24, 16, 4,
-256) (celeb512_adm's), (16, 256, 4, 128) and (16, 1024, 4, 256);
+256) (celeb512_adm's), (16, 256, 4, 128) and (16, 1024, 4, 256), and at
+the routes' edges (16, 65, 4, 128), (16, 257, 4, 128), (16, 48, 4, 256),
+(16, 49, 4, 256), with (16, 1024, 4, 128) and (16, 256, 4, 256);
 ``flash_attention`` in f32 at (1, 4096, 4, 128) and (2, 4096, 16,
 64) (an f32 DiT-L/2 at 1024 px), its default key blocks of 512. Inputs come
 from a CUDA generator seeded per shape, so two checkouts see the same
@@ -34,7 +36,9 @@ values. Each kernel is timed with CUDA events, the mean of REPS
 calls after WARMUP, REPEATS times (at these sizes a call can take less
 device time than its host launch, so ``ms`` may be the host's rate), and
 by ``torch.profiler`` as the device time of REPS calls over REPS
-(``device_ms``, and ``device_kernels_ms`` by kernel); beside it the max abs error and the error relative to
+(``device_ms``, and ``device_kernels_ms`` by kernel, which for f32 K3 at D =
+128/256 names the one-pass kernel or the dq and the dk/dv kernel, and for
+K3 comes with ``--timing-only`` too); beside it the max abs error and the error relative to
 max |plain| of each output, a digest of the output's bytes (two checkouts
 that give the same bits give the same digest), and the same times of
 ``scaled_dot_product_attention`` (its backward through autograd for K3),
@@ -77,9 +81,12 @@ K1_CASES = ([(s, torch.float32) for s in ((200, 16, 4, 128), (16, 64, 4, 128), (
             + [(s, torch.bfloat16) for s in ((8, 256, 16, 72), (32, 256, 16, 72))])
 F32_LONG_K4 = ((1, 4096, 4, 128), (2, 4096, 16, 64))
 # f32 K3 at the origin ADM's D = 128/256: celeb256_adm's train step at its
-# batch, celeb512_adm's two at its batch, past T = 64 and at the gate
+# batch, celeb512_adm's two at its batch (the one-pass kernel), past T = 64
+# and at the gate (the dq and dk/dv kernels); then the routes' edges and
+# the gate at D = 128
 F32_WIDE_K3 = ((112, 16, 4, 128), (24, 64, 4, 128), (24, 16, 4, 256), (16, 256, 4, 128),
-               (16, 1024, 4, 256))
+               (16, 1024, 4, 256), (16, 65, 4, 128), (16, 257, 4, 128), (16, 1024, 4, 128),
+               (16, 48, 4, 256), (16, 49, 4, 256), (16, 256, 4, 256))
 K3_CASES = ([(s, torch.bfloat16) for s in ((32, 256, 16, 64), (8, 1024, 16, 64))]
             + [(s, torch.float32) for s in F32_DIT + F32_LONG_K3 + F32_WIDE_K3])
 WARMUP, REPS, REPEATS = 3, 50, 3
@@ -114,7 +121,7 @@ def device_ms(fn):
         for _ in range(REPS):
             fn()
         torch.cuda.synchronize()
-    by_kernel = {e.key[:60]: e.self_device_time_total / REPS / 1e3
+    by_kernel = {e.key[:80]: e.self_device_time_total / REPS / 1e3
                  for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
     return sum(by_kernel.values()), by_kernel
 
@@ -219,7 +226,8 @@ def bench_k3(shape, dtype, timing_only: bool):
     q, k, v, do = (torch.randn(*shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
     row = {"kernel": "attention_small_bwd", "dtype": str(dtype).removeprefix("torch."),
            "shape": list(shape),
-           "ms": [time_ms(lambda: attention_small_bwd(q, k, v, do)) for _ in range(REPEATS)]}
+           "ms": [time_ms(lambda: attention_small_bwd(q, k, v, do)) for _ in range(REPEATS)],
+           **device(lambda: attention_small_bwd(q, k, v, do))}
     if timing_only:
         return row
     got = attention_small_bwd(q, k, v, do)
@@ -242,7 +250,6 @@ def bench_k3(shape, dtype, timing_only: bool):
             "bit_identical_rerun": all(torch.equal(a, b) for a, b in zip(got, again)),
             "digest": digest(*got),
             **bound(7 * n * t * h * d * q.element_size(), 10 * n * h * t * t * d, dtype),
-            **device(lambda: attention_small_bwd(q, k, v, do)),
             "library_ms": [time_ms(sdpa_bwd) for _ in range(REPEATS)],
             **device(sdpa_bwd, "library_")}
 

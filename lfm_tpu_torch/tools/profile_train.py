@@ -78,8 +78,9 @@ NET_CLASSES = (MATMUL, K1, K3, K5, CONV, GN)
 # ``lfm::row32::attn_row_bwd_dq_kernel`` and ``attn_row_bwd_dkdv_kernel``
 # (f32 at T <= 256), ``lfm::long32::attn_long_bwd_dq_kernel`` and the row
 # kernels' ``attn_row_bwd_dkdv_kernel`` (f32 past it; ``lfm::attn_bwd_*``
-# in an older checkout's trace), and ``lfm::wide32::attn_wide_bwd_dq_kernel``
-# and ``attn_wide_bwd_dkdv_kernel`` (f32 at the origin ADM's D 128/256)
+# in an older checkout's trace), and ``lfm::wide32::attn_wide_bwd_short_kernel``
+# (f32 at the origin ADM's D 128/256 and T <= 64, 48 at D = 256) or
+# ``attn_wide_bwd_dq_kernel`` and ``attn_wide_bwd_dkdv_kernel`` (past it)
 CLASSES = (
     (K5, (("lfm::sm90::gemm_sm90_kernel",), ("lfm::sm90::gemm_nt_kernel",),
           ("lfm::ln_modulate_kernel",), ("lfm::sm90::attn_", "true>"))),

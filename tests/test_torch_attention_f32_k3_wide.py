@@ -2,19 +2,29 @@
 plain ``attention_small_bwd`` against lfm_tpu's Pallas
 ``attention_small_bwd`` in interpret mode (as tests/test_kernels.py runs
 it), the algorithm of its CUDA kernels (``csrc/attention_bwd_wide_f32.cu``)
-written out in torch at their rounding points against both, the route
-mirror ``f32_k3_route`` with the two kernels' shared-memory layouts over
-every T of the gate, and the gradient of a test-scale origin ADM with
-128-wide heads through ``use_flash`` (K1 and K3's plain versions on the
-CPU) against JAX's through its ``fused_attention``. The kernels themselves
-run only on the card (tests/test_torch_cuda.py, chip_smoke.py).
+written out in torch at their rounding points and in their sum orders, one
+emulation a route, against both, the route mirror ``f32_k3_route`` with each
+kernel's shared-memory layout over every T of the gate, and the gradient
+of a test-scale origin ADM with 128-wide heads through ``use_flash`` (K1
+and K3's plain versions on the CPU) against JAX's through its
+``fused_attention``. The kernels themselves run only on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
 
-The emulation follows the kernels' rounding points: the dq kernel's row
-max of the unscaled s, scaled once; e = exp(scale s - m) as one rounding
-(an FMA); l = sum e; p = e / l; delta = rowsum(p dp); ds = p (dp - delta);
-dq = scale (ds k), dk = scale (ds^T q), dv = p^T do with the scale applied
-after the sum. Its products are torch's f32 matmuls: the kernel's sums are
-single chains in order, which torch's blocked sums do not reproduce.
+The emulations follow the kernels (the header of the .cu states them): s
+and dp summed over D in S slices (S = 2 at D = 128, 4 at 256; slice sl
+takes the float4 blocks sl, sl + S, ... in order) added as p0 + p1 or (p0
++ p2) + (p1 + p3); the row max of the unscaled s, scaled once; e = exp(scale
+s - m) as one rounding (an FMA); l (and, in the one-pass kernel, delta)
+summed by the G threads of a row over their keys sub + G x in order, then
+a butterfly; the two-kernel route's delta summed by key group (keys kg +
+KGN x in order) and the groups added in order; p = e / l; ds = p (dp -
+delta); dq = scale (ds k), dk = scale (ds^T q), dv = p^T do, each one
+chain in order with the scale applied after the sum (where the dq kernel
+takes 16 query rows, dq is one chain a group of keys, the groups added in
+order). An FMA is emulated by
+a float64 product and sum rounded once to float32 (the f32 product is
+exact in float64); torch's exp is not the card's expf, so the emulation
+is the kernel's order, not its bits.
 
 Tolerances: 1e-5 of the largest reference value of each output (the same
 f32 arithmetic, f32 sums in another order); the ADM's f32 gradients 1e-4
@@ -42,16 +52,25 @@ from lfm_tpu_torch.nn.convert_adm import adm_params_from_jax  # noqa: E402
 from lfm_tpu_torch.train.train import fm_train_loss  # noqa: E402
 
 F32_TOL = 1e-5
-LENGTHS = (16, 64, 100, 256)  # celeb256_adm's and celeb512_adm's, ragged, past 64
 HEAD_DIMS = (128, 256)  # the origin ADM's heads
-HEADS = {16: 4, 64: 3, 100: 2, 256: 2}
+# celeb256_adm's and celeb512_adm's T, the routes' edges (the one-pass
+# kernel's rows 16 / 32 / 64, its last T at D = 256, 48), ragged, past 64,
+# past 256 (the dq kernel's second instance) and at D = 128 past 512 (its
+# third, dq split by key)
+LENGTHS = {128: (1, 16, 33, 64, 65, 100, 256, 300, 520),
+           256: (1, 16, 33, 48, 49, 64, 65, 100, 256, 300)}
+CASES = [(t, d) for d in HEAD_DIMS for t in LENGTHS[d]]
 SMEM = 232448  # bytes of shared memory a CTA may have on the H100 (ATT_MAX_SMEM)
 THREADS = 256
 
 
+def _heads(t):
+    return 4 if t <= 16 else 3 if t <= 64 else 2
+
+
 def _inputs(t, d, seed):
     rng = np.random.default_rng(seed)
-    return [torch.from_numpy(rng.standard_normal((1, t, HEADS[t], d)).astype(np.float32))
+    return [torch.from_numpy(rng.standard_normal((1, t, _heads(t), d)).astype(np.float32))
             for _ in range(4)]
 
 
@@ -63,29 +82,138 @@ def _pallas(t, d):
         return tuple(np.asarray(g) for g in jattn.attention_small_bwd(q, k, v, do))
 
 
+# ------------------------------------------------------------- the layouts
+
+def _split(d):
+    """(S, LD): slices of D a score tile sums over, the row stride (floats)
+    of q, k, v and do in shared memory (Split<DP>)."""
+    s = 2 if d <= 128 else 4
+    return s, d + 4 * s
+
+
+def _score_ld(tk, g):
+    return tk + g * (2 if (tk // g) % 2 else 1)
+
+
+def layout(t, d):
+    """The kernels' constants at (t, d), mirrored from the .cu (Short<DP,
+    TK>, WideDq<DP, BQ, TK>, WideDkdv<DP>), with each kernel's shared
+    memory in bytes."""
+    s, ld = _split(d)
+    if t <= (64 if d == 128 else 48):
+        tk = 16 if t <= 16 else 32 if t <= 32 else 64 if d == 128 else 48
+        g = THREADS // (16 if tk <= 16 else 32 if tk <= 32 else 64)
+        lds = _score_ld(tk, g)
+        return {"route": "short", "tk": tk, "g": g, "s": s,
+                "bytes": {"attn_wide_bwd_short_kernel": 4 * (4 * tk * ld + 2 * tk * lds)}}
+    bq, tk = ((64, 256) if t <= 256 else (32, 512) if t <= 512 else (16, 1024)) if d == 128 \
+        else (32, 256) if t <= 256 else (16, 1024)
+    narrow = d == 128 and tk == 1024
+    ks, dc = (64, 128) if tk == 256 else (256, 32) if narrow else (128, 64)
+    g = THREADS // bq
+    rm = 4 if narrow else 8
+    rgn = bq // rm
+    kgn = (THREADS // 8 // rgn) * (8 // s)
+    ksq, split = (64 if d == 128 else 32), (1 if bq >= 32 else 4 if d == 128 else 2)
+    slot = max(ks * (dc + 4 * s), ksq * ld)
+    bk, ch = (64 if d == 128 else 32), 32
+    dq = 4 * (2 * bq * ld + 2 * slot + bq * _score_ld(tk, g) + bq * kgn)
+    dkdv = 4 * (2 * bk * ld + 2 * (2 * ch * ld + 3 * ch) + 2 * bk * (ch + 4))
+    return {"route": "split", "bq": bq, "ks": ks, "dc": dc, "tk": tk, "g": g, "rm": rm,
+            "kgn": kgn, "s": s, "ksq": ksq, "split": split, "bk": bk,
+            "bytes": {"attn_wide_bwd_dq_kernel": dq, "attn_wide_bwd_dkdv_kernel": dkdv}}
+
+
+# ------------------------------------------------------------ the emulation
+
+def _fma(a, b, c):
+    """fmaf(a, b, c) up to float64's rounding of the exact sum."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _split_dot(a, b, s):
+    """a (..., R, D) . b (..., C, D) -> (..., R, C): the S slices' chains,
+    then (p0 + p2) + (p1 + p3) or p0 + p1."""
+    parts = []
+    for sl in range(s):
+        acc = torch.zeros(a.shape[:-1] + (b.shape[-2],))
+        for blk in range(sl, a.shape[-1] // 4, s):
+            for d in range(4 * blk, 4 * blk + 4):
+                acc = _fma(a[..., :, None, d], b[..., None, :, d], acc)
+        parts.append(acc)
+    return parts[0] + parts[1] if s == 2 else (parts[0] + parts[2]) + (parts[1] + parts[3])
+
+
+def _chain_nn(a, b):
+    """a (..., R, K) @ b (..., K, C) as one FMA chain over k in order."""
+    acc = torch.zeros(a.shape[:-1] + (b.shape[-1],))
+    for kk in range(a.shape[-1]):
+        acc = _fma(a[..., :, kk, None], b[..., None, kk, :], acc)
+    return acc
+
+
+def _row_sum(x, g, fma_with=None):
+    """Over the last axis (padded to a multiple of g with zeros): thread sub
+    sums keys sub + g j in order (an FMA with ``fma_with`` where given),
+    then the g partials in a butterfly (xor 1, 2, ...: adjacent pairs)."""
+    keys = x.shape[-1]
+    pad = -keys % g
+    x = torch.nn.functional.pad(x, (0, pad))
+    y = None if fma_with is None else torch.nn.functional.pad(fma_with, (0, pad))
+    parts = []
+    for sub in range(g):
+        acc = torch.zeros(x.shape[:-1])
+        for c in range(sub, keys + pad, g):
+            acc = acc + x[..., c] if y is None else _fma(x[..., c], y[..., c], acc)
+        parts.append(acc)
+    while len(parts) > 1:
+        parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
+    return parts[0][..., None]
+
+
 def emulate_k3_wide(q, k, v, do):
-    """f32 K3 at D = 128/256 at attn_wide_bwd_dq_kernel's and
-    attn_wide_bwd_dkdv_kernel's rounding points (module docstring)."""
+    """f32 K3 at D = 128/256 at the rounding points and in the sum orders of
+    the route that f32_k3_route names: attn_wide_bwd_short_kernel, or the
+    dq and dk/dv kernels (whose recomputed p and ds are the dq kernel's)."""
     n, t, h, d = q.shape
+    lay = layout(t, d)
     scale = np.float32(1.0 / np.sqrt(np.float32(d)))
     qh, kh, vh, doh = (a.transpose(1, 2) for a in (q, k, v, do))  # (N, H, T, D)
-    s = qh @ kh.transpose(-1, -2)
+    s = _split_dot(qh, kh, lay["s"])
+    dp = _split_dot(doh, vh, lay["s"])
     m = (float(scale) * s.amax(dim=-1, keepdim=True)).float()
-    # scale s - m with one rounding, as the kernel's FMA: the f32 product is
-    # exact in float64
-    e = torch.exp((float(scale) * s.double() - m.double()).float())
-    p = e / e.sum(dim=-1, keepdim=True)
-    dp = doh @ vh.transpose(-1, -2)
-    delta = (p * dp).sum(dim=-1, keepdim=True)
+    e = torch.exp(_fma(torch.full_like(s, float(scale)), s, -m))
+    l = _row_sum(e, lay["g"])
+    p = e / l
+    if lay["route"] == "short":
+        delta = _row_sum(p, lay["g"], fma_with=dp)
+    else:  # by key group, the groups in order
+        kgn = lay["kgn"]
+        parts = [_row_sum(p[..., kg::kgn], 1, fma_with=dp[..., kg::kgn]) for kg in range(kgn)
+                 if kg < t]
+        delta = parts[0]
+        for part in parts[1:]:
+            delta = delta + part
     ds = p * (dp - delta)
-    dq = float(scale) * (ds @ kh)
-    dk = float(scale) * (ds.transpose(-1, -2) @ qh)
-    dv = p.transpose(-1, -2) @ doh
+    if lay["route"] == "short" or lay["split"] == 1:
+        dq = _chain_nn(ds, kh)
+    else:  # a chain a group of keys (KSQ / SPLIT of every KSQ), added in order
+        ksq, split = lay["ksq"], lay["split"]
+        group = (torch.arange(t) % ksq) // (ksq // split)
+        dq = None
+        for grp in range(split):
+            keys = (group == grp).nonzero().flatten()
+            part = _chain_nn(ds[..., keys], kh[..., keys, :])
+            dq = part if dq is None else dq + part
+    dq = float(scale) * dq
+    dk = float(scale) * _chain_nn(ds.transpose(-1, -2), qh)
+    dv = _chain_nn(p.transpose(-1, -2), doh)
     return tuple(a.transpose(1, 2) for a in (dq, dk, dv))
 
 
-@pytest.mark.parametrize("t", LENGTHS)
-@pytest.mark.parametrize("d", HEAD_DIMS)
+# ------------------------------------------------------------------ tests
+
+@pytest.mark.parametrize("t,d", CASES)
 def test_plain_k3_matches_the_pallas_kernel(t, d):
     """reference_attention_bwd, the port's plain K3 and what a CPU tensor
     runs, against JAX's attention_small_bwd at the ADM's heads."""
@@ -96,8 +224,7 @@ def test_plain_k3_matches_the_pallas_kernel(t, d):
         assert rel_err(g, w) < F32_TOL
 
 
-@pytest.mark.parametrize("t", LENGTHS)
-@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("t,d", CASES)
 def test_kernel_emulation_matches_pallas_and_plain(t, d):
     q, k, v, do = _inputs(t, d, seed=7 * t + d)
     emu = emulate_k3_wide(q, k, v, do)
@@ -105,47 +232,44 @@ def test_kernel_emulation_matches_pallas_and_plain(t, d):
         assert rel_err(g, w) < F32_TOL and rel_err(g, p) < F32_TOL
 
 
-def _dq_bytes(t, d):
-    """WideDq<DP>::bytes(T): q and do (16 rows of D + 4 floats), a ring of
-    two KS-key stages, three reductions (4 warps x 16 rows), the rows of s
-    and dp (16 x lds, lds = T rounded up to KS, plus 4)."""
-    ks = 64 if d <= 128 else 32
-    ld = d + 4
-    lds = -(-t // ks) * ks + 4
-    return 4 * (2 * 16 * ld + 2 * ks * ld + 3 * 4 * 16 + 2 * 16 * lds)
-
-
-def _dkdv_bytes(d):
-    """WideDkdv<DP>::BYTES: k and v (BK rows), two stages of a 32-query chunk
-    (q, do, m, l, delta), p and ds (BK x 36)."""
-    bk = 64 if d <= 128 else 32
-    ld = d + 4
-    return 4 * (2 * bk * ld + 2 * (2 * 32 * ld + 3 * 32) + 2 * bk * 36)
-
-
-def test_route_and_shared_memory_over_the_gate():
-    """f32_k3_route names the wide kernels at D 128/256 at every T of the
-    gate and the row / long kernels at the DiT's heads; the dq kernel's
-    layout fits a CTA at every T up to 1024 (232,192 bytes at D = 256, T =
-    1024, the tightest), the dk/dv kernel's at both head dims, and each
-    thread's output tiles cover the tile exactly."""
-    for d in HEAD_DIMS:
-        for t in range(1, 1025):
-            dq, dkdv, rows, keys = tattn.f32_k3_route(t, d)
-            assert (dq, dkdv) == ("attn_wide_bwd_dq_kernel", "attn_wide_bwd_dkdv_kernel")
-            assert (rows, keys) == (16, 64 if d == 128 else 32)
-            assert _dq_bytes(t, d) <= SMEM
-        assert _dkdv_bytes(d) <= SMEM
-        # dq: 16 rows x D columns in RMO x 4 tiles; dk/dv: BK rows
-        cg = d // 4
-        assert (THREADS // cg) * (16 // (THREADS // cg)) == 16
-        assert (THREADS // cg) * ((64 if d == 128 else 32) // (THREADS // cg)) == keys
-    assert _dq_bytes(1024, 256) == 232192 and _dq_bytes(1024, 128) == 216832
-    assert (_dkdv_bytes(128), _dkdv_bytes(256)) == (154368, 209664)
-    assert tattn.f32_k3_route(256, 64)[:2] == ("attn_row_bwd_dq_kernel",
-                                               "attn_row_bwd_dkdv_kernel")
-    assert tattn.f32_k3_route(257, 72)[:2] == ("attn_long_bwd_dq_kernel",
-                                               "attn_row_bwd_dkdv_kernel")
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_route_and_shared_memory_over_the_gate(d):
+    """At every T of the gate f32_k3_route names the kernels that the .cu's
+    dispatch launches: the one-pass kernel through T = 64 (48 at D = 256),
+    the dq and dk/dv kernels past it; every kernel's layout fits a CTA, and
+    its score and output tiles cover its rows, keys and columns exactly."""
+    s, _ = _split(d)
+    for t in range(1, 1025):
+        names, rows, keys = tattn.f32_k3_route(t, d)
+        lay = layout(t, d)
+        assert tuple(lay["bytes"]) == names, (t, d)
+        assert all(b <= SMEM for b in lay["bytes"].values()), (t, d, lay["bytes"])
+        if lay["route"] == "short":
+            tk = lay["tk"]
+            assert rows == keys == tk >= t and tk % 16 == 0
+            rm = s if tk == 16 else 4 if tk == 32 else 8 if d == 128 else 12
+            rgn = tk // rm
+            kgn = (THREADS // 2 // 8 // rgn) * (8 // s)
+            assert rgn * rm == tk and tk % kgn == 0 and rm % s == 0
+            assert THREADS // (d // 4) * (tk // (THREADS // (d // 4))) == tk
+        else:
+            assert (rows, keys) == (lay["bq"], lay["bk"]) and lay["tk"] >= t
+            assert lay["ks"] % lay["kgn"] == 0 and lay["tk"] % lay["ks"] == 0
+            assert lay["rm"] % s == 0 and (lay["dc"] // 4) % s == 0 and d % lay["dc"] == 0
+            # dq: each group's threads cover the BQ x D output in RMO x 4 tiles
+            gt = THREADS // lay["split"]
+            assert lay["bq"] % (gt // (d // 4)) == 0 and lay["ksq"] % (4 * lay["split"]) == 0
+    big = {128: (174080, 209920, 167936, 158464), 256: (228864, 179200, 185344, 218880)}[d]
+    got = (layout(64 if d == 128 else 48, d)["bytes"]["attn_wide_bwd_short_kernel"],
+           layout(256, d)["bytes"]["attn_wide_bwd_dq_kernel"],
+           layout(1024, d)["bytes"]["attn_wide_bwd_dq_kernel"],
+           layout(1024, d)["bytes"]["attn_wide_bwd_dkdv_kernel"])
+    assert got == big
+    assert layout(16, 128)["bytes"]["attn_wide_bwd_short_kernel"] == 40960
+    assert tattn.f32_k3_route(256, 64)[0] == ("attn_row_bwd_dq_kernel",
+                                              "attn_row_bwd_dkdv_kernel")
+    assert tattn.f32_k3_route(257, 72)[0] == ("attn_long_bwd_dq_kernel",
+                                              "attn_row_bwd_dkdv_kernel")
     assert tattn.F32_HEAD_DIMS["attention_small_bwd"] == (128, 256)
 
 

@@ -511,17 +511,23 @@ def test_attention_wide_f32_k1_builds_without_spills(cuda):
 
 
 # f32 K3 at the origin ADM's D = 128/256 (attention_bwd_wide_f32.cu): the
-# presets' T = 16 and 64, the dq kernel's 16-row and the stages' 64 / 32-key
-# boundaries, past T = 256 and at the gate
+# presets' T = 16 and 64 (the one-pass kernel), past T = 64 and at the gate
+# (the dq and dk/dv kernels), and every edge of the routes: the one-pass
+# kernel's 16 / 32 / 64 (48 at D = 256) rows, the first T of the two
+# kernels (65, 49), their dq kernel's 16- or 32-key stages and its second
+# and third instances (257, 513)
 WIDE_K3_SHAPES = ([(4, 16, 4, 128), (2, 64, 4, 128), (2, 16, 2, 256), (1, 100, 2, 128),
-                   (1, 257, 2, 256), (1, 1024, 2, 128)]
-                  + [(2, t, 2, d) for d in (128, 256) for t in (1, 15, 17, 33, 65)])
+                   (1, 257, 2, 256), (1, 512, 2, 128), (1, 513, 2, 128), (1, 1024, 2, 128),
+                   (1, 1024, 2, 256)]
+                  + [(2, t, 2, d) for d in (128, 256)
+                     for t in (1, 15, 17, 33, 48, 49, 65, 256, 257)])
 
 
 @pytest.mark.parametrize("shape", WIDE_K3_SHAPES)
 def test_attention_small_bwd_wide_f32_matches_plain(cuda, shape):
-    """On separate tensors and on the thirds of a fused qkv row: one
-    launch, within 1e-4 of the plain version, the same bits on a rerun."""
+    """On separate tensors and on the thirds of a fused qkv row (the ADM's
+    layout): one launch, within 1e-4 of the plain version, the same bits on
+    a rerun."""
     from lfm_tpu_torch.kernels.flash_attention import (ATTENTION_SMALL_BWD, attention_small_bwd,
                                                        reference_attention_bwd, split_qkv)
 
@@ -539,19 +545,23 @@ def test_attention_small_bwd_wide_f32_matches_plain(cuda, shape):
                            reference_attention_bwd(q, k, v, do)):
         assert close(g, w) and torch.equal(g, again)
     qq, kk, vv = split_qkv(torch.randn(n, t, 3 * h * d, generator=cuda, device="cuda"), h)
-    for g, w in zip(attention_small_bwd(qq, kk, vv, do), reference_attention_bwd(qq, kk, vv, do)):
-        assert close(g, w)
+    first = [g.clone() for g in attention_small_bwd(qq, kk, vv, do)]
+    for g, again, w in zip(first, attention_small_bwd(qq, kk, vv, do),
+                           reference_attention_bwd(qq, kk, vv, do)):
+        assert close(g, w) and torch.equal(g, again)
 
 
-@pytest.mark.parametrize("t,d", [(16, 128), (1024, 256)])
+@pytest.mark.parametrize("t,d", [(16, 128), (33, 128), (64, 128), (65, 128), (257, 128),
+                                 (513, 128), (16, 256), (48, 256), (49, 256), (1024, 256)])
 def test_f32_k3_wide_dispatch(cuda, t, d):
-    """At D = 128/256 f32 K3 launches the two kernels f32_k3_route names
-    (the profiler's kernel names), at every T."""
+    """At D = 128/256 f32 K3 launches the kernels f32_k3_route names, in
+    order (the profiler's kernel names, with their template arguments):
+    the one-pass kernel sized to T, or the dq and dk/dv kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     from lfm_tpu_torch.kernels.flash_attention import attention_small_bwd, f32_k3_route
 
-    q, k, v, do = (torch.randn(1, t, 2, d, generator=cuda, device="cuda") for _ in range(4))
+    q, k, v, do = split_qkv_rows(cuda, t, d)
     attention_small_bwd(q, k, v, do)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -559,21 +569,47 @@ def test_f32_k3_wide_dispatch(cuda, t, d):
         torch.cuda.synchronize()
     lfm = [e.name for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA and "lfm::" in e.name]
-    dq, dkdv = f32_k3_route(t, d)[:2]
-    assert len(lfm) == 2 and dq in lfm[0] and dkdv in lfm[1] and f"<{d}>" in lfm[0], lfm
+    names, rows, keys = f32_k3_route(t, d)
+    assert len(lfm) == len(names), lfm
+    assert all(name in got for name, got in zip(names, lfm)), lfm
+    if len(names) == 1:
+        assert f"<{d}, {keys}>" in lfm[0], lfm
+    else:
+        assert f"<{d}, {rows}," in lfm[0] and f"<{d}>" in lfm[1], lfm
+
+
+def split_qkv_rows(gen, t, d, n=1, h=2):
+    """q, k, v as the thirds of a fused qkv row, do alone: (n, t, h, d)."""
+    from lfm_tpu_torch.kernels.flash_attention import split_qkv
+
+    qkv = torch.randn(n, t, 3 * h * d, generator=gen, device="cuda")
+    return (*split_qkv(qkv, h), torch.randn(n, t, h, d, generator=gen, device="cuda"))
 
 
 def test_attention_bwd_wide_f32_builds_without_spills(cuda):
-    """ptxas's report of attention_bwd_wide_f32.cu: its dq and dk/dv kernels
-    at DP 128 and 256, none spills."""
+    """ptxas's report of attention_bwd_wide_f32.cu: its 13 instances (the
+    one-pass kernel at DP 128 x TK 16, 32, 64 and DP 256 x 16, 32, 48; the
+    dq kernel at its five rows and whole-row keys; the dk/dv kernel at DP
+    128 and 256), none spills."""
+    import re
+
     from lfm_tpu_torch.kernels import _build
 
     _build.load_library()
     usage = _build.ptxas_usage("attention_bwd_wide_f32")
-    kernels = {k: u for k, u in usage.items() if "attn_wide_bwd_" in k}
-    assert len(kernels) == 4, sorted(usage)
-    for name, u in kernels.items():
-        assert u["spill_stores"] == 0 and u["spill_loads"] == 0 and u["registers"] <= 255, name
+    found = sorted((m.group(1), tuple(int(a) for a in re.findall(r"Li(\d+)E", m.group(2))))
+                   for name in usage
+                   for m in [re.search(r"(attn_wide_bwd_\w+?_kernel)I((?:Li\d+E)+)E", name)] if m)
+    assert found == sorted(
+        [("attn_wide_bwd_short_kernel", a) for a in ((128, 16), (128, 32), (128, 64),
+                                                     (256, 16), (256, 32), (256, 48))]
+        + [("attn_wide_bwd_dq_kernel", a) for a in ((128, 64, 256), (128, 32, 512),
+                                                    (128, 16, 1024), (256, 32, 256),
+                                                    (256, 16, 1024))]
+        + [("attn_wide_bwd_dkdv_kernel", (128,)), ("attn_wide_bwd_dkdv_kernel", (256,))]), found
+    for name, u in usage.items():
+        if "attn_wide_bwd_" in name:
+            assert u["spill_stores"] == 0 and u["spill_loads"] == 0 and u["registers"] <= 255, name
 
 
 def test_groupnorm_silu_raises_under_grad(cuda):
