@@ -150,6 +150,23 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    command must launch fused_dit_block exactly depth x its NFE (fid:
    steps x batches; nfe and time: the NFE each run returned) and nothing
    else.
+5f. karras: ``make_sampler`` on celeb256_dit with ``use_karras_samplers``,
+   the same bf16 DiT-L/2 through K2 and the same N noise: Karras heun and
+   Karras euler at KARRAS_STEPS (40) sigmas, VAE decode; each run's NFE
+   must equal the velocity calls counted (``build_velocity``'s function
+   wrapped) and JAX's count (heun 78, euler 39), fused_dit_block must
+   launch depth x NFE times and nothing else, the images finite. Then
+   Karras heun at 5 steps (NFE 8) on the same weights in f32 (f32 K1, TF32
+   off) at batch 2 on the card against the same call on the CPU, within
+   F32_VEL_TOL.
+5g. adaptive_more: ``odeint`` on the same model's velocity (K2) at batch
+   ADAPTIVE_BATCH (16), each run counted alone: dopri8 with the sampling
+   policy's floor (``resolve_eval_noise``: "auto" for bf16 dopri8; the
+   calibrated level printed), bosh3 and adaptive_heun at the preset's
+   1e-5 (no floor); NFE = velocity calls = fused_dit_block launches /
+   depth, finite latents, the last step landing on t = 0 exactly. A
+   dopri8 run without the floor, capped at ADAPTIVE_CAP steps, is printed
+   beside them (the thrash the floor prevents), never gated on its NFE.
 6. adm_main: ``make_sampler`` on the celeb256_adm preset, a bf16 origin-ADM
    UNet at full width (nf 256, ch_mult 1 2 2 2, 2 ResBlocks per level, 4
    heads, attention through K1) with seeded non-zero weights, dopri5 at
@@ -204,6 +221,18 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    recompute). The loop logs, and so waits for the loss, after step 1;
    the time from that log call to the end of the run, after a sync, over
    TRAIN_STEPS - 1 is the seconds per step.
+9b. train_remat: the train phase's step (``make_train_step`` on the
+   module path, bf16 on f32 masters, K1 / K3, the same model_0.pth, VAE
+   encoder, batches and draws) under no remat, the full recompute (None),
+   ``dots``, ``all_dots`` and ``dots_attn``, 1 + TRAIN_STEPS steps each,
+   the launch counts and the peak memory reset before each: exactly 24 K3
+   a step under each, 24 K1 a step without remat and under ``dots_attn``
+   and 48 under the others, and nothing else; step 1's loss equal to no
+   remat's, its gradients within GRAD_TOL of no remat's. Seconds a step
+   (steps 2 to 1 + TRAIN_STEPS, after a sync) and peak GiB per policy, and,
+   since the step's peak is the optimizer's update under most policies, one
+   more forward and backward alone on step 1's batch: the GiB the forward
+   leaves allocated for backward and the peak over both.
 10. train_fused: the same train step (the same model_0.pth, VAE encoder,
    batches, draws, AdamW + EMA) through make_train_step(model_apply=
    dit_fused_model_apply(model)), whose blocks are K5's forward and the
@@ -373,7 +402,7 @@ INT8_VS_BF16_TOL = 8e-2
 FID_ACT_TOL = 1e-3
 INT8_OPS = 1979e12  # dense int8 tensor-core op/s, H100 SXM data sheet
 P1_ROWS = 51200  # the int8 path's rows at the sampling batch: 200 x 256 tokens
-TRAIN_STEPS = 12  # the first step is not timed
+TRAIN_STEPS = 6  # the first step is not timed
 TRAIN_F32_STEPS = 6  # timed steps of train_f32, after its first
 ADM_FUSED_STEPS = 4  # euler steps of the adm_fused_gn path
 LONG_T_SIZE = 1024  # image size of the long_t path: T = (1024 / 8 / 2)^2 = 4096
@@ -407,6 +436,21 @@ K3_WIDE = [(112, 16, 4, 128), (24, 64, 4, 128), (24, 16, 4, 256), (16, 256, 4, 1
 # uncond) from two calls, f32: the same arithmetic at other batch sizes,
 # where cuDNN may take other algorithms
 CFG_TOL = 1e-5
+# karras: the Karras loops' steps at the sampling batch (heun NFE 78, euler
+# 39), and the f32 card-against-CPU check's batch and steps (heun NFE 8)
+KARRAS_STEPS, KARRAS_F32_BATCH, KARRAS_F32_STEPS = 40, 2, 5
+# adaptive_more: its batch, and the step cap of the unfloored dopri8 run
+ADAPTIVE_BATCH, ADAPTIVE_CAP = 16, 20
+# train_remat: the policies, no remat first (the gradients' reference)
+REMAT_RUNS = (("no_remat", False, None), ("full", True, None), ("dots", True, "dots"),
+              ("all_dots", True, "all_dots"), ("dots_attn", True, "dots_attn"))
+
+
+def karras_nfe(method: str, steps: int) -> int:
+    """JAX's count (lfm_tpu/sample/sample.py::sample_latents): steps - 1
+    pairs, heun correcting the first 39 of them."""
+    pairs = max(steps - 1, 0)
+    return 2 * min(pairs, 39) + (pairs - min(pairs, 39)) if method == "heun" else pairs
 
 
 def emit(obj) -> None:
@@ -592,10 +636,13 @@ def run(torch, work: str) -> int:
     from lfm_tpu_torch.nn import layers as nn_layers
     from lfm_tpu_torch.ode.flow import interpolate
     from lfm_tpu_torch.sample import sharded
-    from lfm_tpu_torch.sample.sample import build_velocity, make_sampler, noise_and_labels
+    from lfm_tpu_torch.ode.solvers import calibrate_eval_noise, odeint
+    from lfm_tpu_torch.sample import sample as sample_mod
+    from lfm_tpu_torch.sample.sample import (build_velocity, make_sampler, noise_and_labels,
+                                             resolve_eval_noise, sample_latents)
     from lfm_tpu_torch.train.loop import train
     from lfm_tpu_torch.train.state import create_train_state, make_optimizer
-    from lfm_tpu_torch.train.train import make_train_step
+    from lfm_tpu_torch.train.train import fm_train_loss, make_train_step
     from lfm_tpu_torch.vae.autoencoder_kl import create_vae
 
     dev = torch.device("cuda")
@@ -1464,6 +1511,150 @@ def run(torch, work: str) -> int:
     cli_all = {k: sum(c[k] for c in cli_counts.values()) for k in counters}
     cli_batch1 = {k: cli_counts["nfe"][k] + cli_counts["time"][k] for k in counters}
 
+    # 5f. karras: the Karras heun and euler loops through make_sampler on
+    # celeb256_dit (K2) at the preset's batch, then VAE decode; the velocity
+    # calls counted by wrapping what build_velocity returns
+    t_k = time.time()
+    vel_calls = [0]
+
+    def counting_build_velocity(*args, **kwargs):
+        velocity = real_build_velocity(*args, **kwargs)
+
+        def counted(tt, x):
+            vel_calls[0] += 1
+            return velocity(tt, x)
+
+        return counted
+
+    real_build_velocity = sample_mod.build_velocity
+    sample_mod.build_velocity = counting_build_velocity
+    karras_rows, karras_counts = {}, {}
+    noise, y = noise_and_labels(config, SampleRNG(config.sample.seed), range(batch),
+                                device=dev)  # main_fused's noise
+    try:
+        for method in ("heun", "euler"):
+            kconfig = dataclasses.replace(config, sample=dataclasses.replace(
+                config.sample, use_karras_samplers=True, method=method, num_steps=KARRAS_STEPS))
+            ksampler = make_sampler(kconfig, model, None, vae, None, device=dev)
+            reset_counts()
+            vel_calls[0] = 0
+            torch.cuda.synchronize()
+            t0 = time.time()
+            kres = ksampler(noise, y)
+            torch.cuda.synchronize()
+            kc = counts()
+            karras_counts[method] = kc
+            kimg = kres.images
+            row = {"seconds": time.time() - t0, "nfe": kres.nfe, "velocity_calls": vel_calls[0],
+                   "nfe_jax_formula": karras_nfe(method, KARRAS_STEPS), "launches": kc,
+                   "images": list(kimg.shape), "image_mean": float(kimg.float().mean()),
+                   "images_finite": bool(torch.isfinite(kimg).all())}
+            karras_rows[method] = row
+            if not (row["nfe"] == row["velocity_calls"] == row["nfe_jax_formula"]):
+                raise AssertionError(f"karras {method}: NFE {row['nfe']}, velocity calls "
+                                     f"{row['velocity_calls']}, JAX's formula "
+                                     f"{row['nfe_jax_formula']}")
+            if {k: v for k, v in kc.items() if v} != {"fused_dit_block": depth * kres.nfe}:
+                raise AssertionError(f"karras {method}: launches {kc}, expected "
+                                     f"{depth * kres.nfe} fused_dit_block")
+            if not (row["images_finite"] and tuple(kimg.shape) == (batch, 256, 256, 3)):
+                raise AssertionError(f"karras {method}: images not finite or shaped "
+                                     f"{tuple(kimg.shape)}")
+            del ksampler, kres, kimg
+    finally:
+        sample_mod.build_velocity = real_build_velocity
+    # f32: Karras heun at KARRAS_F32_STEPS on the same weights in f32 (f32 K1,
+    # TF32 off) on the card against the same call on the CPU
+    f32_card = create_network(config.model, dtype=f32, use_flash=True, device=dev)
+    f32_card.load_state_dict(model.state_dict())
+    f32_cpu = create_network(config.model, dtype=f32, use_flash=True, device="cpu")
+    f32_cpu.load_state_dict(model.state_dict())
+    knoise = noise[:KARRAS_F32_BATCH].float()
+    reset_counts()
+    t0 = time.time()
+    with no_tf32(), torch.no_grad():
+        kz_card, knfe = sample_latents(build_velocity(f32_card, None, 1.0), knoise,
+                                       method="heun", num_steps=KARRAS_F32_STEPS,
+                                       use_karras=True)
+        torch.cuda.synchronize()
+        kf32_card_s = time.time() - t0
+        kf32_counts, kf32_dtypes = counts(), dict(ATTENTION_SMALL.by_dtype)
+        t0 = time.time()
+        kz_cpu, _ = sample_latents(build_velocity(f32_cpu, None, 1.0), knoise.cpu(),
+                                   method="heun", num_steps=KARRAS_F32_STEPS, use_karras=True)
+        kf32_cpu_s = time.time() - t0
+    kf32_err = float((kz_card.cpu() - kz_cpu).abs().max()) / float(kz_cpu.abs().max())
+    emit({"phase": "karras", "preset": "celeb256_dit", "batch": batch, "steps": KARRAS_STEPS,
+          **{method: row for method, row in karras_rows.items()},
+          "f32": {"batch": KARRAS_F32_BATCH, "steps": KARRAS_F32_STEPS, "nfe": knfe,
+                  "rel_err_vs_cpu": kf32_err, "tol": F32_VEL_TOL, "launches": kf32_counts,
+                  "launches_by_dtype": kf32_dtypes, "card_seconds": kf32_card_s,
+                  "cpu_seconds": kf32_cpu_s},
+          "phase_seconds": time.time() - t_k})
+    if not (knfe == karras_nfe("heun", KARRAS_F32_STEPS) and bool(torch.isfinite(kz_card).all())):
+        raise AssertionError(f"karras f32: NFE {knfe} or latents not finite")
+    if ({k: v for k, v in kf32_counts.items() if v} != {"attention_small": depth * knfe}
+            or kf32_dtypes != {"float32": depth * knfe}):
+        raise AssertionError(f"karras f32: launches {kf32_counts} {kf32_dtypes}, expected "
+                             f"{depth * knfe} f32 attention_small")
+    if not kf32_err <= F32_VEL_TOL:
+        raise AssertionError(f"karras f32: card latents {kf32_err} of the CPU's > {F32_VEL_TOL}")
+    del f32_card, f32_cpu, kz_card, kz_cpu
+    torch.cuda.empty_cache()
+
+    # 5g. adaptive_more: dopri8 (with the sampling policy's "auto" floor),
+    # bosh3 and adaptive_heun through odeint on the same model (K2) at batch
+    # ADAPTIVE_BATCH; each run counted alone
+    t_ad = time.time()
+    dnoise = noise[:ADAPTIVE_BATCH]
+    avel = build_velocity(model, None, 1.0, use_fused_dit=True)
+    with torch.no_grad():
+        t_start = torch.tensor(1.0, device=dev)
+        level = float(calibrate_eval_noise(avel, t_start, dnoise, avel(t_start, dnoise), f32))
+    adaptive_rows, adaptive_counts = {}, {}
+    for method in ("dopri8", "bosh3", "adaptive_heun", "dopri8_capped"):
+        capped = method.endswith("_capped")
+        m = method.removesuffix("_capped")
+        en = 0.0 if capped else resolve_eval_noise(
+            dataclasses.replace(config.sample, method=m), model)
+        calls = [0]
+
+        def counted(tt, x, calls=calls):
+            calls[0] += 1
+            return avel(tt, x)
+
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with torch.no_grad():
+            ares = odeint(counted, dnoise, 1.0, 0.0, method=m, rtol=config.sample.rtol,
+                          atol=config.sample.atol, eval_noise=en,
+                          max_steps=ADAPTIVE_CAP if capped else 10_000)
+        torch.cuda.synchronize()
+        ac = counts()
+        adaptive_counts[method] = ac
+        row = {"seconds": time.time() - t0, "eval_noise": en, "nfe": ares.nfe,
+               "velocity_calls": calls[0], "steps": ares.num_steps,
+               "rejected": ares.num_rejected, "t_end": ares.t_end, "launches": ac,
+               "latents_finite": bool(torch.isfinite(ares.y).all())}
+        adaptive_rows[method] = row
+        if capped:
+            continue  # printed beside the floored run, never gated on its NFE
+        if not (ares.nfe == calls[0] and ac["fused_dit_block"] == depth * ares.nfe
+                and sum(ac.values()) == ac["fused_dit_block"]):
+            raise AssertionError(f"adaptive_more {method}: NFE {ares.nfe}, velocity calls "
+                                 f"{calls[0]}, launches {ac}")
+        if not (row["latents_finite"] and ares.t_end == 0.0):
+            raise AssertionError(f"adaptive_more {method}: latents finite "
+                                 f"{row['latents_finite']}, ended at t = {ares.t_end}")
+    emit({"phase": "adaptive_more", "preset": "celeb256_dit", "batch": ADAPTIVE_BATCH,
+          "rtol": config.sample.rtol, "atol": config.sample.atol,
+          "auto_level": level, "capped_max_steps": ADAPTIVE_CAP, **adaptive_rows,
+          "phase_seconds": time.time() - t_ad})
+    if adaptive_rows["dopri8"]["eval_noise"] != "auto":
+        raise AssertionError("adaptive_more: the policy gave bf16 dopri8 no auto floor")
+    del avel, dnoise, noise, knoise
+
     # 6. adm_main: celeb256_adm, bf16 origin-ADM UNet, dopri5, VAE decode
     t_adm = time.time()
     aconfig = get_preset("celeb256_adm")
@@ -1820,6 +2011,98 @@ def run(torch, work: str) -> int:
     del state
     torch.cuda.empty_cache()
 
+    # 9b. train_remat: the train phase's step (module path, bf16 on f32
+    # masters, K1 / K3, the same model_0.pth, batches and draws) under each
+    # remat policy, 1 + TRAIN_STEPS steps each, counted and timed alone
+    t_rm = time.time()
+    remat_rows, remat_counts = {}, {}
+    rgen = torch.Generator(device=dev)
+    rgen.manual_seed(SEED)
+    grads_ref = None
+    for run_name, remat, policy in REMAT_RUNS:
+        rmodel = create_network(config.model, dtype=bf,
+                                use_flash=config.model.use_flash_attention, remat=remat,
+                                remat_policy=policy, device=dev)
+        rmodel.load_state_dict(reference_state_dict(torch.load(ckpt_path, map_location="cpu",
+                                                               weights_only=False)))
+        rmodel.train()
+        rloader = DataLoader(dataset, train_batch, shuffle=True, drop_last=True, seed=tc.seed)
+        rloader.set_epoch(0)
+        rstate = create_train_state(rmodel)
+        rstep = make_train_step(
+            rmodel, make_optimizer(tc, tc.steps_per_epoch or max(len(rloader), 1)),
+            ema_decay=tc.ema_decay, use_ema=tc.use_ema, encode_fn=vae.encode_sample,
+            scale_factor=config.scale_factor, label_dropout=config.model.label_dropout > 0,
+            dropout=config.model.dropout > 0, seed=tc.seed + 1)
+        rbatches = iter(rloader)
+        reset_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rx1 = torch.from_numpy(next(rbatches)["x"]).to(dev)
+        rloss1 = float(rstep(rstate, {"x": rx1})[0])
+        grads = [p.grad.detach().clone() for p in rstate.params]
+        if grads_ref is None:
+            grads_ref, rloss_ref = grads, rloss1
+        grad_err = max(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                       for g, w in zip(grads, grads_ref))
+        del grads
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(TRAIN_STEPS):
+            rloss = rstep(rstate, {"x": torch.from_numpy(next(rbatches)["x"]).to(dev)})[0]
+        torch.cuda.synchronize()
+        rsec = (time.time() - t0) / TRAIN_STEPS
+        rc = counts()
+        remat_counts[run_name] = rc
+        rsteps = rstate.step
+        step_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        # the step's peak is the optimizer's under most policies; what a
+        # policy keeps shows in one forward and backward alone: the memory
+        # the forward leaves allocated for backward, and the peak over both
+        with torch.no_grad():
+            rz0 = vae.encode_sample(rx1, rgen) * config.scale_factor
+        rt = torch.rand((train_batch,), generator=rgen, device=dev)
+        rz1 = torch.randn(rz0.shape, generator=rgen, device=dev)
+        for p in rstate.params:
+            p.grad = None
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fb_loss = fm_train_loss(rmodel, rz0.float(), None, rt, rz1)
+        saved_gib = (torch.cuda.memory_allocated() - m0) / 2 ** 30
+        fb_loss.backward()
+        torch.cuda.synchronize()
+        fb_peak_gib = (torch.cuda.max_memory_allocated() - m0) / 2 ** 30
+        del fb_loss, rz0, rz1, rt
+        row = {"remat": remat, "policy": policy, "steps": rsteps, "seconds_per_step": rsec,
+               "images_per_s": train_batch / rsec, "peak_gib": step_peak,
+               "saved_for_backward_gib": saved_gib, "fwd_bwd_peak_gib": fb_peak_gib,
+               "loss_step1": rloss1,
+               "loss_step1_diff": rloss1 - rloss_ref, "grad_max_rel_err_vs_no_remat": grad_err,
+               "loss_last": float(rloss), "launches": rc,
+               "k1_per_step": rc["attention_small"] / rsteps,
+               "k3_per_step": rc["attention_small_bwd"] / rsteps}
+        remat_rows[run_name] = row
+        k1_want = (1 if run_name in ("no_remat", "dots_attn") else 2) * tdepth * rsteps
+        if (rsteps != 1 + TRAIN_STEPS or rc["attention_small_bwd"] != tdepth * rsteps
+                or rc["attention_small"] != k1_want
+                or sum(rc.values()) != rc["attention_small"] + rc["attention_small_bwd"]):
+            raise AssertionError(f"train_remat {run_name}: {rsteps} steps, launches {rc}, "
+                                 f"expected {k1_want} attention_small and "
+                                 f"{tdepth * rsteps} attention_small_bwd")
+        if not (math.isfinite(rloss1) and rloss1 == rloss_ref):
+            raise AssertionError(f"train_remat {run_name}: step 1's loss {rloss1} is not no "
+                                 f"remat's {rloss_ref}")
+        if not grad_err <= GRAD_TOL:
+            raise AssertionError(f"train_remat {run_name}: step 1's gradients {grad_err} of no "
+                                 f"remat's > {GRAD_TOL}")
+        del rmodel, rstate, rstep, rloader, rbatches, rx1
+        torch.cuda.empty_cache()
+    del grads_ref
+    emit({"phase": "train_remat", "preset": "celeb256_dit", "model": config.model.model_type,
+          "batch": train_batch, "grad_tol": GRAD_TOL, **remat_rows,
+          "seconds": time.time() - t_rm})
+
     # 10. train_fused: the same step through the fused blocks (K5's forward,
     # the hybrid backward through K3), from the same weights, batches and draws
     t_tf = time.time()
@@ -2169,8 +2452,11 @@ def run(torch, work: str) -> int:
                "int8_main": int8_counts, "p1_probe": probe_counts, "adm_main": adm_counts,
                "cli_eval": cli_all, "cli_eval_batch1": cli_batch1, "adm_fused_gn": fgn_counts,
                "adm512_attn": a5_counts, "edm_cfg": edm_counts, "long_t": long_counts,
-               "long_f32": lf_counts,
+               "long_f32": lf_counts, "karras": karras_counts["heun"],
+               "karras_euler": karras_counts["euler"], "karras_f32": kf32_counts,
+               **{f"adaptive_{m}": c for m, c in adaptive_counts.items()},
                "train": train_counts,
+               **{f"train_remat_{m}": c for m, c in remat_counts.items()},
                "train_fused": tf_counts, "train_f32": f32_counts, "adm_train": at_counts,
                "adm512_train": other_train["celeb512_adm"],
                "edm_train": other_train["imnet_adm"], **block_counts}

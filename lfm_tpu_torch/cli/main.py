@@ -20,9 +20,10 @@ takes a diffusers AutoencoderKL checkpoint (``.bin`` / ``.pth`` /
 ``.safetensors``, either attention naming), else seeded random weights.
 
 * ``sample`` samples one batch and writes the JAX CLI's image grid,
-  ``./samples_{dataset}_{method}_{atol}_{rtol}[_cfg{scale}].jpg`` (a JPEG,
-  which needs Pillow), or with ``--out F`` the images in [0, 1] as a
-  ``.npy`` (N, H, W, 3) float32 file.
+  ``./samples_{dataset}_{method}_{atol}_{rtol}[_cfg{scale}].jpg``, or with
+  ``--use_karras_samplers`` ``./samples_{dataset}_{method}_{num_steps}
+  [_cfg{scale}].jpg`` (a JPEG, which needs Pillow), or with ``--out F`` the
+  images in [0, 1] as a ``.npy`` (N, H, W, 3) float32 file.
 * ``fid`` generates ``--n_sample`` images (sample/sharded.py) and prints
   ``FID = x`` against the statistics file ``--real_img_dir`` (the
   reference's ``.npy`` / ``.npz`` format), appending ``Epoch = E, FID = x``
@@ -38,9 +39,13 @@ takes a diffusers AutoencoderKL checkpoint (``.bin`` / ``.pth`` /
 They take the JAX CLI's model overrides (``--model_type --image_size --nf
 --ch_mult --attn_resolutions --num_res_blocks --use_origin_adm
 --num_classes --label_dropout --scale_factor --dataset --exp``) on top of
-``--preset`` or ``--argfile``. ``--use_karras_samplers`` and
-``--eval_noise`` raise (ROADMAP Queue 1 item 4), as do mesh flags other
-than 1 (item 8). ``--generator`` takes ``determ`` and ``determ-indiv``,
+``--preset`` or ``--argfile``, and its solver flags: ``--method``,
+``--steps``, ``--atol``, ``--rtol``, ``--cfg_scale``,
+``--use_karras_samplers`` (the Karras euler / heun loops over ``--steps``
+sigmas; an argfile with ``STEPS`` sets it) and ``--eval_noise`` (the
+adaptive noise floor, a float or ``auto``; by default ``auto`` for a bf16
+model under dopri8 only). Mesh flags other than 1 raise (ROADMAP Queue 1
+item 8). ``--generator`` takes ``determ`` and ``determ-indiv``,
 which ``SampleRNG`` realises alike, and raises on the stateful ``dummy``
 (item 9).
 
@@ -210,9 +215,6 @@ def train_main(args):
 def _resolve_config(args) -> Config:
     """The sampling subcommands' config; the flags the port does not
     implement raise instead of being ignored."""
-    if args.use_karras_samplers or args.eval_noise is not None:
-        raise NotImplementedError("--use_karras_samplers and --eval_noise are not ported yet "
-                                  "(ROADMAP Queue 1 item 4)")
     if args.generator not in (None, "determ", "determ-indiv"):
         # SampleRNG realises both per-sample generators (lfm_tpu/core/rng.py:88-99)
         raise NotImplementedError(f"--generator {args.generator}: only determ and "
@@ -228,8 +230,12 @@ def _resolve_config(args) -> Config:
                    batch_size=args.batch_size, seed=args.seed, epoch_id=args.epoch_id,
                    n_sample=args.n_sample, generator=args.generator,
                    real_img_dir=args.real_img_dir, output_log=args.output_log,
+                   use_karras_samplers=args.use_karras_samplers,
                    use_fused_dit=False if args.no_fused_dit else None,
-                   use_int8_dit=True if args.int8_dit else None)
+                   use_int8_dit=True if args.int8_dit else None,
+                   eval_noise=(None if args.eval_noise is None
+                               else "auto" if args.eval_noise == "auto"
+                               else float(args.eval_noise)))
     return dataclasses.replace(config, sample=sample)
 
 
@@ -331,11 +337,14 @@ def main(argv: Optional[Sequence[str]] = None):
 
 def sample_grid_path(config: Config) -> str:
     """The JAX CLI's ``sample`` file name,
-    ``./samples_{dataset}_{method}_{atol}_{rtol}[_cfg{scale}].jpg``
-    (lfm_tpu/cli/main.py:505-512; the Karras name comes with the Karras
-    samplers, ROADMAP Queue 1 item 4)."""
+    ``./samples_{dataset}_{method}_{atol}_{rtol}[_cfg{scale}].jpg``, and
+    with the Karras samplers ``./samples_{dataset}_{method}_{num_steps}
+    [_cfg{scale}].jpg`` (lfm_tpu/cli/main.py:505-512)."""
     sc = config.sample
-    path = f"./samples_{config.dataset}_{sc.method}_{sc.atol}_{sc.rtol}"
+    if sc.use_karras_samplers:
+        path = f"./samples_{config.dataset}_{sc.method}_{sc.num_steps}"
+    else:
+        path = f"./samples_{config.dataset}_{sc.method}_{sc.atol}_{sc.rtol}"
     if (config.model.num_classes or 0) > 1:
         path += f"_cfg{sc.cfg_scale}"
     return path + ".jpg"

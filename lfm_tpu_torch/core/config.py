@@ -115,8 +115,10 @@ class TrainConfig:
     use_ema: bool = False
     ema_decay: float = 0.9999
     use_grad_checkpointing: bool = False
-    # selective remat: None = full-block recompute (torch.utils.checkpoint
-    # semantics); "dots" = save Dense outputs, recompute elementwise+attention
+    # selective remat (nn/dit.py::REMAT_POLICIES): None = full-block
+    # recompute; "dots" = save Dense outputs, recompute elementwise +
+    # attention; "all_dots" = also the batched products; "dots_attn" =
+    # "dots" + the attention output (the attention runs once)
     remat_policy: Optional[str] = None
     save_content: bool = False
     save_content_every: int = 10

@@ -5,19 +5,39 @@ as in the JAX package. The blocks are a plain ``nn.ModuleList`` (the JAX
 package's ``nn.scan`` exists for XLA's compile time); the JAX converter's
 scan-stacked block params map onto ``blocks.{i}`` (nn/convert_dit.py).
 ``forward`` is ``DiT.__call__``: ``train=True`` turns on label dropout, and
-with ``remat`` every block is recomputed in backward
-(``torch.utils.checkpoint``, the full-block ``nn.remat`` of the JAX package,
-reference models/DiT.py:265-269).
+with ``remat`` every block is recomputed in backward under
+``remat_policy`` (``torch.utils.checkpoint``, non-reentrant; the JAX
+package's ``nn.remat`` over each block, reference models/DiT.py:265-269):
+
+* None: the whole block is recomputed;
+* ``"dots"``: the outputs of the products with no batch dimension (every
+  Linear, ``aten.mm`` / ``aten.addmm``) are saved and the rest recomputed,
+  the attention included: K1 runs again in backward, as JAX's
+  ``pallas_call`` does under its policy;
+* ``"all_dots"``: also the batched products (``aten.bmm`` /
+  ``aten.baddbmm``, the plain attention's); K1 is a kernel, not such a
+  product, and still runs again;
+* ``"dots_attn"``: ``"dots"`` and the attention's output (JAX's
+  ``attn_out``): the block is checkpointed as two regions under the dots
+  policy, up to the qkv product and from the output projection on, and
+  the attention between them runs once, outside both, so autograd keeps
+  its output and K1 is not run again.
+
+A policy sees only the ATen operators that run on its tensors; a kernel
+launched through ctypes into a ``torch.empty`` is invisible to it, which
+is why ``dots_attn`` takes the attention out of the regions rather than
+naming its output.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from lfm_tpu_torch.core.device import DeviceLike, resolve_device
 from lfm_tpu_torch.nn.layers import (
@@ -50,9 +70,12 @@ DIT_CONFIGS = {
     "DiT-T/2": (2, 64, 2, 4),
     "DiT-T4/2": (4, 64, 2, 4),
 }
-# the JAX package's selective remat policies; only the full-block recompute
-# (None) is ported
-REMAT_POLICIES = (None,)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BATCH_DOTS = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+# remat_policy -> the operators whose outputs a checkpointed block saves
+# (lfm_tpu/nn/dit.py::REMAT_POLICIES); None recomputes the whole block
+REMAT_POLICIES = {None: None, "dots": _DOTS, "all_dots": _DOTS + _BATCH_DOTS,
+                  "dots_attn": _DOTS}
 
 
 class DiTBlock(nn.Module):
@@ -67,12 +90,37 @@ class DiTBlock(nn.Module):
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(hidden_size, 6 * hidden_size))
 
     def forward(self, x: torch.Tensor, c: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        h, mod = self.pre_attention(x, c, dtype)
+        return self.post_attention(x, self.attn.attend(h, dtype), mod, dtype)
+
+    def pre_attention(self, x, c, dtype):
+        """adaLN's six vectors and the attention half's modulated LayerNorm."""
         mod = linear(F.silu(c), self.adaLN_modulation[1], dtype)
-        s_msa, sc_msa, g_msa, s_mlp, sc_mlp, g_mlp = mod.chunk(6, dim=-1)
-        h = modulate(layer_norm(x).to(dtype), s_msa, sc_msa)
-        x = x + g_msa[:, None, :] * self.attn(h, dtype)
+        s_msa, sc_msa = mod.chunk(6, dim=-1)[:2]
+        return modulate(layer_norm(x).to(dtype), s_msa, sc_msa), mod
+
+    def post_attention(self, x, attn_out, mod, dtype):
+        """From the attention's output projection to the block's output."""
+        _, _, g_msa, s_mlp, sc_mlp, g_mlp = mod.chunk(6, dim=-1)
+        x = x + g_msa[:, None, :] * linear(attn_out, self.attn.proj, dtype)
         h = modulate(layer_norm(x).to(dtype), s_mlp, sc_mlp)
         return x + g_mlp[:, None, :] * self.mlp(h, dtype)
+
+    def forward_remat(self, x: torch.Tensor, c: torch.Tensor, dtype: torch.dtype,
+                      policy: Optional[str]) -> torch.Tensor:
+        """``forward``, recomputed in backward under ``policy``
+        (REMAT_POLICIES; the module docstring)."""
+        if policy is None:
+            return checkpoint(self, x, c, dtype, use_reentrant=False)
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                list(REMAT_POLICIES[policy]))
+        if policy != "dots_attn":
+            return checkpoint(self, x, c, dtype, use_reentrant=False, context_fn=ctx)
+        h, mod = checkpoint(self.pre_attention, x, c, dtype, use_reentrant=False,
+                            context_fn=ctx)
+        attn_out = self.attn.attend(h, dtype)
+        return checkpoint(self.post_attention, x, attn_out, mod, dtype, use_reentrant=False,
+                          context_fn=ctx)
 
 
 class FinalLayer(nn.Module):
@@ -104,9 +152,8 @@ class DiT(nn.Module):
                  remat_policy: Optional[str] = None):
         super().__init__()
         if remat_policy not in REMAT_POLICIES:
-            raise NotImplementedError(
-                f"remat_policy {remat_policy!r} is not ported; only the full-block "
-                "recompute (None) is")
+            raise ValueError(f"unknown remat_policy {remat_policy!r}; one of "
+                             f"{list(REMAT_POLICIES)}")
         self.img_resolution = img_resolution
         self.patch_size = patch_size
         self.in_channels = in_channels
@@ -120,6 +167,7 @@ class DiT(nn.Module):
         self.dtype = dtype
         self.use_flash = use_flash
         self.remat = remat
+        self.remat_policy = remat_policy
 
         self.x_embedder = PatchEmbed(patch_size, in_channels, hidden_size)
         self.t_embedder = TimestepEmbedder(hidden_size)
@@ -169,7 +217,7 @@ class DiT(nn.Module):
         remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
             if remat:
-                tok = checkpoint(block, tok, c, self.dtype, use_reentrant=False)
+                tok = block.forward_remat(tok, c, self.dtype, self.remat_policy)
             else:
                 tok = block(tok, c, self.dtype)
         tok = self.final_layer(tok, c, self.dtype)

@@ -202,16 +202,21 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(hidden_size, 3 * hidden_size, bias=qkv_bias)
         self.proj = nn.Linear(hidden_size, hidden_size)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def attend(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The qkv product and the attention, up to the output projection:
+        (N, T, C). Its output is the JAX package's ``attn_out``, which the
+        ``dots_attn`` remat policy saves (nn/dit.py)."""
         n, t, d = x.shape
-        h = self.num_heads
         qkv = linear(x, self.qkv, dtype)
         # the kernels read the (T, H*D) rows of q, k, v in place
         if self.use_flash:
-            out = fused_attention_qkv(qkv, h)
+            out = fused_attention_qkv(qkv, self.num_heads)
         else:
-            out = reference_attention(*split_qkv(qkv, h))
-        return linear(out.reshape(n, t, d), self.proj, dtype)
+            out = reference_attention(*split_qkv(qkv, self.num_heads))
+        return out.reshape(n, t, d)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return linear(self.attend(x, dtype), self.proj, dtype)
 
 
 class Mlp(nn.Module):

@@ -13,8 +13,10 @@ under either flag, the module path runs, whose attention goes through the
 attention kernels when the model has ``use_flash``. Labels are drawn in
 ``[0, num_classes)`` only when ``num_classes > 1``, and CFG's null label is
 the model's ``null_label``: the DiT's null class, 0 for the origin ADM, -1
-(the zero one-hot row) for EDM. The sequence- and pipeline-parallel paths,
-Karras samplers and the ``eval_noise`` floor are not ported yet.
+(the zero one-hot row) for EDM. ``use_karras_samplers`` takes the Karras
+euler / heun loops, and the adaptive methods take the ``eval_noise`` floor
+that ``resolve_eval_noise`` picks. The sequence- and pipeline-parallel
+paths are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from lfm_tpu_torch.core.config import Config
 from lfm_tpu_torch.core.device import DeviceLike, resolve_device
 from lfm_tpu_torch.core.rng import SampleRNG
 from lfm_tpu_torch.ode.cfg import cfg_velocity, plain_velocity
-from lfm_tpu_torch.ode.solvers import ADAPTIVE_SOLVERS, odeint
+from lfm_tpu_torch.ode.solvers import ADAPTIVE_SOLVERS, karras_sample, odeint
 
 
 class SampleOutput(NamedTuple):
@@ -76,18 +78,40 @@ def sample_latents(velocity: Callable, x_noise: torch.Tensor, *, method: str = "
                    atol: float = 1e-5, rtol: float = 1e-5, num_steps: int = 40,
                    step_size: float = 0.01, use_karras: bool = False,
                    eval_noise=0.0) -> Tuple[torch.Tensor, float]:
-    """Integrate t: 1 -> 0. Returns (z_0, nfe)."""
+    """Integrate t: 1 -> 0. Returns (z_0, nfe). With ``use_karras`` the
+    Karras loop of ``method`` (euler or heun; any other method takes euler,
+    as in JAX) runs over ``num_steps`` sigmas, and the NFE is JAX's count:
+    ``num_steps - 1`` pairs, the first 39 corrected under heun.
+    ``eval_noise`` noise-floors the adaptive error estimate (ode/solvers.py)."""
     if use_karras:
-        raise NotImplementedError("Karras samplers are not ported yet (ROADMAP Queue 1 item 4)")
-    if eval_noise not in (None, 0, 0.0):
-        raise NotImplementedError("the eval_noise floor is not ported yet (ROADMAP Queue 1 "
-                                  "item 4)")
+        z = karras_sample(lambda x, sigma: velocity(sigma, x), x_noise, num_steps,
+                          sampler=method if method in ("euler", "heun") else "euler")
+        pairs = max(num_steps - 1, 0)
+        if method == "heun":
+            corrected = min(pairs, 39)
+            nfe = 2 * corrected + (pairs - corrected)
+        else:
+            nfe = pairs
+        return z, float(nfe)
     if method in ADAPTIVE_SOLVERS:
-        res = odeint(velocity, x_noise, 1.0, 0.0, method=method, atol=atol, rtol=rtol)
+        res = odeint(velocity, x_noise, 1.0, 0.0, method=method, atol=atol, rtol=rtol,
+                     eval_noise=eval_noise)
     else:
         res = odeint(velocity, x_noise, 1.0, 0.0, method=method, num_steps=num_steps,
                      step_size=step_size)
     return res.y, res.nfe
+
+
+def resolve_eval_noise(sc, model):
+    """The noise floor's policy (lfm_tpu/sample/sample.py::
+    resolve_eval_noise): ``sc.eval_noise`` where it is set; else ``"auto"``
+    for a bf16 model under dopri8, whose high-order error estimate sits at
+    bf16's rounding floor and thrashes without it, and 0.0 (torchdiffeq's
+    controller unchanged) for everything else."""
+    if sc.eval_noise is not None:
+        return sc.eval_noise
+    bf16 = getattr(model, "dtype", torch.float32) == torch.bfloat16
+    return "auto" if (bf16 and sc.method == "dopri8") else 0.0
 
 
 def make_sampler(config: Config, model, params=None, vae=None, vae_params=None,
@@ -104,6 +128,7 @@ def make_sampler(config: Config, model, params=None, vae=None, vae_params=None,
     in JAX."""
     device = resolve_device(device)
     sc = config.sample
+    eval_noise = resolve_eval_noise(sc, model)
     if params is not None:
         model.load_state_dict(params)
     model.to(device).eval()
@@ -128,7 +153,7 @@ def make_sampler(config: Config, model, params=None, vae=None, vae_params=None,
                                  rtol=sc.rtol, num_steps=sc.num_steps,
                                  step_size=sc.step_size,
                                  use_karras=sc.use_karras_samplers,
-                                 eval_noise=sc.eval_noise)
+                                 eval_noise=eval_noise)
         if vae is None:
             return SampleOutput(images=z0, latents=z0, nfe=nfe)
         img = vae.decode(z0 / config.scale_factor)

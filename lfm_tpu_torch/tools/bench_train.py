@@ -1,6 +1,6 @@
-"""Seconds per step of the celeb256_dit train loop in f32 on the card.
+"""Seconds per step of the celeb256_dit train loop on the card.
 
-    python -m lfm_tpu_torch.tools.bench_train [--steps 6]
+    python -m lfm_tpu_torch.tools.bench_train [--steps 6] [--precision bf16] [--remat R]
 
 or, to time another checkout's package through the same loop and inputs
 (its kernels are built in that checkout):
@@ -10,7 +10,10 @@ or, to time another checkout's package through the same loop and inputs
 Runs ``train(...)`` (train/loop.py) on the celeb256_dit preset: DiT-L/2 at
 full width and depth, batch 32, grad checkpointing and EMA as the preset
 sets them, with ``precision="f32"`` (f32 compute on f32 masters, every
-attention through f32 K1 and K3), from seeded non-zero weights given
+attention through f32 K1 and K3; ``--precision bf16``: the preset's bf16
+compute, K1 and K3 in bf16) and, with ``--remat R``, the DiT's remat
+policy R instead of the preset's (``none``, ``full``, ``dots``,
+``all_dots``, ``dots_attn``; nn/dit.py), from seeded non-zero weights given
 as a ``model_0.pth`` (``seeded_init_`` of a bf16 DiT-L/2, as chip_smoke.py
 makes them), with a seeded full-width VAE encoder over synthetic 256^2
 images, for 1 + ``steps`` steps below one epoch. The loop logs, and so
@@ -37,6 +40,17 @@ import time
 import torch
 
 SEED = 0
+# --remat: the choice -> the DiT's remat_policy (``none`` turns remat off)
+REMAT = {"none": None, "full": None, "dots": "dots", "all_dots": "all_dots",
+         "dots_attn": "dots_attn"}
+
+
+def with_remat(tc, remat):
+    """``tc`` (a TrainConfig) under the ``--remat`` choice, or as it is."""
+    if not remat:
+        return tc
+    return dataclasses.replace(tc, use_grad_checkpointing=remat != "none",
+                               remat_policy=REMAT[remat])
 
 
 def save_seeded_model(config, path: str, device) -> None:
@@ -98,6 +112,9 @@ def timed_train(config, dataset, vae, device, steps: int) -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="bench_train")
     p.add_argument("--steps", type=int, default=6, help="timed steps after the first")
+    p.add_argument("--precision", choices=("f32", "bf16"), default="f32")
+    p.add_argument("--remat", choices=tuple(REMAT), default=None,
+                   help="the DiT's remat policy (default: the preset's)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_train: CUDA is not available", file=sys.stderr)
@@ -115,8 +132,8 @@ def main(argv=None) -> int:
     try:
         ckpt = os.path.join(work, "model_0.pth")
         save_seeded_model(preset, ckpt, dev)
-        config = dataclasses.replace(preset, output_dir=work, train=dataclasses.replace(
-            preset.train, model_ckpt=ckpt, precision="f32"))
+        tc = dataclasses.replace(preset.train, model_ckpt=ckpt, precision=args.precision)
+        config = dataclasses.replace(preset, output_dir=work, train=with_remat(tc, args.remat))
         vae = create_vae(dtype=torch.bfloat16, device=dev)
         seeded_init_(vae, SEED + 1)
         dataset = SyntheticImageDataset(n=batch * (args.steps + 3), image_size=256, seed=SEED)
@@ -127,7 +144,8 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(json.dumps({"package": lfm_tpu_torch.__file__, "card": smi.stdout.strip(),
-                      "preset": "celeb256_dit", "precision": "f32", "batch": batch,
+                      "preset": "celeb256_dit", "precision": args.precision,
+                      "remat": args.remat or "preset", "batch": batch,
                       "timed_steps": args.steps, **res}), flush=True)
     return 0
 

@@ -1,7 +1,7 @@
 """Where the time of a preset's train loop goes on the card.
 
     python -m lfm_tpu_torch.tools.profile_train [--out DIR] [--fused | --precision f32]
-                                               [--preset P]
+                                               [--preset P] [--remat R]
 
 Runs the training loop itself, ``train(...)`` of ``train/loop.py``, on the
 celeb256_dit preset (DiT-L/2, batch 32, bf16 on f32 masters, grad
@@ -15,6 +15,9 @@ activity only (no host events, which would slow the host). With
 ``--fused`` the same steps go through ``make_train_step(model_apply=
 dit_fused_model_apply(model))`` instead (the fused blocks: K5's forward and
 the hybrid backward through K3), over the same batches in the loop's order.
+``--remat R`` trains the DiT under a remat policy instead of the preset's
+(``none``, ``full`` for the whole block recomputed, ``dots``, ``all_dots``,
+``dots_attn``; nn/dit.py).
 Every number comes from the kernels of that one trace:
 
 - a step starts at its first convolution (the VAE encode, cuDNN) and ends
@@ -56,6 +59,8 @@ import tempfile
 from collections import defaultdict
 
 import torch
+
+from lfm_tpu_torch.tools.bench_train import REMAT, with_remat
 
 WARMUP, STEPS = 3, 8  # steps left out, then steps read
 
@@ -178,9 +183,12 @@ def main(argv=None) -> int:
     p.add_argument("--precision", choices=("bf16", "f32"), default="bf16",
                    help="the module path's compute dtype (the fused blocks are bf16)")
     p.add_argument("--preset", default="celeb256_dit")
+    p.add_argument("--remat", choices=REMAT, default=None,
+                   help="the DiT's remat policy (default: the preset's)")
     args = p.parse_args(argv)
-    if args.fused and (args.precision != "bf16" or args.preset != "celeb256_dit"):
-        p.error("--fused runs celeb256_dit's bf16 blocks only")
+    if args.fused and (args.precision != "bf16" or args.preset != "celeb256_dit"
+                       or args.remat):
+        p.error("--fused runs celeb256_dit's bf16 blocks only, with no remat")
     if not torch.cuda.is_available():
         print("profile_train: CUDA is not available", file=sys.stderr)
         return 1
@@ -203,8 +211,8 @@ def main(argv=None) -> int:
                                     num_classes=preset.model.num_classes or 1)
     work = tempfile.mkdtemp(prefix="profile_train_")
     try:
-        config = dataclasses.replace(preset, output_dir=work, train=dataclasses.replace(
-            preset.train, precision=args.precision))
+        tc = with_remat(dataclasses.replace(preset.train, precision=args.precision), args.remat)
+        config = dataclasses.replace(preset, output_dir=work, train=tc)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             if args.fused:
                 _fused_steps(config, dataset, vae, dev, total)
@@ -243,6 +251,7 @@ def main(argv=None) -> int:
     line = {
         "phase": "profile_train", "preset": args.preset,
         "path": "fused (K5)" if args.fused else "module", "precision": args.precision,
+        "remat": args.remat or "preset",
         "steps_read": STEPS,
         "warmup_steps": WARMUP, "batch": batch,
         "wall_ms_per_step": ms(wall), "device_busy_ms_per_step": ms(wall - idle),
@@ -259,7 +268,8 @@ def main(argv=None) -> int:
     print(json.dumps(line), flush=True)
     os.makedirs(args.out, exist_ok=True)
     stem = "profile_train" + ("" if args.preset == "celeb256_dit" else "_" + args.preset) + (
-        "_fused" if args.fused else "") + ("_f32" if args.precision == "f32" else "")
+        "_fused" if args.fused else "") + ("_f32" if args.precision == "f32" else "") + (
+        f"_remat_{args.remat}" if args.remat else "")
     with open(os.path.join(args.out, f"{stem}.json"), "w") as f:
         f.write(json.dumps(line, indent=1))
     prof.export_chrome_trace(os.path.join(args.out, f"{stem}_trace.json"))

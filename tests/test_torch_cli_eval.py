@@ -39,6 +39,7 @@ from lfm_tpu.eval.inception import convert_inception_state_dict  # noqa: E402
 from lfm_tpu.nn.convert_edm import convert_edm_state_dict  # noqa: E402
 from lfm_tpu.nn.factory import create_network as jcreate_network  # noqa: E402
 from lfm_tpu.sample.sample import make_sampler as jmake_sampler  # noqa: E402
+from lfm_tpu.sample.sample import sample_latents as jsample_latents  # noqa: E402
 from lfm_tpu.vae.autoencoder_kl import AutoencoderKL as JVAE  # noqa: E402
 from lfm_tpu_torch.cli import main as cli  # noqa: E402
 from lfm_tpu_torch.core import config as tconfig  # noqa: E402
@@ -47,6 +48,7 @@ from lfm_tpu_torch.eval.fid import save_statistics  # noqa: E402
 from lfm_tpu_torch.eval.inception import seeded_inception_state_dict  # noqa: E402
 from lfm_tpu_torch.nn.factory import create_network  # noqa: E402
 from lfm_tpu_torch.nn.init import seeded_init_  # noqa: E402
+from lfm_tpu_torch.sample import sample as tsample  # noqa: E402
 from lfm_tpu_torch.sample import sharded  # noqa: E402
 from lfm_tpu_torch.sample.sample import noise_and_labels  # noqa: E402
 from lfm_tpu_torch.vae.autoencoder_kl import create_vae  # noqa: E402
@@ -232,18 +234,72 @@ def test_per_sample_generators_run(generator, capsys):
     assert "Average NFE over 1 trials: 1\n" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flags", [["--use_karras_samplers"], ["--eval_noise", "auto"],
-                                   ["--sp", "2"], ["--pp", "2"], ["--pp_chunks", "2"],
+@pytest.mark.parametrize("flags", [["--sp", "2"], ["--pp", "2"], ["--pp_chunks", "2"],
                                    ["--num_procs", "2"], ["--generator", "dummy"]])
 def test_unported_flags_raise(flags):
-    """Karras samplers and the eval_noise floor (Queue 1 item 4), more
-    than one device (item 8) and the stateful dummy generator (item 9)
-    raise rather than being ignored."""
-    item = {"--use_karras_samplers": "item 4", "--eval_noise": "item 4",
-            "--generator": "item 9"}.get(flags[0], "item 8")
+    """More than one device (Queue 1 item 8) and the stateful dummy
+    generator (item 9) raise rather than being ignored."""
+    item = {"--generator": "item 9"}.get(flags[0], "item 8")
     for cmd in ("sample", "fid", "nfe", "time"):
         with pytest.raises(NotImplementedError, match=item):
             cli.main([cmd, "--preset", "celeb256_dit", "--device", "cpu", *flags])
+
+
+def _jax_sample_config(argv):
+    """The SampleConfig that lfm_tpu's CLI parser gives the same command."""
+    from lfm_tpu.cli import main as jcli
+
+    return jcli._resolve_config(jcli._build_parser().parse_args(argv)).sample
+
+
+def test_karras_sample_writes_the_jax_file(tmp_path, monkeypatch, capsys):
+    """``sample --use_karras_samplers --method heun --steps 4`` writes
+    JAX's Karras grid name, samples_{dataset}_heun_4.jpg
+    (lfm_tpu/cli/main.py:508), at JAX's NFE: 3 pairs, each corrected."""
+    pytest.importorskip("PIL")
+    monkeypatch.chdir(tmp_path)
+    argv = ["sample", "--preset", "celeb256_dit", *DIT_FLAGS, "--use_karras_samplers",
+            "--method", "heun", "--steps", "4", "--batch_size", "2"]
+    path = cli.main([*argv, "--device", "cpu"])
+    jsc = _jax_sample_config(argv)
+    assert (jsc.use_karras_samplers, jsc.method, jsc.num_steps) == (True, "heun", 4)
+    assert path == f"./samples_{jconfig.get_preset('celeb256_dit').dataset}_heun_4.jpg"
+    assert (tmp_path / path).is_file()
+    assert f"Samples are saved at {path} (NFE 6)" in capsys.readouterr().out
+
+
+def test_nfe_with_karras_samplers_prints_jax_nfe(capsys):
+    """``nfe --use_karras_samplers`` at 41 steps, past the 39-pair guard:
+    JAX's count, 2 x 39 + 1, from its own sample_latents."""
+    nfes = cli.main(["nfe", "--preset", "celeb256_dit", "--device", "cpu", *DIT_FLAGS,
+                     "--use_karras_samplers", "--method", "heun", "--steps", "41",
+                     "--n_sample", "1"])
+    _, want = jsample_latents(lambda t, x: x, jnp.zeros((1, 4, 4, 4)), method="heun",
+                              num_steps=41, use_karras=True)
+    assert nfes == [float(want)] == [79.0]
+    assert "Average NFE over 1 trials: 79\n" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("value", ["auto", "0.01"])
+def test_eval_noise_flag_reaches_make_sampler_as_jax_parses_it(monkeypatch, value):
+    """``--eval_noise auto`` and ``--eval_noise 0.01`` reach make_sampler
+    as JAX's parser gives them ("auto", or the float), and the sampler
+    floors bosh3 with it."""
+    seen = []
+    real = cli.make_sampler
+
+    def recording(config, model, *args, **kwargs):
+        seen.append(tsample.resolve_eval_noise(config.sample, model))
+        return real(config, model, *args, **kwargs)
+
+    monkeypatch.setattr(cli, "make_sampler", recording)
+    argv = ["nfe", "--preset", "celeb256_dit", *DIT_FLAGS, "--method", "bosh3", "--atol",
+            "1e-3", "--rtol", "1e-3", "--eval_noise", value, "--n_sample", "1"]
+    nfes = cli.main([*argv, "--device", "cpu"])
+    want = _jax_sample_config(argv).eval_noise
+    assert seen == [want] and type(seen[0]) is type(want)
+    assert want == ("auto" if value == "auto" else 0.01)
+    assert nfes[0] >= 2 + 3 + (value == "auto")
 
 
 def test_fid_needs_statistics_and_one_device():

@@ -238,8 +238,8 @@ def test_grad_checkpointing_gives_the_same_grads():
     assert loss_on == loss_off
     for name in g_on:
         torch.testing.assert_close(g_on[name], g_off[name], rtol=1e-6, atol=0)
-    with pytest.raises(NotImplementedError, match="remat_policy"):
-        tdit.create_dit("DiT-T/2", img_resolution=16, remat=True, remat_policy="dots",
+    with pytest.raises(ValueError, match="remat_policy"):
+        tdit.create_dit("DiT-T/2", img_resolution=16, remat=True, remat_policy="bogus",
                         device="cpu")
 
 
