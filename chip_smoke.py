@@ -271,6 +271,31 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    128) and (24, 16, 4, 256)) and of imnet_adm (EDM's DhariwalUNet, 407.4 M,
    bf16, 1000 classes, batch 16: no kernel, as in JAX), each step timed and
    counted as above.
+10d. the downstream tasks on celeb256_adm at full width (the origin ADM,
+   bf16 with its f32 attention, 6 attention layers). ``inpaint_train``:
+   ``train_inpainting`` (9 input channels) for 1 + 4 steps at the preset's
+   batch of 112 over ``InpaintingTrainDataset``'s items of seeded uint8
+   images (no files, no Pillow) with LaMa's mixed masks; ``semantic_train``:
+   ``train_semantic`` (8 channels, the SpatialRescaler trained with it) the
+   same on seeded images and label maps of 19 classes (CelebAMask-HQ's).
+   Each step is timed and counted alone: exactly one f32 attention_small
+   and one f32 attention_small_bwd per attention layer and nothing else;
+   finite losses, parameters and EMA; the EMA after step 1 equal to decay
+   p0 + (1 - decay) p1 and moved; for semantic synthesis, every tensor of
+   the rescaler moved by step 1. Then one step's loss gradients in f32
+   (``cond_fm_loss`` on the first batch, fixed draws) through K1 / K3
+   against the same with use_flash=False, TF32 off and cuDNN deterministic:
+   every gradient, the rescaler's too, within F32_GRAD_TOL (1e-5).
+   ``inpaint_sample``: ``make_inpainting_sampler`` at batch 25 with the
+   preset's dopri5 at 1e-5 on seeded images and LaMa masks: outside the
+   hole the composite equals the input image bit for bit; exactly
+   (attention layers) x NFE f32 attention_small and nothing else; the
+   conditional velocity through K1 within VEL_TOL of plain attention's; then
+   the seeded Inception's activations of the composites and the inputs and
+   FID / P-IDS / U-IDS (``metrics_from_activations``), with the host seconds
+   of the port's SVM fit. ``semantic_sample``: ``make_semantic_sampler`` at
+   batch 16, euler at the preset's 40 steps: (attention layers) x NFE f32
+   attention_small and nothing else, finite images in [0, 1].
 11. a ``kernels`` line with every ported kernel (f32 K1 at celeb256_adm's
    (200, 16, 4, 128) as its own entry, attention_small_f32, with
    adm_main's launches; f32 K1 and K3 at the f32 DiT's (32, 256, 16, 64)
@@ -422,6 +447,12 @@ EDM_BATCH, EDM_STEPS = 16, 2
 ADM_TRAIN_RECORDS, ADM_TRAIN_STEPS = 224, 3
 ADM512_TRAIN_BATCH, ADM512_TRAIN_STEPS = 24, 2
 EDM_TRAIN_BATCH, EDM_TRAIN_STEPS = 16, 2
+# the downstream paths: the train steps (1 + 4, one epoch at the preset's
+# batch), CelebAMask-HQ's 19 classes, and the samplers' batches
+DS_TRAIN_STEPS, SEG_CLASSES, INPAINT_BATCH, SEMANTIC_BATCH = 5, 19, 25, 16
+# the downstream f32 gradient gates: a tensor's largest gradient floored at
+# this share of the step's largest (tests/test_torch_adm_train.py's floor)
+GRAD_FLOOR = 1e-3
 # f32 K3 at the origin ADM's heads (attention_bwd_wide_f32.cu): celeb256_adm's
 # train step at its batch, celeb512_adm's two at its batch of 24 (the
 # one-pass kernel), past T = 64 at D = 128 and at the gate at D = 256 (the
@@ -2258,14 +2289,16 @@ def run(torch, work: str) -> int:
     from lfm_tpu_torch.train import loop as loop_module
     from lfm_tpu_torch.train.train import fm_train_loss
 
-    def timed_steps(run):
-        """Run ``run()`` with each train step of ``train/loop.py`` timed
-        alone (synchronised before and after), its loss read and the launch
-        counts reset just before it and read just after; returns (what run
-        returned, [{"seconds", "loss", "launches"}, ...], the launches of the
-        whole run, its peak GiB)."""
+    def timed_steps(run, module=loop_module, factory="make_train_step", watch=None):
+        """Run ``run()`` with each train step that ``module.factory`` makes
+        (``train/loop.py``'s by default) timed alone (synchronised before
+        and after), its loss read and the launch counts reset just before it
+        and read just after; ``watch(state, phase)`` is called with "before"
+        and "after" around the first step. Returns (what run returned,
+        [{"seconds", "loss", "launches"}, ...], the launches of the whole
+        run, its peak GiB)."""
         steps = []
-        real = loop_module.make_train_step
+        real = getattr(module, factory)
 
         def make(*args, **kwargs):
             step = real(*args, **kwargs)
@@ -2273,12 +2306,16 @@ def run(torch, work: str) -> int:
             def timed(state, b):
                 before = counts()
                 reset_counts()
+                if watch is not None and not steps:
+                    watch(state, "before")
                 torch.cuda.synchronize()
                 t_step = time.time()
                 loss, gnorm = step(state, b)
                 loss = float(loss)
                 steps.append({"seconds": time.time() - t_step, "loss": loss,
                               "launches": {k: v for k, v in counts().items() if v}})
+                if watch is not None and len(steps) == 1:
+                    watch(state, "after")
                 for name, c in counters.items():  # the run's counts go on
                     c.count += before[name]
                 return loss, gnorm
@@ -2287,11 +2324,11 @@ def run(torch, work: str) -> int:
 
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
-        loop_module.make_train_step = make
+        setattr(module, factory, make)
         try:
             out = run()
         finally:
-            loop_module.make_train_step = real
+            setattr(module, factory, real)
         torch.cuda.synchronize()
         return out, steps, counts(), torch.cuda.max_memory_allocated() / 2 ** 30
 
@@ -2447,6 +2484,334 @@ def run(torch, work: str) -> int:
         del o_state, ods
         torch.cuda.empty_cache()
 
+    # 10d. the downstream tasks on celeb256_adm at full width: inpainting
+    # (9 input channels) and semantic synthesis (8, with the SpatialRescaler)
+    # trained through K1 / K3 and sampled through K1
+    from lfm_tpu_torch.data.inpainting import InpaintingTrainDataset
+    from lfm_tpu_torch.data.masks import get_mask_generator
+    from lfm_tpu_torch.eval.inpainting_metrics import metrics_from_activations, pids_uids
+    from lfm_tpu_torch.nn.encoders import SpatialRescaler
+    from lfm_tpu_torch.sample.downstream import make_inpainting_sampler, make_semantic_sampler
+    from lfm_tpu_torch.train import downstream_loops as ds_module
+    from lfm_tpu_torch.train.conditional import (cond_fm_loss, cond_velocity,
+                                                 inpainting_condition, semantic_condition)
+
+    base_cfg = get_preset("celeb256_adm").replace(output_dir=work)
+    d_batch = base_cfg.train.batch_size
+
+    def task_config(in_ch):
+        return base_cfg.replace(model=dataclasses.replace(base_cfg.model, num_in_channels=in_ch))
+
+    class SeededInpainting(InpaintingTrainDataset):
+        """InpaintingTrainDataset's items over seeded uint8 images (no files,
+        no Pillow), with LaMa's mixed masks."""
+
+        def __init__(self, n, seed):
+            super().__init__(os.path.join(work, "no_files"), get_mask_generator(seed=seed),
+                             image_size=256, seed=seed)
+            self.images = np.random.default_rng(seed).integers(0, 256, (n, 256, 256, 3),
+                                                               dtype=np.uint8)
+
+        def __len__(self):
+            return len(self.images)
+
+        def _image(self, i):
+            return self.images[i]
+
+    class SeededSegmentation:
+        """(image in [-1, 1], label map) items: seeded uint8 images and maps
+        of SEG_CLASSES classes in 16 x 16 cells."""
+
+        num_classes = SEG_CLASSES
+
+        def __init__(self, n, seed):
+            rng = np.random.default_rng(seed)
+            self.images = rng.integers(0, 256, (n, 256, 256, 3), dtype=np.uint8)
+            cells = rng.integers(0, SEG_CLASSES, (n, 16, 16))
+            self.segs = np.repeat(np.repeat(cells, 16, 1), 16, 2).astype(np.int32)
+
+        def __len__(self):
+            return len(self.images)
+
+        def __getitem__(self, i):
+            return self.images[i].astype(np.float32) / 127.5 - 1.0, self.segs[i]
+
+    def first_step_watch(record, decay):
+        """Around step 1: the EMA against decay p0 + (1 - decay) p1, and
+        which of the rescaler's tensors moved."""
+
+        def watch(state, when):
+            if when == "before":
+                record["p0"] = [p.detach().clone() for p in state.params]
+                return
+            p0 = record.pop("p0")
+            with torch.no_grad():
+                want = torch._foreach_add(torch._foreach_mul(p0, decay), state.params,
+                                          alpha=1 - decay)
+                record["ema_err"] = max(float((e - w).abs().max())
+                                        for e, w in zip(state.ema, want))
+                record["ema_moved"] = sum(not torch.equal(e, q) for e, q in zip(state.ema, p0))
+                record["cond_moved"] = {n: not torch.equal(p, q) for n, p, q in
+                                        zip(state.names, state.params, p0)
+                                        if n.startswith("cond.")}
+            record["tensors"] = len(p0)
+            record["cond0"] = {n: q for n, q in zip(state.names, p0) if n.startswith("cond.")}
+
+        return watch
+
+    def grad_gate(cfg, cond_fn, make_rescaler, batch, n_eps):
+        """One step's loss (cond_fm_loss) and gradients in f32 through K1 /
+        K3 and with use_flash=False, the same weights, batch and draws, TF32
+        off and cuDNN deterministic: (worst relative error, its tensor,
+        tensors, launches of each, losses)."""
+        gg = torch.Generator(device=dev)
+        gg.manual_seed(SEED + 5)
+        lat = (len(batch["x"]), 32, 32, 4)
+        eps = [torch.randn(lat, generator=gg, device=dev) for _ in range(n_eps)]
+        gt = torch.rand(lat[0], generator=gg, device=dev)
+        gz1 = torch.randn(lat, generator=gg, device=dev)
+        grads, launches, losses, weights = {}, {}, {}, None
+        deterministic = torch.backends.cudnn.deterministic
+        for use_flash in (True, False):
+            gm = create_network(cfg.model, dtype=f32, use_flash=use_flash, device=dev)
+            if weights is None:
+                weights = seeded_init_(gm, SEED).state_dict()
+            else:
+                gm.load_state_dict(weights)
+            rescaler = make_rescaler()
+            reset_counts()
+            torch.backends.cudnn.deterministic = True
+            try:
+                with no_tf32():
+                    loss = cond_fm_loss(gm, cond_fn, rescaler, batch, gt, gz1, eps=eps)
+                    loss.backward()
+            finally:
+                torch.backends.cudnn.deterministic = deterministic
+            torch.cuda.synchronize()
+            launches[use_flash] = {k: v for k, v in counts().items() if v}
+            losses[use_flash] = float(loss.detach())
+            named = list(gm.named_parameters()) + (
+                [] if rescaler is None else [("cond." + n, p)
+                                             for n, p in rescaler.named_parameters()])
+            grads[use_flash] = {n: p.grad.detach().clone() for n, p in named}
+            del gm, rescaler, loss
+            torch.cuda.empty_cache()
+        # a tensor's largest gradient is floored at GRAD_FLOOR of the step's
+        # largest: a convolution's bias ahead of a GroupNorm with one channel
+        # a group has a gradient that is zero but for rounding
+        floor = GRAD_FLOOR * max(float(g.abs().max()) for g in grads[False].values())
+        worst = max((float((grads[True][n] - want).abs().max())
+                     / max(float(want.abs().max()), floor), n)
+                    for n, want in grads[False].items())
+        cond_grad = max([float(g.abs().max()) for n, g in grads[True].items()
+                         if n.startswith("cond.")], default=None)
+        return worst, len(grads[False]), launches, losses, cond_grad
+
+    # inpaint_train and semantic_train: train_inpainting / train_semantic
+    # for 1 + 4 steps at the preset's batch (one epoch: the run returns
+    # before the demo panel), each step timed and counted alone
+    d_attn = a_attn  # the 9- and 8-channel ADMs attend as celeb256_adm
+    want_step = {"attention_small": d_attn, "attention_small_bwd": d_attn}
+    d_counts, d_lines = {}, {}
+    for task in ("inpaint", "semantic"):
+        t_task = time.time()
+        in_ch = 9 if task == "inpaint" else 8
+        tcfg = task_config(in_ch)
+        n_items = d_batch * DS_TRAIN_STEPS
+        dataset = (SeededInpainting(n_items, SEED) if task == "inpaint"
+                   else SeededSegmentation(n_items, SEED))
+        watched = {}
+        watch = first_step_watch(watched, tcfg.train.ema_decay)
+        if task == "inpaint":
+            def run_task():
+                return ds_module.train_inpainting(tcfg, dataset, vae, device=dev,
+                                                  max_steps=DS_TRAIN_STEPS,
+                                                  log_fn=lambda line: None)
+        else:
+            def run_task():
+                return ds_module.train_semantic(
+                    tcfg, dataset, vae, SpatialRescaler(3, multiplier=0.5,
+                                                        in_channels=SEG_CLASSES, out_channels=4),
+                    num_classes=SEG_CLASSES, device=dev, max_steps=DS_TRAIN_STEPS,
+                    log_fn=lambda line: None)
+        d_state, d_steps, d_run_counts, d_peak = timed_steps(
+            run_task, module=ds_module, factory="make_cond_train_step", watch=watch)
+        summary = step_summary(d_steps)
+        finite = all(bool(torch.isfinite(p).all()) for p in d_state.params + d_state.ema)
+        # the rescaler over the run: the network's output conv starts at zero
+        # (JAX's init), so no gradient reaches the condition before step 2
+        cond_moved = {n: not torch.equal(p, watched["cond0"][n])
+                      for n, p in zip(d_state.names, d_state.params) if n in watched["cond0"]}
+        n_params = sum(p.numel() for p in d_state.params)
+        del d_state
+        torch.cuda.empty_cache()
+        # the gradient gate on the first batch, in f32
+        t_gate = time.time()
+        items = [dataset[i] for i in range(d_batch)]
+        if task == "inpaint":
+            gbatch = {k: torch.from_numpy(np.stack([it[j] for it in items])).to(dev)
+                      for j, k in enumerate(("x", "mask", "masked"))}
+            gcond, n_eps, make_r = inpainting_condition(vae, tcfg.scale_factor), 2, lambda: None
+        else:
+            gbatch = {k: torch.from_numpy(np.stack([it[j] for it in items])).to(dev)
+                      for j, k in enumerate(("x", "seg"))}
+
+            def make_r():
+                r = SpatialRescaler(3, multiplier=0.5, in_channels=SEG_CLASSES,
+                                    out_channels=4).to(dev)
+                r.reset_parameters(torch.Generator(device=dev).manual_seed(SEED + 6))
+                return r
+
+            gcond, n_eps = semantic_condition(vae, tcfg.scale_factor, SEG_CLASSES), 1
+        g_worst, g_tensors, g_launches, g_losses, g_cond = grad_gate(tcfg, gcond, make_r, gbatch,
+                                                                     n_eps)
+        del gbatch, items, dataset
+        torch.cuda.empty_cache()
+        line = {"phase": f"{task}_train", "preset": "celeb256_adm", "in_channels": in_ch,
+                "batch": d_batch, "precision": tcfg.train.precision, "steps": len(d_steps),
+                "params": n_params, "attention_layers": d_attn, **summary,
+                "images_per_s": d_batch / summary["seconds_per_step"], "peak_gib": d_peak,
+                "launches": d_run_counts, "finite": finite,
+                "ema_max_abs_err_step1": watched["ema_err"],
+                "ema_tensors_moved_step1": watched["ema_moved"], "tensors": watched["tensors"],
+                "cond_moved_step1": watched["cond_moved"], "cond_moved_in_run": cond_moved,
+                "f32_cond_grad_max": g_cond, "f32_grad_floor": GRAD_FLOOR,
+                "f32_grad_max_rel_err": g_worst[0], "f32_grad_tensor": g_worst[1],
+                "f32_grad_tensors": g_tensors, "f32_grad_tol": F32_GRAD_TOL,
+                "f32_grad_launches": {str(k): v for k, v in g_launches.items()},
+                "f32_losses": {str(k): v for k, v in g_losses.items()},
+                "gate_seconds": time.time() - t_gate, "seconds": time.time() - t_task}
+        emit(line)
+        d_lines[task], d_counts[f"{task}_train"] = line, d_run_counts
+        if not (len(d_steps) == DS_TRAIN_STEPS and finite
+                and all(math.isfinite(st["loss"]) for st in d_steps)):
+            raise AssertionError(f"{task}_train: {len(d_steps)} steps, losses "
+                                 f"{summary['losses']}, finite {finite}")
+        if any(st["launches"] != want_step for st in d_steps) or d_run_counts != {
+                **{k: 0 for k in counters}, "attention_small": d_attn * DS_TRAIN_STEPS,
+                "attention_small_bwd": d_attn * DS_TRAIN_STEPS}:
+            raise AssertionError(f"{task}_train: launches per step "
+                                 f"{summary['launches_per_step']}, run {d_run_counts}, "
+                                 f"expected {want_step} a step")
+        if not (watched["ema_err"] <= 1e-6 and watched["ema_moved"] > 0):
+            raise AssertionError(f"{task}_train: the EMA after step 1 is "
+                                 f"{watched['ema_err']} off decay p0 + (1 - decay) p1, "
+                                 f"{watched['ema_moved']} tensors moved")
+        if task == "semantic" and not (cond_moved and all(cond_moved.values()) and g_cond):
+            raise AssertionError(f"semantic_train: the rescaler moved {cond_moved}, its f32 "
+                                 f"gradient {g_cond}")
+        if g_launches != {True: want_step, False: {}} or not g_worst[0] <= F32_GRAD_TOL:
+            raise AssertionError(f"{task}_train f32 gradients: {g_worst} (tol {F32_GRAD_TOL}), "
+                                 f"launches {g_launches}")
+
+    # inpaint_sample: make_inpainting_sampler at batch INPAINT_BATCH with the
+    # preset's method, then the Inception activations and FID / P-IDS / U-IDS
+    t_is = time.time()
+    icfg = task_config(9)
+    icfg = icfg.replace(sample=dataclasses.replace(icfg.sample, batch_size=INPAINT_BATCH))
+    i_models = {}
+    for use_flash in (True, False):
+        i_models[use_flash] = create_network(icfg.model, dtype=bf, use_flash=use_flash,
+                                             device=dev)
+    seeded_init_(i_models[True], SEED)
+    i_models[False].load_state_dict(i_models[True].state_dict())
+    irng = np.random.default_rng(SEED + 7)
+    i_img = irng.integers(0, 256, (INPAINT_BATCH, 256, 256, 3)).astype(np.float32) / 127.5 - 1
+    mgen = get_mask_generator(seed=SEED)
+    i_mask = np.stack([mgen((256, 256)) for _ in range(INPAINT_BATCH)])[..., None]
+    i_sampler = make_inpainting_sampler(icfg, i_models[True], None, vae, None, device=dev)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    i_out = i_sampler(i_img, i_mask, i_img * (1 - i_mask), range(INPAINT_BATCH))
+    torch.cuda.synchronize()
+    i_secs = time.time() - t0
+    is_counts = counts()
+    i_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    img01 = (torch.from_numpy(i_img).to(dev) + 1) / 2
+    keep = (torch.from_numpy(i_mask).to(dev) == 0).expand_as(img01)
+    composite_exact = torch.equal(i_out.images[keep], img01[keep])
+    # the velocity through K1 against plain attention, on the run's condition
+    with torch.no_grad():
+        ib = {"x": torch.from_numpy(i_img).to(dev), "mask": torch.from_numpy(i_mask).to(dev),
+              "masked": torch.from_numpy(i_img * (1 - i_mask)).to(dev)}
+        _, ic = inpainting_condition(vae, icfg.scale_factor)(
+            None, ib, generator=torch.Generator(device=dev).manual_seed(SEED))
+        ix = torch.randn(ic.shape[:3] + (4,), generator=torch.Generator(device=dev).manual_seed(
+            SEED + 1), device=dev)
+        v_k1, v_plain = (cond_velocity(i_models[k], ic)(torch.tensor(0.5, device=dev), ix)
+                         for k in (True, False))
+    i_vel_err = float((v_k1 - v_plain).abs().max()) / float(v_plain.abs().max())
+    extractor = ActivationExtractor(seeded_inception_state_dict(SEED), device=dev)
+    fake_acts, real_acts = extractor(i_out.images), extractor(img01)
+    t_m = time.time()
+    i_fid, i_pids, i_uids = metrics_from_activations(fake_acts, real_acts)
+    metrics_s = time.time() - t_m
+    t_m = time.time()
+    pids_uids(fake_acts, real_acts)
+    svm_s = time.time() - t_m
+    emit({"phase": "inpaint_sample", "preset": "celeb256_adm", "in_channels": 9,
+          "batch": INPAINT_BATCH, "method": icfg.sample.method, "atol": icfg.sample.atol,
+          "rtol": icfg.sample.rtol, "nfe": i_out.nfe, "seconds": i_secs,
+          "images": list(i_out.images.shape), "hole_share": float(i_mask.mean()),
+          "composite_equals_input_outside_hole": composite_exact, "launches": is_counts,
+          "peak_gib": i_peak, "velocity_rel_err_vs_plain": i_vel_err, "velocity_tol": VEL_TOL,
+          "fid": i_fid, "pids": i_pids, "uids": i_uids, "metrics_host_seconds": metrics_s,
+          "svm_host_seconds": svm_s, "inception": "seeded weights (protocol only)",
+          "phase_seconds": time.time() - t_is})
+    if not (composite_exact and bool(torch.isfinite(i_out.images).all())
+            and tuple(i_out.images.shape) == (INPAINT_BATCH, 256, 256, 3)):
+        raise AssertionError(f"inpaint_sample: composite equals the input outside the hole: "
+                             f"{composite_exact}, shape {tuple(i_out.images.shape)}")
+    if (is_counts["attention_small"] != d_attn * i_out.nfe
+            or sum(is_counts.values()) != is_counts["attention_small"]):
+        raise AssertionError(f"inpaint_sample: {is_counts} launches for NFE {i_out.nfe} x "
+                             f"{d_attn} attention layers")
+    if not i_vel_err <= VEL_TOL:
+        raise AssertionError(f"inpaint_sample velocity through K1 vs plain: {i_vel_err} > "
+                             f"{VEL_TOL}")
+    if not all(math.isfinite(v) for v in (i_fid, i_pids, i_uids)):
+        raise AssertionError(f"inpaint_sample metrics: {(i_fid, i_pids, i_uids)}")
+    del i_models, i_sampler, i_out, img01, keep, ib, ic, ix, v_k1, v_plain, extractor
+    torch.cuda.empty_cache()
+
+    # semantic_sample: make_semantic_sampler at batch SEMANTIC_BATCH, euler
+    # at the preset's num_steps
+    t_ss = time.time()
+    scfg = task_config(8)
+    scfg = scfg.replace(sample=dataclasses.replace(scfg.sample, method="euler",
+                                                   batch_size=SEMANTIC_BATCH))
+    s_model = seeded_init_(create_network(scfg.model, dtype=bf, use_flash=True, device=dev), SEED)
+    s_rescaler = SpatialRescaler(3, multiplier=0.5, in_channels=SEG_CLASSES, out_channels=4)
+    s_rescaler.to(dev).reset_parameters(torch.Generator(device=dev).manual_seed(SEED))
+    s_seg = SeededSegmentation(SEMANTIC_BATCH, SEED + 8).segs
+    s_sampler = make_semantic_sampler(scfg, s_model, None, s_rescaler, None, vae, None,
+                                      SEG_CLASSES, device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    s_out = s_sampler(s_seg, range(SEMANTIC_BATCH))
+    torch.cuda.synchronize()
+    s_secs = time.time() - t0
+    ss_counts = counts()
+    s_img = s_out.images
+    emit({"phase": "semantic_sample", "preset": "celeb256_adm", "in_channels": 8,
+          "classes": SEG_CLASSES, "batch": SEMANTIC_BATCH, "method": "euler",
+          "nfe": s_out.nfe, "seconds": s_secs, "images": list(s_img.shape),
+          "launches": ss_counts, "image_mean": float(s_img.mean()),
+          "phase_seconds": time.time() - t_ss})
+    if not (tuple(s_img.shape) == (SEMANTIC_BATCH, 256, 256, 3)
+            and bool(torch.isfinite(s_img).all()) and float(s_img.min()) >= 0
+            and float(s_img.max()) <= 1):
+        raise AssertionError(f"semantic_sample: images {tuple(s_img.shape)} not finite in [0, 1]")
+    if (ss_counts["attention_small"] != d_attn * s_out.nfe
+            or sum(ss_counts.values()) != ss_counts["attention_small"]):
+        raise AssertionError(f"semantic_sample: {ss_counts} launches for NFE {s_out.nfe} x "
+                             f"{d_attn} attention layers")
+    del s_model, s_rescaler, s_sampler, s_out, s_img
+    torch.cuda.empty_cache()
+
     # 11. the kernels line, the card, the last line
     by_path = {"main_fused": fused_counts, "main_module": module_counts,
                "int8_main": int8_counts, "p1_probe": probe_counts, "adm_main": adm_counts,
@@ -2459,7 +2824,8 @@ def run(torch, work: str) -> int:
                **{f"train_remat_{m}": c for m, c in remat_counts.items()},
                "train_fused": tf_counts, "train_f32": f32_counts, "adm_train": at_counts,
                "adm512_train": other_train["celeb512_adm"],
-               "edm_train": other_train["imnet_adm"], **block_counts}
+               "edm_train": other_train["imnet_adm"], **d_counts,
+               "inpaint_sample": is_counts, "semantic_sample": ss_counts, **block_counts}
     kdir, p1 = "lfm_tpu/kernels/", "tools/microbench_int8_pallas.py"
     # name, source (the C entry's or kernel's file first, then the files
     # of the kernels it launches), TPU kernel, the path whose count is

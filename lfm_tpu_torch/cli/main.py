@@ -56,8 +56,34 @@ dataset from ``--datadir`` (data/__init__.py: image folders, CIFAR-10,
 the NVAE / LSUN / image LMDBs, latents; ``--dataset synthetic`` or
 ``synthetic_latent`` for seeded data). Images are encoded by the frozen
 VAE (``--vae_ckpt``, else seeded random weights) unless the dataset is
-pre-encoded latents (``latent_*``, ``synthetic_latent``). The JAX CLI's
-downstream subcommands are later slices.
+pre-encoded latents (``latent_*``, ``synthetic_latent``).
+
+The downstream subcommands (lfm_tpu/cli/main.py:103-140, 382-466), on one
+card, with the JAX CLI's flags:
+
+    python -m lfm_tpu_torch.cli.main train-inpainting --preset celeb256_adm --datadir imgs/
+    python -m lfm_tpu_torch.cli.main train-semantic --preset celeb256_adm \
+        --seg_dataset celebamask --datadir CelebAMask-HQ/
+    python -m lfm_tpu_torch.cli.main test-inpainting --preset celeb256_adm \
+        --ckpt model_E.pth --indir imgs/ --maskdir masks/
+    python -m lfm_tpu_torch.cli.main test-semantic --preset celeb256_adm --ckpt model_E.pth \
+        --seg_dataset celebamask --datadir CelebAMask-HQ/
+
+* ``train-inpainting`` trains the network with 9 input channels on the
+  images under ``--datadir`` with LaMa's masks (train/downstream_loops.py);
+  ``train-semantic`` with 8 on a segmentation dataset (``--seg_dataset``
+  coco, ade20k or celebamask under ``--datadir``) and a
+  ``SpatialRescaler(n_stages=3, multiplier=0.5, out_channels=4)`` trained
+  with it.
+* ``test-inpainting`` writes the composites of the evaluation set
+  (``--indir`` ``{i:06d}.jpg``, ``--maskdir`` ``{i:06d}.png``) as
+  ``{save_dir}/{dataset}/{i}.jpg``; ``test-semantic`` the samples of
+  ``--n_sample`` (default 8) label maps of ``--split`` as
+  ``{save_dir}/{i}.jpg``. Both need Pillow to read and write images.
+  ``--ckpt`` takes this package's downstream ``model_{E}.pth`` (the
+  network and the rescaler) or a reference ``model_{E}.pth`` (the bare
+  network; the rescaler keeps its init); without one they warn and keep
+  the JAX package's initialisation.
 """
 
 from __future__ import annotations
@@ -75,11 +101,11 @@ import torch
 from lfm_tpu_torch.core.checkpoint import reference_state_dict
 from lfm_tpu_torch.core.config import Config, get_preset, load_argfile
 from lfm_tpu_torch.core.device import resolve_device
-from lfm_tpu_torch.core.rng import SampleRNG
+from lfm_tpu_torch.core.rng import SampleRNG, seeded_generator
 from lfm_tpu_torch.data.transforms import require_pil
 from lfm_tpu_torch.eval.inception import load_inception_params, seeded_inception_state_dict
 from lfm_tpu_torch.nn.factory import create_network
-from lfm_tpu_torch.nn.init import seeded_init_
+from lfm_tpu_torch.nn.init import seeded_init_, unet_init_
 from lfm_tpu_torch.sample.sample import make_sampler, noise_and_labels
 from lfm_tpu_torch.sample.sharded import compute_fid
 from lfm_tpu_torch.train.loop import save_image_grid
@@ -105,7 +131,43 @@ def _build_parser() -> argparse.ArgumentParser:
     _train_parser(sub.add_parser("train"))
     for name in ("sample", "fid", "nfe", "time"):
         _sample_parser(sub.add_parser(name))
+    for name in DOWNSTREAM:
+        _downstream_parser(sub.add_parser(name), name)
     return p
+
+
+DOWNSTREAM = ("train-inpainting", "train-semantic", "test-inpainting", "test-semantic")
+
+
+def _downstream_parser(p: argparse.ArgumentParser, name: str) -> None:
+    """The flags of ``lfm_tpu.cli.main`` ``name`` (lfm_tpu/cli/main.py:
+    103-140), and ``--device``."""
+    _model_flags(p)
+    for flag, typ in (("datadir", str), ("batch_size", int), ("seed", int), ("vae_ckpt", str),
+                      ("num_procs", int)):
+        p.add_argument(f"--{flag}", type=typ, default=None)
+    if name.endswith("semantic"):
+        p.add_argument("--seg_dataset", type=str, default="celebamask",
+                       choices=["coco", "ade20k", "celebamask"])
+    if name.startswith("train"):
+        for flag, typ in (("lr", float), ("num_epoch", int), ("max_steps", int)):
+            p.add_argument(f"--{flag}", type=typ, default=None)
+        for flag in ("use_ema", "save_content"):
+            p.add_argument(f"--{flag}", action="store_true", default=None)
+    else:
+        for flag, typ in (("ckpt", str), ("method", str), ("epoch_id", int)):
+            p.add_argument(f"--{flag}", type=typ, default=None)
+        p.add_argument("--num_steps", "--steps", type=int, default=None, dest="num_steps")
+    if name == "test-inpainting":
+        p.add_argument("--indir", type=str, default=None)
+        p.add_argument("--maskdir", type=str, default=None)
+        p.add_argument("--save_dir", type=str, default="./inpainting_generated_samples")
+    if name == "test-semantic":
+        p.add_argument("--split", type=str, default="val")
+        p.add_argument("--n_sample", type=int, default=None)
+        p.add_argument("--save_dir", type=str, default="./semantic_generated_samples")
+    p.add_argument("--device", type=str, default=None,
+                   help="default: the card; pass cpu to run on the CPU")
 
 
 def _sample_parser(s: argparse.ArgumentParser) -> None:
@@ -267,13 +329,16 @@ def _inception_params(path: Optional[str]):
 
 
 def main(argv: Optional[Sequence[str]] = None):
-    """Runs one subcommand. Returns what it wrote or measured: ``train`` the
-    final TrainState; ``sample`` the path it wrote; ``fid`` the distance;
+    """Runs one subcommand. Returns what it wrote or measured: ``train``,
+    ``train-inpainting`` and ``train-semantic`` the final TrainState;
+    ``test-inpainting`` and ``test-semantic`` the directory they wrote; ``sample`` the path it wrote; ``fid`` the distance;
     ``nfe`` the NFE of each trial; ``time`` {"ms": each repetition's
     milliseconds, "nfe": the NFE of the warm-up and of each repetition}."""
     args = _build_parser().parse_args(argv)
     if args.cmd == "train":
         return train_main(args)
+    if args.cmd in DOWNSTREAM:
+        return downstream_main(args)
     config = _resolve_config(args)
     sc = config.sample
     if args.cmd == "fid" and not sc.real_img_dir:
@@ -333,6 +398,119 @@ def main(argv: Optional[Sequence[str]] = None):
         save_image_grid(images, path)
     print(f"Samples are saved at {path} (NFE {out.nfe:.0f})")
     return path
+
+
+def _resolve_downstream_config(args) -> Config:
+    """The downstream subcommands' config (lfm_tpu/cli/main.py:187-265),
+    with the network's input channels: 9 for inpainting (latent, masked
+    latent, mask), 8 for semantic synthesis (latent, rescaled labels)."""
+    if args.num_procs not in (None, 1):
+        raise NotImplementedError(f"--num_procs {args.num_procs}: the downstream tasks run on "
+                                  "one device (ROADMAP Queue 1 item 8)")
+    config = _base_config(args)
+    g = vars(args).get
+    if args.cmd.startswith("train"):
+        config = config.replace(train=_over(
+            config.train, lr=g("lr"), num_epoch=g("num_epoch"), use_ema=g("use_ema"),
+            save_content=g("save_content"), batch_size=args.batch_size, seed=args.seed))
+    else:
+        config = config.replace(sample=_over(
+            config.sample, method=g("method"), num_steps=g("num_steps"),
+            batch_size=args.batch_size, epoch_id=g("epoch_id"), seed=args.seed,
+            n_sample=g("n_sample")))
+    in_ch = 9 if args.cmd.endswith("inpainting") else 8
+    return config.replace(data=_over(config.data, dataset=args.dataset, datadir=args.datadir),
+                          model=dataclasses.replace(config.model, num_in_channels=in_ch))
+
+
+def _rescaler(num_classes: int):
+    from lfm_tpu_torch.nn.encoders import SpatialRescaler
+
+    return SpatialRescaler(n_stages=3, multiplier=0.5, in_channels=num_classes, out_channels=4)
+
+
+def _load_downstream_params(config: Config, args, rescaler, device: torch.device):
+    """The bf16 network (attention through the kernels where
+    ``use_flash_attention``) and the rescaler (or None) with the weights of
+    ``--ckpt``: this package's downstream ``model_{E}.pth`` (``model.*``
+    and ``cond.*``) sets both; a reference ``model_{E}.pth`` (the bare
+    network) sets the network; without one, or where it does not exist,
+    both keep the JAX package's initialisation, with a warning."""
+    model = create_network(config.model, dtype=torch.bfloat16,
+                           use_flash=config.model.use_flash_attention, device=device)
+    unet_init_(model, 0)
+    if rescaler is not None:
+        rescaler.to(device).reset_parameters(seeded_generator(device, 0))
+    path = args.ckpt
+    if not (path and os.path.isfile(path)):
+        print(f"[warn] checkpoint {path} not found; using random init", file=sys.stderr)
+        return model, rescaler
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if all(k.startswith(("model.", "cond.")) for k in sd):
+        if rescaler is not None:
+            rescaler.load_state_dict({k[5:]: v for k, v in sd.items() if k.startswith("cond.")})
+        sd = {k[6:]: v for k, v in sd.items() if k.startswith("model.")}
+    model.load_state_dict(reference_state_dict(sd))
+    return model, rescaler
+
+
+def downstream_main(args):
+    """``train-inpainting``, ``train-semantic`` (the final TrainState),
+    ``test-inpainting`` and ``test-semantic`` (the directory written)
+    (lfm_tpu/cli/main.py:382-466)."""
+    from lfm_tpu_torch.data.segmentation import get_segmentation_dataset
+
+    config = _resolve_downstream_config(args)
+    device = resolve_device(args.device)
+    sc = config.sample
+    seg = None
+    if args.cmd.endswith("semantic"):
+        seg = get_segmentation_dataset(args.seg_dataset, config.data.datadir,
+                                       size=config.model.image_size,
+                                       **({"split": args.split} if args.cmd.startswith("test")
+                                          else {}))
+    if args.cmd == "train-inpainting":
+        from lfm_tpu_torch.data import get_inpainting_dataset
+        from lfm_tpu_torch.train.downstream_loops import train_inpainting
+
+        return train_inpainting(config, get_inpainting_dataset(config),
+                                _load_vae(args.vae_ckpt, device), device=device,
+                                max_steps=args.max_steps)
+    if args.cmd == "train-semantic":
+        from lfm_tpu_torch.train.downstream_loops import train_semantic
+
+        return train_semantic(config, seg, _load_vae(args.vae_ckpt, device),
+                              _rescaler(seg.num_classes), num_classes=seg.num_classes,
+                              device=device, max_steps=args.max_steps)
+    if args.cmd == "test-inpainting":
+        from lfm_tpu_torch.sample.downstream import InpaintingEvalDataset, run_inpainting_eval
+
+        model, _ = _load_downstream_params(config, args, None, device)
+        save_dir = os.path.join(args.save_dir, config.dataset)
+        run_inpainting_eval(config, model, None, _load_vae(args.vae_ckpt, device), None,
+                            InpaintingEvalDataset(args.indir, args.maskdir), save_dir,
+                            batch_size=sc.batch_size, device=device)
+        print(f"composited samples saved to {save_dir}; score with "
+              "lfm_tpu_torch.eval.inpainting_metrics.calculate_metrics")
+        return save_dir
+
+    from lfm_tpu_torch.sample.downstream import make_semantic_sampler
+
+    Image = require_pil("test-semantic's JPEG files")
+    model, rescaler = _load_downstream_params(config, args, _rescaler(seg.num_classes), device)
+    sampler = make_semantic_sampler(config, model, None, rescaler, None,
+                                    _load_vae(args.vae_ckpt, device), None,
+                                    num_classes=seg.num_classes, seed=sc.seed, device=device)
+    os.makedirs(args.save_dir, exist_ok=True)
+    n = min(args.n_sample or 8, len(seg))
+    for start in range(0, n, sc.batch_size):
+        idx = range(start, min(start + sc.batch_size, n))
+        out = sampler(np.stack([seg[i][1] for i in idx]), idx).images.cpu().numpy()
+        for j, i in enumerate(idx):
+            Image.fromarray((out[j] * 255).astype(np.uint8)).save(
+                os.path.join(args.save_dir, f"{i}.jpg"))
+    print(f"{n} semantic samples saved to {args.save_dir}")
+    return args.save_dir
 
 
 def sample_grid_path(config: Config) -> str:

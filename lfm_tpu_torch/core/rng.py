@@ -9,7 +9,7 @@ threefry bits: parity tests hand the same numpy noise to both packages.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -48,11 +48,14 @@ class SampleRNG:
         self.num_samples = int(num_samples)
 
     def randn(self, indices, sample_shape: Sequence[int], dtype=torch.float32,
-              device: DeviceLike = None) -> torch.Tensor:
-        """N(0, 1) of shape ``(len(indices), *sample_shape)``."""
+              device: DeviceLike = None, stream: Optional[int] = None) -> torch.Tensor:
+        """N(0, 1) of shape ``(len(indices), *sample_shape)``; ``stream``
+        tags a second draw of the same samples, independent of the noise
+        (the downstream samplers' VAE posterior eps)."""
         device = resolve_device(device)
+        tag = () if stream is None else (stream,)
         rows = [torch.randn(tuple(sample_shape), dtype=torch.float32,
-                            generator=seeded_generator("cpu", self.seed, i))
+                            generator=seeded_generator("cpu", self.seed, i, *tag))
                 for i in _as_list(indices)]
         return torch.stack(rows).to(device=device, dtype=dtype)
 

@@ -6,8 +6,9 @@ The reference's dataset names and preprocessing: the image folders
 NVAE raw-RGB LMDBs (CelebA-HQ / FFHQ 256), multi-class LSUN LMDBs,
 torchtoolbox image LMDBs (CelebA-HQ 512 / 1024), pre-encoded latents and
 the synthetic sets. An LMDB-backed name also takes a plain image folder at
-``datadir`` (``_folder_fallback``). Every reader gives the JAX package's
-arrays bit for bit.
+``datadir`` (``_folder_fallback``). ``get_inpainting_dataset`` gives the
+inpainting task's images with LaMa masks. Every reader gives the JAX
+package's arrays bit for bit.
 """
 
 from __future__ import annotations
@@ -19,9 +20,11 @@ from lfm_tpu_torch.data.datasets import (CIFAR10Dataset, ImageFolderDataset, Lat
                                          Subset, SyntheticImageDataset,
                                          SyntheticLatentDataset)
 from lfm_tpu_torch.data.loader import DataLoader
+from lfm_tpu_torch.data.masks import get_mask_generator
 
 __all__ = ["CIFAR10Dataset", "DataLoader", "ImageFolderDataset", "LatentDataset", "Subset",
-           "SyntheticImageDataset", "SyntheticLatentDataset", "get_dataset"]
+           "SyntheticImageDataset", "SyntheticLatentDataset", "get_dataset",
+           "get_inpainting_dataset", "get_mask_generator"]
 
 
 def _folder_fallback(datadir: str) -> bool:
@@ -77,3 +80,13 @@ def get_dataset(config: Config, seed: int = 0):
 
         return ImageLMDB(db_path=datadir, db_name=name, image_size=size, seed=seed)
     raise KeyError(f"unknown dataset {name!r}")
+
+
+def get_inpainting_dataset(config: Config, seed: int = 0):
+    """(reference datasets_prep/__init__.py:117-122): the images under
+    ``datadir`` with LaMa's mixed masks."""
+    from lfm_tpu_torch.data.inpainting import InpaintingTrainDataset
+
+    return InpaintingTrainDataset(indir=config.data.datadir,
+                                  mask_generator=get_mask_generator(None, None, seed=seed),
+                                  image_size=config.model.image_size, seed=seed)

@@ -83,11 +83,11 @@ def save_image_grid(images: np.ndarray, path: str, nrow: int = 8) -> None:
         require_pil(f"writing {path}").fromarray(grid).save(path)
 
 
-def _check_single_device(mesh: MeshConfig) -> None:
+def check_single_device(mesh: MeshConfig) -> None:
     if mesh.dp not in (-1, 1) or (mesh.fsdp, mesh.tp, mesh.sp, mesh.pp) != (1, 1, 1, 1):
         raise NotImplementedError(
-            "multi-device training (dp, fsdp, tp, sp, pp other than 1) is not ported yet; "
-            f"got {mesh}")
+            "multi-device training (dp, fsdp, tp, sp, pp other than 1) is not ported yet "
+            f"(ROADMAP Queue 1 item 8); got {mesh}")
 
 
 def train(config: Config, *, dataset=None, vae=None, device: DeviceLike = None,
@@ -99,7 +99,7 @@ def train(config: Config, *, dataset=None, vae=None, device: DeviceLike = None,
     its weights. Returns the final TrainState."""
     device = resolve_device(device)
     tc = config.train
-    _check_single_device(config.mesh)
+    check_single_device(config.mesh)
     dataset = dataset if dataset is not None else get_dataset(config, seed=tc.seed)
     loader = DataLoader(dataset, tc.batch_size, shuffle=True, drop_last=True, seed=tc.seed)
     steps_per_epoch = tc.steps_per_epoch or max(len(loader), 1)

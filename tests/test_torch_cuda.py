@@ -1649,3 +1649,99 @@ def test_small_dit_int8_velocity_matches_plain(cuda):
         want = dit_int8_apply(model, qp, t, x, y, plain=True)
     assert got.shape == (4, 16, 16, 4) and bool(torch.isfinite(got).all())
     assert _rel(got, want) <= 1e-2
+
+
+def _small_downstream_adm(in_ch, use_flash, dtype=torch.float32):
+    """A 2-level origin ADM at celeb256_adm's head width (C = 512, 4 heads,
+    D = 128) with the downstream tasks' input channels, on the card."""
+    from lfm_tpu_torch.nn.adm_unet import UNetModel
+
+    return UNetModel(image_size=8, in_channels=in_ch, model_channels=256, channel_mult=(1, 2),
+                     num_res_blocks=1, attention_resolutions=(2,), num_heads=4, dtype=dtype,
+                     use_flash=use_flash).cuda()
+
+
+@pytest.mark.parametrize("task", ["inpaint", "semantic"])
+def test_cond_loss_gradients_through_k1_k3_match_plain(cuda, task):
+    """cond_fm_loss of each downstream task on a small f32 ADM (9 or 8 input
+    channels; semantic synthesis with the SpatialRescaler) through f32 K1 /
+    K3: one K1 and one K3 per attention layer, and every gradient, the
+    rescaler's too, within 1e-5 of the largest of its tensor (floored at
+    1e-3 of the step's largest) of the same weights with use_flash=False,
+    TF32 off."""
+    from lfm_tpu_torch.core.device import no_tf32
+    from lfm_tpu_torch.kernels.flash_attention import ATTENTION_SMALL, ATTENTION_SMALL_BWD
+    from lfm_tpu_torch.nn.adm_unet import plan_layers
+    from lfm_tpu_torch.nn.encoders import SpatialRescaler
+    from lfm_tpu_torch.nn.init import seeded_init_
+    from lfm_tpu_torch.train.conditional import (cond_fm_loss, inpainting_condition,
+                                                 semantic_condition)
+    from lfm_tpu_torch.vae.autoencoder_kl import AutoencoderKL
+
+    vae = seeded_init_(AutoencoderKL((32, 32, 32, 32)).cuda(), 1).eval()
+    x = torch.rand(4, 64, 64, 3, generator=cuda, device="cuda") * 2 - 1
+    if task == "inpaint":
+        mask = (torch.rand(4, 64, 64, 1, generator=cuda, device="cuda") < 0.3).float()
+        batch, in_ch = {"x": x, "mask": mask, "masked": x * (1 - mask)}, 9
+        cond_fn, n_eps = inpainting_condition(vae, 0.18215), 2
+    else:
+        batch = {"x": x, "seg": torch.randint(0, 7, (4, 64, 64), generator=cuda, device="cuda")}
+        in_ch, cond_fn, n_eps = 8, semantic_condition(vae, 0.18215, 7), 1
+    eps = [torch.randn(4, 8, 8, 4, generator=cuda, device="cuda") for _ in range(n_eps)]
+    t = torch.rand(4, generator=cuda, device="cuda")
+    z1 = torch.randn(4, 8, 8, 4, generator=cuda, device="cuda")
+    grads, weights = {}, None
+    for use_flash in (True, False):
+        model = _small_downstream_adm(in_ch, use_flash)
+        weights = weights or seeded_init_(model, 0).state_dict()
+        model.load_state_dict(weights)
+        rescaler = None
+        if task == "semantic":
+            rescaler = SpatialRescaler(3, in_channels=7, out_channels=4).cuda()
+            rescaler.reset_parameters(torch.Generator(device="cuda").manual_seed(2))
+        k1, k3 = ATTENTION_SMALL.count, ATTENTION_SMALL_BWD.count
+        with no_tf32():
+            cond_fm_loss(model, cond_fn, rescaler, batch, t, z1, eps=eps).backward()
+        torch.cuda.synchronize()
+        n_attn = sum(s.kind == "attn" for s in plan_layers(model.plan)) if use_flash else 0
+        assert (ATTENTION_SMALL.count - k1, ATTENTION_SMALL_BWD.count - k3) == (n_attn, n_attn)
+        named = list(model.named_parameters()) + (
+            [] if rescaler is None else [("cond." + n, p) for n, p in rescaler.named_parameters()])
+        grads[use_flash] = {n: p.grad for n, p in named}
+    floor = 1e-3 * max(float(g.abs().max()) for g in grads[False].values())
+    for name, want in grads[False].items():
+        err = float((grads[True][name] - want).abs().max())
+        assert err <= 1e-5 * max(float(want.abs().max()), floor), name
+    if task == "semantic":
+        assert float(grads[True]["cond.channel_mapper.weight"].abs().max()) > 0
+
+
+def test_inpainting_sampler_on_the_card(cuda):
+    """make_inpainting_sampler on a small bf16 9-channel ADM through K1,
+    euler at 3 steps: (attention layers) x 3 K1 launches and nothing else,
+    the composite equal to the input image outside the hole, bit for bit."""
+    import dataclasses
+
+    from lfm_tpu_torch.core.config import Config, SampleConfig
+    from lfm_tpu_torch.kernels.flash_attention import ATTENTION_SMALL
+    from lfm_tpu_torch.nn.adm_unet import plan_layers
+    from lfm_tpu_torch.nn.init import seeded_init_
+    from lfm_tpu_torch.sample.downstream import make_inpainting_sampler
+    from lfm_tpu_torch.vae.autoencoder_kl import AutoencoderKL
+
+    model = seeded_init_(_small_downstream_adm(9, True, torch.bfloat16), 0)
+    vae = seeded_init_(AutoencoderKL((32, 32, 32, 32), dtype=torch.bfloat16).cuda(), 1)
+    cfg = dataclasses.replace(Config(), sample=SampleConfig(method="euler", num_steps=3))
+    img = torch.rand(2, 64, 64, 3, generator=cuda, device="cuda") * 2 - 1
+    mask = torch.zeros(2, 64, 64, 1, device="cuda")
+    mask[:, 16:48, 8:40] = 1
+    before = ATTENTION_SMALL.count
+    out = make_inpainting_sampler(cfg, model, None, vae, None, device="cuda")(
+        img, mask, img * (1 - mask), [0, 1])
+    torch.cuda.synchronize()
+    assert out.nfe == 3.0
+    assert ATTENTION_SMALL.count - before == 3 * sum(s.kind == "attn"
+                                                      for s in plan_layers(model.plan))
+    keep = (mask == 0).expand_as(img)
+    assert torch.isfinite(out.images).all()
+    assert torch.equal(out.images[keep], ((img + 1) / 2)[keep])

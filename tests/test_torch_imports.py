@@ -1,5 +1,7 @@
 """lfm_tpu_torch stands alone: no module of it and not chip_smoke.py imports
-jax, jaxlib, flax, optax or lfm_tpu; every entry point runs on the card
+jax, jaxlib, flax, optax or lfm_tpu, nor cv2, scikit-learn or Pillow, which
+the card's machine lacks (a reader imports Pillow when it decodes a file);
+every entry point runs on the card
 unless the caller passes device="cpu" (sampling and training alike); the
 kernel wrappers take no device other than the CPU and CUDA; chip_smoke.py
 fails without CUDA or without the package beside it, printing no result."""
@@ -25,7 +27,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ISOLATED = textwrap.dedent("""
     import importlib, importlib.abc, json, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "flax", "optax", "lfm_tpu")
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "lfm_tpu", "cv2", "sklearn", "PIL")
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -66,7 +68,12 @@ def test_port_imports_nothing_of_jax_or_lfm_tpu():
                 "lfm_tpu_torch.kernels.groupnorm_silu", "lfm_tpu_torch.kernels.dit_block_train",
                 "lfm_tpu_torch.kernels.int8_matmul", "lfm_tpu_torch.nn.dit_int8",
                 "lfm_tpu_torch.eval.inception", "lfm_tpu_torch.eval.fid",
-                "lfm_tpu_torch.tools.microbench_int8"):
+                "lfm_tpu_torch.tools.microbench_int8", "lfm_tpu_torch.nn.encoders",
+                "lfm_tpu_torch.train.conditional", "lfm_tpu_torch.train.downstream_loops",
+                "lfm_tpu_torch.sample.downstream", "lfm_tpu_torch.data.masks",
+                "lfm_tpu_torch.data.inpainting", "lfm_tpu_torch.data.segmentation",
+                "lfm_tpu_torch.eval.inpainting_metrics", "lfm_tpu_torch.eval.perceptual",
+                "lfm_tpu_torch.eval.evaluator", "lfm_tpu_torch.eval.inception_score"):
         assert mod in out["modules"]
 
 
@@ -79,7 +86,10 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_cuda):
     from lfm_tpu_torch.cli import main as cli
     from lfm_tpu_torch.core.config import get_preset
     from lfm_tpu_torch.core.rng import SampleRNG
+    from lfm_tpu_torch.eval.evaluator import InpaintingEvaluator
+    from lfm_tpu_torch.eval.inception_score import get_inception_score
     from lfm_tpu_torch.nn.dit import DiT, create_dit
+    from lfm_tpu_torch.sample.downstream import make_inpainting_sampler, make_semantic_sampler
     from lfm_tpu_torch.nn.factory import create_network
     from lfm_tpu_torch.sample.sample import make_sampler, noise_and_labels
     from lfm_tpu_torch.vae.autoencoder_kl import create_vae
@@ -101,6 +111,12 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_cuda):
         lambda: cli.main(["nfe", "--preset", "imnet_adm"]),
         lambda: cli.main(["time", "--preset", "ffhq_adm"]),
         lambda: cli.main(["fid", "--preset", "celeb256_dit", "--real_img_dir", "stats.npz"]),
+        lambda: make_inpainting_sampler(cfg, tiny, None, None, None),
+        lambda: make_semantic_sampler(cfg, tiny, None, None, None, None, None, 2),
+        lambda: InpaintingEvaluator(),
+        lambda: get_inception_score([], {}),
+        lambda: cli.main(["test-inpainting", "--preset", "celeb256_adm"]),
+        lambda: cli.main(["test-semantic", "--preset", "celeb256_adm"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -114,6 +130,7 @@ def test_train_refuses_the_cpu_unless_asked(no_cuda, tmp_path):
     from lfm_tpu_torch.cli import main as cli
     from lfm_tpu_torch.core.config import get_preset
     from lfm_tpu_torch.tools import prepare_latent_dataset
+    from lfm_tpu_torch.train.downstream_loops import train_inpainting, train_semantic
     from lfm_tpu_torch.train.loop import train
 
     cfg = get_preset("celeb256_dit").replace(output_dir=str(tmp_path))
@@ -123,6 +140,10 @@ def test_train_refuses_the_cpu_unless_asked(no_cuda, tmp_path):
                                    "synthetic_latent", "--max_steps", "1"]),
                  lambda: cli.main(["train", "--preset", "celeb256_adm", "--dataset",
                                    "synthetic", "--max_steps", "1"]),
+                 lambda: train_inpainting(cfg, [], None),
+                 lambda: train_semantic(cfg, [], None, None, num_classes=2),
+                 lambda: cli.main(["train-inpainting", "--preset", "celeb256_adm",
+                                   "--max_steps", "1"]),
                  lambda: prepare_latent_dataset.main(
                      ["--dataset", "synthetic", "--datadir", str(tmp_path), "--vae_ckpt",
                       "vae.bin", "--out", str(tmp_path / "latents")])):
