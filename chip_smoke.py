@@ -296,6 +296,28 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    of the port's SVM fit. ``semantic_sample``: ``make_semantic_sampler`` at
    batch 16, euler at the preset's 40 steps: (attention layers) x NFE f32
    attention_small and nothing else, finite images in [0, 1].
+10e. the other networks, none of which launches a hand-written kernel (as
+   in the JAX package: their attentions are einsums and their GroupNorm
+   flax's), each path asserting zero launches. ``song``: EDM's SongUNet,
+   ``ncsn++`` and ``ddpm++`` at ModelConfig()'s full width (161,240,324
+   and 157,428,484 parameters, exactly), each trained 2 steps at batch 32
+   through ``cli.main train --model_type ... --dataset synthetic``
+   in-process, then sampled by ``make_sampler`` at euler 2 steps, batch
+   16, with the VAE decode; f32 on the card against the CPU at batch 2,
+   bf16 against f32. ``adm_context``: imnet_adm's widths with
+   ``model_type="adm_context"`` (538,786,564 parameters), CFG 1.25 euler 2
+   steps at batch 16 (null label -1), one ``train(...)`` step at batch 16;
+   f32 card against CPU. ``layout``: celeb256_adm with ``layout=True`` at
+   full width (181,457,156 parameters), its context the
+   ``TransformerTextEncoder`` (dim 512, depth 8) over
+   ``ObjectsBoundingBoxConditionalBuilder`` tokens of seeded synthetic
+   annotations: a bf16 forward at batch 16, one gradient step of the UNet
+   and the encoder together (the flow-matching loss, the port's fused
+   AdamW); f32 card against CPU at batch 2. ``variants``:
+   ``EncoderUNetModel`` with each pool, ``SuperResModel``,
+   ``UNetUpsamplerModel`` and ResNet-18 (eval and train mode), each
+   forward on the card against the CPU in f32. Each line has its seconds
+   and peak memory beside the card's name and power limit.
 11. a ``kernels`` line with every ported kernel (f32 K1 at celeb256_adm's
    (200, 16, 4, 128) as its own entry, attention_small_f32, with
    adm_main's launches; f32 K1 and K3 at the f32 DiT's (32, 256, 16, 64)
@@ -325,6 +347,7 @@ import itertools
 import json
 import math
 import os
+import random
 import re
 import shutil
 import subprocess
@@ -450,6 +473,14 @@ EDM_TRAIN_BATCH, EDM_TRAIN_STEPS = 16, 2
 # the downstream paths: the train steps (1 + 4, one epoch at the preset's
 # batch), CelebAMask-HQ's 19 classes, and the samplers' batches
 DS_TRAIN_STEPS, SEG_CLASSES, INPAINT_BATCH, SEMANTIC_BATCH = 5, 19, 25, 16
+# the other networks (10e): SongUNet's CLI train steps and batch, the
+# samplers' batch and euler steps, the context UNet's train batch, the
+# layout path's batch and its annotations' token builder, the CPU checks'
+# batch; the full-width parameter counts the JAX package's eval_shape gives
+SONG_TRAIN_STEPS, SONG_TRAIN_BATCH, NETS_BATCH, NETS_STEPS = 2, 32, 16, 2
+CONTEXT_TRAIN_BATCH, LAYOUT_BATCH, LAYOUT_OBJECTS, CPU_BATCH = 16, 16, 5, 2
+FULL_WIDTH_PARAMS = {"ncsn++": 161_240_324, "ddpm++": 157_428_484,
+                     "adm_context": 538_786_564, "layout": 181_457_156}
 # the downstream f32 gradient gates: a tensor's largest gradient floored at
 # this share of the step's largest (tests/test_torch_adm_train.py's floor)
 GRAD_FLOOR = 1e-3
@@ -2812,6 +2843,11 @@ def run(torch, work: str) -> int:
     del s_model, s_rescaler, s_sampler, s_out, s_img
     torch.cuda.empty_cache()
 
+    # 10e. the other networks: SongUNet, the context DhariwalUNet, the
+    # layout UNet with its token encoder, the model zoo's variants; no
+    # hand-written kernel on any of them
+    nets = other_networks(torch, work, dev, vae, counts, reset_counts, cli_main)
+
     # 11. the kernels line, the card, the last line
     by_path = {"main_fused": fused_counts, "main_module": module_counts,
                "int8_main": int8_counts, "p1_probe": probe_counts, "adm_main": adm_counts,
@@ -2825,7 +2861,8 @@ def run(torch, work: str) -> int:
                "train_fused": tf_counts, "train_f32": f32_counts, "adm_train": at_counts,
                "adm512_train": other_train["celeb512_adm"],
                "edm_train": other_train["imnet_adm"], **d_counts,
-               "inpaint_sample": is_counts, "semantic_sample": ss_counts, **block_counts}
+               "inpaint_sample": is_counts, "semantic_sample": ss_counts, **nets,
+               **block_counts}
     kdir, p1 = "lfm_tpu/kernels/", "tools/microbench_int8_pallas.py"
     # name, source (the C entry's or kernel's file first, then the files
     # of the kernels it launches), TPU kernel, the path whose count is
@@ -2884,12 +2921,305 @@ def run(torch, work: str) -> int:
                                       "bound_by", "library_ms")}}
         for name, src, tpu, path, row in kernels
     ], "seconds_total": time.time() - t_all})
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def card_line() -> str:
+    """nvidia-smi's name and power limit of the card."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def other_networks(torch, work, dev, vae, counts, reset_counts, cli_main):
+    """Phase 10e: the networks that launch no hand-written kernel, each run
+    with every count reset just before it and checked to stay zero just
+    after. Returns {path: launches}."""
+    import numpy as np
+
+    from lfm_tpu_torch.core.config import Config, ModelConfig, TrainConfig, get_preset
+    from lfm_tpu_torch.core.rng import SampleRNG
+    from lfm_tpu_torch.data import SyntheticImageDataset
+    from lfm_tpu_torch.data.layout import Annotation, ObjectsBoundingBoxConditionalBuilder
+    from lfm_tpu_torch.nn import variants
+    from lfm_tpu_torch.nn.factory import create_network
+    from lfm_tpu_torch.nn.init import seeded_init_
+    from lfm_tpu_torch.nn.text_encoder import TransformerTextEncoder
+    from lfm_tpu_torch.ode.flow import interpolate
+    from lfm_tpu_torch.sample.sample import make_sampler, noise_and_labels
+    from lfm_tpu_torch.train.loop import train
+    from lfm_tpu_torch.train.state import (create_train_state, make_fused_adamw_ema,
+                                           make_optimizer)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    card = card_line()
+    launches = {}
+
+    def run_counted(path, fn):
+        """fn() with the counts reset just before it and read just after
+        (zero expected), its seconds and peak memory."""
+        torch.cuda.synchronize()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        got = counts()
+        launches[path] = got
+        if any(got.values()):
+            raise AssertionError(f"{path}: hand-written kernels launched {got}; none expected")
+        return out, secs, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def card_vs_cpu(model, *args, **kwargs):
+        """The f32 model on the card (TF32 off within forward) against a
+        copy on the CPU, on the first CPU_BATCH rows of its inputs; a tuple
+        of outputs is read at its first."""
+
+        def on(v, device):
+            if torch.is_tensor(v):
+                return v[:CPU_BATCH].to(device)
+            return tuple(on(a, device) for a in v) if isinstance(v, tuple) else v
+
+        def first(out):
+            return out[0] if isinstance(out, tuple) else out
+
+        with torch.no_grad():
+            on_card = first(model(*on(args, dev), **{k: on(v, dev) for k, v in kwargs.items()}))
+            cpu = copy.deepcopy(model).cpu()
+            on_cpu = first(cpu(*on(args, "cpu"), **{k: on(v, "cpu") for k, v in kwargs.items()}))
+        del cpu
+        return rel_err(on_card.cpu(), on_cpu)[1]
+
+    def check_images(path, out, batch, size):
+        img = out.images
+        if tuple(img.shape) != (batch, size, size, 3) or not (
+                bool(torch.isfinite(img).all()) and float(img.min()) >= 0.0
+                and float(img.max()) <= 1.0):
+            raise AssertionError(f"{path}: images {tuple(img.shape)} not finite in [0, 1]")
+
+    def check_params(path, model, key):
+        n = sum(p.numel() for p in model.parameters())
+        if n != FULL_WIDTH_PARAMS[key]:
+            raise AssertionError(f"{path}: {n} parameters, the JAX package's are "
+                                 f"{FULL_WIDTH_PARAMS[key]}")
+        return n
+
+    def check_errors_of(path, errs):
+        for name, (err, tol) in errs.items():
+            if not err <= tol:
+                raise AssertionError(f"{path}: {name} {err} > {tol}")
+
+    # song: ncsn++ and ddpm++ through the CLI's train, then sampled
+    for model_type in ("ncsn++", "ddpm++"):
+        t_phase = time.time()
+        path = f"song_{model_type}"
+        cwd = os.getcwd()
+        os.chdir(work)  # the run's experiment directory goes under work
+        try:
+            state, train_s, train_peak = run_counted(f"{path}_train", lambda: cli_main(
+                ["train", "--model_type", model_type, "--dataset", "synthetic",
+                 "--batch_size", str(SONG_TRAIN_BATCH), "--max_steps", str(SONG_TRAIN_STEPS),
+                 "--exp", path]))
+        finally:
+            os.chdir(cwd)
+        if state.step != SONG_TRAIN_STEPS or not all(bool(torch.isfinite(p).all())
+                                                      for p in state.params):
+            raise AssertionError(f"{path}: {state.step} train steps, parameters not finite")
+        # NCSN++'s Fourier frequencies are among the trained parameters, as in
+        # JAX; two steps cannot show them move (zero-initialised output layers
+        # give them no gradient before step 3), so this checks only that
+        freqs_is_param = "map_noise.freqs" in state.names if model_type == "ncsn++" else None
+        del state
+        cfg = Config(model=ModelConfig(model_type=model_type))
+        cfg = cfg.replace(sample=dataclasses.replace(cfg.sample, method="euler",
+                                                     num_steps=NETS_STEPS))
+        model = seeded_init_(create_network(cfg.model, dtype=bf, device=dev), SEED)
+        n_params = check_params(path, model, model_type)
+        noise, _ = noise_and_labels(cfg, SampleRNG(cfg.sample.seed), range(NETS_BATCH),
+                                    device=dev)
+        sampler = make_sampler(cfg, model, None, vae, None, device=dev)
+        out, sample_s, sample_peak = run_counted(path, lambda: sampler(noise))
+        check_images(path, out, NETS_BATCH, cfg.model.image_size)
+        m32 = create_network(cfg.model, dtype=f32, device=dev)
+        m32.load_state_dict(model.state_dict())
+        tt = torch.full((NETS_BATCH,), 0.5, device=dev)
+        with torch.no_grad():
+            bf_err = rel_err(model(tt, noise), m32(tt, noise))[1]
+        card_err = card_vs_cpu(m32, tt, noise)
+        emit({"phase": "song", "model_type": model_type, "params": n_params,
+              "train_batch": SONG_TRAIN_BATCH, "train_steps": SONG_TRAIN_STEPS,
+              "train_seconds": train_s, "train_peak_gib": train_peak,
+              "freqs_is_param": freqs_is_param, "sample_batch": NETS_BATCH, "method": "euler",
+              "nfe": out.nfe, "sample_seconds": sample_s, "sample_peak_gib": sample_peak,
+              "f32_card_vs_cpu_rel_err": card_err, "f32_tol": F32_VEL_TOL,
+              "bf16_vs_f32_rel_err": bf_err, "bf16_tol": VEL_TOL,
+              "launches": launches[path], "card": card, "seconds": time.time() - t_phase})
+        check_errors_of(path, {"f32 card vs CPU": (card_err, F32_VEL_TOL),
+                               "bf16 vs f32": (bf_err, VEL_TOL)})
+        if freqs_is_param is False:
+            raise AssertionError(f"{path}: map_noise.freqs is not among the trained parameters")
+        del model, m32, sampler, out, noise
+        torch.cuda.empty_cache()
+
+    # adm_context: imnet_adm's widths, CFG (null label -1) and one train step
+    t_phase = time.time()
+    ccfg = get_preset("imnet_adm")
+    ccfg = ccfg.replace(model=dataclasses.replace(ccfg.model, model_type="adm_context"),
+                        sample=dataclasses.replace(ccfg.sample, method="euler",
+                                                   num_steps=NETS_STEPS),
+                        output_dir=work,
+                        train=dataclasses.replace(ccfg.train, batch_size=CONTEXT_TRAIN_BATCH))
+    cm = ccfg.model
+    model = seeded_init_(create_network(cm, dtype=bf, device=dev), SEED)
+    n_params = check_params("adm_context", model, "adm_context")
+    noise, y = noise_and_labels(ccfg, SampleRNG(ccfg.sample.seed), range(NETS_BATCH), device=dev)
+    sampler = make_sampler(ccfg, model, None, vae, None, device=dev)
+    out, sample_s, sample_peak = run_counted("adm_context", lambda: sampler(noise, y))
+    check_images("adm_context", out, NETS_BATCH, cm.image_size)
+    m32 = create_network(cm, dtype=f32, device=dev)
+    m32.load_state_dict(model.state_dict())
+    card_err = card_vs_cpu(m32, torch.full((NETS_BATCH,), 0.5, device=dev), noise, y)
+    del model, m32, sampler, out
+    torch.cuda.empty_cache()
+    ds = SyntheticImageDataset(n=2 * CONTEXT_TRAIN_BATCH, image_size=cm.image_size,
+                               num_classes=cm.num_classes, seed=SEED)
+    state, train_s, train_peak = run_counted("adm_context_train", lambda: train(
+        ccfg, dataset=ds, vae=vae, device=dev, max_steps=1, log_fn=lambda line: None))
+    finite = all(bool(torch.isfinite(p).all()) for p in state.params)
+    emit({"phase": "adm_context", "preset": "imnet_adm", "params": n_params,
+          "batch": NETS_BATCH, "evaluated_batch": 2 * NETS_BATCH,
+          "cfg_scale": ccfg.sample.cfg_scale, "method": "euler", "nfe": NETS_STEPS,
+          "sample_seconds": sample_s, "sample_peak_gib": sample_peak,
+          "train_batch": CONTEXT_TRAIN_BATCH, "train_steps": state.step,
+          "train_seconds": train_s, "train_peak_gib": train_peak, "params_finite": finite,
+          "f32_card_vs_cpu_rel_err": card_err, "f32_tol": F32_VEL_TOL,
+          "launches": launches["adm_context"], "card": card, "seconds": time.time() - t_phase})
+    check_errors_of("adm_context", {"f32 card vs CPU": (card_err, F32_VEL_TOL)})
+    if state.step != 1 or not finite:
+        raise AssertionError(f"adm_context train: {state.step} steps, finite {finite}")
+    del state, ds, noise, y
+    torch.cuda.empty_cache()
+
+    # layout: celeb256_adm with layout=True, its context from the token
+    # encoder over box tokens of seeded synthetic annotations
+    t_phase = time.time()
+    lcfg = get_preset("celeb256_adm")
+    lm = dataclasses.replace(lcfg.model, layout=True)
+    builder = ObjectsBoundingBoxConditionalBuilder(80, LAYOUT_OBJECTS, 1024)
+    ann_rng = np.random.default_rng(SEED)
+    tokens = []
+    for i in range(LAYOUT_BATCH):
+        anns = []
+        for _ in range(1 + i % LAYOUT_OBJECTS):
+            x0, y0 = ann_rng.uniform(0.0, 0.6, 2)
+            w, h = ann_rng.uniform(0.1, 0.4, 2)
+            anns.append(Annotation(bbox=(float(x0), float(y0), float(w), float(h)),
+                                   category_no=int(ann_rng.integers(80)), area=float(w * h)))
+        tokens.append(builder.build(anns, rng=random.Random(SEED + i)))
+    tokens = torch.as_tensor(np.stack(tokens), device=dev)
+    with dev:
+        encoder = seeded_init_(TransformerTextEncoder(dtype=bf), SEED + 1)
+    model = seeded_init_(create_network(lm, dtype=bf, device=dev), SEED)
+    n_params = check_params("layout", model, "layout")
+    s = lm.latent_size
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    z0 = torch.randn((LAYOUT_BATCH, s, s, 4), generator=gen, device=dev)
+    z1 = torch.randn((LAYOUT_BATCH, s, s, 4), generator=gen, device=dev)
+    t = torch.rand((LAYOUT_BATCH,), generator=gen, device=dev)
+
+    def layout_forward():
+        with torch.no_grad():
+            return model(t, z0, context=encoder(tokens))
+
+    v, fwd_s, fwd_peak = run_counted("layout", layout_forward)
+    both = torch.nn.ModuleDict({"unet": model, "encoder": encoder})
+    lstate = create_train_state(both)
+    update = make_fused_adamw_ema(make_optimizer(TrainConfig(), 1))
+
+    def layout_step():
+        z_t, u = interpolate(z0, z1, t)
+        pred = model(t, z_t, train=True, generator=gen, context=encoder(tokens))
+        loss = torch.mean(torch.square(pred.float() - u.float()))
+        grads = torch.autograd.grad(loss, lstate.params)
+        return float(loss), grads, float(update(lstate, grads))
+
+    (loss, grads, gnorm), step_s, step_peak = run_counted("layout_train", layout_step)
+    grads_finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    enc_grad = max(float(g.abs().max()) for n, g in zip(lstate.names, grads)
+                   if n.startswith("encoder."))
+    del grads, lstate, both
+    m32 = create_network(lm, dtype=f32, device=dev)
+    m32.load_state_dict(model.state_dict())
+    with dev:
+        enc32 = TransformerTextEncoder()
+    enc32.load_state_dict(encoder.state_dict())
+    with torch.no_grad():
+        ctx32 = enc32(tokens)
+    card_err = max(card_vs_cpu(m32, t, z0, context=ctx32), card_vs_cpu(enc32, tokens))
+    emit({"phase": "layout", "preset": "celeb256_adm", "params": n_params,
+          "encoder_params": sum(p.numel() for p in encoder.parameters()),
+          "context": list(ctx32.shape), "batch": LAYOUT_BATCH, "forward_seconds": fwd_s,
+          "forward_peak_gib": fwd_peak, "velocity_finite": bool(torch.isfinite(v).all()),
+          "train_loss": loss, "grad_norm": gnorm, "grads_finite": grads_finite,
+          "encoder_grad_max": enc_grad, "train_step_seconds": step_s,
+          "train_peak_gib": step_peak, "f32_card_vs_cpu_rel_err": card_err,
+          "f32_tol": F32_VEL_TOL, "launches": launches["layout"], "card": card,
+          "seconds": time.time() - t_phase})
+    check_errors_of("layout", {"f32 card vs CPU": (card_err, F32_VEL_TOL)})
+    if not (bool(torch.isfinite(v).all()) and math.isfinite(loss) and grads_finite
+            and enc_grad > 0):
+        raise AssertionError(f"layout: velocity finite {bool(torch.isfinite(v).all())}, loss "
+                             f"{loss}, gradients finite {grads_finite}, encoder's {enc_grad}")
+    del model, encoder, m32, enc32, v, ctx32
+    torch.cuda.empty_cache()
+
+    # variants: each forward on the card against the CPU, f32
+    t_phase = time.time()
+    gen.manual_seed(SEED)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    tt = torch.rand((NETS_BATCH,), generator=gen, device=dev)
+    x32 = rand(NETS_BATCH, 32, 32, 4)
+    upsampler_ctx = (rand(NETS_BATCH, 16, 16, 3), torch.full((NETS_BATCH,), 0.1, device=dev))
+    cases = [(f"encoder_unet_{pool}",
+              lambda pool=pool: variants.EncoderUNetModel(pool=pool, num_head_channels=64),
+              (tt, x32), {}) for pool in ("adaptive", "attention", "spatial", "spatial_v2")]
+    cases += [("super_res", lambda: variants.SuperResModel(in_channels=8), (tt, x32),
+               {"low_res": rand(NETS_BATCH, 16, 16, 4)}),
+              ("unet_upsampler", variants.UNetUpsamplerModel,
+               (tt, rand(NETS_BATCH, 64, 64, 3)), {"context": upsampler_ctx}),
+              ("resnet18_eval", variants.resnet18, (rand(NETS_BATCH, 32, 32, 3),), {}),
+              ("resnet18_train", variants.resnet18, (rand(NETS_BATCH, 32, 32, 3),), {})]
+    rows = []
+    for name, build, args, kwargs in cases:
+        with dev:
+            m = seeded_init_(build(), SEED).train(name.endswith("_train"))
+
+        def forward():
+            with torch.no_grad():
+                out = m(*args, **kwargs)
+            return out[0] if isinstance(out, tuple) else out
+
+        out, secs, peak = run_counted(f"variants_{name}", forward)
+        err = card_vs_cpu(m, *args, **kwargs)
+        rows.append({"name": name, "params": sum(p.numel() for p in m.parameters()),
+                     "output": list(out.shape), "finite": bool(torch.isfinite(out).all()),
+                     "f32_card_vs_cpu_rel_err": err, "seconds": secs, "peak_gib": peak})
+        del m, out
+    emit({"phase": "variants", "batch": NETS_BATCH, "rows": rows, "f32_tol": F32_VEL_TOL,
+          "card": card, "seconds": time.time() - t_phase})
+    for row in rows:
+        if not row["finite"] or not row["f32_card_vs_cpu_rel_err"] <= F32_VEL_TOL:
+            raise AssertionError(f"variants {row['name']}: finite {row['finite']}, f32 card vs "
+                                 f"CPU {row['f32_card_vs_cpu_rel_err']} > {F32_VEL_TOL}")
+    return launches
 
 
 if __name__ == "__main__":

@@ -10,8 +10,11 @@ modes and train_flow_latent.py).
 
 The sampling subcommands build the preset's network in bf16 with attention
 through the attention kernels, as ``lfm_tpu.cli.main`` does: a DiT (fused
-DiT blocks unless ``--no_fused_dit``; w8a8 int8 blocks with ``--int8_dit``),
-with ``use_origin_adm`` the ADM UNet, else EDM's DhariwalUNet.
+DiT blocks unless ``--no_fused_dit``, and with ``--fused_dit`` even where
+the argfile or preset turned them off; w8a8 int8 blocks with
+``--int8_dit``), with ``use_origin_adm`` the ADM UNet (with ``layout`` its
+SpatialTransformer variant), else EDM's networks (DhariwalUNet, its context
+variant ``adm_context``, SongUNet's ``ncsn++`` and ``ddpm++``).
 ``--ckpt`` takes a reference ``model_{E}.pth`` (with or without the DDP
 ``module.`` prefix, and a DiT's fixed ``pos_embed``); without it the
 experiment's ``model_{epoch_id}.pth`` is read where it exists, else they
@@ -38,7 +41,7 @@ takes a diffusers AutoencoderKL checkpoint (``.bin`` / ``.pth`` /
 
 They take the JAX CLI's model overrides (``--model_type --image_size --nf
 --ch_mult --attn_resolutions --num_res_blocks --use_origin_adm
---num_classes --label_dropout --scale_factor --dataset --exp``) on top of
+--num_classes --label_dropout --scale_factor --dataset --datadir --exp``) on top of
 ``--preset`` or ``--argfile``, and its solver flags: ``--method``,
 ``--steps``, ``--atol``, ``--rtol``, ``--cfg_scale``,
 ``--use_karras_samplers`` (the Karras euler / heun loops over ``--steps``
@@ -182,7 +185,12 @@ def _sample_parser(s: argparse.ArgumentParser) -> None:
         s.add_argument(f"--{name}", type=typ, default=None)
     s.add_argument("--num_steps", "--steps", type=int, default=None, dest="num_steps")
     s.add_argument("--use_karras_samplers", action="store_true", default=None)
-    s.add_argument("--no_fused_dit", action="store_true")
+    s.add_argument("--datadir", type=str, default=None)
+    fused = s.add_mutually_exclusive_group()
+    fused.add_argument("--fused_dit", action="store_true", default=None,
+                       help="fused DiT blocks on, over an argfile or preset that turned "
+                            "them off")
+    fused.add_argument("--no_fused_dit", action="store_true", default=None)
     s.add_argument("--int8_dit", action="store_true",
                    help="w8a8 int8 DiT sampling (nn/dit_int8.py; wins over the fused "
                         "blocks)")
@@ -293,12 +301,15 @@ def _resolve_config(args) -> Config:
                    n_sample=args.n_sample, generator=args.generator,
                    real_img_dir=args.real_img_dir, output_log=args.output_log,
                    use_karras_samplers=args.use_karras_samplers,
-                   use_fused_dit=False if args.no_fused_dit else None,
+                   use_fused_dit=(False if args.no_fused_dit
+                                  else True if args.fused_dit else None),
                    use_int8_dit=True if args.int8_dit else None,
                    eval_noise=(None if args.eval_noise is None
                                else "auto" if args.eval_noise == "auto"
                                else float(args.eval_noise)))
-    return dataclasses.replace(config, sample=sample)
+    data = _over(config.data, dataset=args.dataset, datadir=args.datadir)
+    mesh = _over(config.mesh, sp=args.sp, pp=args.pp, pp_chunks=args.pp_chunks)
+    return dataclasses.replace(config, sample=sample, data=data, mesh=mesh)
 
 
 def _load_model(config: Config, args, device: torch.device):

@@ -8,11 +8,15 @@ grids, mixed with the same default probabilities (irregular 1/2, box 1/2),
 and the LinearRamp curriculum, drawing from ``np.random.Generator`` in the
 JAX package's order. Masks are (H, W) float32 with 1 = hole.
 
-A LINE stroke is drawn by the JAX package's own numpy fallback (squares
-stamped along the segment), never by ``cv2.line``, which the reference
-and the JAX package use where OpenCV is installed: a stroke's edge pixels
-differ from OpenCV's (ROADMAP Queue 3), and with OpenCV absent the masks
-equal the JAX package's bit for bit.
+A LINE stroke is ``cv2.line(mask, p0, p1, 1.0, width)``, which the
+reference and the JAX package draw where OpenCV is installed, rasterised
+here in plain Python (the card's machine has no OpenCV) by OpenCV's own
+integer steps for a thick 8-connected line (imgproc/drawing.cpp): the
+segment clipped to the image grown by the width on each side, its ends in
+16.16 fixed point, the four corners offset by the rounded normal and
+filled as a convex polygon (its edges traced, then scan lines), and a
+filled circle at each end. The masks equal the JAX package's with OpenCV
+present bit for bit.
 """
 
 from __future__ import annotations
@@ -47,18 +51,169 @@ class LinearRamp:
         return self.start_value * (1 - part) + self.end_value * part
 
 
-def _line(mask: np.ndarray, p0, p1, width: int):
-    """Squares of side 2 * max(width // 2, 1) stamped along the segment
-    (lfm_tpu/data/masks.py:49-57)."""
-    x0, y0 = p0
-    x1, y1 = p1
-    n = max(abs(x1 - x0), abs(y1 - y0), 1)
-    r = max(width // 2, 1)
+# OpenCV's fixed point for drawing (imgproc/drawing.cpp: XY_SHIFT)
+XY_SHIFT = 16
+XY_ONE = 1 << XY_SHIFT
+HALF = XY_ONE >> 1
+
+
+def _cdiv(a: int, b: int) -> int:
+    """C's integer division, which truncates toward zero."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b >= 0) else -q
+
+
+def _clip_line(w: int, h: int, p1, p2):
+    """``clipLine``: the segment clipped to [0, w - 1] x [0, h - 1], or None
+    where it misses; the intersections truncated toward zero as C does."""
+    right, bottom = w - 1, h - 1
+    (x1, y1), (x2, y2) = p1, p2
+
+    def code(x, y):
+        return (x < 0) + (x > right) * 2 + (y < 0) * 4 + (y > bottom) * 8
+
+    c1, c2 = code(x1, y1), code(x2, y2)
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int(float(a - y1) * (x2 - x1) / (y2 - y1))
+            y1, c1 = a, (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int(float(a - y2) * (x2 - x1) / (y2 - y1))
+            y2, c2 = a, (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int(float(a - x1) * (y2 - y1) / (x2 - x1))
+                x1, c1 = a, 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int(float(a - x2) * (y2 - y1) / (x2 - x1))
+                x2, c2 = a, 0
+    if c1 | c2:
+        return None
+    return (x1, y1), (x2, y2)
+
+
+def _put(mask: np.ndarray, xs: np.ndarray, ys: np.ndarray) -> None:
+    """mask[ys, xs] = 1 where (xs, ys) lies in the image."""
+    keep = (xs >= 0) & (xs < mask.shape[1]) & (ys >= 0) & (ys < mask.shape[0])
+    mask[ys[keep], xs[keep]] = 1.0
+
+
+def _edge(mask: np.ndarray, p1, p2) -> None:
+    """``Line2``: the 8-connected line between two fixed-point points,
+    clipped to the image, stepping one pixel along the longer axis."""
     h, w = mask.shape
-    for s in range(n + 1):
-        x = int(round(x0 + (x1 - x0) * s / n))
-        y = int(round(y0 + (y1 - y0) * s / n))
-        mask[max(0, y - r):min(h, y + r), max(0, x - r):min(w, x + r)] = 1.0
+    clipped = _clip_line(w << XY_SHIFT, h << XY_SHIFT, p1, p2)
+    if clipped is None:
+        return
+    (x1, y1), (x2, y2) = clipped
+    x_major = abs(x2 - x1) > abs(y2 - y1)
+    if (x2 < x1) if x_major else (y2 < y1):
+        x1, y1, x2, y2 = x2, y2, x1, y1
+    _put(mask, np.array([(x2 + HALF) >> XY_SHIFT]), np.array([(y2 + HALF) >> XY_SHIFT]))
+    if x_major:
+        step = _cdiv((y2 - y1) << XY_SHIFT, (x2 - x1) | 1)
+        k = np.arange(((x2 - x1) >> XY_SHIFT) + 1, dtype=np.int64)
+        _put(mask, ((x1 + HALF) >> XY_SHIFT) + k, (y1 + HALF + k * step) >> XY_SHIFT)
+    else:
+        step = _cdiv((x2 - x1) << XY_SHIFT, (y2 - y1) | 1)
+        k = np.arange(((y2 - y1) >> XY_SHIFT) + 1, dtype=np.int64)
+        _put(mask, (x1 + HALF + k * step) >> XY_SHIFT, ((y1 + HALF) >> XY_SHIFT) + k)
+
+
+def _fill_convex_poly(mask: np.ndarray, v) -> None:
+    """``FillConvexPoly`` of fixed-point corners for an 8-connected line:
+    the edges traced, then each scan line filled between its two edges,
+    whose x steps by a rounded slope from the upper corner."""
+    h, w = mask.shape
+    n = len(v)
+    ys = [p[1] for p in v]
+    imin = ys.index(min(ys))
+    for i in range(n):
+        _edge(mask, v[i - 1], v[i])
+    xmin = (min(p[0] for p in v) + HALF) >> XY_SHIFT
+    xmax = (max(p[0] for p in v) + HALF) >> XY_SHIFT
+    ymin = (min(ys) + HALF) >> XY_SHIFT
+    ymax = (max(ys) + HALF) >> XY_SHIFT
+    if xmax < 0 or ymax < 0 or xmin >= w or ymin >= h:
+        return
+    ymax = min(ymax, h - 1)
+    edges = n
+    idx, step = [imin, imin], [1, n - 1]
+    ye, x, dx = [ymin, ymin], [-XY_ONE, -XY_ONE], [0, 0]
+    y = ymin
+    while True:
+        for e in range(2):
+            if y < ye[e]:
+                continue
+            i0 = idx[e]
+            i1 = (i0 + step[e]) % n
+            while True:
+                edges -= 1
+                if edges < 0:
+                    break
+                ty = (v[i1][1] + HALF) >> XY_SHIFT
+                if ty > y:
+                    ye[e], x[e], idx[e] = ty, v[i0][0], i1
+                    dx[e] = _cdiv((v[i1][0] - v[i0][0]) * 2 + (ty - y), 2 * (ty - y))
+                    break
+                i0, i1 = i1, (i1 + step[e]) % n
+        if edges < 0:
+            break
+        if y >= 0:
+            x1 = (min(x) + HALF) >> XY_SHIFT
+            x2 = (max(x) + HALF) >> XY_SHIFT
+            if x2 >= 0 and x1 < w:
+                mask[y, max(x1, 0):min(x2, w - 1) + 1] = 1.0
+        x = [x[0] + dx[0], x[1] + dx[1]]
+        y += 1
+        if y > ymax:
+            break
+
+
+def _disc(mask: np.ndarray, cx: int, cy: int, radius: int) -> None:
+    """``Circle`` filled: the midpoint circle's spans, clipped."""
+    h, w = mask.shape
+    err, dx, dy, plus, minus = 0, radius, 0, 1, 2 * radius - 1
+    while dx >= dy:
+        for y, x1, x2 in ((cy - dy, cx - dx, cx + dx), (cy + dy, cx - dx, cx + dx),
+                          (cy - dx, cx - dy, cx + dy), (cy + dx, cx - dy, cx + dy)):
+            if 0 <= y < h and x1 < w and x2 >= 0:
+                mask[y, max(x1, 0):min(x2, w - 1) + 1] = 1.0
+        dy += 1
+        err += plus
+        plus += 2
+        if err > 0:
+            err -= minus
+            dx -= 1
+            minus -= 2
+
+
+def _line(mask: np.ndarray, p0, p1, width: int) -> None:
+    """``cv2.line(mask, p0, p1, 1.0, width)``, ``LINE_8``, for width >= 2."""
+    if width < 2:
+        raise ValueError(f"a stroke is at least 2 pixels wide, got {width}")
+    h, w = mask.shape
+    clipped = _clip_line(w + 2 * width, h + 2 * width, (p0[0] + width, p0[1] + width),
+                         (p1[0] + width, p1[1] + width))
+    if clipped is None:
+        return
+    (x0, y0), (x1, y1) = [(x - width, y - width) for x, y in clipped]
+    p0, p1 = (x0 << XY_SHIFT, y0 << XY_SHIFT), (x1 << XY_SHIFT, y1 << XY_SHIFT)
+    ddx, ddy = (p0[0] - p1[0]) / XY_ONE, (p1[1] - p0[1]) / XY_ONE
+    r = ddx * ddx + ddy * ddy
+    half_width = width << (XY_SHIFT - 1)
+    if r > np.finfo(np.float64).eps:
+        r = (half_width + (width & 1) * XY_ONE * 0.5) / np.sqrt(r)
+        nx, ny = int(np.rint(ddy * r)), int(np.rint(ddx * r))  # cvRound
+        _fill_convex_poly(mask, [(p0[0] + nx, p0[1] + ny), (p0[0] - nx, p0[1] - ny),
+                                 (p1[0] - nx, p1[1] - ny), (p1[0] + nx, p1[1] + ny)])
+    radius = (half_width + HALF) >> XY_SHIFT
+    for px, py in (p0, p1):
+        _disc(mask, (px + HALF) >> XY_SHIFT, (py + HALF) >> XY_SHIFT, radius)
 
 
 def make_random_irregular_mask(

@@ -28,7 +28,14 @@ it off, as the JAX package's does). TF32 is off within ``forward``, so an
 f32 UNet is f32 on the card. In train mode the ResBlocks' dropout (flax's
 ``nn.Dropout``: keep with probability 1 - p, kept values over 1 - p) draws
 its masks from the generator the caller passes.
-The SpatialTransformer layout variant is not ported.
+
+With ``use_spatial_transformer`` (the layout variant, the reference's
+UNetModelAttn, unet.py:882-1205) each attention layer is an LDM
+``SpatialTransformer`` (nn/attention.py) of ``transformer_depth`` blocks
+over a ``context`` of width ``context_dim``, which ``forward`` takes; its
+heads follow the ``legacy`` rule (unet.py:1008-1017). Its attention is the
+JAX module's einsum, never a kernel, and its GroupNorm never the fused one,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from lfm_tpu_torch.core.config import ModelConfig
 from lfm_tpu_torch.core.device import DeviceLike, no_tf32, resolve_device
 from lfm_tpu_torch.kernels.flash_attention import fused_attention, fused_attention_qkv
 from lfm_tpu_torch.kernels.groupnorm_silu import FusedGNSiLU
+from lfm_tpu_torch.nn.attention import SpatialTransformer
 from lfm_tpu_torch.nn.layers import (GroupNorm32, conv_nhwc, dense, dropout, group_norm_f32,
                                      linear, timestep_embedding)
 
@@ -282,12 +290,15 @@ class UNetModel(nn.Module):
                  num_head_channels: int = -1, num_heads_upsample: int = -1,
                  use_scale_shift_norm: bool = True, resblock_updown: bool = False,
                  use_new_attention_order: bool = False, use_fused_gn: bool = False,
+                 use_spatial_transformer: bool = False, transformer_depth: int = 1,
+                 context_dim: Optional[int] = None,
                  dtype: torch.dtype = torch.float32, use_flash: bool = False):
         super().__init__()
         self.model_channels = model_channels
         self.num_classes = num_classes
         self.dtype = dtype
         self.use_flash = use_flash
+        self.use_spatial_transformer = use_spatial_transformer
         self.plan = build_unet_plan(model_channels, channel_mult, num_res_blocks,
                                     attention_resolutions, in_channels, resblock_updown)
         ted = 4 * model_channels
@@ -306,6 +317,13 @@ class UNetModel(nn.Module):
             if spec.kind in ("res", "res_down", "res_up"):
                 return ADMResBlock(spec.in_ch, spec.out_ch, down=spec.kind == "res_down",
                                    up=spec.kind == "res_up", **res)
+            if spec.kind == "attn" and use_spatial_transformer:
+                ch = spec.out_ch
+                # the heads' rule, with the reference's legacy head width
+                # ch // n_heads (reference unet.py:1008-1017)
+                n_heads = heads if num_head_channels == -1 else ch // num_head_channels
+                return SpatialTransformer(ch, n_heads, ch // n_heads, transformer_depth,
+                                          context_dim)
             if spec.kind == "attn":
                 return ADMAttentionBlock(spec.out_ch, heads, num_head_channels,
                                          legacy_order=not use_new_attention_order,
@@ -335,20 +353,24 @@ class UNetModel(nn.Module):
         return 0
 
     def _run_layer(self, layer: nn.Module, spec: LayerSpec, h: torch.Tensor, emb: torch.Tensor,
-                   train: bool, generator: Optional[torch.Generator]) -> torch.Tensor:
+                   train: bool, generator: Optional[torch.Generator],
+                   context: Optional[torch.Tensor]) -> torch.Tensor:
         if spec.kind in ("res", "res_down", "res_up"):
             return layer(h, emb, self.dtype, train, generator)
         if spec.kind == "conv_in":
             return conv_nhwc(h, layer, self.dtype)
+        if spec.kind == "attn" and self.use_spatial_transformer:
+            return layer(h, self.dtype, context)
         if spec.kind == "attn":
             return layer(h)
         return layer(h, self.dtype)
 
     def forward(self, t: torch.Tensor, x: torch.Tensor, y: Optional[torch.Tensor] = None,
-                train: bool = False, generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                train: bool = False, generator: Optional[torch.Generator] = None,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
         """v(t, x, y) in f32; ``train`` turns dropout on, its masks drawn from
-        ``generator`` in layer order."""
+        ``generator`` in layer order; ``context`` (N, L, context_dim) is the
+        layout variant's cross-attention sequence."""
         n = x.shape[0]
         dt = self.dtype
         plan = self.plan
@@ -366,14 +388,14 @@ class UNetModel(nn.Module):
             hs = []
             for layers, specs in zip(self.input_blocks, plan.input_blocks):
                 for layer, spec in zip(layers, specs):
-                    h = self._run_layer(layer, spec, h, emb, train, generator)
+                    h = self._run_layer(layer, spec, h, emb, train, generator, context)
                 hs.append(h)
             for layer, spec in zip(self.middle_block, plan.middle_block):
-                h = self._run_layer(layer, spec, h, emb, train, generator)
+                h = self._run_layer(layer, spec, h, emb, train, generator, context)
             for layers, specs in zip(self.output_blocks, plan.output_blocks):
                 h = torch.cat([h, hs.pop()], dim=-1)
                 for layer, spec in zip(layers, specs):
-                    h = self._run_layer(layer, spec, h, emb, train, generator)
+                    h = self._run_layer(layer, spec, h, emb, train, generator, context)
             h = F.silu(self.out[0](h))
             h = conv_nhwc(h, self.out[2], dt)
         return h.float()
@@ -383,10 +405,16 @@ def create_adm_unet(cfg: ModelConfig, *, dtype: torch.dtype = torch.float32,
                     use_flash: bool = False, use_fused_gn: bool = False,
                     device: DeviceLike = None) -> UNetModel:
     """Factory for ``use_origin_adm`` (reference models/__init__.py:47-68),
-    built on ``device`` (the card unless ``device="cpu"``)."""
+    built on ``device`` (the card unless ``device="cpu"``); with
+    ``cfg.layout`` the UNetModelAttn wiring (models/__init__.py:21-46):
+    SpatialTransformers of depth ``transformer_depth or 3`` over a context
+    of width ``context_dim or 512``, with the ResBlocks' GroupNorm never
+    fused, as the JAX package builds it."""
+    layout = {}
     if cfg.layout:
-        raise NotImplementedError("the SpatialTransformer layout variant of the ADM UNet "
-                                  "is not ported yet")
+        layout = dict(use_spatial_transformer=True, transformer_depth=cfg.transformer_depth or 3,
+                      context_dim=cfg.context_dim or 512)
+        use_fused_gn = False
     device = resolve_device(device)
     with device:
         model = UNetModel(
@@ -409,5 +437,6 @@ def create_adm_unet(cfg: ModelConfig, *, dtype: torch.dtype = torch.float32,
             use_fused_gn=use_fused_gn,
             dtype=dtype,
             use_flash=use_flash,
+            **layout,
         )
     return model.to(device)

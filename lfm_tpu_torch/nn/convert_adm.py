@@ -10,6 +10,12 @@ released ``model_{E}.pth`` and this dict load the same way.
 Layouts: conv kernel HWIO -> weight OIHW; Dense kernel (in, out) -> Linear
 weight (out, in), or the reference's Conv1d weight (out, in, 1) for the
 attention's ``qkv`` and ``proj_out``; GroupNorm scale/bias -> weight/bias.
+The layout variant's SpatialTransformers (``norm``, ``proj_in``,
+``block_{d}/{norm1-3, attn1, attn2, ff/geglu/proj, ff/fc_out}``,
+``proj_out`` in flax) take the LDM names of nn/attention.py:
+``proj_in`` and ``proj_out`` as 1x1 convolutions (out, in, 1, 1),
+``transformer_blocks.{d}.attn{1,2}.to_q|to_k|to_v|to_out.0``,
+``.ff.net.0.proj`` and ``.ff.net.2``.
 """
 
 from __future__ import annotations
@@ -42,7 +48,32 @@ def _gn(sd: Dict, name: str, p: Mapping) -> None:
     sd[f"{name}.bias"] = _t(p["norm"]["bias"])
 
 
-def _layer(sd: Dict, pfx: str, spec: LayerSpec, p: Mapping) -> None:
+def _norm(sd: Dict, name: str, p: Mapping) -> None:
+    sd[f"{name}.weight"] = _t(p["scale"])
+    sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def spatial_transformer_params_from_jax(sd: Dict, pfx: str, p: Mapping) -> None:
+    """A flax ``SpatialTransformer``'s params into ``sd`` under ``pfx``."""
+    _norm(sd, f"{pfx}.norm", p["norm"])
+    for name in ("proj_in", "proj_out"):
+        _dense(sd, f"{pfx}.{name}", p[name])
+        sd[f"{pfx}.{name}.weight"] = sd[f"{pfx}.{name}.weight"][:, :, None, None]
+    depth = sum(k.startswith("block_") for k in p)
+    for d in range(depth):
+        b, q = f"{pfx}.transformer_blocks.{d}", p[f"block_{d}"]
+        for norm in ("norm1", "norm2", "norm3"):
+            _norm(sd, f"{b}.{norm}", q[norm])
+        for attn in ("attn1", "attn2"):
+            for proj in ("to_q", "to_k", "to_v"):
+                sd[f"{b}.{attn}.{proj}.weight"] = _t(np.asarray(q[attn][proj]["kernel"]).T)
+            _dense(sd, f"{b}.{attn}.to_out.0", q[attn]["to_out"])
+        _dense(sd, f"{b}.ff.net.0.proj", q["ff"]["geglu"]["proj"])
+        _dense(sd, f"{b}.ff.net.2", q["ff"]["fc_out"])
+
+
+def layer_params_from_jax(sd: Dict, pfx: str, spec: LayerSpec, p: Mapping) -> None:
+    """One layer of the plan (flax ``p``) into ``sd`` under ``pfx``."""
     if spec.kind == "conv_in":
         _conv(sd, pfx, p)
     elif spec.kind in ("res", "res_down", "res_up"):
@@ -53,6 +84,8 @@ def _layer(sd: Dict, pfx: str, spec: LayerSpec, p: Mapping) -> None:
         _conv(sd, f"{pfx}.out_layers.3", p["out_conv"])
         if "skip" in p:
             _conv(sd, f"{pfx}.skip_connection", p["skip"])
+    elif spec.kind == "attn" and "proj_in" in p:
+        spatial_transformer_params_from_jax(sd, pfx, p)
     elif spec.kind == "attn":
         _gn(sd, f"{pfx}.norm", p["norm"])
         _dense(sd, f"{pfx}.qkv", p["qkv"], conv1d=True)
@@ -76,12 +109,12 @@ def adm_params_from_jax(flax_params: Mapping, plan: UNetPlan) -> Dict[str, torch
         sd["label_emb.weight"] = _t(p["label_emb"])
     for i, block in enumerate(plan.input_blocks):
         for j, spec in enumerate(block):
-            _layer(sd, f"input_blocks.{i}.{j}", spec, p[f"input_{i}_{j}"])
+            layer_params_from_jax(sd, f"input_blocks.{i}.{j}", spec, p[f"input_{i}_{j}"])
     for j, spec in enumerate(plan.middle_block):
-        _layer(sd, f"middle_block.{j}", spec, p[f"middle_{j}"])
+        layer_params_from_jax(sd, f"middle_block.{j}", spec, p[f"middle_{j}"])
     for i, block in enumerate(plan.output_blocks):
         for j, spec in enumerate(block):
-            _layer(sd, f"output_blocks.{i}.{j}", spec, p[f"output_{i}_{j}"])
+            layer_params_from_jax(sd, f"output_blocks.{i}.{j}", spec, p[f"output_{i}_{j}"])
     _gn(sd, "out.0", p["out_norm"])
     _conv(sd, "out.2", p["out_conv"])
     return sd

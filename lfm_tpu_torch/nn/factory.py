@@ -1,7 +1,8 @@
 """Model factory: config -> velocity network (port of lfm_tpu/nn/factory.py,
-reference models/__init__.py:6-70): ``use_origin_adm`` -> the ADM UNet,
-DiT-* -> DiT, else EDM's networks (``adm``: DhariwalUNet; SongUNet and the
-context DhariwalUNet raise)."""
+reference models/__init__.py:6-70): ``use_origin_adm`` -> the ADM UNet
+(with ``layout`` its SpatialTransformer variant), DiT-* -> DiT, else EDM's
+networks (``adm``: DhariwalUNet, ``adm_context``: its context variant,
+``ncsn++`` and ``ddpm++``: SongUNet)."""
 
 from __future__ import annotations
 
@@ -24,9 +25,9 @@ def create_network(cfg: ModelConfig, *, dtype: torch.dtype = torch.float32,
     ``device="cpu"``). ``remat`` recomputes each DiT block in backward (grad
     checkpointing; the JAX package ignores it for the ADM UNet, as this
     does); ``use_fused_gn`` sends the ADM ResBlocks' GroupNorm + SiLU
-    through the fused kernel. EDM's networks take neither ``use_flash`` nor
-    ``use_fused_gn``: their attention and GroupNorm are plain in the JAX
-    package too."""
+    through the fused kernel. EDM's networks and the layout variant's
+    SpatialTransformers take neither ``use_flash`` nor ``use_fused_gn``:
+    their attention and GroupNorm are plain in the JAX package too."""
     if cfg.use_origin_adm:
         return create_adm_unet(cfg, dtype=dtype, use_flash=use_flash,
                                use_fused_gn=use_fused_gn, device=device)

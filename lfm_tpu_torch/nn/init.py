@@ -73,21 +73,25 @@ def dit_init_(model: nn.Module, seed: int) -> nn.Module:
 
 # the zero-initialised layers of the UNets: the origin ADM's ResBlock out
 # conv, attention projection and final conv (lfm_tpu/nn/adm_unet.py:202,
-# 269, 406), EDM's block conv1, attention proj and out_conv
-# (lfm_tpu/nn/edm_unet.py:199, 223, 614)
+# 269, 406) and its SpatialTransformer's proj_out (lfm_tpu/nn/attention.py:
+# 128), EDM's block conv1, attention and cross-attention proj, out_conv and
+# SongUNet's aux_conv (lfm_tpu/nn/edm_unet.py:199, 223, 264, 614, 496)
 _UNET_ZERO = ("out_layers.3.weight", "proj_out.weight", "out.2.weight", "conv1.weight",
-              "proj.weight", "out_conv.weight")
+              "proj.weight", "out_conv.weight", "aux_conv.weight")
 
 
 @torch.no_grad()
 def unet_init_(model: nn.Module, seed: int) -> nn.Module:
-    """The JAX package's initializers for a fresh origin-ADM UNet or EDM
-    DhariwalUNet, with other draws: flax's default lecun_normal (a normal of
-    variance 1 / fan_in truncated at two standard deviations) for
+    """The JAX package's initializers for a fresh origin-ADM UNet or one of
+    EDM's networks, with other draws: flax's default lecun_normal (a normal
+    of variance 1 / fan_in truncated at two standard deviations) for
     convolution and dense weights, EDM's convolutions N(0, 1 / fan_in)
     (``EDMConv``), the ADM's label table N(0, 1 / classes) (flax ``Embed``),
-    zero biases, norm scales 1, and the zero-initialised layers at zero."""
-    from lfm_tpu_torch.nn.edm_unet import EDMConv
+    the context variant's ``LabelEmbedder`` table N(0, 0.02^2), NCSN++'s
+    Fourier frequencies N(0, scale^2), zero biases, norm scales 1, and the
+    zero-initialised layers at zero."""
+    from lfm_tpu_torch.nn.attention import GEGLU
+    from lfm_tpu_torch.nn.edm_unet import EDMConv, FourierEmbedding
 
     params = dict(model.named_parameters())
     if not params:
@@ -95,14 +99,22 @@ def unet_init_(model: nn.Module, seed: int) -> nn.Module:
     gen = torch.Generator(device=next(iter(params.values())).device)
     gen.manual_seed(int(seed))
     norms = {f"{name}.weight" for name, m in model.named_modules()
-             if isinstance(m, nn.GroupNorm)}
+             if isinstance(m, (nn.GroupNorm, nn.LayerNorm))}
     edm_convs = {f"{name}.weight" for name, m in model.named_modules()
                  if isinstance(m, EDMConv)}
+    fourier = {f"{name}.freqs": m.scale for name, m in model.named_modules()
+               if isinstance(m, FourierEmbedding)}
+    # a GEGLU's ``proj`` is flax's default Dense, not a zero-initialised one
+    geglu = {f"{name}.proj.weight" for name, m in model.named_modules() if isinstance(m, GEGLU)}
     for name, p in sorted(params.items()):
-        if name.endswith(".bias") or name.endswith(_UNET_ZERO):
+        if name.endswith(".bias") or (name.endswith(_UNET_ZERO) and name not in geglu):
             p.zero_()
         elif name in norms:
             p.fill_(1.0)
+        elif name in fourier:
+            p.copy_(fourier[name] * torch.randn(p.shape, generator=gen, device=p.device))
+        elif name.endswith("embedding_table.weight"):
+            p.copy_(0.02 * torch.randn(p.shape, generator=gen, device=p.device))
         elif name == "label_emb.weight":
             p.copy_(torch.randn(p.shape, generator=gen, device=p.device) / math.sqrt(p.shape[0]))
         elif name in edm_convs:

@@ -38,6 +38,7 @@ from lfm_tpu_torch.core import config as tconfig  # noqa: E402
 from lfm_tpu_torch.core.checkpoint import reference_model_dict, reference_state_dict  # noqa: E402
 from lfm_tpu_torch.core.rng import SampleRNG  # noqa: E402
 from lfm_tpu_torch.nn import adm_unet as tadm  # noqa: E402
+from lfm_tpu_torch.nn.attention import SpatialTransformer  # noqa: E402
 from lfm_tpu_torch.nn.convert_adm import adm_params_from_jax  # noqa: E402
 from lfm_tpu_torch.nn.factory import create_network  # noqa: E402
 from lfm_tpu_torch.nn.init import seeded_init_  # noqa: E402
@@ -209,11 +210,21 @@ def test_factory_builds_the_adm_and_names_what_is_missing():
     model = create_network(cfg, dtype=torch.bfloat16, use_flash=True, device="cpu")
     assert isinstance(model, tadm.UNetModel) and model.use_flash and model.null_label == 0
     assert model.num_classes is None and model.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="SongUNet"):
-        create_network(dataclasses.replace(cfg, use_origin_adm=False, model_type="ncsn++"),
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="layout"):
-        create_network(dataclasses.replace(cfg, layout=True), device="cpu")
+    # the non-origin model types build EDM's networks
+    song = create_network(dataclasses.replace(cfg, use_origin_adm=False, model_type="ncsn++"),
+                          device="cpu")
+    assert type(song).__name__ == "SongUNet"
+    # layout=True builds the SpatialTransformer variant, UNetModelAttn's
+    # wiring (depth ``transformer_depth or 3``, which ModelConfig's default
+    # of 1 decides, as in the JAX package; context 512), its GroupNorm never
+    # fused
+    layout = create_network(dataclasses.replace(cfg, layout=True), use_fused_gn=True,
+                            device="cpu")
+    attn = [m for m in layout.modules() if isinstance(m, SpatialTransformer)]
+    assert isinstance(layout, tadm.UNetModel) and layout.use_spatial_transformer and attn
+    assert cfg.transformer_depth == 1 and all(len(m.transformer_blocks) == 1 for m in attn)
+    assert all(m.transformer_blocks[0].attn2.to_k.in_features == 512 for m in attn)
+    assert not any(getattr(m, "fused", False) for m in layout.modules())
 
 
 def _small_adm_config(cfg, method, **model_kw):

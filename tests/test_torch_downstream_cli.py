@@ -10,8 +10,8 @@ noise: JAX's threefry bits cannot be matched), so the outputs are
 deterministic functions of the weights and the data:
 - ``train-*``: the ADM's output convolution starts at zero in both
   packages, so step 1's loss is mean((z1 - z0)^2) = mean(z0^2) with z0 the
-  VAE latent of the first batch (the same shuffled order, flips and, with
-  cv2 hidden from the JAX package, masks). Held within 5e-2 relative:
+  VAE latent of the first batch (the same shuffled order, flips and masks,
+  whose strokes the port draws as JAX's cv2.line). Held within 5e-2 relative:
   bf16 VAEs (tests/test_torch_data.py's latent tolerance), and for ADE20k
   images whose bicubic resize is within one level of cv2's.
 - ``test-*``: the images written, from one checkpoint: a reference
@@ -152,13 +152,13 @@ def test_train_subcommands_match_jax(task, fixtures, monkeypatch, capsys, reques
     config.json where JAX writes it."""
     tmp_path, vae_ckpt = fixtures
     rng = np.random.default_rng(0)
+    # JAX draws the masks' strokes and resizes the label maps with cv2
+    request.getfixturevalue("cv2")
     if task == "inpainting":
-        monkeypatch.setitem(sys.modules, "cv2", None)  # JAX's masks by its numpy strokes
         for i in range(8):
             _write_rgb(str(tmp_path / "data" / f"{i}.png"), rng, (64, 64))
         extra = []
     else:
-        request.getfixturevalue("cv2")
         _ade20k(str(tmp_path / "data"), rng, n=8)
         extra = ["--seg_dataset", "ade20k"]
     # a batch of 8: the JAX loop shards it over the 8 CPU devices of the

@@ -181,9 +181,16 @@ def test_factory_dispatches_and_names_what_is_missing():
     model = create_network(cfg, dtype=torch.bfloat16, use_flash=True, device="cpu")
     assert isinstance(model, tedm.DhariwalUNet)
     assert model.null_label == -1 and model.dtype == torch.bfloat16 and model.label_dim == 1000
-    for model_type in ("ncsn++", "ddpm++", "adm_context"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            create_network(dataclasses.replace(cfg, model_type=model_type), device="cpu")
+    # EDM's other networks build too: SongUNet (NCSN++ with its Fourier
+    # embedding and residual encoder, DDPM++) and the context DhariwalUNet
+    built = {t: create_network(dataclasses.replace(cfg, model_type=t), device="cpu")
+             for t in ("ncsn++", "ddpm++", "adm_context")}
+    assert all(m.null_label == -1 for m in built.values())
+    assert isinstance(built["ncsn++"].map_noise, tedm.FourierEmbedding)
+    assert isinstance(built["ddpm++"], tedm.SongUNet) and built["ddpm++"].map_noise is None
+    assert isinstance(built["adm_context"], tedm.DhariwalUNet) and built["adm_context"].use_context
+    with pytest.raises(ValueError, match="unknown EDM model_type"):
+        create_network(dataclasses.replace(cfg, model_type="unet"), device="cpu")
 
 
 @pytest.mark.parametrize("name", EDM_PRESETS)

@@ -1,6 +1,7 @@
 """lfm_tpu_torch stands alone: no module of it and not chip_smoke.py imports
-jax, jaxlib, flax, optax or lfm_tpu, nor cv2, scikit-learn or Pillow, which
-the card's machine lacks (a reader imports Pillow when it decodes a file);
+jax, jaxlib, flax, optax or lfm_tpu, nor cv2, scikit-learn, transformers or
+Pillow, which the card's machine lacks (a reader imports Pillow when it
+decodes a file);
 every entry point runs on the card
 unless the caller passes device="cpu" (sampling and training alike); the
 kernel wrappers take no device other than the CPU and CUDA; chip_smoke.py
@@ -8,6 +9,7 @@ fails without CUDA or without the package beside it, printing no result."""
 
 import json
 import os
+from dataclasses import replace
 import shutil
 import subprocess
 import sys
@@ -27,7 +29,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ISOLATED = textwrap.dedent("""
     import importlib, importlib.abc, json, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "flax", "optax", "lfm_tpu", "cv2", "sklearn", "PIL")
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "lfm_tpu", "cv2", "sklearn", "transformers",
+               "PIL")
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -73,7 +76,10 @@ def test_port_imports_nothing_of_jax_or_lfm_tpu():
                 "lfm_tpu_torch.sample.downstream", "lfm_tpu_torch.data.masks",
                 "lfm_tpu_torch.data.inpainting", "lfm_tpu_torch.data.segmentation",
                 "lfm_tpu_torch.eval.inpainting_metrics", "lfm_tpu_torch.eval.perceptual",
-                "lfm_tpu_torch.eval.evaluator", "lfm_tpu_torch.eval.inception_score"):
+                "lfm_tpu_torch.eval.evaluator", "lfm_tpu_torch.eval.inception_score",
+                "lfm_tpu_torch.nn.attention", "lfm_tpu_torch.nn.text_encoder",
+                "lfm_tpu_torch.nn.variants", "lfm_tpu_torch.data.layout",
+                "lfm_tpu_torch.data.countless", "lfm_tpu_torch.data.annotated_objects"):
         assert mod in out["modules"]
 
 
@@ -91,6 +97,7 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_cuda):
     from lfm_tpu_torch.nn.dit import DiT, create_dit
     from lfm_tpu_torch.sample.downstream import make_inpainting_sampler, make_semantic_sampler
     from lfm_tpu_torch.nn.factory import create_network
+    from lfm_tpu_torch.nn.text_encoder import BERTEmbedder
     from lfm_tpu_torch.sample.sample import make_sampler, noise_and_labels
     from lfm_tpu_torch.vae.autoencoder_kl import create_vae
 
@@ -101,6 +108,10 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_cuda):
         lambda: create_network(cfg.model),
         lambda: create_network(get_preset("celeb256_adm").model),
         lambda: create_network(get_preset("imnet_adm").model),
+        lambda: create_network(replace(get_preset("celeb256_adm").model, layout=True)),
+        lambda: create_network(replace(get_preset("imnet_adm").model, model_type="adm_context")),
+        lambda: create_network(replace(get_preset("imnet_adm").model, model_type="ncsn++")),
+        lambda: BERTEmbedder(n_layer=1),
         lambda: create_vae((32, 32)),
         lambda: make_sampler(cfg, tiny),
         lambda: noise_and_labels(cfg, SampleRNG(0), [0]),

@@ -5,11 +5,12 @@ datasets, the segmentation readers (COCO-stuff, ADE20k, CelebAMask-HQ) with
 ``rasterize_celebamask_parts``. Fixtures are PNG / JPEG files written in
 ``tmp_path``.
 
-The port never imports cv2. Where the JAX package would call ``cv2.line``
-(an irregular mask's strokes), the comparison hides cv2 from it
-(``monkeypatch.setitem(sys.modules, "cv2", None)``), so that both draw
-with JAX's numpy fallback: bit for bit. One test states how far those
-strokes are from ``cv2.line``'s. The JAX segmentation readers resize with
+The port never imports cv2: it rasterises an irregular mask's strokes as
+``cv2.line`` does, so the generators that draw them (LINE strokes) are held
+bit for bit against the JAX package with cv2 present, which draws them
+with ``cv2.line``; the others with cv2 hidden from it
+(``monkeypatch.setitem(sys.modules, "cv2", None)``), as they never call
+it. The JAX segmentation readers resize with
 cv2: the label maps (nearest) are equal bit for bit, the images (bicubic,
 rounded to uint8) within one level, 1 / 127.5 in [-1, 1].
 
@@ -44,10 +45,6 @@ from lfm_tpu_torch.sample.downstream import InpaintingEvalDataset as TEval  # no
 
 Image = pytest.importorskip("PIL.Image")
 LEVEL = 1.0 / 127.5  # one uint8 level in [-1, 1]
-# the port's irregular strokes against cv2.line's at 256^2, over seeds 0-99:
-# the mean share of pixels that differ, and the largest (measured 0.02033 and
-# 0.04552; the masks cover 15.0% of the image on average)
-CV2_LINE_MEAN, CV2_LINE_MAX = 0.021, 0.046
 
 
 @pytest.fixture
@@ -81,10 +78,17 @@ GENERATORS = {
 }
 
 
+# the generators that draw LINE strokes, which the JAX package draws with
+# cv2.line where cv2 is present
+LINE_STROKES = ("irregular_line", "irregular_ramp", "mixed", "mixed_all")
+
+
 @pytest.mark.parametrize("kind", sorted(GENERATORS))
-def test_mask_generators_match_jax_bit_for_bit(kind, no_cv2):
-    """Each generator against JAX's with cv2 hidden, 12 masks of two shapes
-    from three seeds, with the curriculum's iter_i where it has one."""
+def test_mask_generators_match_jax_bit_for_bit(kind, request):
+    """Each generator against JAX's, 12 masks of two shapes from three
+    seeds, with the curriculum's iter_i where it has one: with cv2 present
+    where JAX draws LINE strokes with it, else with cv2 hidden."""
+    request.getfixturevalue("cv2" if kind in LINE_STROKES else "no_cv2")
     for seed in (0, 1, 7):
         jg, tg = GENERATORS[kind](jmasks, seed), GENERATORS[kind](tmasks, seed)
         for i in range(4):
@@ -102,15 +106,27 @@ def test_linear_ramp_matches_jax():
 
 
 def test_irregular_masks_against_cv2_line(cv2):
-    """The port's strokes (JAX's numpy fallback) against JAX's with cv2.line,
-    over 100 seeds at 256^2: the same strokes (the same draws), whose edges
-    differ on the stated share of pixels."""
-    diffs = []
+    """The port's strokes against JAX's drawn by cv2.line, over seeds 0-99
+    at 256^2 and at 96 x 128: bit for bit; and the raster alone against
+    cv2.line on segments that leave the image on every side, at every
+    stroke width the masks draw (5-24) and wider."""
     for seed in range(100):
-        want = jmasks.RandomIrregularMaskGenerator(seed=seed)((256, 256))
-        got = tmasks.RandomIrregularMaskGenerator(seed=seed)((256, 256))
-        diffs.append(float((got != want).mean()))
-    assert 0 < np.mean(diffs) < CV2_LINE_MEAN and max(diffs) < CV2_LINE_MAX
+        for shape in ((256, 256), (96, 128)):
+            want = jmasks.RandomIrregularMaskGenerator(seed=seed)(shape)
+            got = tmasks.RandomIrregularMaskGenerator(seed=seed)(shape)
+            assert np.array_equal(got, want), (seed, shape)
+    rng = np.random.default_rng(0)
+    for i in range(400):
+        h, w = ((96, 128), (40, 50), (7, 300))[i % 3]
+        p0 = (int(rng.integers(-40, w + 40)), int(rng.integers(-40, h + 40)))
+        length, angle = int(rng.integers(0, 120)), rng.uniform(0, 2 * np.pi)
+        p1 = (int(p0[0] + length * np.cos(angle)), int(p0[1] + length * np.sin(angle)))
+        width = int(rng.integers(2, 40))
+        want = np.zeros((h, w), np.float32)
+        cv2.line(want, p0, p1, 1.0, width)
+        got = np.zeros((h, w), np.float32)
+        tmasks._line(got, p0, p1, width)
+        assert np.array_equal(got, want), (p0, p1, width, (h, w))
 
 
 def _write_images(folder, n, size, rng, ext=".png", fmt="{i:03d}"):
@@ -120,7 +136,7 @@ def _write_images(folder, n, size, rng, ext=".png", fmt="{i:03d}"):
         Image.fromarray(arr).save(os.path.join(folder, fmt.format(i=i) + ext))
 
 
-def test_inpainting_train_dataset_matches_jax(tmp_path, no_cv2):
+def test_inpainting_train_dataset_matches_jax(tmp_path, cv2):
     """InpaintingTrainDataset and get_inpainting_dataset on a folder of PNGs
     of other sizes (resized and cropped by Pillow): the image, the flip, the
     mask and the masked image bit for bit."""
