@@ -318,6 +318,28 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    ``UNetUpsamplerModel`` and ResNet-18 (eval and train mode), each
    forward on the card against the CPU in f32. Each line has its seconds
    and peak memory beside the card's name and power limit.
+10f. the ranks: one process per GPU under torch.distributed, started from
+   this script with the kernels built here (each rank only loads them).
+   ``dist_world``: NCCL over ``torch.cuda.device_count()`` ranks (one on
+   one card): sharded FID on celeb256_dit at full width (DiT-L/2, fused,
+   K2), euler 4 steps over 64 samples, seeded FIDInceptionV3, against
+   ``generate_fid_activations`` in this process; one train step through
+   ``train(...)`` from model_0.pth (K1 / K3) against the train phase's
+   step 1. ``dist_shared``: two ranks on cuda:0 over gloo, chosen by
+   name: (a) the same sharded FID, each index against this process, and
+   JAX's batch arithmetic; (b) three data-parallel f32 steps of
+   ``train(...)`` at global batch 32 (16 a rank; an f32 VAE, whose
+   encoder's roundings do not depend on the batch as bf16's do) against
+   this process's three f32 steps from the same weights and draws; (c) one
+   ``fsdp=2`` and one ``tp=2`` f32 step through core/partition.py at batch
+   16 against the replicated step, tp=2 launching K1 and K3 at 8 heads;
+   (d) ``train(...)`` of a DiT-S/2 on latents at batch 32 (a small
+   content.pth), in which SIGTERM reaches rank 1 alone after its step 1:
+   both ranks save at the check of step 3 and exactly one content.pth is
+   written.
+   Every rank's counts are reset before each of its runs and read after:
+   exactly the K2 count an evaluation and the K1 / K3 counts a step of
+   main_fused, train and train_f32. A rank that fails fails the script.
 11. a ``kernels`` line with every ported kernel (f32 K1 at celeb256_adm's
    (200, 16, 4, 128) as its own entry, attention_small_f32, with
    adm_main's launches; f32 K1 and K3 at the f32 DiT's (32, 256, 16, 64)
@@ -2018,6 +2040,7 @@ def run(torch, work: str) -> int:
     tconfig = dataclasses.replace(config, train=tc, output_dir=work)
     dataset = SyntheticImageDataset(n=train_batch * (TRAIN_STEPS + 2), image_size=256,
                                     seed=SEED)
+    train_dataset = dataset  # the ranks' (10f); the downstream paths rebind the name
     if TRAIN_STEPS >= len(dataset) // train_batch:
         raise AssertionError("the train run must stay below one epoch (no demo plot)")
 
@@ -2042,6 +2065,7 @@ def run(torch, work: str) -> int:
     decay = tc.ema_decay
     ema_err = float((ema1 - (decay * p0 + (1 - decay) * p1)).abs().max())
     moved = float((p1 - p0).abs().max())
+    train_p1 = p1.float().cpu()  # dist_world's step 1 is held against it
     del state1, p1, ema1
     torch.cuda.empty_cache()
     state, loss_again, (t_log, line), t_end, run_s = train_run(TRAIN_STEPS)
@@ -2848,6 +2872,14 @@ def run(torch, work: str) -> int:
     # hand-written kernel on any of them
     nets = other_networks(torch, work, dev, vae, counts, reset_counts, cli_main)
 
+    # 10f. the ranks: NCCL over every card, then two ranks sharing cuda:0
+    # over gloo
+    per_step = {"bf16": {k: v // TRAIN_STEPS for k, v in train_counts.items() if v},
+                "f32": {k: v // (1 + TRAIN_F32_STEPS) for k, v in f32_counts.items() if v}}
+    dist_counts = dist_phases(torch, work, dev, config, tconfig, f32_config, train_dataset, vae,
+                              ckpt_path, probe, loss1, train_p1, depth, per_step, counters,
+                              counts, reset_counts)
+
     # 11. the kernels line, the card, the last line
     by_path = {"main_fused": fused_counts, "main_module": module_counts,
                "int8_main": int8_counts, "p1_probe": probe_counts, "adm_main": adm_counts,
@@ -2862,7 +2894,7 @@ def run(torch, work: str) -> int:
                "adm512_train": other_train["celeb512_adm"],
                "edm_train": other_train["imnet_adm"], **d_counts,
                "inpaint_sample": is_counts, "semantic_sample": ss_counts, **nets,
-               **block_counts}
+               **dist_counts, **block_counts}
     kdir, p1 = "lfm_tpu/kernels/", "tools/microbench_int8_pallas.py"
     # name, source (the C entry's or kernel's file first, then the files
     # of the kernels it launches), TPU kernel, the path whose count is
@@ -2932,6 +2964,509 @@ def card_line() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     return smi.stdout.strip().splitlines()[0]
+
+
+DIST_FID_SAMPLES, DIST_FID_STEPS = 64, 4  # the ranks' sharded FID: samples, euler steps
+DIST_F32_STEPS = 3  # dist_shared's data-parallel f32 steps
+DIST_PART_BATCH = 16  # the partition steps' batch of latents
+DIST_SHARED_RANKS = 2
+DIST_PREEMPT_MODEL = "DiT-S/2"  # the preemption check's network: a small content.pth
+DIST_TIMEOUT_S = 300  # a phase's ranks must end within this
+# the ranks' sharded-FID activations against one process: as FID_ACT_TOL
+DIST_ACT_TOL = FID_ACT_TOL
+# the f32 steps (through an f32 VAE) against one process: each step's loss
+# relative, step 1's gradients max abs error / max |one process| per tensor,
+# and the parameters absolute (tests/test_partition.py's bound), except
+# where Adam turns rounding noise into a step: elements whose gradient falls
+# below DIST_NOISE_GRAD (100 x Adam's eps; the qkv bias's key third has a
+# zero gradient in exact arithmetic) move up to about lr a step on each side
+# and are held within that. Set above the readings on NVIDIA H100 80GB HBM3
+# at 700 W: loss 1.2e-7, gradients 2.0e-6, parameters 6.0e-7 (the partition
+# steps: 0 and 1.5e-8)
+DIST_F32_LOSS_TOL, DIST_GRAD_TOL, DIST_PARAM_TOL, DIST_NOISE_GRAD = 1e-6, 2e-5, 2e-5, 1e-6
+# dist_world's bf16 step against the train phase's step 1: one rank on one
+# card is the same arithmetic (0 on NVIDIA H100 80GB HBM3); over several
+# cards, the loss within the fused path's bound and the probe within one
+# Adam step of lr either way
+DIST_BF16_LOSS_TOL = FUSED_LOSS_TOL
+
+
+def dist_compare_names(names, depth):
+    """The parameters a rank sends back: all but the blocks', and the first
+    and last block's."""
+    keep = ("blocks.0.", f"blocks.{depth - 1}.")
+    return [n for n in names if not n.startswith("blocks.") or n.startswith(keep)]
+
+
+def dist_rank(rank, world, backend, store, task_path):
+    """One rank of a dist phase (spawned): join, run the task's jobs with
+    the counts reset before each and read after, write the results."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from lfm_tpu_torch.core import multihost
+    from lfm_tpu_torch.kernels import _build
+
+    task = torch.load(task_path, weights_only=False)
+    if not _build.library_path().is_file():
+        raise RuntimeError("the kernels were not built before the ranks started")
+    _build.load_library()
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    if backend == "nccl":
+        # torchrun's environment, as a launcher sets it: a world of one
+        # joins through it too (an explicit num_processes=1 joins nothing)
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                          MASTER_ADDR="127.0.0.1", MASTER_PORT=str(task["port"]))
+        multihost.initialize()
+    else:
+        multihost.initialize(f"file://{store}", world, rank, backend=backend, device=dev)
+    import torch.distributed as dist
+
+    out = {"joined": (dist.get_backend(), dist.get_world_size(), str(torch.cuda.current_device()))}
+    for job in task["jobs"]:
+        t0 = time.time()
+        out[job] = DIST_JOBS[job](torch, dev, task, rank)
+        torch.cuda.synchronize(dev)
+        out[job]["seconds"] = time.time() - t0
+        torch.cuda.empty_cache()
+    multihost.sync_hosts()
+    torch.save(out, os.path.join(task["out"], f"rank{rank}.pt"))
+    multihost.shutdown()
+
+
+def _dist_counters():
+    from lfm_tpu_torch.kernels.dit_block import FUSED_DIT_BLOCK
+    from lfm_tpu_torch.kernels.flash_attention import ATTENTION_SMALL, ATTENTION_SMALL_BWD
+
+    return {"attention_small": ATTENTION_SMALL, "fused_dit_block": FUSED_DIT_BLOCK,
+            "attention_small_bwd": ATTENTION_SMALL_BWD}
+
+
+def _dist_counted(fn):
+    """fn() with the rank's counts reset before and read after: (result,
+    counts, K1 / K3 launches by head count)."""
+    cs = _dist_counters()
+    for c in cs.values():
+        c.reset()
+    res = fn()
+    return res, {k: c.count for k, c in cs.items() if c.count}, {
+        k: dict(c.by_heads) for k, c in cs.items() if c.by_heads}
+
+
+def _dist_model(torch, task, dev, dtype, remat=True):
+    from lfm_tpu_torch.core.checkpoint import reference_state_dict
+    from lfm_tpu_torch.nn.factory import create_network
+
+    m = task["config"].model
+    tc = task["config"].train
+    model = create_network(m, dtype=dtype, use_flash=m.use_flash_attention,
+                           remat=remat and tc.use_grad_checkpointing,
+                           remat_policy=tc.remat_policy, device=dev)
+    model.load_state_dict(reference_state_dict(torch.load(task["ckpt"], map_location="cpu",
+                                                          weights_only=False)))
+    return model
+
+
+def _dist_vae(torch, dev, dtype=None):
+    """The script's seeded VAE; in f32 for the f32 steps, whose bound would
+    otherwise be the bf16 encoder's, whose roundings depend on the batch
+    (cuDNN picks its algorithm by the batch)."""
+    from lfm_tpu_torch.nn.init import seeded_init_
+    from lfm_tpu_torch.vae.autoencoder_kl import create_vae
+
+    return seeded_init_(create_vae(dtype=dtype or torch.bfloat16, device=dev), SEED + 1)
+
+
+def dist_fid_config(config):
+    return config.replace(sample=dataclasses.replace(
+        config.sample, method="euler", num_steps=DIST_FID_STEPS, n_sample=DIST_FID_SAMPLES,
+        batch_size=DIST_FID_SAMPLES))
+
+
+def job_fid(torch, dev, task, rank):
+    """Sharded FID on celeb256_dit, fused (K2)."""
+    from lfm_tpu_torch.eval.inception import seeded_inception_state_dict
+    from lfm_tpu_torch.sample import sharded
+
+    cfg = dist_fid_config(task["config"])
+    model = _dist_model(torch, task, dev, torch.bfloat16)
+    vae = _dist_vae(torch, dev)
+    inception = seeded_inception_state_dict(SEED)
+    acts, counts, heads = _dist_counted(lambda: sharded.generate_fid_activations(
+        cfg, model, None, vae, None, inception, device=dev))
+    _, n_steps, gb = sharded.make_sharded_generator(cfg, model, None, device=dev)
+    return {"acts": acts, "counts": counts, "heads": heads, "arith": (n_steps, gb)}
+
+
+def _recording_train(torch, task, cfg, dev, max_steps, names, rank=None,
+                     sigterm_after=None):
+    """train(...) with each step's loss on this rank (the global mean) and
+    each compared element's smallest |gradient|; with ``sigterm_after``
+    rank 1 sends itself SIGTERM after that step."""
+    import signal
+
+    from lfm_tpu_torch.train import loop as loop_mod
+
+    real, losses, low, grads1 = loop_mod.make_train_step, [], {}, {}
+
+    def recording(*a, **k):
+        step = real(*a, **k)
+
+        def wrapped(state, batch):
+            loss, gnorm = step(state, batch)
+            losses.append(float(loss))
+            for name, p in zip(state.names, state.params):
+                if name in names:  # p.grad: the gradient averaged over the ranks
+                    g = p.grad.detach().abs()
+                    low[name] = g if name not in low else torch.minimum(low[name], g)
+                    if state.step == 1:
+                        grads1[name] = p.grad.detach().float().cpu()
+            if rank == 1 and state.step == sigterm_after:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return loss, gnorm
+
+        return wrapped
+
+    loop_mod.make_train_step = recording
+    try:
+        vae = None
+        if "latent" not in cfg.dataset:
+            vae = _dist_vae(torch, dev,
+                            torch.float32 if cfg.train.precision == "f32" else torch.bfloat16)
+        state = loop_mod.train(cfg, dataset=task["dataset"], vae=vae, device=dev,
+                               max_steps=max_steps, log_fn=lambda *a: None)
+    finally:
+        loop_mod.make_train_step = real
+    params = {n: p.detach().float().cpu() for n, p in zip(state.names, state.params)
+              if n in names}
+    return state.step, losses, params, {n: g.cpu() for n, g in low.items()}, grads1
+
+
+def job_train1(torch, dev, task, rank):
+    """One data-parallel bf16 step of train(...) from model_0.pth."""
+    names = [task["probe"]]
+    (step, losses, params, _, _), counts, heads = _dist_counted(
+        lambda: _recording_train(torch, task, task["config"], dev, 1, names))
+    return {"step": step, "losses": losses, "probe": params[task["probe"]], "counts": counts,
+            "heads": heads}
+
+
+def job_train3(torch, dev, task, rank):
+    """Three data-parallel f32 steps of DiT-L/2."""
+    (step, losses, params, _, grads1), counts, heads = _dist_counted(
+        lambda: _recording_train(torch, task, task["f32_config"], dev, DIST_F32_STEPS,
+                                 task["names"]))
+    return {"step": step, "losses": losses, "params": params, "grads1": grads1,
+            "counts": counts, "heads": heads}
+
+
+def job_preempt(torch, dev, task, rank):
+    """train(...) of DiT-S/2 on latents (a small content.pth): SIGTERM
+    reaches rank 1 alone after its step 1, and every rank saves at the
+    check of step DIST_F32_STEPS and returns."""
+    from lfm_tpu_torch.core import checkpoint as ckpt
+
+    cfg = task["preempt_config"]
+    (step, _, _, _, _), counts, heads = _dist_counted(
+        lambda: _recording_train(torch, dict(task, dataset=task["latents"]), cfg, dev, None,
+                                 (), rank=rank, sigterm_after=1))
+    content = ckpt.load_content(cfg.exp_path) if rank == 0 else None
+    return {"step": step, "files": sorted(os.listdir(cfg.exp_path)), "counts": counts,
+            "content_step": None if content is None else content["global_step"]}
+
+
+def dist_part_batch(torch, config, dev):
+    s = config.model.latent_size
+    g = torch.Generator(device="cpu").manual_seed(SEED + 7)
+    return {"x": torch.randn((DIST_PART_BATCH, s, s, 4), generator=g).to(dev)}
+
+
+def dist_part_step(torch, model, config, mesh=None):
+    from lfm_tpu_torch.train.state import make_optimizer
+    from lfm_tpu_torch.train.train import make_train_step
+
+    tc = dataclasses.replace(config.train, no_lr_decay=True)
+    return make_train_step(model, make_optimizer(tc, 10), use_ema=False, scale_factor=1.0,
+                           seed=SEED, mesh=mesh)
+
+
+def job_partition(torch, dev, task, rank):
+    """One fsdp=2 and one tp=2 f32 step through core/partition.py (dp=1:
+    both ranks compute the whole batch)."""
+    from lfm_tpu_torch.core.partition import combined_shardings, shard_params
+    from lfm_tpu_torch.core.sharding import make_mesh
+    from lfm_tpu_torch.train.state import create_train_state
+
+    out = {}
+    for name, layout, rules in (("fsdp", dict(fsdp=2), "none"), ("tp", dict(tp=2), "dit")):
+        mesh = make_mesh(dp=1, **layout)
+        model = _dist_model(torch, task, dev, torch.float32, remat=False)
+        part = shard_params(model, combined_shardings(model, mesh, tp_rules=rules), mesh)
+        state = create_train_state(model, part)
+        step = dist_part_step(torch, model, task["config"], mesh)
+        batch = dist_part_batch(torch, task["config"], dev)
+        t0 = time.time()
+        (loss, gnorm), counts, heads = _dist_counted(lambda: step(state, batch))
+        torch.cuda.synchronize(dev)
+        secs = time.time() - t0
+        full = part.full(state.params)
+        out[name] = {"loss": float(loss), "gnorm": float(gnorm), "counts": counts,
+                     "heads": heads, "step_seconds": secs,
+                     "params": {n: p.float().cpu() for n, p in zip(state.names, full)
+                                if n in task["names"]}}
+        del model, part, state, full
+        torch.cuda.empty_cache()
+    return out
+
+
+DIST_JOBS = {"fid": job_fid, "train1": job_train1, "train3": job_train3,
+             "preempt": job_preempt, "partition": job_partition}
+
+
+def run_ranks(torch, work, name, world, backend, task):
+    """Spawn ``world`` ranks of ``task``; fails unless every rank ends with
+    0 within DIST_TIMEOUT_S. Returns each rank's results and the wall time."""
+    import torch.multiprocessing as mp
+
+    import socket
+
+    out = os.path.join(work, name)
+    os.makedirs(out, exist_ok=True)
+    with socket.socket() as s:  # a free port on the loopback address for NCCL's store
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    task = dict(task, out=out, port=port)
+    task_path = os.path.join(out, "task.pt")
+    torch.save(task, task_path)
+    ctx = mp.get_context("spawn")
+    t0 = time.time()
+    procs = [ctx.Process(target=dist_rank, args=(r, world, backend, os.path.join(out, "store"),
+                                                 task_path))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = t0 + DIST_TIMEOUT_S
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs) or time.time() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise AssertionError(f"{name}: the ranks exited with {codes}")
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)], time.time() - t0
+
+
+def dist_phases(torch, work, dev, config, tconfig, f32_config, dataset, vae, ckpt_path, probe,
+                loss1, train_p1, depth, per_step, counters, counts, reset_counts):
+    """10f: dist_world and dist_shared; returns their per-rank launch counts
+    by path for the kernels line."""
+    from lfm_tpu_torch.core.checkpoint import reference_state_dict
+    from lfm_tpu_torch.data import SyntheticLatentDataset
+    from lfm_tpu_torch.eval.inception import seeded_inception_state_dict
+    from lfm_tpu_torch.nn.dit import DIT_CONFIGS
+    from lfm_tpu_torch.nn.factory import create_network
+    from lfm_tpu_torch.sample import sharded
+    from lfm_tpu_torch.train.state import create_train_state
+
+    card = card_line()
+    f32_exp = dataclasses.replace(f32_config, exp="dist_f32",
+                                  train=dataclasses.replace(f32_config.train, num_epoch=1))
+    preempt_config = dataclasses.replace(
+        tconfig, exp="dist_preempt", dataset="synthetic_latent",
+        model=dataclasses.replace(tconfig.model, model_type=DIST_PREEMPT_MODEL),
+        train=dataclasses.replace(tconfig.train, model_ckpt=None, num_epoch=1,
+                                  preempt_check_every=DIST_F32_STEPS))
+    weights = reference_state_dict(torch.load(ckpt_path, map_location="cpu",
+                                              weights_only=False))
+    names = dist_compare_names(list(weights), depth)
+    task = {"config": tconfig, "f32_config": f32_exp, "ckpt": ckpt_path, "dataset": dataset,
+            "probe": probe, "names": names, "preempt_config": preempt_config,
+            "latents": SyntheticLatentDataset(n=4 * tconfig.train.batch_size,
+                                              latent_size=config.model.latent_size, seed=SEED)}
+    k2_eval = {"fused_dit_block": depth * DIST_FID_STEPS}
+
+    def check_counts(what, got, want, heads=None, want_heads=None):
+        if got != want or (want_heads is not None and heads != want_heads):
+            raise AssertionError(f"{what}: launches {got} by heads {heads}, expected {want} "
+                                 f"by heads {want_heads}")
+
+    # one process, no torch.distributed: the sharded FID the ranks are held to
+    fcfg = dist_fid_config(config)
+    fmodel = create_network(config.model, dtype=torch.bfloat16,
+                            use_flash=config.model.use_flash_attention, device=dev)
+    fmodel.load_state_dict(weights)
+    reset_counts()
+    t0 = time.time()
+    acts1 = sharded.generate_fid_activations(fcfg, fmodel, None, vae, None,
+                                             seeded_inception_state_dict(SEED), device=dev)
+    one_fid_s = time.time() - t0
+    one_fid_counts = {k: v for k, v in counts().items() if v}
+    check_counts("dist one-process fid", one_fid_counts, k2_eval)
+    del fmodel
+    torch.cuda.empty_cache()
+
+    def act_err(a):
+        return float(abs(a - acts1).max()) / float(abs(acts1).max())
+
+    # dist_world: NCCL over every card
+    world = torch.cuda.device_count()
+    world_res, wall = run_ranks(torch, work, "dist_world", world, "nccl",
+                                dict(task, jobs=["fid", "train1"]))
+    rows = []
+    for r, got in enumerate(world_res):
+        if got["joined"] != ("nccl", world, str(r)):
+            raise AssertionError(f"dist_world rank {r} joined {got['joined']}")
+        check_counts(f"dist_world rank {r} fid", got["fid"]["counts"], k2_eval)
+        check_counts(f"dist_world rank {r} train", got["train1"]["counts"], per_step["bf16"])
+        loss_err = abs(got["train1"]["losses"][0] - loss1) / abs(loss1)
+        probe_err = float((got["train1"]["probe"] - train_p1).abs().max())
+        rows.append({"rank": r, "joined": got["joined"],
+                     "fid_act_rel_err": act_err(got["fid"]["acts"]),
+                     "fid_seconds": got["fid"]["seconds"], "fid_arith": got["fid"]["arith"],
+                     "train_loss": got["train1"]["losses"][0], "train_loss_rel_err": loss_err,
+                     "train_probe_max_abs_err": probe_err,
+                     "train_seconds": got["train1"]["seconds"],
+                     "launches": {"fid": got["fid"]["counts"],
+                                  "train": got["train1"]["counts"]}})
+    emit({"phase": "dist_world", "backend": "nccl", "ranks": world, "card": card,
+          "fid_samples": DIST_FID_SAMPLES, "fid_steps": DIST_FID_STEPS,
+          "one_process_fid_seconds": one_fid_s, "one_process_train_loss": loss1,
+          "act_tol": DIST_ACT_TOL, "loss_tol": DIST_BF16_LOSS_TOL, "rows": rows,
+          "wall_seconds": wall})
+    lr = float(tconfig.train.lr)
+    for row in rows:
+        if not (row["fid_act_rel_err"] <= DIST_ACT_TOL
+                and row["train_loss_rel_err"] <= DIST_BF16_LOSS_TOL
+                and row["train_probe_max_abs_err"] <= 2 * lr
+                and row["fid_arith"] == (1, DIST_FID_SAMPLES)):
+            raise AssertionError(f"dist_world: {row}")
+
+    # dist_shared: two ranks on cuda:0 over gloo; this process's f32 steps
+    # and the replicated partition step first, held to the ranks' after
+    t_ref = time.time()
+    ref_exp = dataclasses.replace(f32_exp, exp="dist_f32_one")
+    reset_counts()
+    ref_step, ref_losses, ref_params, ref_low, ref_grads1 = _recording_train(
+        torch, task, ref_exp, dev, DIST_F32_STEPS, names)
+    ref_f32_counts = {k: v for k, v in counts().items() if v}
+    check_counts("dist one-process f32 steps", ref_f32_counts,
+                 {k: v * DIST_F32_STEPS for k, v in per_step["f32"].items()})
+    torch.cuda.empty_cache()
+    pmodel = create_network(config.model, dtype=torch.float32,
+                            use_flash=config.model.use_flash_attention, device=dev)
+    pmodel.load_state_dict(weights)
+    pstate = create_train_state(pmodel)
+    reset_counts()
+    ploss, pgnorm = dist_part_step(torch, pmodel, config)(pstate,
+                                                           dist_part_batch(torch, config, dev))
+    part_counts = {k: v for k, v in counts().items() if v}
+    part_heads = {k: dict(c.by_heads) for k, c in counters.items() if c.by_heads}
+    part_params = {n: p.detach().float().cpu() for n, p in zip(pstate.names, pstate.params)
+                   if n in names}
+    part_low = {n: p.grad.detach().abs().cpu() for n, p in zip(pstate.names, pstate.params)
+                if n in names}
+    del pmodel, pstate
+    torch.cuda.empty_cache()
+    ref_s = time.time() - t_ref
+
+    def params_err(got, want, low, steps):
+        """The largest error of the elements whose gradient stays above the
+        noise, and of all; fails where any exceeds its bound."""
+        stats = {"max_above_noise": 0.0, "max": 0.0, "noise_elements": 0, "elements": 0}
+        for n, b in want.items():
+            err = (got[n] - b).abs().detach()
+            noise = low[n] < DIST_NOISE_GRAD
+            quiet = float(torch.where(noise, 0.0, err).max())
+            stats["elements"] += err.numel()
+            stats["noise_elements"] += int(noise.sum())
+            stats["max"] = max(stats["max"], float(err.max()))
+            stats["max_above_noise"] = max(stats["max_above_noise"], quiet)
+            if not (quiet <= DIST_PARAM_TOL and float(err.max()) <= 2.2 * steps * lr):
+                raise AssertionError(f"dist_shared: {n} off by {quiet} above the noise, "
+                                     f"{float(err.max())} in all")
+        return stats
+
+    def grads_err(got, want):
+        return max(float((got[n] - g).abs().max()) / float(g.abs().max())
+                   for n, g in want.items())
+
+    shared_res, wall = run_ranks(torch, work, "dist_shared", DIST_SHARED_RANKS, "gloo",
+                                 dict(task, jobs=["fid", "train3", "preempt", "partition"]))
+    rows = []
+    n_heads = DIT_CONFIGS[config.model.model_type][3]
+    if set(part_heads["attention_small"]) != {n_heads}:
+        raise AssertionError(f"the replicated step launched K1 at {part_heads}")
+    for r, got in enumerate(shared_res):
+        if got["joined"] != ("gloo", DIST_SHARED_RANKS, "0"):
+            raise AssertionError(f"dist_shared rank {r} joined {got['joined']}")
+        fid, t3, pre, part = got["fid"], got["train3"], got["preempt"], got["partition"]
+        check_counts(f"dist_shared rank {r} fid", fid["counts"], k2_eval)
+        check_counts(f"dist_shared rank {r} f32 steps", t3["counts"],
+                     {k: v * DIST_F32_STEPS for k, v in per_step["f32"].items()})
+        for layout, want_heads in (("fsdp", n_heads), ("tp", n_heads // 2)):
+            check_counts(f"dist_shared rank {r} {layout}", part[layout]["counts"], part_counts,
+                         part[layout]["heads"],
+                         {k: {want_heads: sum(v.values())} for k, v in part_heads.items()})
+        pre_depth = DIT_CONFIGS[DIST_PREEMPT_MODEL][0]
+        check_counts(f"dist_shared rank {r} preempt", pre["counts"],
+                     {k: v * DIST_F32_STEPS * pre_depth // depth
+                      for k, v in per_step["bf16"].items()})
+        if pre["step"] != DIST_F32_STEPS or pre["files"] != ["config.json", "content.pth"] or (
+                r == 0 and pre["content_step"] != DIST_F32_STEPS) or t3["step"] != DIST_F32_STEPS:
+            raise AssertionError(f"dist_shared rank {r}: preempted at step {pre['step']}, "
+                                 f"files {pre['files']}, content at {pre['content_step']}")
+        loss_errs = [abs(a - b) / abs(b) for a, b in zip(t3["losses"], ref_losses)]
+        part_loss = {k: abs(part[k]["loss"] - float(ploss)) / abs(float(ploss))
+                     for k in ("fsdp", "tp")}
+        rows.append({
+            "rank": r, "joined": got["joined"], "fid_act_rel_err": act_err(fid["acts"]),
+            "fid_arith": fid["arith"],
+            "fid_seconds": fid["seconds"], "f32_losses": t3["losses"],
+            "f32_loss_rel_errs": loss_errs,
+            "f32_param_err": params_err(t3["params"], ref_params, ref_low, DIST_F32_STEPS),
+            "f32_grad1_rel_err": grads_err(t3["grads1"], ref_grads1),
+            "f32_seconds": t3["seconds"], "preempted_at": pre["step"], "files": pre["files"],
+            "preempt_seconds": pre["seconds"],
+            "part_loss_rel_err": part_loss,
+            "part_param_err": {k: params_err(part[k]["params"], part_params, part_low, 1)
+                               for k in ("fsdp", "tp")},
+            "part_step_seconds": {k: part[k]["step_seconds"] for k in ("fsdp", "tp")},
+            "part_heads": {k: part[k]["heads"] for k in ("fsdp", "tp")},
+            "launches": {"fid": fid["counts"], "f32_steps": t3["counts"],
+                         "preempt": pre["counts"],
+                         "fsdp": part["fsdp"]["counts"], "tp": part["tp"]["counts"]}})
+        if not (rows[-1]["fid_act_rel_err"] <= DIST_ACT_TOL
+                and fid["arith"] == (1, DIST_FID_SAMPLES)
+                and max(loss_errs) <= DIST_F32_LOSS_TOL and len(loss_errs) == DIST_F32_STEPS
+                and rows[-1]["f32_grad1_rel_err"] <= DIST_GRAD_TOL
+                and max(part_loss.values()) <= DIST_F32_LOSS_TOL):
+            raise AssertionError(f"dist_shared: {rows[-1]}")
+    emit({"phase": "dist_shared", "backend": "gloo", "ranks": DIST_SHARED_RANKS,
+          "device": "cuda:0", "card": card,
+          "gloo_cuda_collectives": "all_reduce, all_gather and barrier on CUDA tensors, "
+                                   "no host copy in the port's code",
+          "f32_steps": DIST_F32_STEPS, "one_process_f32_losses": ref_losses,
+          "part_batch": DIST_PART_BATCH, "part_loss": float(ploss), "part_heads": part_heads,
+          "tols": {"act": DIST_ACT_TOL, "f32_loss": DIST_F32_LOSS_TOL, "grad": DIST_GRAD_TOL,
+                   "param": DIST_PARAM_TOL, "noise_grad": DIST_NOISE_GRAD},
+          "rows": rows, "one_process_seconds": ref_s, "wall_seconds": wall})
+    def full(c):
+        return {**dict.fromkeys(counters, 0), **c}
+
+    w0, s0 = world_res[0], shared_res[0]
+    return {"dist_world_fid": full(w0["fid"]["counts"]),
+            "dist_world_train": full(w0["train1"]["counts"]),
+            "dist_shared_fid": full(s0["fid"]["counts"]),
+            "dist_shared_f32": full(s0["train3"]["counts"]),
+            "dist_shared_fsdp": full(s0["partition"]["fsdp"]["counts"]),
+            "dist_shared_tp": full(s0["partition"]["tp"]["counts"])}
 
 
 def other_networks(torch, work, dev, vae, counts, reset_counts, cli_main):

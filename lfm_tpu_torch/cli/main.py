@@ -47,19 +47,32 @@ They take the JAX CLI's model overrides (``--model_type --image_size --nf
 ``--use_karras_samplers`` (the Karras euler / heun loops over ``--steps``
 sigmas; an argfile with ``STEPS`` sets it) and ``--eval_noise`` (the
 adaptive noise floor, a float or ``auto``; by default ``auto`` for a bf16
-model under dopri8 only). Mesh flags other than 1 raise (ROADMAP Queue 1
-item 8). ``--generator`` takes ``determ`` and ``determ-indiv``,
-which ``SampleRNG`` realises alike, and raises on the stateful ``dummy``
-(item 9).
+model under dopri8 only). ``--sp``, ``--pp`` and ``--pp_chunks`` above 1
+raise (ROADMAP Queue 1 item 8). ``--generator`` takes ``determ`` and
+``determ-indiv``, which ``SampleRNG`` realises alike, and raises on the
+stateful ``dummy`` (item 9).
 
-``train`` runs ``train/loop.py::train`` on one card with the JAX CLI's
-single-device flags, for every preset (the DiTs, the origin ADMs, EDM's
-DhariwalUNets); mesh flags other than 1 raise. It reads the preset's
+``train`` runs ``train/loop.py::train`` with the JAX CLI's flags, for
+every preset (the DiTs, the origin ADMs, EDM's DhariwalUNets), over the
+``--dp/--fsdp/--tp`` mesh of its ranks (``--sp/--pp/--pp_chunks`` above 1
+raise, ROADMAP Queue 1 item 8). It reads the preset's
 dataset from ``--datadir`` (data/__init__.py: image folders, CIFAR-10,
 the NVAE / LSUN / image LMDBs, latents; ``--dataset synthetic`` or
 ``synthetic_latent`` for seeded data). Images are encoded by the frozen
 VAE (``--vae_ckpt``, else seeded random weights) unless the dataset is
 pre-encoded latents (``latent_*``, ``synthetic_latent``).
+
+Several GPUs: one process per GPU, started by torchrun (the world comes
+from its environment) or by hand with ``--coordinator host:port
+--num_procs N --process_id R`` on each. Only ``train`` and ``fid`` take
+more than one process (``_MULTIPROC_CMDS``, as JAX's CLI); the others exit
+with JAX's message. ``train`` splits each batch over the data axis, and
+``fid`` each sampling batch over every rank; rank 0 alone prints, logs and
+writes files.
+
+    torchrun --nproc_per_node=8 -m lfm_tpu_torch.cli.main train --preset celeb256_dit
+    torchrun --nproc_per_node=8 -m lfm_tpu_torch.cli.main fid --preset celeb256_dit \
+        --real_img_dir stats.npz
 
 The downstream subcommands (lfm_tpu/cli/main.py:103-140, 382-466), on one
 card, with the JAX CLI's flags:
@@ -104,6 +117,7 @@ import torch
 from lfm_tpu_torch.core.checkpoint import reference_state_dict
 from lfm_tpu_torch.core.config import Config, get_preset, load_argfile
 from lfm_tpu_torch.core.device import resolve_device
+from lfm_tpu_torch.core.multihost import from_torchrun, initialize, is_main_process
 from lfm_tpu_torch.core.rng import SampleRNG, seeded_generator
 from lfm_tpu_torch.data.transforms import require_pil
 from lfm_tpu_torch.eval.inception import load_inception_params, seeded_inception_state_dict
@@ -126,6 +140,14 @@ def _model_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--ch_mult", nargs="+", type=int, default=None)
     p.add_argument("--attn_resolutions", nargs="+", type=int, default=None)
     p.add_argument("--use_origin_adm", action="store_true", default=None)
+    # one process per GPU (lfm_tpu/cli/main.py:53-62)
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="rendezvous address host:port of a multi-process run "
+                        "(torchrun's environment takes its place)")
+    p.add_argument("--num_procs", type=int, default=None,
+                   help="the number of processes, one per GPU")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="this process's rank in --num_procs")
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -146,8 +168,7 @@ def _downstream_parser(p: argparse.ArgumentParser, name: str) -> None:
     """The flags of ``lfm_tpu.cli.main`` ``name`` (lfm_tpu/cli/main.py:
     103-140), and ``--device``."""
     _model_flags(p)
-    for flag, typ in (("datadir", str), ("batch_size", int), ("seed", int), ("vae_ckpt", str),
-                      ("num_procs", int)):
+    for flag, typ in (("datadir", str), ("batch_size", int), ("seed", int), ("vae_ckpt", str)):
         p.add_argument(f"--{flag}", type=typ, default=None)
     if name.endswith("semantic"):
         p.add_argument("--seg_dataset", type=str, default="celebamask",
@@ -194,9 +215,9 @@ def _sample_parser(s: argparse.ArgumentParser) -> None:
     s.add_argument("--int8_dit", action="store_true",
                    help="w8a8 int8 DiT sampling (nn/dit_int8.py; wins over the fused "
                         "blocks)")
-    for name in ("sp", "pp", "pp_chunks", "num_procs"):
+    for name in ("sp", "pp", "pp_chunks"):
         s.add_argument(f"--{name}", type=int, default=None,
-                       help="mesh axis or process count; only 1 is ported")
+                       help="mesh axis; only 1 is ported (ROADMAP Queue 1 item 8)")
     s.add_argument("--device", type=str, default=None,
                    help="default: the card; pass cpu to run on the CPU")
     s.add_argument("--out", type=str, default=None,
@@ -205,20 +226,23 @@ def _sample_parser(s: argparse.ArgumentParser) -> None:
 
 
 def _train_parser(t: argparse.ArgumentParser) -> None:
-    """The flags of ``lfm_tpu.cli.main train`` that one device honours
-    (lfm_tpu/cli/main.py:33-102)."""
+    """The flags of ``lfm_tpu.cli.main train`` (lfm_tpu/cli/main.py:33-102)."""
     _model_flags(t)
     for name, typ in (("datadir", str), ("batch_size", int), ("seed", int),
                       ("vae_ckpt", str), ("lr", float), ("num_epoch", int),
                       ("ema_decay", float), ("save_content_every", int),
                       ("save_ckpt_every", int), ("plot_every", int), ("model_ckpt", str),
-                      ("precision", str), ("max_steps", int), ("remat_policy", str)):
+                      ("precision", str), ("max_steps", int), ("remat_policy", str),
+                      ("preempt_check_every", int)):
         t.add_argument(f"--{name}", type=typ, default=None)
     for name in ("no_lr_decay", "use_ema", "use_grad_checkpointing", "save_content", "resume"):
         t.add_argument(f"--{name}", action="store_true", default=None)
-    for name in ("dp", "fsdp", "tp", "sp", "pp", "pp_chunks"):
+    for name in ("dp", "fsdp", "tp"):
         t.add_argument(f"--{name}", type=int, default=None,
-                       help="mesh axis; only 1 (dp: -1 or 1) is ported")
+                       help="mesh axis over the ranks (dp -1: the ranks the others leave)")
+    for name in ("sp", "pp", "pp_chunks"):
+        t.add_argument(f"--{name}", type=int, default=None,
+                       help="mesh axis; only 1 is ported (ROADMAP Queue 1 item 8)")
     t.add_argument("--device", type=str, default=None,
                    help="default: the card; pass cpu to run on the CPU")
 
@@ -255,11 +279,19 @@ def _resolve_train_config(args) -> Config:
         save_content_every=args.save_content_every, save_ckpt_every=args.save_ckpt_every,
         plot_every=args.plot_every, resume=args.resume, precision=args.precision,
         batch_size=args.batch_size, seed=args.seed, model_ckpt=args.model_ckpt,
-        remat_policy=args.remat_policy)
+        remat_policy=args.remat_policy, preempt_check_every=args.preempt_check_every)
     data = _over(config.data, dataset=args.dataset, datadir=args.datadir)
+    _unported_mesh_flags(args)
     mesh = _over(config.mesh, dp=args.dp, fsdp=args.fsdp, tp=args.tp, sp=args.sp, pp=args.pp,
                  pp_chunks=args.pp_chunks)
     return dataclasses.replace(config, train=train_cfg, data=data, mesh=mesh)
+
+
+def _unported_mesh_flags(args) -> None:
+    mesh = {k: getattr(args, k) for k in ("sp", "pp", "pp_chunks")}
+    if any(v not in (None, 1) for v in mesh.values()):
+        raise NotImplementedError(f"{mesh}: ring sequence parallelism and pipeline "
+                                  "parallelism are not ported yet (ROADMAP Queue 1 item 8)")
 
 
 def _load_vae(path: Optional[str], device: torch.device):
@@ -282,6 +314,29 @@ def train_main(args):
     return train(config, vae=vae, device=device, max_steps=args.max_steps)
 
 
+# the subcommands with a multi-process story (rank-0 writes, collective
+# checkpoints and gathers); the others would repeat the work on every rank
+# and race on their output files (lfm_tpu/cli/main.py:361-372)
+_MULTIPROC_CMDS = ("train", "fid")
+
+
+def _join(args) -> None:
+    """Join the job of ``--num_procs`` processes, or torchrun's; a
+    subcommand outside ``_MULTIPROC_CMDS`` exits with JAX's message."""
+    n = args.num_procs
+    if n is None and from_torchrun():
+        n = int(os.environ["WORLD_SIZE"])
+    if not n or n <= 1:
+        return
+    if args.cmd not in _MULTIPROC_CMDS:
+        raise SystemExit(
+            f"--num_procs > 1 is not supported for '{args.cmd}' (only "
+            f"{', '.join(_MULTIPROC_CMDS)} are multi-process aware; "
+            "other subcommands would duplicate work on every rank and "
+            "race on output files)")
+    initialize(args.coordinator, args.num_procs, args.process_id, device=args.device)
+
+
 def _resolve_config(args) -> Config:
     """The sampling subcommands' config; the flags the port does not
     implement raise instead of being ignored."""
@@ -290,10 +345,7 @@ def _resolve_config(args) -> Config:
         raise NotImplementedError(f"--generator {args.generator}: only determ and "
                                   "determ-indiv are ported; the stateful dummy generator is "
                                   "ROADMAP Queue 1 item 9")
-    mesh = {k: getattr(args, k) for k in ("sp", "pp", "pp_chunks", "num_procs")}
-    if any(v not in (None, 1) for v in mesh.values()):
-        raise NotImplementedError(f"{mesh}: sampling on more than one device is not ported yet "
-                                  "(ROADMAP Queue 1 item 8)")
+    _unported_mesh_flags(args)
     config = _base_config(args)
     sample = _over(config.sample, method=args.method, num_steps=args.num_steps,
                    atol=args.atol, rtol=args.rtol, cfg_scale=args.cfg_scale,
@@ -346,6 +398,7 @@ def main(argv: Optional[Sequence[str]] = None):
     ``nfe`` the NFE of each trial; ``time`` {"ms": each repetition's
     milliseconds, "nfe": the NFE of the warm-up and of each repetition}."""
     args = _build_parser().parse_args(argv)
+    _join(args)
     if args.cmd == "train":
         return train_main(args)
     if args.cmd in DOWNSTREAM:
@@ -363,10 +416,13 @@ def main(argv: Optional[Sequence[str]] = None):
     if args.cmd == "fid":
         fid = compute_fid(config, model, params, vae, None, _inception_params(args.inception_ckpt),
                           stats_path=sc.real_img_dir, save_dir=args.save_dir, device=device)
-        print(f"FID = {fid}")
-        if sc.output_log:
-            with open(sc.output_log, "a") as f:
-                f.write(f"Epoch = {sc.epoch_id}, FID = {fid}\n")
+        # every rank holds the same score; rank 0 reports it
+        # (test_flow_latent_ddp.py:146-153)
+        if is_main_process():
+            print(f"FID = {fid}")
+            if sc.output_log:
+                with open(sc.output_log, "a") as f:
+                    f.write(f"Epoch = {sc.epoch_id}, FID = {fid}\n")
         return fid
 
     sampler = make_sampler(config, model, params, vae, None, device=device)
@@ -415,9 +471,6 @@ def _resolve_downstream_config(args) -> Config:
     """The downstream subcommands' config (lfm_tpu/cli/main.py:187-265),
     with the network's input channels: 9 for inpainting (latent, masked
     latent, mask), 8 for semantic synthesis (latent, rescaled labels)."""
-    if args.num_procs not in (None, 1):
-        raise NotImplementedError(f"--num_procs {args.num_procs}: the downstream tasks run on "
-                                  "one device (ROADMAP Queue 1 item 8)")
     config = _base_config(args)
     g = vars(args).get
     if args.cmd.startswith("train"):

@@ -9,7 +9,7 @@ threefry bits: parity tests hand the same numpy noise to both packages.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -31,12 +31,47 @@ def _mix(*words: int) -> int:
     return h & ((1 << 63) - 1)
 
 
-def seeded_generator(device: torch.device, *words: int) -> torch.Generator:
+def seeded_generator(device: torch.device, *words: int,
+                     rows: Optional[Tuple[int, int, int]] = None) -> torch.Generator:
     """A generator on ``device`` seeded from the words (such as a seed and
-    a step number)."""
-    g = torch.Generator(device=device)
+    a step number). With ``rows`` = (start, stop, total) it is a
+    ``RowGenerator`` for rows [start, stop) of a batch of ``total``."""
+    g = torch.Generator(device=device) if rows is None else RowGenerator(device, *rows)
     g.manual_seed(_mix(*words))
     return g
+
+
+class RowGenerator(torch.Generator):
+    """A train step's generator on one rank of a data-parallel batch: the
+    draws through ``draw_rows`` are made at the global
+    batch's size, in the same order on every rank, and the rank keeps its
+    rows [start, stop). So each rank sees exactly the numbers that one
+    process drawing for the whole batch gives those rows, as JAX draws one
+    key over the global batch (lfm_tpu/train/train.py:53-65)."""
+
+    def __new__(cls, device, start: int, stop: int, total: int):
+        return super().__new__(cls, device=device)
+
+    def __init__(self, device, start: int, stop: int, total: int):
+        if not 0 <= start < stop <= total:
+            raise ValueError(f"rows [{start}, {stop}) of {total}")
+        self.start, self.stop, self.total = start, stop, total
+
+
+def draw_rows(draw, shape: Sequence[int], generator: Optional[torch.Generator],
+              device) -> torch.Tensor:
+    """``draw(shape, generator=, device=)`` (``torch.rand`` or
+    ``torch.randn``); from a ``RowGenerator`` the draw is made for the
+    global batch and the rank keeps its rows, so ``shape[0]`` must be the
+    rank's rows."""
+    shape = tuple(shape)
+    if not isinstance(generator, RowGenerator):
+        return draw(shape, generator=generator, device=device)
+    if shape[0] != generator.stop - generator.start:
+        raise ValueError(f"a draw of {shape} on rows [{generator.start}, {generator.stop}): "
+                         "its leading dimension must be the rank's rows")
+    full = draw((generator.total,) + shape[1:], generator=generator, device=device)
+    return full[generator.start:generator.stop]
 
 
 class SampleRNG:

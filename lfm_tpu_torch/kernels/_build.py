@@ -22,7 +22,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
@@ -57,8 +57,10 @@ SIGNATURES = {
 
 class LaunchCounter:
     """Counts a wrapper's kernel launches, in all and, for the wrappers that
-    take either element type (``add``), by dtype; a run resets it and reads
-    it back to show that its path went through the kernel."""
+    take either element type (``add``), by dtype, and for the attention
+    wrappers by head count (a tensor-parallel rank launches with its own
+    heads); a run resets it and reads it back to show that its path went
+    through the kernel."""
 
     def __init__(self):
         self.reset()
@@ -66,11 +68,14 @@ class LaunchCounter:
     def reset(self) -> None:
         self.count = 0
         self.by_dtype = {}
+        self.by_heads = {}
 
-    def add(self, dtype) -> None:
+    def add(self, dtype, heads: Optional[int] = None) -> None:
         self.count += 1
         key = str(dtype).removeprefix("torch.")
         self.by_dtype[key] = self.by_dtype.get(key, 0) + 1
+        if heads is not None:
+            self.by_heads[heads] = self.by_heads.get(heads, 0) + 1
 
 
 def find_nvcc() -> str:

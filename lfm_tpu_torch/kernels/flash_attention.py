@@ -223,7 +223,7 @@ def attention_small(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         _ld(q), _ld(k), _ld(v), h * d, int(q.dtype == torch.float32),
         torch.cuda.current_stream(q.device).cuda_stream)
     check_rc("attention_small", rc)
-    ATTENTION_SMALL.add(q.dtype)
+    ATTENTION_SMALL.add(q.dtype, heads=h)
     return out
 
 
@@ -249,7 +249,7 @@ def _attention_small_bwd_packed(q, k, v, do) -> torch.Tensor:
         n, t, h, d, _ld(q), _ld(k), _ld(v), _ld(do), 3 * h * d,
         int(q.dtype == torch.float32), torch.cuda.current_stream(q.device).cuda_stream)
     check_rc("attention_small_bwd", rc)
-    ATTENTION_SMALL_BWD.add(q.dtype)
+    ATTENTION_SMALL_BWD.add(q.dtype, heads=h)
     return g
 
 

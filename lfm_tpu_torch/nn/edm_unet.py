@@ -48,6 +48,7 @@ from torch import nn
 
 from lfm_tpu_torch.core.config import ModelConfig
 from lfm_tpu_torch.core.device import DeviceLike, no_tf32, resolve_device
+from lfm_tpu_torch.core.rng import draw_rows
 from lfm_tpu_torch.nn.layers import (LabelEmbedder, conv2d_nhwc, dense, dropout,
                                      group_norm_f32, linear)
 
@@ -427,8 +428,8 @@ class DhariwalUNet(nn.Module):
             elif self.map_label is not None and y is not None:
                 onehot = _one_hot(y, self.label_dim)
                 if train and self.label_dropout > 0:
-                    keep = torch.rand((n, 1), generator=generator,
-                                      device=x.device) >= self.label_dropout
+                    keep = draw_rows(torch.rand, (n, 1), generator,
+                                     x.device) >= self.label_dropout
                     onehot = onehot * keep
                 elif drop_half_label:
                     onehot = onehot * (torch.arange(n, device=x.device) < n // 2)[:, None]
@@ -575,8 +576,8 @@ class SongUNet(nn.Module):
                     raise ValueError("a class-conditional SongUNet needs y")
                 onehot = _one_hot(y, self.label_dim)
                 if train and self.label_dropout > 0:
-                    keep = torch.rand((n, 1), generator=generator,
-                                      device=x.device) >= self.label_dropout
+                    keep = draw_rows(torch.rand, (n, 1), generator,
+                                     x.device) >= self.label_dropout
                     onehot = onehot * keep
                 emb = emb + linear(onehot * math.sqrt(self.label_dim), self.map_label, dt)
             if self.map_augment is not None and augment_labels is not None:

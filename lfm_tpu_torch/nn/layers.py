@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lfm_tpu_torch.core.partition import copy_to_group, reduce_from_group
+from lfm_tpu_torch.core.rng import draw_rows
 from lfm_tpu_torch.kernels.flash_attention import (fused_attention_qkv, reference_attention,
                                                    split_qkv)
 
@@ -33,8 +35,19 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    """``layer(x)`` computed in ``dtype`` (flax Dense with dtype=...)."""
-    return dense(x, layer.weight, layer.bias, dtype)
+    """``layer(x)`` computed in ``dtype`` (flax Dense with dtype=...). A
+    layer that core/partition.py split over a tensor group carries
+    ``tensor_parallel = (kind, group)``: a column-split layer's input
+    gradient is summed over the group, a row-split layer's partial products
+    are summed before its bias is added."""
+    tp = getattr(layer, "tensor_parallel", None)
+    if tp is None:
+        return dense(x, layer.weight, layer.bias, dtype)
+    kind, group = tp
+    if kind == "col":
+        return dense(copy_to_group(x, group), layer.weight, layer.bias, dtype)
+    y = reduce_from_group(dense(x, layer.weight, None, dtype), group)
+    return y + layer.bias.to(dtype)
 
 
 def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -81,7 +94,7 @@ def dropout(x: torch.Tensor, rate: float,
     1 / (1 - rate), else zero; x's type."""
     if rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    keep = draw_rows(torch.rand, x.shape, generator, x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -160,8 +173,8 @@ class LabelEmbedder(nn.Module):
                 force_drop_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         if (train and self.dropout_prob > 0) or force_drop_ids is not None:
             if force_drop_ids is None:
-                drop = torch.rand(labels.shape, generator=generator,
-                                  device=labels.device) < self.dropout_prob
+                drop = draw_rows(torch.rand, labels.shape, generator,
+                                 labels.device) < self.dropout_prob
             else:
                 drop = force_drop_ids == 1
             labels = torch.where(drop, self.num_classes, labels)
@@ -213,7 +226,7 @@ class Attention(nn.Module):
             out = fused_attention_qkv(qkv, self.num_heads)
         else:
             out = reference_attention(*split_qkv(qkv, self.num_heads))
-        return out.reshape(n, t, d)
+        return out.reshape(n, t, -1)  # C / tp wide under tensor parallelism
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         return linear(self.attend(x, dtype), self.proj, dtype)

@@ -35,6 +35,7 @@ import math
 from typing import Callable, List, NamedTuple, Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
 
 ADAPTIVE_SOLVERS = ("dopri5", "dopri8", "adaptive_heun", "bosh3")
 FIXED_SOLVERS = ("euler", "midpoint", "rk4", "heun")
@@ -79,14 +80,26 @@ def _combine(y0: torch.Tensor, ks: Sequence[torch.Tensor], coeffs, dt) -> torch.
     return acc.to(y0.dtype)
 
 
-def _rms_norm(x: torch.Tensor, acc_t) -> torch.Tensor:
-    return torch.sqrt(torch.sum(torch.square(x.to(acc_t))) / x.numel())
+def _mean_square(x: torch.Tensor, group=None) -> torch.Tensor:
+    """mean(x^2) over x, or over the batch of which x is one rank's equal
+    share when ``group`` (the ranks that split the batch) is given: the
+    squares' sum all-reduced, so every rank steps alike, as JAX's one
+    controller over the global batch."""
+    s = torch.sum(torch.square(x))
+    if group is None:
+        return s / x.numel()
+    dist.all_reduce(s, group=group)
+    return s / (x.numel() * dist.get_world_size(group))
 
 
-def _error_ratio(err, y0, y1, rtol, atol, acc_t) -> torch.Tensor:
+def _rms_norm(x: torch.Tensor, acc_t, group=None) -> torch.Tensor:
+    return torch.sqrt(_mean_square(x.to(acc_t), group))
+
+
+def _error_ratio(err, y0, y1, rtol, atol, acc_t, group=None) -> torch.Tensor:
     """RMS of err / (atol + rtol * max(|y0|, |y1|)): torchdiffeq's norm."""
     tol = atol + rtol * torch.maximum(y0.abs(), y1.abs()).to(acc_t)
-    return torch.sqrt(torch.sum(torch.square(err.to(acc_t) / tol)) / err.numel())
+    return torch.sqrt(_mean_square(err.to(acc_t) / tol, group))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,17 +212,17 @@ def _interp_fit(y0, y1, ks, dt, c_mid) -> List[torch.Tensor]:
     return [a, b, c, f0, y0f]
 
 
-def _initial_step(func, t0, y0, f0, order, rtol, atol, direction):
+def _initial_step(func, t0, y0, f0, order, rtol, atol, direction, group=None):
     """Hairer/Wanner initial-step heuristic (as in torchdiffeq and scipy)."""
     acc_t = _acc_dtype(y0)
     scale = atol + rtol * y0.to(acc_t).abs()
-    d0 = _rms_norm(y0.to(acc_t) / scale, acc_t)
-    d1 = _rms_norm(f0.to(acc_t) / scale, acc_t)
+    d0 = _rms_norm(y0.to(acc_t) / scale, acc_t, group)
+    d1 = _rms_norm(f0.to(acc_t) / scale, acc_t, group)
     h0 = torch.where((d0 < 1e-5) | (d1 < 1e-5), torch.ones_like(d0) * 1e-6,
                      0.01 * d0 / d1)
     y1 = y0 + (h0 * direction) * f0.to(y0.dtype)
     f1 = func(t0 + h0 * direction, y1)
-    d2 = _rms_norm((f1 - f0).to(acc_t) / scale, acc_t) / h0
+    d2 = _rms_norm((f1 - f0).to(acc_t) / scale, acc_t, group) / h0
     dmax = torch.maximum(d1, d2)
     h1 = torch.where(dmax <= 1e-15, torch.clamp(h0 * 1e-3, min=1e-6),
                      (0.01 / dmax) ** (1.0 / (order + 1)))
@@ -217,7 +230,7 @@ def _initial_step(func, t0, y0, f0, order, rtol, atol, direction):
 
 
 def calibrate_eval_noise(func: Velocity, t0, y0: torch.Tensor, f0: torch.Tensor,
-                         acc_t) -> torch.Tensor:
+                         acc_t, group=None) -> torch.Tensor:
     """``eval_noise="auto"``: one probe evaluation at t0 with y0 displaced
     by 1e-4 (|y0| + 1), far enough that low-precision rounding decorrelates
     and near enough that the true field barely moves. The rms difference
@@ -225,15 +238,15 @@ def calibrate_eval_noise(func: Velocity, t0, y0: torch.Tensor, f0: torch.Tensor,
     1.5 is the JAX package's (swept on its chip for a bf16 DiT-L/2)."""
     y_probe = y0 + 1e-4 * (y0.abs() + 1.0)
     f_probe = func(t0, y_probe)
-    diff = _rms_norm(f_probe.to(acc_t) - f0.to(acc_t), acc_t)
-    return 1.5 * diff / (math.sqrt(2.0) * (_rms_norm(f0, acc_t) + 1e-20))
+    diff = _rms_norm(f_probe.to(acc_t) - f0.to(acc_t), acc_t, group)
+    return 1.5 * diff / (math.sqrt(2.0) * (_rms_norm(f0, acc_t, group) + 1e-20))
 
 
 def _odeint_adaptive(func: Velocity, y0: torch.Tensor, t0: float, t1: float,
                      method: str, rtol: float, atol: float, max_steps: int,
                      safety: float = 0.9, ifactor: float = 10.0,
                      dfactor: float = 0.2, eval_noise: EvalNoise = 0.0,
-                     record_trace: bool = False):
+                     record_trace: bool = False, group=None):
     """torchdiffeq-style adaptive integration (ode/solvers.py::
     _odeint_adaptive). With ``record_trace`` also returns one (t, dt,
     accepted, error_ratio) row per attempted step, the ratio after the
@@ -252,11 +265,11 @@ def _odeint_adaptive(func: Velocity, y0: torch.Tensor, t0: float, t1: float,
     if isinstance(eval_noise, str):
         if eval_noise != "auto":
             raise ValueError(f"eval_noise must be a float or 'auto', got {eval_noise!r}")
-        eval_noise = calibrate_eval_noise(func, t, y0, f, acc_t)
+        eval_noise = calibrate_eval_noise(func, t, y0, f, acc_t, group)
         nfe += 1.0
     floor = isinstance(eval_noise, torch.Tensor) or eval_noise > 0.0
     # torchdiffeq passes ``order - 1`` (rk_common.py): exponent 1/order
-    dt = _initial_step(func, t, y0, f, tab.order - 1, rtol, atol, direction) * direction
+    dt = _initial_step(func, t, y0, f, tab.order - 1, rtol, atol, direction, group) * direction
     steps, rejected = 0, 0
     y = y0
     coeffs, t_prev, h_prev = None, t, None
@@ -273,14 +286,14 @@ def _odeint_adaptive(func: Velocity, y0: torch.Tensor, t0: float, t1: float,
             dt = torch.where(dt.abs() > remaining.abs(), remaining, dt)
             on_boundary = dt.abs() >= remaining.abs() - 1e-12
         y1, f1, err, evals, ks = _rk_step(func, tab, t, dt, y, f)
-        ratio = _error_ratio(err, y, y1, rtol, atol, acc_t)
+        ratio = _error_ratio(err, y, y1, rtol, atol, acc_t, group)
         if floor:
             # the embedded error's noise part under independent rounding of
             # each stage (the correlated part cancels: sum_i b_err_i == 0)
             var = _weighted_sum([torch.square(k.to(acc_t)) for k in ks],
                                 [c * c for c in tab.b_err], 1.0, acc_t)
             noise = dt.abs() * eval_noise * torch.sqrt(var)
-            noise_ratio = _error_ratio(noise, y, y1, rtol, atol, acc_t)
+            noise_ratio = _error_ratio(noise, y, y1, rtol, atol, acc_t, group)
             ratio = torch.sqrt(torch.clamp(torch.square(ratio) - torch.square(noise_ratio),
                                            min=0.0))
         ratio_f = float(ratio)
@@ -433,14 +446,17 @@ def odeint(func: Velocity, y0: torch.Tensor, t0: float = 1.0, t1: float = 0.0, *
            method: str = "dopri5", rtol: float = 1e-5, atol: float = 1e-5,
            step_size: Optional[float] = None, num_steps: Optional[int] = None,
            max_steps: int = 10_000, eval_noise: EvalNoise = 0.0,
-           record_trace: bool = False):
+           record_trace: bool = False, group=None):
     """Integrate dy/dt = func(t, y) from t0 to t1 (sampling: 1 -> 0).
     ``func`` receives t as a 0-d tensor on y0's device. ``eval_noise``
     (adaptive only) is ``func``'s relative evaluation noise, a float, or
-    ``"auto"`` to calibrate it at t0 (one evaluation more)."""
+    ``"auto"`` to calibrate it at t0 (one evaluation more). ``group``
+    (adaptive only): y0 is this rank's equal share of a batch split over
+    the group's ranks, and the step control's norms are the whole batch's."""
     if method in ADAPTIVE_SOLVERS:
         return _odeint_adaptive(func, y0, t0, t1, method, rtol, atol, max_steps,
-                                eval_noise=eval_noise, record_trace=record_trace)
+                                eval_noise=eval_noise, record_trace=record_trace,
+                                group=group)
     if method in _FIXED_TABLEAUS:
         if num_steps is None:
             ss = step_size if step_size else 0.01

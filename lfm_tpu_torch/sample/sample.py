@@ -77,12 +77,14 @@ def build_velocity(model, y: Optional[torch.Tensor], cfg_scale: float, *,
 def sample_latents(velocity: Callable, x_noise: torch.Tensor, *, method: str = "dopri5",
                    atol: float = 1e-5, rtol: float = 1e-5, num_steps: int = 40,
                    step_size: float = 0.01, use_karras: bool = False,
-                   eval_noise=0.0) -> Tuple[torch.Tensor, float]:
+                   eval_noise=0.0, group=None) -> Tuple[torch.Tensor, float]:
     """Integrate t: 1 -> 0. Returns (z_0, nfe). With ``use_karras`` the
     Karras loop of ``method`` (euler or heun; any other method takes euler,
     as in JAX) runs over ``num_steps`` sigmas, and the NFE is JAX's count:
     ``num_steps - 1`` pairs, the first 39 corrected under heun.
-    ``eval_noise`` noise-floors the adaptive error estimate (ode/solvers.py)."""
+    ``eval_noise`` noise-floors the adaptive error estimate (ode/solvers.py);
+    ``group``: the ranks that split the batch, whose adaptive step control
+    is shared (``odeint``)."""
     if use_karras:
         z = karras_sample(lambda x, sigma: velocity(sigma, x), x_noise, num_steps,
                           sampler=method if method in ("euler", "heun") else "euler")
@@ -95,7 +97,7 @@ def sample_latents(velocity: Callable, x_noise: torch.Tensor, *, method: str = "
         return z, float(nfe)
     if method in ADAPTIVE_SOLVERS:
         res = odeint(velocity, x_noise, 1.0, 0.0, method=method, atol=atol, rtol=rtol,
-                     eval_noise=eval_noise)
+                     eval_noise=eval_noise, group=group)
     else:
         res = odeint(velocity, x_noise, 1.0, 0.0, method=method, num_steps=num_steps,
                      step_size=step_size)
@@ -115,7 +117,7 @@ def resolve_eval_noise(sc, model):
 
 
 def make_sampler(config: Config, model, params=None, vae=None, vae_params=None,
-                 device: DeviceLike = None) -> Callable:
+                 device: DeviceLike = None, group=None) -> Callable:
     """Returns ``fn(noise, y=None) -> SampleOutput``.
 
     ``model`` and ``vae`` are this package's modules; ``params`` and
@@ -125,7 +127,8 @@ def make_sampler(config: Config, model, params=None, vae=None, vae_params=None,
     (``int8_model_ok``, the JAX gate: on the model only) the block weights
     are quantized here, once, from the f32 parameters (JAX's ``params_pre
     == "int8"``); a UNet under ``use_int8_dit`` takes the module path, as
-    in JAX."""
+    in JAX. ``group``: the ranks that split each batch (sample/sharded.py),
+    whose adaptive solvers step alike."""
     device = resolve_device(device)
     sc = config.sample
     eval_noise = resolve_eval_noise(sc, model)
@@ -153,7 +156,7 @@ def make_sampler(config: Config, model, params=None, vae=None, vae_params=None,
                                  rtol=sc.rtol, num_steps=sc.num_steps,
                                  step_size=sc.step_size,
                                  use_karras=sc.use_karras_samplers,
-                                 eval_noise=eval_noise)
+                                 eval_noise=eval_noise, group=group)
         if vae is None:
             return SampleOutput(images=z0, latents=z0, nfe=nfe)
         img = vae.decode(z0 / config.scale_factor)

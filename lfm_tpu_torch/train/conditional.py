@@ -29,7 +29,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from lfm_tpu_torch.core.device import no_tf32
-from lfm_tpu_torch.core.rng import seeded_generator
+from lfm_tpu_torch.core.rng import draw_rows, seeded_generator
+from lfm_tpu_torch.core.sharding import DATA_AXIS, Mesh, all_reduce_mean_, global_rows
 from lfm_tpu_torch.ode.flow import interpolate
 from lfm_tpu_torch.ode.solvers import odeint
 from lfm_tpu_torch.train.state import AdamW, TrainState, make_fused_adamw_ema
@@ -65,28 +66,34 @@ def _loss(model: nn.Module, z0, c, t, z1) -> torch.Tensor:
 
 def make_cond_train_step(model: nn.Module, cond: Optional[nn.Module], cond_fn: CondFn,
                          tx: AdamW, *, ema_decay: float = 0.9999, use_ema: bool = True,
-                         seed: int = 0) -> Callable[[TrainState, Batch],
-                                                    Tuple[torch.Tensor, torch.Tensor]]:
+                         seed: int = 0, mesh: Optional[Mesh] = None
+                         ) -> Callable[[TrainState, Batch], Tuple[torch.Tensor, torch.Tensor]]:
     """``train_step(state, batch) -> (loss, grad_norm)`` over
     ``create_train_state(cond_modules(model, cond))``, updating the modules
     and ``state`` in place (AdamW + EMA + the global gradient norm over
-    both, as train/train.py)."""
+    both, as train/train.py). ``mesh``: ``batch`` holds this rank's rows;
+    the draws, gradients and loss are the global batch's, as in
+    train/train.py."""
     update = make_fused_adamw_ema(tx, ema_decay=ema_decay, use_ema=use_ema)
+    data_group = None if mesh is None else mesh.group(DATA_AXIS)
 
     def train_step(state: TrainState, batch: Batch):
         x = batch["x"]
-        gen = seeded_generator(x.device, seed, state.step)
+        gen = seeded_generator(x.device, seed, state.step, rows=global_rows(mesh, x.shape[0]))
         for p in state.params:
             p.grad = None
         z0, c = cond_fn(cond, batch, generator=gen)
-        t = torch.rand((z0.shape[0],), generator=gen, device=z0.device)
-        z1 = torch.randn(z0.shape, generator=gen, device=z0.device)
+        t = draw_rows(torch.rand, (z0.shape[0],), gen, z0.device)
+        z1 = draw_rows(torch.randn, z0.shape, gen, z0.device)
         loss = _loss(model, z0, c, t, z1)
         with no_tf32():  # the UNet's f32 convolutions' backward in f32, as their forward
             loss.backward()
-        gnorm = update(state, [torch.zeros_like(p) if p.grad is None else p.grad
-                               for p in state.params])
-        return loss.detach(), gnorm
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in state.params]
+        loss = loss.detach()
+        if data_group is not None:
+            all_reduce_mean_(grads + [loss.reshape(1)], data_group)
+        gnorm = update(state, grads)
+        return loss, gnorm
 
     return train_step
 

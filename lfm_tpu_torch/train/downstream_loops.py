@@ -1,4 +1,4 @@
-"""Epoch loops of the downstream conditional tasks on one device (port of
+"""Epoch loops of the downstream conditional tasks (port of
 lfm_tpu/train/downstream_loops.py).
 
 The reference's downstream trainers
@@ -12,7 +12,10 @@ jointly trained SpatialRescaler as ``cond.*``, where the reference writes
 a separate ``cond_stage_model_{E}.pth``). The network is
 ``create_network``'s, with its attention through K1 / K3 on the card where
 ``use_flash_attention`` is set, initialised as the JAX package initialises
-it. A mesh other than one device raises (ROADMAP Queue 1 item 8).
+it. Over several ranks each batch is split over every rank (the data
+axis of ``make_mesh()``, as JAX's loop takes every local device) with the
+state replicated; rank 0 alone writes the config, the panels and the
+checkpoints.
 """
 
 from __future__ import annotations
@@ -26,14 +29,16 @@ import torch
 from lfm_tpu_torch.core import checkpoint as ckpt
 from lfm_tpu_torch.core.config import Config
 from lfm_tpu_torch.core.device import DeviceLike, resolve_device
+from lfm_tpu_torch.core.multihost import is_main_process
 from lfm_tpu_torch.core.rng import seeded_generator
+from lfm_tpu_torch.core.sharding import make_mesh, shard_batch
 from lfm_tpu_torch.data.loader import DataLoader
 from lfm_tpu_torch.nn.factory import create_network
 from lfm_tpu_torch.nn.init import dit_init_, unet_init_
 from lfm_tpu_torch.train.conditional import (cond_modules, inpainting_condition,
                                              make_cond_train_step, sample_conditional,
                                              semantic_condition)
-from lfm_tpu_torch.train.loop import check_single_device, save_image_grid
+from lfm_tpu_torch.train.loop import save_image_grid, saved_by_rank0
 from lfm_tpu_torch.train.state import TrainState, create_train_state, make_optimizer
 
 INPAINT_KEYS = ("x", "mask", "masked")
@@ -56,7 +61,6 @@ def train_inpainting(config: Config, dataset, vae, *, device: DeviceLike = None,
     mask, masked); ``vae`` is this package's AutoencoderKL, frozen; the
     network takes ``num_in_channels`` (9). Returns the final TrainState."""
     device = resolve_device(device)
-    check_single_device(config.mesh)
     model, vae = _network(config, device), _frozen(vae, device)
     cond_fn = inpainting_condition(vae, config.scale_factor)
     return _run_cond_loop(config, model, None, cond_fn, vae, dataset, INPAINT_KEYS, device,
@@ -70,7 +74,6 @@ def train_semantic(config: Config, dataset, vae, rescaler, *, num_classes: int,
     (image, seg); the network takes ``num_in_channels`` (8); ``rescaler``
     (nn/encoders.py) trains jointly, initialised from ``seed + 1``."""
     device = resolve_device(device)
-    check_single_device(config.mesh)
     model, vae = _network(config, device), _frozen(vae, device)
     rescaler = rescaler.to(device).train()
     rescaler.reset_parameters(seeded_generator(device, config.train.seed + 1))
@@ -108,15 +111,20 @@ def _run_cond_loop(config: Config, model, cond, cond_fn, vae, dataset, keys,
                    device: torch.device, log_fn: Callable, max_steps: Optional[int],
                    task: str) -> TrainState:
     tc = config.train
+    mesh = make_mesh()
+    main_proc = is_main_process()
+    if not main_proc:
+        log_fn = lambda *a, **k: None  # noqa: E731
     mods = cond_modules(model, cond)
     tx = make_optimizer(tc, steps_per_epoch=max(len(dataset) // tc.batch_size, 1))
     state = create_train_state(mods)
     step = make_cond_train_step(model, cond, cond_fn, tx, ema_decay=tc.ema_decay,
-                                use_ema=tc.use_ema, seed=tc.seed + 2)
+                                use_ema=tc.use_ema, seed=tc.seed + 2, mesh=mesh)
     exp_path = os.path.join(config.output_dir + f"_{task}", config.dataset, config.exp)
-    os.makedirs(exp_path, exist_ok=True)
-    with open(os.path.join(exp_path, "config.json"), "w") as f:
-        f.write(config.to_json())
+    if main_proc:
+        os.makedirs(exp_path, exist_ok=True)
+        with open(os.path.join(exp_path, "config.json"), "w") as f:
+            f.write(config.to_json())
 
     init_epoch = 0
     if ckpt.has_content(exp_path):
@@ -127,19 +135,22 @@ def _run_cond_loop(config: Config, model, cond, cond_fn, vae, dataset, keys,
     for epoch in range(init_epoch, tc.num_epoch + 1):
         loader.set_epoch(epoch)
         for it, batch in enumerate(batches()):
+            batch = shard_batch(mesh, batch)
             loss, _ = step(state, {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
             if it % 100 == 0:
                 log_fn(f"epoch {epoch} iteration{it}, Loss: {float(loss)}")
             if max_steps is not None and state.step >= max_steps:
                 return state
 
-        if epoch % tc.plot_every == 0:
+        if epoch % tc.plot_every == 0 and main_proc:
             _demo_panel(config, mods, state, cond_fn, vae, dataset, exp_path, epoch, task,
                         device)
         if tc.save_content and epoch % tc.save_content_every == 0:
-            ckpt.save_content(exp_path, mods, state, tx, epoch + 1, config, use_ema=tc.use_ema)
+            saved_by_rank0(ckpt.save_content, exp_path, mods, state, tx, epoch + 1, config,
+                           use_ema=tc.use_ema)
         if epoch % tc.save_ckpt_every == 0:
-            ckpt.save_model(exp_path, mods, state.ema if tc.use_ema else state.params, epoch)
+            saved_by_rank0(ckpt.save_model, exp_path, mods,
+                           state.ema if tc.use_ema else state.params, epoch)
     return state
 
 

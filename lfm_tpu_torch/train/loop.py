@@ -1,4 +1,4 @@
-"""The training loop on one device (port of lfm_tpu/train/loop.py).
+"""The training loop (port of lfm_tpu/train/loop.py).
 
 Per epoch: the shuffled batches through the train step (VAE encode + FM
 loss + backward + AdamW + EMA, train/train.py), the loss and steps/s
@@ -11,9 +11,19 @@ epoch and returns. Every network of ``create_network`` trains: the DiT,
 the origin ADM (its attention an f32 island through K1 and K3 on the card)
 and EDM's DhariwalUNet, built in the ``precision`` policy's dtype and
 initialised as the JAX package initialises it (``dit_init_``,
-``unet_init_``). The multi-device, shard_map and pipeline-parallel
-branches of the JAX loop are not ported: a mesh other than one device
-raises.
+``unet_init_``).
+
+Over several ranks (one process per GPU, core/multihost.py) the mesh of
+``config.mesh`` (dp, fsdp, tp) splits each batch over its data axis, and
+the state is replicated on every rank, as JAX's loop places it whatever
+``--fsdp/--tp`` say (lfm_tpu/train/loop.py:168): ranks that share a data
+index compute the same rows. Every rank loads the same full batch and
+keeps its rows. Rank 0 alone logs, plots and writes ``config.json`` and
+the checkpoints; the others wait at a barrier after each save, so the
+files are those of one device. With one process SIGTERM is acted on at
+once; with several the flag is all-reduced every ``preempt_check_every``
+steps and every rank saves at the same step. Ring sequence parallelism
+and pipeline parallelism raise (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -28,10 +38,13 @@ import numpy as np
 import torch
 
 from lfm_tpu_torch.core import checkpoint as ckpt
-from lfm_tpu_torch.core.config import Config, MeshConfig, SampleConfig
+from lfm_tpu_torch.core.config import Config, SampleConfig
 from lfm_tpu_torch.core.device import DeviceLike, resolve_device
+from lfm_tpu_torch.core.multihost import (any_process_flag, is_main_process, process_count,
+                                          sync_hosts)
 from lfm_tpu_torch.core.preemption import PreemptionGuard
 from lfm_tpu_torch.core.rng import SampleRNG
+from lfm_tpu_torch.core.sharding import make_mesh, shard_batch
 from lfm_tpu_torch.data import DataLoader, get_dataset
 from lfm_tpu_torch.data.transforms import require_pil
 from lfm_tpu_torch.nn.factory import create_network
@@ -83,23 +96,30 @@ def save_image_grid(images: np.ndarray, path: str, nrow: int = 8) -> None:
         require_pil(f"writing {path}").fromarray(grid).save(path)
 
 
-def check_single_device(mesh: MeshConfig) -> None:
-    if mesh.dp not in (-1, 1) or (mesh.fsdp, mesh.tp, mesh.sp, mesh.pp) != (1, 1, 1, 1):
-        raise NotImplementedError(
-            "multi-device training (dp, fsdp, tp, sp, pp other than 1) is not ported yet "
-            f"(ROADMAP Queue 1 item 8); got {mesh}")
+def saved_by_rank0(save: Callable, *args, **kwargs) -> None:
+    """``save(*args)`` on rank 0, then a barrier: a collective save whose
+    file is written once."""
+    if is_main_process():
+        save(*args, **kwargs)
+    if process_count() > 1:
+        sync_hosts()
 
 
 def train(config: Config, *, dataset=None, vae=None, device: DeviceLike = None,
           max_steps: Optional[int] = None, log_fn: Callable = print) -> TrainState:
     """Run training per ``config`` on ``device`` (the card unless
-    ``device="cpu"``). ``vae``: this package's AutoencoderKL, frozen; without
-    it the data are latents. ``config.train.model_ckpt``: a ``content.pth``
-    resumes the run (optimizer and EMA too), a ``model_{E}.pth`` starts from
-    its weights. Returns the final TrainState."""
+    ``device="cpu"``; under several ranks this rank's card). ``vae``: this
+    package's AutoencoderKL, frozen; without it the data are latents.
+    ``config.train.model_ckpt``: a ``content.pth`` resumes the run
+    (optimizer and EMA too), a ``model_{E}.pth`` starts from its weights.
+    Returns the final TrainState (the same on every rank)."""
     device = resolve_device(device)
     tc = config.train
-    check_single_device(config.mesh)
+    m = config.mesh
+    mesh = make_mesh(m.dp, m.fsdp, m.tp, m.sp, m.pp)
+    main_proc = is_main_process()
+    if not main_proc:
+        log_fn = lambda *a, **k: None  # noqa: E731
     dataset = dataset if dataset is not None else get_dataset(config, seed=tc.seed)
     loader = DataLoader(dataset, tc.batch_size, shuffle=True, drop_last=True, seed=tc.seed)
     steps_per_epoch = tc.steps_per_epoch or max(len(loader), 1)
@@ -136,12 +156,13 @@ def train(config: Config, *, dataset=None, vae=None, device: DeviceLike = None,
         model, tx, ema_decay=tc.ema_decay, use_ema=tc.use_ema, encode_fn=encode_fn,
         scale_factor=config.scale_factor, is_latent_data=is_latent,
         label_dropout=config.model.label_dropout > 0, dropout=config.model.dropout > 0,
-        seed=tc.seed + 1)
+        seed=tc.seed + 1, mesh=mesh)
 
     exp_path = config.exp_path
-    os.makedirs(exp_path, exist_ok=True)
-    with open(os.path.join(exp_path, "config.json"), "w") as f:
-        f.write(config.to_json())
+    if main_proc:
+        os.makedirs(exp_path, exist_ok=True)
+        with open(os.path.join(exp_path, "config.json"), "w") as f:
+            f.write(config.to_json())
 
     init_epoch = 0
     if content is not None:
@@ -153,10 +174,15 @@ def train(config: Config, *, dataset=None, vae=None, device: DeviceLike = None,
         log_fn(f"=> resume checkpoint (epoch {init_epoch})")
 
     log_steps, t_start = 0, time.time()
+    n_proc = process_count()
+    # a step cadence from the config, the same on every rank, so that the
+    # collective check runs at the same step everywhere
+    preempt_check_every = max(1, int(tc.preempt_check_every))
     with PreemptionGuard() as guard:
         for epoch in range(init_epoch, tc.num_epoch + 1):
             loader.set_epoch(epoch)
             for it, batch in enumerate(loader):
+                batch = shard_batch(mesh, batch)
                 b = {"x": torch.from_numpy(batch["x"]).to(device)}
                 if use_label:
                     b["y"] = torch.from_numpy(batch["y"]).to(device)
@@ -168,23 +194,29 @@ def train(config: Config, *, dataset=None, vae=None, device: DeviceLike = None,
                     log_fn(f"epoch {epoch} iteration{it}, Loss: {float(loss)}, "
                            f"Train Steps/Sec: {sps:.2f}")
                     log_steps, t_start = 0, time.time()
-                if guard.preempted:
+                if n_proc == 1:
+                    preempt = guard.preempted
+                else:
+                    preempt = (state.step % preempt_check_every == 0
+                               and any_process_flag(guard.preempted))
+                if preempt:
                     # the current epoch re-runs on resume
-                    ckpt.save_content(exp_path, model, state, tx, epoch, config,
-                                      use_ema=tc.use_ema)
+                    saved_by_rank0(ckpt.save_content, exp_path, model, state, tx, epoch, config,
+                                   use_ema=tc.use_ema)
                     log_fn(f"=> preemption signal: content checkpoint saved at epoch {epoch} "
                            f"(step {state.step})")
                     return state
                 if max_steps is not None and state.step >= max_steps:
                     return state
 
-            if epoch % tc.plot_every == 0 and vae is not None:
+            if epoch % tc.plot_every == 0 and vae is not None and main_proc:
                 _demo_plot(config, model, state, vae, exp_path, epoch, device)
             if tc.save_content and epoch % tc.save_content_every == 0:
-                ckpt.save_content(exp_path, model, state, tx, epoch + 1, config,
-                                  use_ema=tc.use_ema)
+                saved_by_rank0(ckpt.save_content, exp_path, model, state, tx, epoch + 1, config,
+                               use_ema=tc.use_ema)
             if epoch % tc.save_ckpt_every == 0:
-                ckpt.save_model(exp_path, model, state.ema if tc.use_ema else state.params, epoch)
+                saved_by_rank0(ckpt.save_model, exp_path, model,
+                               state.ema if tc.use_ema else state.params, epoch)
     return state
 
 

@@ -16,13 +16,15 @@ once, outside any kernel, as XLA fuses it in the JAX package.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from lfm_tpu_torch.core.config import TrainConfig
+from lfm_tpu_torch.core.partition import Partitioned
 
 
 def cosine_epoch_schedule(cfg: TrainConfig, steps_per_epoch: int) -> Callable[[int], float]:
@@ -71,7 +73,9 @@ class TrainState:
     """``step``: global steps taken (the schedule's count); ``count``: Adam's
     bias-correction count (optax ScaleByAdamState.count). ``params`` are
     the model's parameters, updated in place; ``ema`` equals them when EMA
-    is off."""
+    is off. With ``layout`` (core/partition.py) ``params`` are its masters,
+    the rank's slices where a parameter is split, and the moments and EMA
+    are split alike."""
 
     names: List[str]
     params: List[torch.Tensor]
@@ -80,15 +84,44 @@ class TrainState:
     ema: List[torch.Tensor]
     step: int = 0
     count: int = 0
+    layout: Optional[Partitioned] = None
+
+    @property
+    def module_params(self) -> List[torch.Tensor]:
+        """The parameters the forward runs on, whose ``.grad`` backward fills."""
+        return self.params if self.layout is None else self.layout.params
 
 
-def create_train_state(model: nn.Module) -> TrainState:
+def create_train_state(model: nn.Module, layout: Optional[Partitioned] = None) -> TrainState:
     names, params = zip(*model.named_parameters())
+    if layout is not None:
+        params = layout.masters
     with torch.no_grad():
         return TrainState(names=list(names), params=list(params),
                           mu=[torch.zeros_like(p) for p in params],
                           nu=[torch.zeros_like(p) for p in params],
-                          ema=[p.detach().clone() for p in params])
+                          ema=[p.detach().clone() for p in params], layout=layout)
+
+
+def global_grad_norm(grads: List[torch.Tensor],
+                     groups: Optional[List] = None) -> torch.Tensor:
+    """The norm of the whole gradient. ``groups[i]`` is the process group
+    that grads[i]'s elements are split over (None: every rank holds it
+    whole): the split ones' squares are summed over their group, once a
+    group, and a whole one is counted once, not once a rank."""
+    norms = torch._foreach_norm(grads)
+    if groups is None or all(g is None for g in groups):
+        return torch.linalg.vector_norm(torch.stack(norms))
+    by_group = {}
+    for n, g in zip(norms, groups):
+        by_group.setdefault(g, []).append(n)
+    total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    for g, ns in by_group.items():
+        sq = torch.sum(torch.square(torch.stack(ns)))
+        if g is not None:
+            dist.all_reduce(sq, group=g)
+        total = total + sq
+    return torch.sqrt(total)
 
 
 def make_fused_adamw_ema(tx: AdamW, *, ema_decay: float = 0.9999,
@@ -106,7 +139,7 @@ def make_fused_adamw_ema(tx: AdamW, *, ema_decay: float = 0.9999,
         p, m, v, e = state.params, state.mu, state.nu, state.ema
         with torch.no_grad():
             g = [t.float() for t in grads]
-            gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+            gnorm = global_grad_norm(g, None if state.layout is None else state.layout.groups)
             # m = b1 m + (1 - b1) g ; v = b2 v + (1 - b2) g^2
             torch._foreach_mul_(m, tx.b1)
             torch._foreach_add_(m, g, alpha=1.0 - tx.b1)

@@ -1,4 +1,4 @@
-"""Flow-matching train step on one device (port of lfm_tpu/train/train.py).
+"""Flow-matching train step (port of lfm_tpu/train/train.py).
 
 One step (reference train_flow_latent.py:135-170): encode the images with
 the frozen VAE (unless the data are latents) and scale by ``scale_factor``;
@@ -9,6 +9,13 @@ Every draw comes from one ``torch.Generator`` on the device, seeded from
 the seed and the step number, in this order: the encoder's eps, t, z1, the
 label-dropout mask, the dropout masks in layer order. JAX's threefry bits cannot be matched, so the parity tests hand both
 packages the same draws (``fm_train_loss``).
+
+Over a mesh (core/sharding.py) the batch a rank is given is its rows of
+the global batch. Each draw is made at the global batch's size and the
+rank keeps its rows (``RowGenerator``), so the ranks together draw what
+one process draws for the whole batch, as JAX draws one key over it. The
+gradients are averaged over the data axis (one all-reduce a bucket after
+backward) and the loss returned is the global mean.
 """
 
 from __future__ import annotations
@@ -19,7 +26,8 @@ import torch
 from torch import nn
 
 from lfm_tpu_torch.core.device import no_tf32
-from lfm_tpu_torch.core.rng import seeded_generator
+from lfm_tpu_torch.core.rng import draw_rows, seeded_generator
+from lfm_tpu_torch.core.sharding import DATA_AXIS, Mesh, all_reduce_mean_, global_rows
 from lfm_tpu_torch.ode.flow import interpolate
 from lfm_tpu_torch.train.state import AdamW, TrainState, make_fused_adamw_ema
 
@@ -43,8 +51,8 @@ def make_train_step(model: nn.Module, tx: AdamW, *,
                     encode_fn: Optional[Callable[[torch.Tensor, torch.Generator],
                                                  torch.Tensor]] = None,
                     scale_factor: float = 0.18215, is_latent_data: bool = False,
-                    label_dropout: bool = False, dropout: bool = False, seed: int = 0
-                    ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
+                    label_dropout: bool = False, dropout: bool = False, seed: int = 0,
+                    mesh: Optional[Mesh] = None) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                   Tuple[torch.Tensor, torch.Tensor]]:
     """``train_step(state, batch) -> (loss, grad_norm)``, updating the model
     and ``state`` in place. ``batch``: {"x": NHWC images in [-1, 1] (or
@@ -59,22 +67,31 @@ def make_train_step(model: nn.Module, tx: AdamW, *,
     module), for example the fused blocks,
     ``nn.dit_fused.dit_fused_model_apply(model)``.
     Its backward must reach ``state.params``; a parameter it does not use
-    keeps a zero gradient."""
+    keeps a zero gradient.
+
+    ``mesh``: ``batch`` holds this rank's rows of the global batch
+    (``core.sharding.shard_batch``); the draws, the gradients and the loss
+    are the global batch's (the module docstring). A ``state.layout``
+    (core/partition.py) gathers its split parameters before the forward."""
     update = make_fused_adamw_ema(tx, ema_decay=ema_decay, use_ema=use_ema)
+    data_group = None if mesh is None else mesh.group(DATA_AXIS)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         x = batch["x"]
         y = batch.get("y")
-        gen = seeded_generator(x.device, seed, state.step)
+        gen = seeded_generator(x.device, seed, state.step, rows=global_rows(mesh, x.shape[0]))
+        if state.layout is not None:
+            state.layout.gather_()
         if is_latent_data or encode_fn is None:
             z0 = x * scale_factor if is_latent_data else x
         else:
             with torch.no_grad():
                 z0 = encode_fn(x, gen) * scale_factor
         z0 = z0.float()
-        t = torch.rand((z0.shape[0],), generator=gen, device=z0.device)
-        z1 = torch.randn(z0.shape, generator=gen, device=z0.device)
-        for p in state.params:
+        t = draw_rows(torch.rand, (z0.shape[0],), gen, z0.device)
+        z1 = draw_rows(torch.randn, z0.shape, gen, z0.device)
+        params = state.module_params
+        for p in params:
             p.grad = None
         drop_gen = gen if label_dropout or dropout else None
         if model_apply is None:
@@ -85,9 +102,14 @@ def make_train_step(model: nn.Module, tx: AdamW, *,
             loss = torch.mean(torch.square(v.float() - u.float()))
         with no_tf32():  # the UNets' f32 convolutions' backward in f32, as their forward
             loss.backward()
-        gnorm = update(state, [torch.zeros_like(p) if p.grad is None else p.grad
-                               for p in state.params])
-        return loss.detach(), gnorm
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        if state.layout is not None:
+            grads = state.layout.local_grads(grads)
+        loss = loss.detach()
+        if data_group is not None:
+            all_reduce_mean_(grads + [loss.reshape(1)], data_group)
+        gnorm = update(state, grads)
+        return loss, gnorm
 
     return train_step
 

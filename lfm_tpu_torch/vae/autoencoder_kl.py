@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from lfm_tpu_torch.core.device import DeviceLike, no_tf32, resolve_device
+from lfm_tpu_torch.core.rng import draw_rows
 from lfm_tpu_torch.nn.layers import dense
 
 _GN_EPS = 1e-6
@@ -238,7 +239,7 @@ class AutoencoderKL(nn.Module):
         N(0, 1) from ``generator`` unless given."""
         mean, logvar = self.encode_moments(x)
         if eps is None:
-            eps = torch.randn(mean.shape, generator=generator, device=mean.device)
+            eps = draw_rows(torch.randn, mean.shape, generator, mean.device)
         return mean + torch.exp(0.5 * logvar) * eps
 
     def encode_mode(self, x: torch.Tensor) -> torch.Tensor:

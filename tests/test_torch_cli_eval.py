@@ -237,11 +237,18 @@ def test_per_sample_generators_run(generator, capsys):
 @pytest.mark.parametrize("flags", [["--sp", "2"], ["--pp", "2"], ["--pp_chunks", "2"],
                                    ["--num_procs", "2"], ["--generator", "dummy"]])
 def test_unported_flags_raise(flags):
-    """More than one device (Queue 1 item 8) and the stateful dummy
-    generator (item 9) raise rather than being ignored."""
+    """Ring sequence and pipeline parallelism (Queue 1 item 8) and the
+    stateful dummy generator (item 9) raise rather than being ignored;
+    more than one process exits with JAX's message where the subcommand
+    has no multi-process story, and ``fid`` without a coordinator raises."""
     item = {"--generator": "item 9"}.get(flags[0], "item 8")
     for cmd in ("sample", "fid", "nfe", "time"):
-        with pytest.raises(NotImplementedError, match=item):
+        if flags[0] == "--num_procs":
+            error, item = ((ValueError, "coordinator") if cmd == "fid"
+                           else (SystemExit, "not supported"))
+        else:
+            error = NotImplementedError
+        with pytest.raises(error, match=item):
             cli.main([cmd, "--preset", "celeb256_dit", "--device", "cpu", *flags])
 
 
@@ -303,7 +310,15 @@ def test_eval_noise_flag_reaches_make_sampler_as_jax_parses_it(monkeypatch, valu
 
 
 def test_fid_needs_statistics_and_one_device():
+    """fid needs the statistics; its batch splits over the data axis alone,
+    and a mesh with sequence parallelism is not ported (item 8)."""
+    from lfm_tpu_torch.core.sharding import AXES, Mesh, make_mesh
+
     with pytest.raises(SystemExit, match="real_img_dir"):
         cli.main(["fid", "--preset", "celeb256_dit", "--device", "cpu", *DIT_FLAGS])
     with pytest.raises(NotImplementedError, match="item 8"):
-        sharded.make_sharded_generator(tconfig.get_preset("celeb256_dit"), None, mesh=2)
+        make_mesh(sp=2)
+    tp_mesh = Mesh(dict(zip(AXES, (1, 1, 1, 2, 1))), {a: 0 for a in AXES})
+    with pytest.raises(ValueError, match="data axis"):
+        sharded.make_sharded_generator(tconfig.get_preset("celeb256_dit"), None, mesh=tp_mesh,
+                                       device="cpu")

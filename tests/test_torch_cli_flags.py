@@ -2,7 +2,8 @@
 ``time`` command lines parsed by the port's parser give the ``Config`` that
 ``lfm_tpu.cli.main._resolve_config`` gives, field for field, ``--datadir``
 and ``--fused_dit`` among them. The multi-process flags (``--coordinator``,
-``--process_id``) are ROADMAP Queue 1 item 8's and stay out of these lines.
+``--num_procs``, ``--process_id``) are tests/test_torch_multihost.py's and
+stay out of these lines.
 """
 
 import dataclasses

@@ -280,7 +280,8 @@ def test_test_semantic_matches_jax(fixtures, f32_pipelines, monkeypatch, capsys,
 
 
 def test_downstream_flags_raise_where_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    # only train and fid are multi-process aware (lfm_tpu/cli/main.py:361-372)
+    with pytest.raises(SystemExit, match="not supported for 'train-inpainting'"):
         cli.main(["train-inpainting", "--preset", "celeb256_adm", "--num_procs", "2",
                   "--device", "cpu"])
     cfg = cli._resolve_downstream_config(cli._build_parser().parse_args(

@@ -79,7 +79,9 @@ def test_port_imports_nothing_of_jax_or_lfm_tpu():
                 "lfm_tpu_torch.eval.evaluator", "lfm_tpu_torch.eval.inception_score",
                 "lfm_tpu_torch.nn.attention", "lfm_tpu_torch.nn.text_encoder",
                 "lfm_tpu_torch.nn.variants", "lfm_tpu_torch.data.layout",
-                "lfm_tpu_torch.data.countless", "lfm_tpu_torch.data.annotated_objects"):
+                "lfm_tpu_torch.data.countless", "lfm_tpu_torch.data.annotated_objects",
+                "lfm_tpu_torch.core.multihost", "lfm_tpu_torch.core.sharding",
+                "lfm_tpu_torch.core.partition"):
         assert mod in out["modules"]
 
 
