@@ -2,6 +2,7 @@
 """Chip smoke test of the PyTorch / CUDA port (``lfm_tpu_torch``) on one H100.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --nccl   # on two cards or more: phase 10g over NCCL
 
 Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
 
@@ -340,6 +341,22 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
    Every rank's counts are reset before each of its runs and read after:
    exactly the K2 count an evaluation and the K1 / K3 counts a step of
    main_fused, train and train_f32. A rank that fails fails the script.
+10g. ``dist_sp_pp``: two gloo ranks on cuda:0, celeb256_dit's DiT-L/2 at
+   full width and depth from model_0.pth, sampled with euler 4 at batch 8
+   through the module path, bf16 and f32: under ``sp=2`` (16 latent rows a
+   rank, the ring attention; no kernel) and ``pp=2`` with ``pp_chunks`` 1
+   and 2 (12 blocks a rank, two microbatches: 96 K1 a rank), each against
+   this process's sampler on the same weights and noise (bf16 VEL_TOL, f32
+   F32_VEL_TOL); ``train(...)`` with ``mesh.pp=2`` for one epoch of one
+   bf16 step at batch 32 of latents (remat as the preset: exactly the
+   one-process step's 48 K1 and 24 K3 a rank), through the loop's stage
+   placement, gradient-norm groups and canonical checkpoints: its loss,
+   gradient norm, gradients and parameters against this process's
+   ``train(...)`` at pp=1 (the parameters tight wherever both runs' Adam
+   steps are the same), and the content.pth that rank 0 writes, reloaded
+   here into the whole model; celeb256_adm's origin ADM at full width, one evaluation at batch
+   8 under ``sp=2`` (the row-sharded forward; K1 and K6 bypassed, no
+   launch) against this process, bf16 and f32.
 11. a ``kernels`` line with every ported kernel (f32 K1 at celeb256_adm's
    (200, 16, 4, 128) as its own entry, attention_small_f32, with
    adm_main's launches; f32 K1 and K3 at the f32 DiT's (32, 256, 16, 64)
@@ -354,6 +371,12 @@ Imports nothing of JAX or ``lfm_tpu``. Phases, each printing JSON lines:
 
 Every path resets all launch counts just before it runs and reads them
 just after.
+
+``--nccl`` builds the kernels and the seeded model_0.pth as phase 1 does,
+then runs only phase 10g with its two ranks over NCCL, one a card (cuda:0
+and cuda:1), so that ``ppermute`` takes NCCL's ``batch_isend_irecv``,
+against this process with the same gates; then the card line and the last
+line. It needs two cards, which NCCL needs for two ranks.
 
 Any failed check raises, so the exit code is not 0. Without CUDA, or
 without the package beside it, the script exits non-zero before printing
@@ -666,9 +689,13 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    args = sys.argv[1:]
+    if args not in ([], ["--nccl"]):
+        print(f"chip_smoke: unknown arguments {args}", file=sys.stderr)
+        return 2
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        return run(torch, work)
+        return run_nccl(torch, work) if args else run(torch, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2880,6 +2907,10 @@ def run(torch, work: str) -> int:
                               ckpt_path, probe, loss1, train_p1, depth, per_step, counters,
                               counts, reset_counts)
 
+    # 10g. sequence and pipeline parallelism: two ranks sharing cuda:0 over gloo
+    dist_counts.update(dist_sp_pp(torch, work, dev, config, tconfig, ckpt_path, depth,
+                                  per_step, counters, counts, reset_counts))
+
     # 11. the kernels line, the card, the last line
     by_path = {"main_fused": fused_counts, "main_module": module_counts,
                "int8_main": int8_counts, "p1_probe": probe_counts, "adm_main": adm_counts,
@@ -2953,6 +2984,50 @@ def run(torch, work: str) -> int:
                                       "bound_by", "library_ms")}}
         for name, src, tpu, path, row in kernels
     ], "seconds_total": time.time() - t_all})
+    print(card_line(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+def run_nccl(torch, work: str) -> int:
+    """``--nccl``: phase 10g with its ranks over NCCL on cuda:0 and cuda:1."""
+    from lfm_tpu_torch.core.config import get_preset
+    from lfm_tpu_torch.kernels import _build
+    from lfm_tpu_torch.nn.factory import create_network
+    from lfm_tpu_torch.nn.init import seeded_init_
+
+    if torch.cuda.device_count() < DIST_SHARED_RANKS:
+        raise AssertionError(f"--nccl needs {DIST_SHARED_RANKS} cards, found "
+                             f"{torch.cuda.device_count()}")
+    t_all = time.time()
+    dev = torch.device("cuda", 0)
+    lib = _build.build()
+    _build.load_library()
+    emit({"phase": "build", "seconds": time.time() - t_all, "lib": os.path.relpath(lib)})
+    config = get_preset("celeb256_dit")
+    model = seeded_init_(create_network(config.model, dtype=torch.bfloat16,
+                                        use_flash=config.model.use_flash_attention,
+                                        device=dev), SEED)
+    ckpt_path = os.path.join(work, "model_0.pth")
+    torch.save({"pos_embed": model.pos_embed.cpu(),
+                **{k: v.cpu() for k, v in model.state_dict().items()}}, ckpt_path)
+    depth = model.depth
+    del model
+    torch.cuda.empty_cache()
+    tconfig = dataclasses.replace(
+        config, train=dataclasses.replace(config.train, model_ckpt=ckpt_path), output_dir=work)
+    counters = _dist_counters()
+
+    def reset_counts():
+        for c in counters.values():
+            c.reset()
+
+    def counts():
+        return {name: c.count for name, c in counters.items()}
+
+    dist_sp_pp(torch, work, dev, config, tconfig, ckpt_path, depth, None, counters, counts,
+               reset_counts, backend="nccl")
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -3100,27 +3175,43 @@ def job_fid(torch, dev, task, rank):
 
 def _recording_train(torch, task, cfg, dev, max_steps, names, rank=None,
                      sigterm_after=None):
-    """train(...) with each step's loss on this rank (the global mean) and
-    each compared element's smallest |gradient|; with ``sigterm_after``
-    rank 1 sends itself SIGTERM after that step."""
+    """train(...) with each step's loss (on this rank, the global mean),
+    gradient norm and seconds, each compared element's smallest |gradient|
+    and step 1's gradients, under their canonical names (a pipeline stage's
+    gathered from the stages); with ``sigterm_after`` rank 1 sends itself
+    SIGTERM after that step. Returns those and the final state's compared
+    parameters."""
     import signal
 
+    from lfm_tpu_torch.sample.pp import gather_canonical
     from lfm_tpu_torch.train import loop as loop_mod
 
-    real, losses, low, grads1 = loop_mod.make_train_step, [], {}, {}
+    real = loop_mod.make_train_step
+    rec = {"losses": [], "gnorms": [], "step_seconds": [], "low": {}, "grads1": {},
+           "blocks": None}
 
-    def recording(*a, **k):
-        step = real(*a, **k)
+    def recording(model, *a, **k):
+        step = real(model, *a, **k)
+        placed = getattr(model, "pp_blocks", None)
+        rec["blocks"] = None if placed is None else placed[0]
 
         def wrapped(state, batch):
+            t0 = time.time()
             loss, gnorm = step(state, batch)
-            losses.append(float(loss))
-            for name, p in zip(state.names, state.params):
-                if name in names:  # p.grad: the gradient averaged over the ranks
-                    g = p.grad.detach().abs()
-                    low[name] = g if name not in low else torch.minimum(low[name], g)
+            rec["losses"].append(float(loss))
+            rec["step_seconds"].append(time.time() - t0)
+            rec["gnorms"].append(float(gnorm))
+            # p.grad: the gradient averaged over the ranks
+            grads = [p.grad for p in state.params]
+            named = (dict(zip(state.names, grads)) if placed is None
+                     else gather_canonical(model, k["mesh"], state.names, grads))
+            low = rec["low"]
+            for name, g in named.items():
+                if name in names:
+                    a = g.detach().abs()
+                    low[name] = a if name not in low else torch.minimum(low[name], a)
                     if state.step == 1:
-                        grads1[name] = p.grad.detach().float().cpu()
+                        rec["grads1"][name] = g.detach().float().cpu()
             if rank == 1 and state.step == sigterm_after:
                 os.kill(os.getpid(), signal.SIGTERM)
             return loss, gnorm
@@ -3137,27 +3228,28 @@ def _recording_train(torch, task, cfg, dev, max_steps, names, rank=None,
                                max_steps=max_steps, log_fn=lambda *a: None)
     finally:
         loop_mod.make_train_step = real
-    params = {n: p.detach().float().cpu() for n, p in zip(state.names, state.params)
-              if n in names}
-    return state.step, losses, params, {n: g.cpu() for n, g in low.items()}, grads1
+    rec["low"] = {n: g.cpu() for n, g in rec["low"].items()}
+    return dict(rec, step=state.step,
+                params={n: p.detach().float().cpu() for n, p in zip(state.names, state.params)
+                        if n in names})
 
 
 def job_train1(torch, dev, task, rank):
     """One data-parallel bf16 step of train(...) from model_0.pth."""
     names = [task["probe"]]
-    (step, losses, params, _, _), counts, heads = _dist_counted(
+    rec, counts, heads = _dist_counted(
         lambda: _recording_train(torch, task, task["config"], dev, 1, names))
-    return {"step": step, "losses": losses, "probe": params[task["probe"]], "counts": counts,
-            "heads": heads}
+    return {"step": rec["step"], "losses": rec["losses"], "probe": rec["params"][task["probe"]],
+            "counts": counts, "heads": heads}
 
 
 def job_train3(torch, dev, task, rank):
     """Three data-parallel f32 steps of DiT-L/2."""
-    (step, losses, params, _, grads1), counts, heads = _dist_counted(
+    rec, counts, heads = _dist_counted(
         lambda: _recording_train(torch, task, task["f32_config"], dev, DIST_F32_STEPS,
                                  task["names"]))
-    return {"step": step, "losses": losses, "params": params, "grads1": grads1,
-            "counts": counts, "heads": heads}
+    return {"step": rec["step"], "losses": rec["losses"], "params": rec["params"],
+            "grads1": rec["grads1"], "counts": counts, "heads": heads}
 
 
 def job_preempt(torch, dev, task, rank):
@@ -3167,11 +3259,11 @@ def job_preempt(torch, dev, task, rank):
     from lfm_tpu_torch.core import checkpoint as ckpt
 
     cfg = task["preempt_config"]
-    (step, _, _, _, _), counts, heads = _dist_counted(
+    rec, counts, heads = _dist_counted(
         lambda: _recording_train(torch, dict(task, dataset=task["latents"]), cfg, dev, None,
                                  (), rank=rank, sigterm_after=1))
     content = ckpt.load_content(cfg.exp_path) if rank == 0 else None
-    return {"step": step, "files": sorted(os.listdir(cfg.exp_path)), "counts": counts,
+    return {"step": rec["step"], "files": sorted(os.listdir(cfg.exp_path)), "counts": counts,
             "content_step": None if content is None else content["global_step"]}
 
 
@@ -3353,8 +3445,9 @@ def dist_phases(torch, work, dev, config, tconfig, f32_config, dataset, vae, ckp
     t_ref = time.time()
     ref_exp = dataclasses.replace(f32_exp, exp="dist_f32_one")
     reset_counts()
-    ref_step, ref_losses, ref_params, ref_low, ref_grads1 = _recording_train(
-        torch, task, ref_exp, dev, DIST_F32_STEPS, names)
+    ref = _recording_train(torch, task, ref_exp, dev, DIST_F32_STEPS, names)
+    ref_losses, ref_params, ref_low, ref_grads1 = (ref[k] for k in ("losses", "params", "low",
+                                                                      "grads1"))
     ref_f32_counts = {k: v for k, v in counts().items() if v}
     check_counts("dist one-process f32 steps", ref_f32_counts,
                  {k: v * DIST_F32_STEPS for k, v in per_step["f32"].items()})
@@ -3467,6 +3560,323 @@ def dist_phases(torch, work, dev, config, tconfig, f32_config, dataset, vae, ckp
             "dist_shared_f32": full(s0["train3"]["counts"]),
             "dist_shared_fsdp": full(s0["partition"]["fsdp"]["counts"]),
             "dist_shared_tp": full(s0["partition"]["tp"]["counts"])}
+
+
+# 10g. dist_sp_pp: celeb256_dit's DiT-L/2 sampled at batch SPPP_BATCH with
+# euler SPPP_STEPS under sp=2 and pp=2 (1 and 2 chunks); one pp=2 train
+# step at batch SPPP_TRAIN_BATCH; celeb256_adm's origin ADM once under sp=2
+SPPP_BATCH, SPPP_STEPS, SPPP_TRAIN_BATCH, SPPP_ADM_BATCH = 8, 4, 32, 8
+# the ranks' latents and velocities against one process on the same weights
+# and noise, max abs / max |one process|: bf16 as VEL_TOL (another
+# microbatch size or another attention, the ring, rounds differently); f32
+# as F32_VEL_TOL, f32 sums in another order through 24 blocks and 4 steps
+SPPP_BF16_TOL, SPPP_F32_TOL = VEL_TOL, F32_VEL_TOL
+# the pp train step's gradients against one process's, max abs / max |one
+# process| per tensor: GRAD_TOL, bf16 products at another microbatch size
+SPPP_GRAD_TOL = GRAD_TOL
+# its parameters after the step: Adam's first step moves an element by lr
+# times g / (|g| + eps), lr times g's sign wherever |g| is well above eps.
+# Where both runs' gradients have one sign and are at least DIST_NOISE_GRAD
+# the two steps are the same, and the parameters are
+# held within DIST_PARAM_TOL (a tenth of lr: a stage whose update were
+# lost would sit lr off); the other elements, whose gradient is bf16
+# rounding noise, may step lr apart either way, and are held within
+# SPPP_PARAM_STEPS lr (2 lr with dist_shared's margin of a tenth)
+SPPP_PARAM_STEPS = 2.2
+
+
+def sppp_config(config, pp=1, chunks=1):
+    """celeb256_dit's sampling through the module path (the fused and int8
+    blocks do not run under sp or pp, as in JAX), euler SPPP_STEPS."""
+    return config.replace(
+        sample=dataclasses.replace(config.sample, method="euler", num_steps=SPPP_STEPS,
+                                   use_fused_dit=False, batch_size=SPPP_BATCH),
+        mesh=dataclasses.replace(config.mesh, pp=pp, pp_chunks=chunks))
+
+
+def _sppp_sample(torch, task, dev, config, **mesh):
+    """make_sampler over the mesh, bf16 and f32, each with the counts reset
+    before and read after."""
+    from lfm_tpu_torch.sample.sample import make_sampler
+
+    out = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        model = _dist_model(torch, task, dev, dtype, remat=False)
+        sampler = make_sampler(config, model, None, device=dev, **mesh)
+        t0 = time.time()
+        lat, counts, heads = _dist_counted(lambda: sampler(task["sppp_noise"].to(dev)).latents)
+        torch.cuda.synchronize(dev)
+        out[name] = {"latents": lat.float().cpu(), "counts": counts, "heads": heads,
+                     "seconds": time.time() - t0}
+        del model, sampler
+        torch.cuda.empty_cache()
+    return out
+
+
+def job_sp_dit(torch, dev, task, rank):
+    """DiT-L/2 sampled under sp=2: the ring attention over the rows."""
+    from lfm_tpu_torch.core.sharding import make_mesh
+
+    return _sppp_sample(torch, task, dev, sppp_config(task["config"]),
+                        sp_mesh=make_mesh(dp=1, sp=2))
+
+
+def job_pp_dit(torch, dev, task, rank):
+    """DiT-L/2 sampled under pp=2, GPipe and the interleaved schedule."""
+    from lfm_tpu_torch.core.sharding import make_mesh
+
+    mesh = make_mesh(dp=1, pp=2)
+    return {chunks: _sppp_sample(torch, task, dev, sppp_config(task["config"], 2, chunks),
+                                 pp_mesh=mesh) for chunks in (1, 2)}
+
+
+def sppp_loop_config(tconfig, work, pp):
+    """celeb256_dit's ``train(...)`` from model_0.pth on SPPP_TRAIN_BATCH
+    latents over ``pp`` stages: one epoch of one bf16 step (remat as the
+    preset), after which rank 0 writes the canonical content.pth and
+    model_0.pth."""
+    return dataclasses.replace(
+        tconfig, exp=f"dist_sp_pp_loop{pp}", dataset="synthetic_latent", output_dir=work,
+        mesh=dataclasses.replace(tconfig.mesh, pp=pp, pp_chunks=1),
+        # the loop runs epochs 0 .. num_epoch
+        train=dataclasses.replace(tconfig.train, batch_size=SPPP_TRAIN_BATCH, num_epoch=0,
+                                  save_content=pp > 1, save_content_every=1,
+                                  save_ckpt_every=1))
+
+
+def job_pp_train(torch, dev, task, rank):
+    """``train(...)`` of DiT-L/2 under pp=2: the loop's stage placement,
+    gradient-norm groups and canonical checkpoints."""
+    import torch._dynamo  # noqa: F401  # the first checkpoint call imports it (~13 s): not the step's
+
+    cfg = task["pp_loop_config"]
+    rec, counts, heads = _dist_counted(lambda: _recording_train(
+        torch, dict(task, dataset=task["pp_latents"]), cfg, dev, None, task["names"]))
+    return {"step": rec["step"], "loss": rec["losses"][0], "gnorm": rec["gnorms"][0],
+            "step_seconds": rec["step_seconds"][0], "counts": counts, "heads": heads,
+            "blocks": rec["blocks"], "grads": rec["grads1"], "params": rec["params"],
+            "files": sorted(os.listdir(cfg.exp_path)),
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+
+
+def _sppp_adm(torch, config, dev, dtype):
+    from lfm_tpu_torch.nn.factory import create_network
+    from lfm_tpu_torch.nn.init import seeded_init_
+
+    m = config.model
+    return seeded_init_(create_network(m, dtype=dtype, use_flash=m.use_flash_attention,
+                                       device=dev), SEED).eval()
+
+
+def job_sp_adm(torch, dev, task, rank):
+    """celeb256_adm's origin ADM, one evaluation under sp=2: the row-sharded
+    forward (halo rows, GroupNorm sums, gathered k / v)."""
+    from lfm_tpu_torch.core.sharding import make_mesh
+    from lfm_tpu_torch.sample.sp import make_spatial_sp_apply, sp_block, sp_gather
+
+    mesh = make_mesh(dp=1, sp=2)
+    out = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        model = _sppp_adm(torch, task["adm_config"], dev, dtype)
+        apply = make_spatial_sp_apply(model, mesh)
+        x = sp_block(mesh, task["adm_x"].to(dev))
+        t0 = time.time()
+        with torch.no_grad():
+            v, counts, heads = _dist_counted(lambda: sp_gather(
+                mesh, apply(task["adm_t"].to(dev), x)))
+        torch.cuda.synchronize(dev)
+        out[name] = {"v": v.float().cpu(), "counts": counts, "seconds": time.time() - t0,
+                     "rows": tuple(x.shape)}
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+DIST_JOBS.update(sp_dit=job_sp_dit, pp_dit=job_pp_dit, pp_train=job_pp_train,
+                 sp_adm=job_sp_adm)
+
+
+def dist_sp_pp(torch, work, dev, config, tconfig, ckpt_path, depth, per_step, counters, counts,
+               reset_counts, backend="gloo"):
+    """10g: dist_sp_pp, two ranks on cuda:0 over gloo, or with ``backend``
+    nccl on cuda:0 and cuda:1 (``--nccl``); returns rank 0's launch counts
+    by path for the kernels line. ``per_step``: the train phase's launches
+    a step, which the one-process step must make too (None: not held)."""
+    from lfm_tpu_torch.core import checkpoint as ckpt
+    from lfm_tpu_torch.core.checkpoint import reference_state_dict
+    from lfm_tpu_torch.core.config import get_preset
+    from lfm_tpu_torch.data import SyntheticLatentDataset
+    from lfm_tpu_torch.nn.factory import create_network
+    from lfm_tpu_torch.sample.sample import make_sampler
+    from lfm_tpu_torch.train.state import create_train_state
+
+    card = card_line()
+    t_phase = time.time()
+    s = config.model.latent_size
+    g = torch.Generator(device="cpu").manual_seed(SEED + 11)
+    acfg = get_preset("celeb256_adm")
+    sa = acfg.model.latent_size
+    weights = reference_state_dict(torch.load(ckpt_path, map_location="cpu",
+                                              weights_only=False))
+    task = {"config": tconfig, "ckpt": ckpt_path, "adm_config": acfg,
+            "names": dist_compare_names(list(weights), depth),
+            "sppp_noise": torch.randn((SPPP_BATCH, s, s, 4), generator=g),
+            "pp_latents": SyntheticLatentDataset(n=SPPP_TRAIN_BATCH, latent_size=s,
+                                                 seed=SEED + 12),
+            "pp_loop_config": sppp_loop_config(tconfig, work, 2),
+            "adm_x": torch.randn((SPPP_ADM_BATCH, sa, sa, 4), generator=g),
+            "adm_t": torch.rand((SPPP_ADM_BATCH,), generator=g)}
+
+    # one process: the samplers, the train step and the ADM the ranks are held to
+    t_ref = time.time()
+    ref = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        model = create_network(config.model, dtype=dtype,
+                               use_flash=config.model.use_flash_attention, device=dev)
+        model.load_state_dict(weights)
+        reset_counts()
+        lat = make_sampler(sppp_config(config), model, None, device=dev)(
+            task["sppp_noise"].to(dev)).latents
+        ref[name] = {"latents": lat.float().cpu(),
+                     "counts": {k: v for k, v in counts().items() if v}}
+        del model
+    reset_counts()
+    ref_train = _recording_train(torch, dict(task, dataset=task["pp_latents"]),
+                                 sppp_loop_config(tconfig, work, 1), dev, None, task["names"])
+    ref_train["counts"] = {k: v for k, v in counts().items() if v}
+    torch.cuda.empty_cache()
+    ref_adm = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        amodel = _sppp_adm(torch, acfg, dev, dtype)
+        reset_counts()
+        with torch.no_grad():
+            ref_adm[name] = amodel(task["adm_t"].to(dev), task["adm_x"].to(dev)).float().cpu()
+        ref_adm[f"{name}_counts"] = {k: v for k, v in counts().items() if v}
+        del amodel
+    torch.cuda.empty_cache()
+    ref_s = time.time() - t_ref
+
+    ranks, wall = run_ranks(torch, work, f"dist_sp_pp_{backend}", DIST_SHARED_RANKS, backend,
+                            dict(task, jobs=["sp_dit", "pp_dit", "pp_train", "sp_adm"]))
+
+    def err(got, want):
+        return float((got - want).abs().max()) / float(want.abs().max())
+
+    # the launches each rank must make: none under sp (the ring, and the
+    # row-sharded UNet's einsum attention and plain GroupNorm); under pp each
+    # rank runs its 12 blocks once per microbatch, two microbatches of
+    # SPPP_BATCH / 2 an evaluation: 24 K1 an evaluation, as one process
+    k1_eval = {"attention_small": depth * SPPP_STEPS}
+    want_train = ref_train["counts"]
+    rows, failures = [], []
+    if not (want_train.get("attention_small") and want_train.get("attention_small_bwd")):
+        failures.append(f"the one-process step launched {want_train}: not K1 and K3")
+    if per_step is not None and want_train != per_step["bf16"]:
+        failures.append(f"the one-process step launched {want_train}, the train phase's step "
+                        f"{per_step['bf16']}")
+    lr = float(tconfig.train.lr)
+    for r, got in enumerate(ranks):
+        if got["joined"] != (backend, DIST_SHARED_RANKS, "0" if backend == "gloo" else str(r)):
+            failures.append(f"rank {r} joined {got['joined']}")
+        sp, pp, tr, adm = got["sp_dit"], got["pp_dit"], got["pp_train"], got["sp_adm"]
+        row = {"rank": r, "joined": got["joined"],
+               "job_seconds": {j: got[j]["seconds"] for j in ("sp_dit", "pp_dit", "pp_train",
+                                                              "sp_adm")}}
+        for name in ("bf16", "f32"):
+            tol = SPPP_BF16_TOL if name == "bf16" else SPPP_F32_TOL
+            checks = {f"sp_{name}": (sp[name], {}),
+                      f"pp1_{name}": (pp[1][name], k1_eval),
+                      f"pp2_{name}": (pp[2][name], k1_eval)}
+            for key, (res, want_counts) in checks.items():
+                e = err(res["latents"], ref[name]["latents"])
+                row[key] = {"rel_err": e, "launches": res["counts"], "heads": res["heads"],
+                            "seconds": res["seconds"]}
+                if not e <= tol:
+                    failures.append(f"rank {r} {key}: latents off by {e} > {tol}")
+                if res["counts"] != want_counts:
+                    failures.append(f"rank {r} {key}: launches {res['counts']}, expected "
+                                    f"{want_counts}")
+            e = err(adm[name]["v"], ref_adm[name])
+            row[f"adm_{name}"] = {"rel_err": e, "launches": adm[name]["counts"],
+                                  "seconds": adm[name]["seconds"], "block": adm[name]["rows"]}
+            if not e <= tol or adm[name]["counts"]:
+                failures.append(f"rank {r} adm_{name}: {row[f'adm_{name}']}")
+        loss_err = abs(tr["loss"] - ref_train["losses"][0]) / abs(ref_train["losses"][0])
+        gnorm_err = abs(tr["gnorm"] - ref_train["gnorms"][0]) / ref_train["gnorms"][0]
+        grad_err = max(err(tr["grads"][n], gr) for n, gr in ref_train["grads1"].items())
+        tight_err = noise_err = 0.0
+        noise_n = n_all = 0
+        for n, p in ref_train["params"].items():
+            g_ref, g_pp = ref_train["grads1"][n], tr["grads"][n]
+            noise = ((torch.minimum(g_ref.abs(), g_pp.abs()) < DIST_NOISE_GRAD)
+                     | (torch.sign(g_ref) != torch.sign(g_pp)))
+            e = (tr["params"][n] - p).abs()
+            tight_err = max(tight_err, float(torch.where(noise, 0.0, e).max()))
+            noise_err = max(noise_err, float(torch.where(noise, e, 0.0).max()))
+            noise_n += int(noise.sum())
+            n_all += e.numel()
+        row["pp_train"] = {"step": tr["step"], "loss": tr["loss"], "loss_rel_err": loss_err,
+                           "gnorm": tr["gnorm"], "gnorm_rel_err": gnorm_err,
+                           "grad_rel_err": grad_err, "param_max_abs_err_same_step": tight_err,
+                           "param_max_abs_err_noise": noise_err, "noise_elements": noise_n,
+                           "elements": n_all, "launches": tr["counts"], "heads": tr["heads"],
+                           "step_seconds": tr["step_seconds"], "blocks": tr["blocks"],
+                           "files": tr["files"], "peak_gb": tr["peak_gb"]}
+        if not (tr["step"] == 1 and loss_err <= DIST_BF16_LOSS_TOL
+                and gnorm_err <= SPPP_GRAD_TOL and grad_err <= SPPP_GRAD_TOL
+                and tight_err <= DIST_PARAM_TOL and noise_err <= SPPP_PARAM_STEPS * lr):
+            failures.append(f"rank {r} pp_train: {row['pp_train']}")
+        if r == 0 and not {ckpt.CONTENT, "model_0.pth"} <= set(tr["files"]):
+            failures.append(f"rank 0 pp_train wrote {tr['files']}")
+        if tr["counts"] != want_train:
+            failures.append(f"rank {r} pp_train: launches {tr['counts']}, expected "
+                            f"{want_train} (one process's step)")
+        if tr["blocks"] != tuple(range(r * depth // 2, (r + 1) * depth // 2)):
+            failures.append(f"rank {r} held blocks {tr['blocks']}")
+        rows.append(row)
+
+    # one process reloads the canonical checkpoint into the whole model
+    model = create_network(config.model, dtype=torch.bfloat16,
+                           use_flash=config.model.use_flash_attention, device=dev)
+    state = create_train_state(model)
+    epoch = ckpt.restore_content(task["pp_loop_config"].exp_path, model, state)
+    reload_err = max(float((p.detach().float().cpu() - ranks[0]["pp_train"]["params"][n])
+                           .abs().max()) for n, p in zip(state.names, state.params)
+                     if n in task["names"])
+    if not (reload_err == 0.0 and state.step == 1 and epoch == 1
+            and list(state.names) == [n for n, _ in model.named_parameters()]):
+        failures.append(f"the canonical checkpoint reloads off by {reload_err} at step "
+                        f"{state.step}")
+    del model, state
+    torch.cuda.empty_cache()
+    emit({"phase": "dist_sp_pp", "backend": backend, "ranks": DIST_SHARED_RANKS,
+          "device": "cuda:0" if backend == "gloo" else "cuda:0, cuda:1", "card": card,
+          "batch": SPPP_BATCH, "euler_steps": SPPP_STEPS, "train_batch": SPPP_TRAIN_BATCH, "adm_batch": SPPP_ADM_BATCH,
+          "one_process": {"bf16_launches": ref["bf16"]["counts"],
+                          "f32_launches": ref["f32"]["counts"],
+                          "train_loss": ref_train["losses"][0],
+                          "train_gnorm": ref_train["gnorms"][0],
+                          "train_launches": ref_train["counts"],
+                          "adm_launches": [ref_adm["bf16_counts"], ref_adm["f32_counts"]]},
+          "tols": {"bf16": SPPP_BF16_TOL, "f32": SPPP_F32_TOL, "grad": SPPP_GRAD_TOL,
+                   "loss": DIST_BF16_LOSS_TOL, "param_same_step": DIST_PARAM_TOL,
+                   "param_noise": SPPP_PARAM_STEPS * lr},
+          "checkpoint_reload_max_abs_err": reload_err, "rows": rows,
+          "one_process_seconds": ref_s, "wall_seconds": wall,
+          "phase_seconds": time.time() - t_phase})
+    if failures:
+        raise AssertionError("dist_sp_pp: " + "; ".join(failures))
+
+    def full(c):
+        return {**dict.fromkeys(counters, 0), **c}
+
+    r0 = ranks[0]
+    return {"dist_sp_dit": full(r0["sp_dit"]["bf16"]["counts"]),
+            "dist_pp_dit": full(r0["pp_dit"][1]["bf16"]["counts"]),
+            "dist_pp_dit_il": full(r0["pp_dit"][2]["bf16"]["counts"]),
+            "dist_pp_dit_f32": full(r0["pp_dit"][1]["f32"]["counts"]),
+            "dist_pp_train": full(r0["pp_train"]["counts"]),
+            "dist_sp_adm": full(r0["sp_adm"]["bf16"]["counts"])}
 
 
 def other_networks(torch, work, dev, vae, counts, reset_counts, cli_main):

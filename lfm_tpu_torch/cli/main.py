@@ -47,15 +47,21 @@ They take the JAX CLI's model overrides (``--model_type --image_size --nf
 ``--use_karras_samplers`` (the Karras euler / heun loops over ``--steps``
 sigmas; an argfile with ``STEPS`` sets it) and ``--eval_noise`` (the
 adaptive noise floor, a float or ``auto``; by default ``auto`` for a bf16
-model under dopri8 only). ``--sp``, ``--pp`` and ``--pp_chunks`` above 1
-raise (ROADMAP Queue 1 item 8). ``--generator`` takes ``determ`` and
+model under dopri8 only). ``--generator`` takes ``determ`` and
 ``determ-indiv``, which ``SampleRNG`` realises alike, and raises on the
-stateful ``dummy`` (item 9).
+stateful ``dummy`` (item 9). ``sample --sp N`` / ``--pp N``
+(``--pp_chunks V``) samples over the ranks of the job: sequence-parallel
+(a DiT's ring attention, a UNet's row-sharded forward; sample/sp.py) or
+pipeline-parallel (a DiT's blocks in stages; sample/pp.py), with ``--sp``
+taken where both are given, as in JAX; one process asked for either raises
+the mesh's rank-count error. ``fid``, ``nfe`` and ``time`` parse the three
+flags and ignore them, as JAX's do.
 
 ``train`` runs ``train/loop.py::train`` with the JAX CLI's flags, for
 every preset (the DiTs, the origin ADMs, EDM's DhariwalUNets), over the
-``--dp/--fsdp/--tp`` mesh of its ranks (``--sp/--pp/--pp_chunks`` above 1
-raise, ROADMAP Queue 1 item 8). It reads the preset's
+``--dp/--fsdp/--tp/--sp/--pp`` mesh of its ranks (``--pp`` > 1 stages a
+DiT's blocks, ``--pp_chunks`` interleaved; ``--sp`` only lays out the
+mesh, as in JAX). It reads the preset's
 dataset from ``--datadir`` (data/__init__.py: image folders, CIFAR-10,
 the NVAE / LSUN / image LMDBs, latents; ``--dataset synthetic`` or
 ``synthetic_latent`` for seeded data). Images are encoded by the frozen
@@ -65,14 +71,19 @@ pre-encoded latents (``latent_*``, ``synthetic_latent``).
 Several GPUs: one process per GPU, started by torchrun (the world comes
 from its environment) or by hand with ``--coordinator host:port
 --num_procs N --process_id R`` on each. Only ``train`` and ``fid`` take
-more than one process (``_MULTIPROC_CMDS``, as JAX's CLI); the others exit
-with JAX's message. ``train`` splits each batch over the data axis, and
-``fid`` each sampling batch over every rank; rank 0 alone prints, logs and
-writes files.
+more than one process (``_MULTIPROC_CMDS``, as JAX's CLI), and ``sample``
+where ``--sp`` or ``--pp`` above 1 lays its mesh over them (in JAX one
+process drives every device); the others exit with JAX's message.
+``train`` splits each batch over the data axis, ``fid`` each sampling
+batch over every rank, and ``sample`` its batch as its mesh says; rank 0
+alone prints, logs and writes files.
 
     torchrun --nproc_per_node=8 -m lfm_tpu_torch.cli.main train --preset celeb256_dit
     torchrun --nproc_per_node=8 -m lfm_tpu_torch.cli.main fid --preset celeb256_dit \
         --real_img_dir stats.npz
+    torchrun --nproc_per_node=2 -m lfm_tpu_torch.cli.main sample --preset celeb256_dit --sp 2
+    torchrun --nproc_per_node=2 -m lfm_tpu_torch.cli.main sample --preset celeb256_dit \
+        --pp 2 --pp_chunks 2
 
 The downstream subcommands (lfm_tpu/cli/main.py:103-140, 382-466), on one
 card, with the JAX CLI's flags:
@@ -117,8 +128,10 @@ import torch
 from lfm_tpu_torch.core.checkpoint import reference_state_dict
 from lfm_tpu_torch.core.config import Config, get_preset, load_argfile
 from lfm_tpu_torch.core.device import resolve_device
-from lfm_tpu_torch.core.multihost import from_torchrun, initialize, is_main_process
+from lfm_tpu_torch.core.multihost import (from_torchrun, initialize, is_main_process,
+                                          process_count)
 from lfm_tpu_torch.core.rng import SampleRNG, seeded_generator
+from lfm_tpu_torch.core.sharding import make_mesh, mesh_shape
 from lfm_tpu_torch.data.transforms import require_pil
 from lfm_tpu_torch.eval.inception import load_inception_params, seeded_inception_state_dict
 from lfm_tpu_torch.nn.factory import create_network
@@ -215,9 +228,14 @@ def _sample_parser(s: argparse.ArgumentParser) -> None:
     s.add_argument("--int8_dit", action="store_true",
                    help="w8a8 int8 DiT sampling (nn/dit_int8.py; wins over the fused "
                         "blocks)")
-    for name in ("sp", "pp", "pp_chunks"):
-        s.add_argument(f"--{name}", type=int, default=None,
-                       help="mesh axis; only 1 is ported (ROADMAP Queue 1 item 8)")
+    s.add_argument("--sp", type=int, default=None,
+                   help="sample: sequence-parallel mesh axis over the ranks (ring attention "
+                        "over latent rows); fid / nfe / time ignore it, as JAX's")
+    s.add_argument("--pp", type=int, default=None,
+                   help="sample: pipeline-parallel mesh axis over the ranks (DiT block "
+                        "stages)")
+    s.add_argument("--pp_chunks", type=int, default=None,
+                   help="virtual pipeline stages a rank (interleaved schedule)")
     s.add_argument("--device", type=str, default=None,
                    help="default: the card; pass cpu to run on the CPU")
     s.add_argument("--out", type=str, default=None,
@@ -240,9 +258,13 @@ def _train_parser(t: argparse.ArgumentParser) -> None:
     for name in ("dp", "fsdp", "tp"):
         t.add_argument(f"--{name}", type=int, default=None,
                        help="mesh axis over the ranks (dp -1: the ranks the others leave)")
-    for name in ("sp", "pp", "pp_chunks"):
-        t.add_argument(f"--{name}", type=int, default=None,
-                       help="mesh axis; only 1 is ported (ROADMAP Queue 1 item 8)")
+    t.add_argument("--sp", type=int, default=None,
+                   help="sequence-parallel mesh axis (lays out the mesh, as in JAX)")
+    t.add_argument("--pp", type=int, default=None,
+                   help="pipeline-parallel mesh axis (DiT block stages)")
+    t.add_argument("--pp_chunks", type=int, default=None,
+                   help="virtual pipeline stages a rank (interleaved schedule; checkpoints "
+                        "stay canonical)")
     t.add_argument("--device", type=str, default=None,
                    help="default: the card; pass cpu to run on the CPU")
 
@@ -281,17 +303,15 @@ def _resolve_train_config(args) -> Config:
         batch_size=args.batch_size, seed=args.seed, model_ckpt=args.model_ckpt,
         remat_policy=args.remat_policy, preempt_check_every=args.preempt_check_every)
     data = _over(config.data, dataset=args.dataset, datadir=args.datadir)
-    _unported_mesh_flags(args)
     mesh = _over(config.mesh, dp=args.dp, fsdp=args.fsdp, tp=args.tp, sp=args.sp, pp=args.pp,
                  pp_chunks=args.pp_chunks)
     return dataclasses.replace(config, train=train_cfg, data=data, mesh=mesh)
 
 
-def _unported_mesh_flags(args) -> None:
-    mesh = {k: getattr(args, k) for k in ("sp", "pp", "pp_chunks")}
-    if any(v not in (None, 1) for v in mesh.values()):
-        raise NotImplementedError(f"{mesh}: ring sequence parallelism and pipeline "
-                                  "parallelism are not ported yet (ROADMAP Queue 1 item 8)")
+def _check_mesh(config: Config) -> None:
+    """The mesh's rank-count error, before anything is built."""
+    m = config.mesh
+    mesh_shape(process_count(), m.dp, m.fsdp, m.tp, m.sp, m.pp)
 
 
 def _load_vae(path: Optional[str], device: torch.device):
@@ -309,6 +329,7 @@ def train_main(args):
     from lfm_tpu_torch.train.loop import train
 
     config = _resolve_train_config(args)
+    _check_mesh(config)
     device = resolve_device(args.device)
     vae = None if "latent" in config.dataset else _load_vae(args.vae_ckpt, device)
     return train(config, vae=vae, device=device, max_steps=args.max_steps)
@@ -320,15 +341,22 @@ def train_main(args):
 _MULTIPROC_CMDS = ("train", "fid")
 
 
+def _sample_mesh(args) -> bool:
+    """Whether ``sample`` lays a sequence- or pipeline-parallel mesh over
+    the ranks."""
+    return args.cmd == "sample" and any((getattr(args, k) or 1) > 1 for k in ("sp", "pp"))
+
+
 def _join(args) -> None:
     """Join the job of ``--num_procs`` processes, or torchrun's; a
-    subcommand outside ``_MULTIPROC_CMDS`` exits with JAX's message."""
+    subcommand outside ``_MULTIPROC_CMDS`` exits with JAX's message, but
+    for ``sample`` over an sp or pp mesh."""
     n = args.num_procs
     if n is None and from_torchrun():
         n = int(os.environ["WORLD_SIZE"])
     if not n or n <= 1:
         return
-    if args.cmd not in _MULTIPROC_CMDS:
+    if args.cmd not in _MULTIPROC_CMDS and not _sample_mesh(args):
         raise SystemExit(
             f"--num_procs > 1 is not supported for '{args.cmd}' (only "
             f"{', '.join(_MULTIPROC_CMDS)} are multi-process aware; "
@@ -345,7 +373,6 @@ def _resolve_config(args) -> Config:
         raise NotImplementedError(f"--generator {args.generator}: only determ and "
                                   "determ-indiv are ported; the stateful dummy generator is "
                                   "ROADMAP Queue 1 item 9")
-    _unported_mesh_flags(args)
     config = _base_config(args)
     sample = _over(config.sample, method=args.method, num_steps=args.num_steps,
                    atol=args.atol, rtol=args.rtol, cfg_scale=args.cfg_scale,
@@ -408,6 +435,13 @@ def main(argv: Optional[Sequence[str]] = None):
     if args.cmd == "fid" and not sc.real_img_dir:
         raise SystemExit("fid needs --real_img_dir: the dataset's precomputed statistics "
                          "(.npy / .npz)")
+    sp_mesh = pp_mesh = None
+    m = config.mesh
+    if args.cmd == "sample" and (m.sp > 1 or m.pp > 1):
+        # the mesh first: one process asked for sp / pp raises here
+        mesh = make_mesh(m.dp, m.fsdp, m.tp, m.sp, m.pp)
+        sp_mesh = mesh if m.sp > 1 else None
+        pp_mesh = mesh if sp_mesh is None else None
     device = resolve_device(args.device)
     model, params = _load_model(config, args, device)
     vae = _load_vae(args.vae_ckpt, device)
@@ -425,7 +459,8 @@ def main(argv: Optional[Sequence[str]] = None):
                     f.write(f"Epoch = {sc.epoch_id}, FID = {fid}\n")
         return fid
 
-    sampler = make_sampler(config, model, params, vae, None, device=device)
+    sampler = make_sampler(config, model, params, vae, None, device=device, sp_mesh=sp_mesh,
+                           pp_mesh=pp_mesh)
     if args.cmd == "nfe":
         # average NFE over trials at batch 1 (test_flow_latent.py:196-221)
         trials = 300 if args.n_sample is None else args.n_sample
@@ -457,13 +492,14 @@ def main(argv: Optional[Sequence[str]] = None):
     if not args.out:
         require_pil("the sample grid's JPEG")  # before sampling, not after
     noise, y = noise_and_labels(config, rng, range(sc.batch_size), device=device)
-    out = sampler(noise, y)
-    images = out.images.cpu().numpy()
-    if args.out:
-        np.save(path, images)
-    else:
-        save_image_grid(images, path)
-    print(f"Samples are saved at {path} (NFE {out.nfe:.0f})")
+    out = sampler(noise, y)  # the whole batch on every rank
+    if is_main_process():
+        images = out.images.cpu().numpy()
+        if args.out:
+            np.save(path, images)
+        else:
+            save_image_grid(images, path)
+        print(f"Samples are saved at {path} (NFE {out.nfe:.0f})")
     return path
 
 

@@ -162,7 +162,7 @@ class MeshConfig:
     sp: int = 1  # sequence parallelism (core/ring.py ring attention)
     pp: int = 1  # pipeline parallelism (core/pipeline.py block stages)
     # virtual stages per device for pp > 1: the interleaved schedule
-    # (core/pipeline.py::pipeline_blocks_interleaved) divides the pipeline
+    # (core/pipeline.py::pipeline_blocks, num_chunks) divides the pipeline
     # bubble by pp_chunks; params are permuted to placement order internally
     # (checkpoints stay canonical — sample/pp.py::permute_state_blocks)
     pp_chunks: int = 1

@@ -12,9 +12,15 @@ own rows of a batch; the collectives are written out where they belong
 One process that joined no job builds no ``DeviceMesh``: every axis has
 size 1 and no collective runs. A joined job of one rank keeps its groups,
 so that its collectives run (over NCCL on one card they are copies): the
-multi-rank path on a machine with one card. Ring sequence parallelism and
-pipeline parallelism (``sp``, ``pp`` above 1) are not ported (ROADMAP
-Queue 1 item 8).
+multi-rank path on a machine with one card.
+
+The ``seq`` axis splits a latent's rows (ring attention, core/ring.py;
+sample/sp.py) and the ``pipe`` axis a DiT's blocks (core/pipeline.py;
+sample/pp.py). Their neighbour exchange, JAX's ``lax.ppermute`` inside
+``shard_map``, is ``ppermute``: under NCCL one ``batch_isend_irecv`` pair,
+under gloo (the CPU tests, and ranks that share one card, which NCCL
+refuses) an ``all_gather`` of the blocks' bytes of which each rank keeps
+its neighbour's, so that one mechanism carries gloo on both devices.
 """
 
 from __future__ import annotations
@@ -58,15 +64,24 @@ class Mesh:
             return None
         return self.device_mesh.get_group(axis)
 
+    def group_over(self, *axes: str):
+        """The group of every rank that shares this rank's index on the
+        other axes, where those axes are all of size 1 (the whole job), or
+        the one axis's group where the others named have size 1; None where
+        no collective is needed."""
+        big = [a for a in axes if self.shape[a] > 1]
+        if len(big) <= 1:
+            return self.group(big[0] if big else axes[0])
+        if math.prod(self.shape[a] for a in axes) != self.size:
+            raise ValueError(f"a group over {axes} needs the other axes of {self.shape} "
+                             "to be 1")
+        return dist.group.WORLD
+
 
 def mesh_shape(n: int, dp: int = -1, fsdp: int = 1, tp: int = 1, sp: int = 1,
                pp: int = 1) -> Tuple[int, ...]:
     """(data, fsdp, pipe, tensor, seq) for ``n`` ranks; ``dp=-1`` takes the
     ranks the other axes leave (lfm_tpu/core/sharding.py:28-52)."""
-    if sp > 1 or pp > 1:
-        raise NotImplementedError(
-            f"sp={sp}, pp={pp}: ring sequence parallelism and pipeline parallelism are not "
-            "ported yet (ROADMAP Queue 1 item 8)")
     rest = fsdp * pp * tp * sp
     if dp == -1:
         if n % rest:
@@ -90,6 +105,106 @@ def make_mesh(dp: int = -1, fsdp: int = 1, tp: int = 1, sp: int = 1, pp: int = 1
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     dm = init_device_mesh(device_type, tuple(shape.values()), mesh_dim_names=AXES)
     return Mesh(shape, dict(zip(AXES, dm.get_coordinate())), dm)
+
+
+def _group_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def _exchange(x: torch.Tensor, group, shift: int) -> torch.Tensor:
+    """x of the rank ``shift`` places before this one on ``group``'s ring
+    (JAX's ``perm = [(i, (i + shift) % n)]``)."""
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    x = x.contiguous()
+    if dist.get_backend(group) == "nccl":
+        out = torch.empty_like(x)
+        ops = [dist.P2POp(dist.isend, x, dist.get_global_rank(group, (me + shift) % n), group),
+               dist.P2POp(dist.irecv, out, dist.get_global_rank(group, (me - shift) % n), group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out
+    # gloo: every rank's bytes, of which this rank keeps its neighbour's
+    raw = x.reshape(-1).view(torch.uint8)
+    parts = [torch.empty_like(raw) for _ in range(n)]
+    dist.all_gather(parts, raw, group=group)
+    return parts[(me - shift) % n].view(x.dtype).view(x.shape)
+
+
+class _PPermute(torch.autograd.Function):
+    """The ring shift; its backward is the shift the other way round, as
+    JAX transposes ``ppermute``."""
+
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _exchange(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group, -ctx.shift), None, None
+
+
+def ppermute(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """Rank i's x goes to rank (i + shift) % n of ``group``: each rank gets
+    the block of the rank ``shift`` places before it. Differentiable; the
+    identity on a group of one rank or none."""
+    if _group_size(group) == 1:
+        return x
+    return _PPermute.apply(x, group, shift)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over the group on every rank; its gradient is the sum of
+    every rank's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable sum of x over ``group`` (x itself without one)."""
+    if _group_size(group) == 1:
+        return x
+    return _AllReduceSum.apply(x, group)
+
+
+class _AllGatherCat(torch.autograd.Function):
+    """Every rank's x joined along ``dim`` in rank order; the gradient of a
+    rank's x is its slice of the sum of every rank's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.size = group, dim, x.shape[dim]
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        dist.all_reduce(g, group=ctx.group)
+        me = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, me * ctx.size, ctx.size), None, None
+
+
+def all_gather_cat(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """Differentiable all-gather along ``dim`` (rank order, which is the
+    mesh axis's order); x itself without a group."""
+    if _group_size(group) == 1:
+        return x
+    return _AllGatherCat.apply(x, group, dim)
 
 
 def local_batch_size(mesh: Mesh, global_batch: int) -> int:

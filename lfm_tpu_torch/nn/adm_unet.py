@@ -53,8 +53,8 @@ from lfm_tpu_torch.core.device import DeviceLike, no_tf32, resolve_device
 from lfm_tpu_torch.kernels.flash_attention import fused_attention, fused_attention_qkv
 from lfm_tpu_torch.kernels.groupnorm_silu import FusedGNSiLU
 from lfm_tpu_torch.nn.attention import SpatialTransformer
-from lfm_tpu_torch.nn.layers import (GroupNorm32, conv_nhwc, dense, dropout, group_norm_f32,
-                                     linear, timestep_embedding)
+from lfm_tpu_torch.nn.layers import (GroupNorm32, conv_nhwc, dense, dropout, gather_rows,
+                                     group_norm_f32, linear, row_shard, timestep_embedding)
 
 
 # ---------------------------------------------------------------------------
@@ -178,7 +178,9 @@ class _GNSiLU(GroupNorm32):
         self.fused = fused
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.fused:
+        # a row shard's statistics need every rank's sums, which K6 does
+        # not take: the plain version runs under sequence parallelism
+        if self.fused and row_shard() is None:
             return FusedGNSiLU.apply(x.contiguous(), self.weight, self.bias, self.num_groups,
                                      self.eps)
         return F.silu(group_norm_f32(x, self)).to(x.dtype)
@@ -252,7 +254,10 @@ class ADMAttentionBlock(nn.Module):
         hd = c // heads
         y = group_norm_f32(x, self.norm).reshape(n, t, c)
         qkv = dense(y, self.qkv.weight[:, :, 0], self.qkv.bias, torch.float32)
-        if self.use_flash and not self.legacy_order:
+        # under sequence parallelism q holds this rank's rows and k, v every
+        # rank's; the kernels take one T, so the einsum runs (JAX's too)
+        sharded = row_shard() is not None
+        if self.use_flash and not self.legacy_order and not sharded:
             # (3, heads, hd): the fused qkv row the kernels read in place
             o = fused_attention_qkv(qkv, heads)
         else:
@@ -260,7 +265,9 @@ class ADMAttentionBlock(nn.Module):
                 q, k, v = qkv.view(n, t, heads, 3, hd).unbind(3)
             else:
                 q, k, v = qkv.view(n, t, 3, heads, hd).unbind(2)
-            if self.use_flash:
+            if sharded:
+                k, v = gather_rows(torch.cat([k, v], dim=-1)).split(hd, dim=-1)
+            if self.use_flash and not sharded:
                 # the single 1/sqrt(hd) logit scale equals the reference's
                 # two-sided 1/sqrt(sqrt(hd)) (unet.py:325-330)
                 o = fused_attention(q, k, v)

@@ -27,6 +27,12 @@ A policy sees only the ATen operators that run on its tensors; a kernel
 launched through ctypes into a ``torch.empty`` is invisible to it, which
 is why ``dots_attn`` takes the attention out of the regions rather than
 naming its output.
+
+Under sequence parallelism (inside ``layers.row_sharded``, which
+sample/sp.py enters) x is this rank's contiguous rows of the latent: the position table is sliced to
+them, every token-local layer runs on them, and the attention is the ring
+over the seq group (nn/layers.py). The parameters are those of the whole
+model.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from lfm_tpu_torch.nn.layers import (
     TimestepEmbedder,
     get_2d_sincos_pos_embed,
     layer_norm,
+    row_shard,
     linear,
     modulate,
 )
@@ -196,15 +203,30 @@ class DiT(nn.Module):
               train: bool = False, generator: Optional[torch.Generator] = None,
               force_drop_ids: Optional[torch.Tensor] = None):
         """Tokens (N, T, D) and conditioning c (N, D), both in ``dtype``."""
-        n, hh, _, cc = x.shape
-        if hh != self.img_resolution or cc != self.in_channels:
-            raise ValueError(f"expected NHWC ({self.img_resolution}, {self.in_channels}), "
-                             f"got {tuple(x.shape)}")
+        n, hh, ww, cc = x.shape
+        pos = self.pos_embed
+        shard = row_shard()
+        if shard is None:
+            if hh != self.img_resolution or cc != self.in_channels:
+                raise ValueError(f"expected NHWC ({self.img_resolution}, {self.in_channels}), "
+                                 f"got {tuple(x.shape)}")
+        else:
+            _, index, sp = shard
+            if hh * sp != self.img_resolution or ww != self.img_resolution:
+                raise ValueError(f"sp={sp}: expected a row shard of H={self.img_resolution}"
+                                 f"//{sp}, got {tuple(x.shape)}")
+            if hh % self.patch_size:
+                raise ValueError(f"row-shard height {hh} must align to patch_size "
+                                 f"{self.patch_size}")
+            # this rank's contiguous rows of the patch grid
+            g = self.img_resolution // self.patch_size
+            g_loc = hh // self.patch_size
+            pos = pos[:, index * g_loc * g:(index + 1) * g_loc * g]
         t = torch.as_tensor(t, dtype=torch.float32, device=x.device).reshape(-1).expand(n)
         if y is None:
             y = torch.full((n,), self.null_label, dtype=torch.int64, device=x.device)
         dt = self.dtype
-        tok = self.x_embedder(x.to(dt), dt) + self.pos_embed.to(dt)
+        tok = self.x_embedder(x.to(dt), dt) + pos.to(dt)
         c = self.t_embedder(t, dt) + self.y_embedder(y, dt, train, generator, force_drop_ids)
         return tok, c
 
@@ -224,13 +246,16 @@ class DiT(nn.Module):
         return self.unpatchify(tok).float()
 
     def unpatchify(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, T, p*p*C) -> (N, H, W, C); inverse of PatchEmbed's layout."""
-        n = x.shape[0]
+        """(N, T, p*p*C) -> (N, H, W, C); inverse of PatchEmbed's layout.
+        Under sequence parallelism T is a row shard of the patch grid and
+        the output the matching rows of the image."""
+        n, tt, _ = x.shape
         p = self.patch_size
         g = self.img_resolution // p
+        g_rows = tt // g
         c = self.out_channels
-        x = x.reshape(n, g, g, p, p, c).permute(0, 1, 3, 2, 4, 5)
-        return x.reshape(n, g * p, g * p, c)
+        x = x.reshape(n, g_rows, g, p, p, c).permute(0, 1, 3, 2, 4, 5)
+        return x.reshape(n, g_rows * p, g * p, c)
 
     def forward_with_cfg(self, t, x, y, cfg_scale: float,
                          guide_channels: Optional[int] = None) -> torch.Tensor:

@@ -50,7 +50,7 @@ from lfm_tpu_torch.core.config import ModelConfig
 from lfm_tpu_torch.core.device import DeviceLike, no_tf32, resolve_device
 from lfm_tpu_torch.core.rng import draw_rows
 from lfm_tpu_torch.nn.layers import (LabelEmbedder, conv2d_nhwc, dense, dropout,
-                                     group_norm_f32, linear)
+                                     gather_rows, group_norm_f32, halo_rows, linear, row_shard)
 
 
 # DhariwalUNet's and DDPM++'s resampling filter (EDM.py:725); NCSN++ takes
@@ -72,6 +72,14 @@ def depthwise_down(x: torch.Tensor, kernel: torch.Tensor, pad: Optional[int] = N
     c = x.shape[-1]
     pad = (kernel.shape[-1] - 1) // 2 if pad is None else pad
     w = kernel.to(x.dtype).tile(c, 1, 1, 1)
+    if row_shard() is not None:
+        # a row shard: the rows' padding is a halo as wide as the filter's
+        if x.shape[1] % 2:
+            raise ValueError(f"a 2x down-sampling over {x.shape[1]} rows a rank")
+        if pad:
+            x = halo_rows(x, pad)
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=2, padding=(0, pad), groups=c)
+        return y.permute(0, 2, 3, 1)
     y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=2, padding=pad, groups=c)
     return y.permute(0, 2, 3, 1)
 
@@ -82,6 +90,9 @@ def depthwise_up(x: torch.Tensor, kernel: torch.Tensor, pad: Optional[int] = Non
     NHWC x (EDM.py:120-123); ``pad`` defaults to (k - 1) // 2."""
     c = x.shape[-1]
     pad = (kernel.shape[-1] - 1) // 2 if pad is None else pad
+    if pad and row_shard() is not None:
+        # only NCSN++'s [1, 3, 3, 1] filter pads; SongUNet is not row-sharded
+        raise NotImplementedError("a padded 2x up-sampling over row shards")
     w = (kernel * 4).to(x.dtype).tile(c, 1, 1, 1)
     y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, stride=2, padding=pad, groups=c)
     return y.permute(0, 2, 3, 1)
@@ -249,6 +260,8 @@ class EDMUNetBlock(nn.Module):
         # the reference's layout: a channel index is (head, ch, 3)
         # (EDM.py:277-281)
         q, k, v = qkv.view(n, t, heads, c // heads, 3).unbind(-1)
+        if row_shard() is not None:  # this rank's rows of q, every rank's k, v
+            k, v = gather_rows(torch.cat([k, v], dim=-1)).split(c // heads, dim=-1)
         a = _attention_f32(q, k, v).reshape(n, t, c)
         a = dense(a, self.proj.as_dense(), self.proj.bias, torch.float32)
         return self._scaled(x + a.reshape(n, hh, ww, c).to(x.dtype))

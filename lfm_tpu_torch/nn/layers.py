@@ -11,6 +11,7 @@ timm / models/DiT.py and guided-diffusion layouts, so a reference
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -21,8 +22,56 @@ from torch import nn
 
 from lfm_tpu_torch.core.partition import copy_to_group, reduce_from_group
 from lfm_tpu_torch.core.rng import draw_rows
+from lfm_tpu_torch.core.sharding import all_gather_cat, all_reduce_sum, ppermute
 from lfm_tpu_torch.kernels.flash_attention import (fused_attention_qkv, reference_attention,
                                                    split_qkv)
+
+
+# (group, index, size) of the seq axis while a row-sharded forward runs
+# (sample/sp.py): x holds this rank's contiguous rows, and the layers below
+# that cross rows exchange them
+_ROW_SHARD = None
+
+
+@contextlib.contextmanager
+def row_sharded(group, index: int, size: int):
+    """Within the block, ``conv2d_nhwc`` takes a halo of rows from each
+    neighbour, ``group_norm_f32`` sums its statistics over the group,
+    ``gather_rows`` joins every rank's tokens, ``Attention`` is the ring
+    and the DiT slices its position table to the rank's rows."""
+    global _ROW_SHARD
+    saved, _ROW_SHARD = _ROW_SHARD, (group, index, size)
+    try:
+        yield
+    finally:
+        _ROW_SHARD = saved
+
+
+def row_shard():
+    """(group, index, size) inside ``row_sharded``, else None."""
+    return _ROW_SHARD
+
+
+def halo_rows(x: torch.Tensor, p: int) -> torch.Tensor:
+    """NHWC x with ``p`` rows of the rank above on top and of the rank below
+    underneath, zeros at the image's edges (a convolution's zero padding)."""
+    group, index, size = _ROW_SHARD
+    if x.shape[1] < p:
+        raise ValueError(f"a halo of {p} rows needs at least {p} rows a rank, got "
+                         f"{x.shape[1]}")
+    above = ppermute(x[:, -p:], group, 1)   # the previous rank's last rows
+    below = ppermute(x[:, :p], group, -1)   # the next rank's first rows
+    if index == 0:
+        above = torch.zeros_like(above)
+    if index == size - 1:
+        below = torch.zeros_like(below)
+    return torch.cat([above, x, below], dim=1)
+
+
+def gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """(N, T_local, ...) tokens of this rank's rows -> every rank's, in row
+    order, inside ``row_sharded``; x itself outside it."""
+    return x if _ROW_SHARD is None else all_gather_cat(x, _ROW_SHARD[0], dim=1)
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
@@ -55,7 +104,16 @@ def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     """flax ``Conv(dtype=...)`` on NHWC x with the reference's (O, I, kh, kw)
     weight: the product rounded to ``dtype``, then the bias added in
     ``dtype``, as ``dense`` does. The convolution runs on the channels-last
-    view of x, which cuDNN takes without a copy."""
+    view of x, which cuDNN takes without a copy. Inside ``row_sharded`` the
+    rows' zero padding is a halo of the neighbours' rows instead: a
+    stride-2 convolution then needs an even number of rows a rank."""
+    ph, pw = (padding, padding) if isinstance(padding, int) else padding
+    if _ROW_SHARD is not None and ph:
+        sh = stride if isinstance(stride, int) else stride[0]
+        if sh > 1 and x.shape[1] % sh:
+            raise ValueError(f"a stride-{sh} convolution over {x.shape[1]} rows a rank")
+        x = halo_rows(x, ph)
+        padding = (0, pw)
     y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), weight.to(dtype), None,
                  stride, padding).permute(0, 2, 3, 1)
     return y + bias.to(dtype)
@@ -69,7 +127,20 @@ def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Ten
 def group_norm_f32(x: torch.Tensor, gn: nn.GroupNorm) -> torch.Tensor:
     """GroupNorm over NHWC x in float32 (``F.group_norm``'s two-pass
     statistics; flax's E[x^2] - E[x]^2 agrees to f32 rounding unless |mean|
-    >> std); returns float32."""
+    >> std); returns float32. Inside ``row_sharded`` the sums of x and x^2
+    of each group are summed over the ranks and the variance is flax's
+    max(E[x^2] - E[x]^2, 0)."""
+    if _ROW_SHARD is not None:
+        n, h, w, c = x.shape
+        g = gn.num_groups
+        xf = x.float().reshape(n, h * w, g, c // g)
+        sums = torch.stack([xf.sum(dim=(1, 3)), xf.square().sum(dim=(1, 3))])
+        sums = all_reduce_sum(sums, _ROW_SHARD[0])
+        count = h * w * (c // g) * _ROW_SHARD[2]
+        mean = sums[0] / count
+        var = torch.clamp(sums[1] / count - mean.square(), min=0.0)
+        y = (xf - mean[:, None, :, None]) * torch.rsqrt(var + gn.eps)[:, None, :, None]
+        return y.reshape(n, h, w, c) * gn.weight.float() + gn.bias.float()
     y = F.group_norm(x.float().permute(0, 3, 1, 2), gn.num_groups, gn.weight.float(),
                      gn.bias.float(), gn.eps)
     return y.permute(0, 2, 3, 1)
@@ -205,7 +276,11 @@ class Attention(nn.Module):
     """Fused-qkv multi-head self-attention (timm layout). With ``use_flash``
     every attention goes through kernels.flash_attention.fused_attention_qkv,
     which launches ``attention_small`` (K1) forward and
-    ``attention_small_bwd`` (K3) backward on a CUDA tensor."""
+    ``attention_small_bwd`` (K3) backward on a CUDA tensor. Inside
+    ``row_sharded`` (sample/sp.py) x is this rank's tokens and the
+    attention is the ring over the seq group (core/ring.py), which takes
+    precedence over ``use_flash`` as in JAX: the local kernels cannot give
+    the ring's partial statistics."""
 
     def __init__(self, hidden_size: int, num_heads: int, qkv_bias: bool = True,
                  use_flash: bool = False):
@@ -222,7 +297,11 @@ class Attention(nn.Module):
         n, t, d = x.shape
         qkv = linear(x, self.qkv, dtype)
         # the kernels read the (T, H*D) rows of q, k, v in place
-        if self.use_flash:
+        if _ROW_SHARD is not None:
+            from lfm_tpu_torch.core.ring import ring_attention
+
+            out = ring_attention(*split_qkv(qkv, self.num_heads), _ROW_SHARD[0])
+        elif self.use_flash:
             out = fused_attention_qkv(qkv, self.num_heads)
         else:
             out = reference_attention(*split_qkv(qkv, self.num_heads))

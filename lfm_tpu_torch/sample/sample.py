@@ -15,8 +15,18 @@ attention kernels when the model has ``use_flash``. Labels are drawn in
 the model's ``null_label``: the DiT's null class, 0 for the origin ADM, -1
 (the zero one-hot row) for EDM. ``use_karras_samplers`` takes the Karras
 euler / heun loops, and the adaptive methods take the ``eval_noise`` floor
-that ``resolve_eval_noise`` picks. The sequence- and pipeline-parallel
-paths are not ported yet.
+that ``resolve_eval_noise`` picks.
+
+Over several ranks (one process per GPU) ``sp_mesh`` evaluates the model
+sequence-parallel, batch over ``data`` and latent rows over ``seq``
+(sample/sp.py: the DiT's ring attention, the UNets' row-sharded forward),
+and ``pp_mesh`` pipeline-parallel, the DiT's blocks in stages over
+``pipe`` (sample/pp.py; ``config.mesh.pp_chunks`` > 1 the interleaved
+schedule). Either takes the module path, as in JAX: not the fused or int8
+blocks. The noise and labels given are the global batch's, the same on
+every rank; each rank keeps its block, the adaptive solvers' norms are
+summed over the ranks that hold one batch (data and seq), and the latents
+are gathered before the decode, so every rank returns the whole batch.
 """
 
 from __future__ import annotations
@@ -39,7 +49,8 @@ class SampleOutput(NamedTuple):
 
 
 def build_velocity(model, y: Optional[torch.Tensor], cfg_scale: float, *,
-                   use_fused_dit: bool = False, int8_params=None) -> Callable:
+                   use_fused_dit: bool = False, int8_params=None, sp_mesh=None,
+                   pp_mesh=None, pp_chunks: int = 1) -> Callable:
     """v(t, x), CFG-fused when cfg_scale > 1 (test_flow_latent.py:55-59).
 
     With ``int8_params`` (``quantize_params_int8`` of a DiT's state dict,
@@ -48,9 +59,28 @@ def build_velocity(model, y: Optional[torch.Tensor], cfg_scale: float, *,
     as in the JAX sampler (lfm_tpu/sample/sample.py:95-116). Else, with
     ``use_fused_dit`` and ``fused_applicable`` (a bf16 DiT; never a UNet),
     it evaluates through ``dit_fused_apply`` on a bf16 copy of its
-    parameters made once, at the first call."""
+    parameters made once, at the first call.
+
+    ``pp_mesh``: the DiT's blocks pipelined over its pipe group
+    (``make_pp_apply``, ``pp_chunks`` chunks a rank); ``sp_mesh``: x is this
+    rank's block and the model runs sequence-parallel over its seq group
+    (``make_sp_apply`` for a DiT, ``make_spatial_sp_apply`` for a UNet).
+    The two do not combine, as in JAX."""
+    if pp_mesh is not None and sp_mesh is not None:
+        raise ValueError("combined sp x pp evaluation is not supported; pick one of "
+                         "sp_mesh/pp_mesh (dp composes with either)")
     apply = model
-    if int8_params is not None:
+    if pp_mesh is not None:
+        from lfm_tpu_torch.sample.pp import make_pp_apply
+
+        apply = make_pp_apply(model, pp_mesh, num_chunks=pp_chunks)
+    elif sp_mesh is not None:
+        from lfm_tpu_torch.nn.dit import DiT
+        from lfm_tpu_torch.sample.sp import make_sp_apply, make_spatial_sp_apply
+
+        make = make_sp_apply if isinstance(model, DiT) else make_spatial_sp_apply
+        apply = make(model, sp_mesh)
+    elif int8_params is not None:
         from lfm_tpu_torch.nn.dit_int8 import dit_int8_apply
 
         def apply(t, x, yy):
@@ -117,7 +147,8 @@ def resolve_eval_noise(sc, model):
 
 
 def make_sampler(config: Config, model, params=None, vae=None, vae_params=None,
-                 device: DeviceLike = None, group=None) -> Callable:
+                 device: DeviceLike = None, group=None, sp_mesh=None,
+                 pp_mesh=None) -> Callable:
     """Returns ``fn(noise, y=None) -> SampleOutput``.
 
     ``model`` and ``vae`` are this package's modules; ``params`` and
@@ -128,15 +159,37 @@ def make_sampler(config: Config, model, params=None, vae=None, vae_params=None,
     are quantized here, once, from the f32 parameters (JAX's ``params_pre
     == "int8"``); a UNet under ``use_int8_dit`` takes the module path, as
     in JAX. ``group``: the ranks that split each batch (sample/sharded.py),
-    whose adaptive solvers step alike."""
+    whose adaptive solvers step alike.
+
+    ``sp_mesh`` / ``pp_mesh``: the model runs sequence- or
+    pipeline-parallel over the mesh's ranks (the module docstring); under
+    ``pp_mesh`` the model keeps only this rank's blocks
+    (``place_stage_blocks_``, in ``config.mesh.pp_chunks`` chunks), and
+    ``params`` is the whole model's state dict."""
+    from lfm_tpu_torch.core.sharding import DATA_AXIS, SEQ_AXIS, all_gather_cat, batch_rows
+
     device = resolve_device(device)
     sc = config.sample
     eval_noise = resolve_eval_noise(sc, model)
-    if params is not None:
+    pp_chunks = 1
+    if pp_mesh is not None:
+        from lfm_tpu_torch.sample.pp import load_stage_state_dict, place_stage_blocks_
+
+        pp_chunks = max(1, int(config.mesh.pp_chunks))
+        if params is not None:
+            load_stage_state_dict(model, params)
+        if getattr(model, "pp_blocks", None) is None:
+            place_stage_blocks_(model, pp_mesh, pp_chunks)
+    elif params is not None:
         model.load_state_dict(params)
     model.to(device).eval()
+    mesh = sp_mesh if sp_mesh is not None else pp_mesh
+    if mesh is not None:
+        from lfm_tpu_torch.sample.sp import sp_block, sp_norm_group
+
+        group = sp_norm_group(sp_mesh) if sp_mesh is not None else mesh.group(DATA_AXIS)
     int8_params = None
-    if sc.use_int8_dit:
+    if sc.use_int8_dit and mesh is None:
         from lfm_tpu_torch.nn.dit_int8 import int8_model_ok, quantize_params_int8
 
         if int8_model_ok(model):
@@ -150,17 +203,27 @@ def make_sampler(config: Config, model, params=None, vae=None, vae_params=None,
     def fn(noise: torch.Tensor, y: Optional[torch.Tensor] = None) -> SampleOutput:
         noise = noise.to(device=device, dtype=torch.float32)
         y = None if y is None else y.to(device)
+        if mesh is not None:  # this rank's block of the global batch
+            start, stop = batch_rows(mesh, noise.shape[0])
+            noise = sp_block(mesh, noise) if sp_mesh is not None else noise[start:stop]
+            y = None if y is None else y[start:stop]
         velocity = build_velocity(model, y, sc.cfg_scale, use_fused_dit=sc.use_fused_dit,
-                                  int8_params=int8_params)
+                                  int8_params=int8_params, sp_mesh=sp_mesh, pp_mesh=pp_mesh,
+                                  pp_chunks=pp_chunks)
         z0, nfe = sample_latents(velocity, noise, method=sc.method, atol=sc.atol,
                                  rtol=sc.rtol, num_steps=sc.num_steps,
                                  step_size=sc.step_size,
                                  use_karras=sc.use_karras_samplers,
                                  eval_noise=eval_noise, group=group)
+        if sp_mesh is not None:  # whole latents of the rank's batch rows
+            z0 = all_gather_cat(z0, sp_mesh.group(SEQ_AXIS), dim=1)
         if vae is None:
-            return SampleOutput(images=z0, latents=z0, nfe=nfe)
-        img = vae.decode(z0 / config.scale_factor)
-        img = torch.clamp((img + 1.0) / 2.0, 0.0, 1.0)  # test_flow_latent.py:128,266
+            img = z0
+        else:
+            img = vae.decode(z0 / config.scale_factor)
+            img = torch.clamp((img + 1.0) / 2.0, 0.0, 1.0)  # test_flow_latent.py:128,266
+        if mesh is not None:  # every data index's rows, on every rank
+            z0, img = (all_gather_cat(a, mesh.group(DATA_AXIS), dim=0) for a in (z0, img))
         return SampleOutput(images=img, latents=z0, nfe=nfe)
 
     return fn

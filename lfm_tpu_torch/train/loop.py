@@ -22,8 +22,19 @@ keeps its rows. Rank 0 alone logs, plots and writes ``config.json`` and
 the checkpoints; the others wait at a barrier after each save, so the
 files are those of one device. With one process SIGTERM is acted on at
 once; with several the flag is all-reduced every ``preempt_check_every``
-steps and every rank saves at the same step. Ring sequence parallelism
-and pipeline parallelism raise (ROADMAP Queue 1 item 8).
+steps and every rank saves at the same step.
+
+``config.mesh.pp`` > 1 trains pipeline-parallel (JAX's loop.py:112-160):
+the DiT's blocks in stages over the pipe axis (sample/pp.py, interleaved
+when ``pp_chunks`` > 1), each rank holding its stage's blocks and their
+moments and EMA, the embedders and final layer replicated with their
+whole gradient on every rank (core/pipeline.py), the gradient norm's block
+squares summed over pipe. Checkpoints stay canonical: the stages' tensors
+are gathered and rank 0 writes them in ``blocks.{i}`` order, so one
+process loads them; a resume cuts them back to each stage. As in JAX,
+label dropout under pp raises, and so does a pipe that spans more than
+one machine (JAX's "single-process": a JAX process is a machine here).
+``config.mesh.sp`` only lays out the mesh, as in JAX.
 """
 
 from __future__ import annotations
@@ -105,6 +116,45 @@ def saved_by_rank0(save: Callable, *args, **kwargs) -> None:
         sync_hosts()
 
 
+class _Named:
+    """What core/checkpoint.py reads of a model: a DiT's ``pos_embed`` and
+    its named parameters (here the pipeline's canonical ones)."""
+
+    def __init__(self, pos_embed: torch.Tensor, named):
+        self.pos_embed, self._named = pos_embed, named
+
+    def named_parameters(self):
+        return iter(self._named.items())
+
+
+def _one_machine() -> bool:
+    """Whether every rank of the job runs on this host."""
+    if process_count() == 1:
+        return True
+    import socket
+
+    import torch.distributed as dist
+
+    hosts = [None] * process_count()
+    dist.all_gather_object(hosts, socket.gethostname())
+    return len(set(hosts)) == 1
+
+
+def pp_canonical(model, state: TrainState, mesh):
+    """A placed model's state gathered from the pipe stages (a collective):
+    (a model view and a TrainState with the whole model's canonical names,
+    in its parameter order), on every rank."""
+    from lfm_tpu_torch.sample.pp import gather_canonical
+
+    lists = [gather_canonical(model, mesh, state.names, v)
+             for v in (state.params, state.mu, state.nu, state.ema)]
+    params = lists[0]
+    canon = TrainState(names=list(params), params=list(params.values()),
+                       mu=list(lists[1].values()), nu=list(lists[2].values()),
+                       ema=list(lists[3].values()), step=state.step, count=state.count)
+    return _Named(model.pos_embed, params), canon
+
+
 def train(config: Config, *, dataset=None, vae=None, device: DeviceLike = None,
           max_steps: Optional[int] = None, log_fn: Callable = print) -> TrainState:
     """Run training per ``config`` on ``device`` (the card unless
@@ -112,11 +162,18 @@ def train(config: Config, *, dataset=None, vae=None, device: DeviceLike = None,
     package's AutoencoderKL, frozen; without it the data are latents.
     ``config.train.model_ckpt``: a ``content.pth`` resumes the run
     (optimizer and EMA too), a ``model_{E}.pth`` starts from its weights.
-    Returns the final TrainState (the same on every rank)."""
+    Returns the final TrainState (the same on every rank; under pp the
+    canonical one, gathered from the stages)."""
     device = resolve_device(device)
     tc = config.train
     m = config.mesh
-    mesh = make_mesh(m.dp, m.fsdp, m.tp, m.sp, m.pp)
+    pp = m.pp
+    pp_chunks = m.pp_chunks if pp > 1 else 1
+    mesh = make_mesh(m.dp, m.fsdp, m.tp, m.sp, pp)
+    if pp > 1 and not _one_machine():
+        raise NotImplementedError(
+            "pipeline-parallel training is single-machine (pipe-sharded state cannot be "
+            "checkpointed from one rank); span machines with dp/fsdp/tp instead")
     main_proc = is_main_process()
     if not main_proc:
         log_fn = lambda *a, **k: None  # noqa: E731
@@ -142,9 +199,33 @@ def train(config: Config, *, dataset=None, vae=None, device: DeviceLike = None,
             model.load_state_dict(ckpt.reference_state_dict(loaded))
             log_fn(f"=> initialised from {tc.model_ckpt}")
         del loaded
+    model_apply = None
+    if pp > 1:
+        from lfm_tpu_torch.sample.pp import (make_pp_apply, pipe_norm_groups,
+                                             place_stage_blocks_, stage_content)
+
+        if config.model.label_dropout > 0:
+            raise NotImplementedError(
+                "pipeline-parallel training requires label_dropout == 0 (per-stage dropout "
+                "rng is not plumbed); train CFG-dropout recipes with dp/fsdp/tp instead")
+        place_stage_blocks_(model, mesh, pp_chunks)
+        model_apply = make_pp_apply(model, mesh, train=True, num_chunks=pp_chunks)
     model.train()
     tx = make_optimizer(tc, steps_per_epoch)
     state = create_train_state(model)
+    if pp > 1:
+        state.norm_groups = pipe_norm_groups(state.names, mesh)
+
+    def canonical():
+        """(model, state) as the checkpoints hold them: under pp gathered
+        from the stages, a collective every rank calls."""
+        return pp_canonical(model, state, mesh) if pp > 1 else (model, state)
+
+    def restore(content):
+        if pp > 1:
+            content = stage_content(ckpt.load_content(content) if isinstance(content, str)
+                                    else content, model)
+        return ckpt.restore_content(content, model, state)
 
     if vae is not None:
         vae.to(device).eval().requires_grad_(False)
@@ -156,7 +237,7 @@ def train(config: Config, *, dataset=None, vae=None, device: DeviceLike = None,
         model, tx, ema_decay=tc.ema_decay, use_ema=tc.use_ema, encode_fn=encode_fn,
         scale_factor=config.scale_factor, is_latent_data=is_latent,
         label_dropout=config.model.label_dropout > 0, dropout=config.model.dropout > 0,
-        seed=tc.seed + 1, mesh=mesh)
+        seed=tc.seed + 1, mesh=mesh, model_apply=model_apply)
 
     exp_path = config.exp_path
     if main_proc:
@@ -166,11 +247,11 @@ def train(config: Config, *, dataset=None, vae=None, device: DeviceLike = None,
 
     init_epoch = 0
     if content is not None:
-        init_epoch = ckpt.restore_content(content, model, state)
+        init_epoch = restore(content)
         log_fn(f"=> resumed from reference checkpoint {tc.model_ckpt} (epoch {init_epoch})")
         del content
     elif ckpt.has_content(exp_path):
-        init_epoch = ckpt.restore_content(exp_path, model, state)
+        init_epoch = restore(exp_path)
         log_fn(f"=> resume checkpoint (epoch {init_epoch})")
 
     log_steps, t_start = 0, time.time()
@@ -201,23 +282,42 @@ def train(config: Config, *, dataset=None, vae=None, device: DeviceLike = None,
                                and any_process_flag(guard.preempted))
                 if preempt:
                     # the current epoch re-runs on resume
-                    saved_by_rank0(ckpt.save_content, exp_path, model, state, tx, epoch, config,
-                                   use_ema=tc.use_ema)
+                    saved_by_rank0(ckpt.save_content, exp_path, *canonical(), tx, epoch,
+                                   config, use_ema=tc.use_ema)
                     log_fn(f"=> preemption signal: content checkpoint saved at epoch {epoch} "
                            f"(step {state.step})")
-                    return state
+                    return canonical()[1]
                 if max_steps is not None and state.step >= max_steps:
-                    return state
+                    return canonical()[1]
 
-            if epoch % tc.plot_every == 0 and vae is not None and main_proc:
-                _demo_plot(config, model, state, vae, exp_path, epoch, device)
+            if epoch % tc.plot_every == 0 and vae is not None:
+                if pp > 1:
+                    _pp_demo_plot(config, *canonical(), vae, exp_path, epoch, device)
+                elif main_proc:
+                    _demo_plot(config, model, state, vae, exp_path, epoch, device)
             if tc.save_content and epoch % tc.save_content_every == 0:
-                saved_by_rank0(ckpt.save_content, exp_path, model, state, tx, epoch + 1, config,
-                               use_ema=tc.use_ema)
+                saved_by_rank0(ckpt.save_content, exp_path, *canonical(), tx, epoch + 1,
+                               config, use_ema=tc.use_ema)
             if epoch % tc.save_ckpt_every == 0:
-                saved_by_rank0(ckpt.save_model, exp_path, model,
-                               state.ema if tc.use_ema else state.params, epoch)
-    return state
+                view, canon = canonical()
+                saved_by_rank0(ckpt.save_model, exp_path, view,
+                               canon.ema if tc.use_ema else canon.params, epoch)
+    return canonical()[1]
+
+
+def _pp_demo_plot(config: Config, view: _Named, canon: TrainState, vae, exp_path: str,
+                  epoch: int, device: torch.device) -> None:
+    """The demo grid of a pipeline-parallel run: rank 0 draws it from the
+    canonical weights on a whole model, as JAX's loop plots from its
+    canonical state on one process."""
+    if not is_main_process():
+        return
+    weights = canon.ema if config.train.use_ema else canon.params
+    dtype = torch.bfloat16 if config.train.precision == "bf16" else torch.float32
+    full = create_network(config.model, dtype=dtype,
+                          use_flash=config.model.use_flash_attention, device=device)
+    full.load_state_dict(dict(zip(canon.names, weights)))
+    _demo_plot(config, full, create_train_state(full), vae, exp_path, epoch, device)
 
 
 def _demo_plot(config: Config, model, state: TrainState, vae, exp_path: str, epoch: int,

@@ -85,6 +85,9 @@ class TrainState:
     step: int = 0
     count: int = 0
     layout: Optional[Partitioned] = None
+    # without a layout: the group each parameter is split over for the
+    # gradient norm (a pipeline stage's blocks over pipe), None replicated
+    norm_groups: Optional[List] = None
 
     @property
     def module_params(self) -> List[torch.Tensor]:
@@ -139,7 +142,8 @@ def make_fused_adamw_ema(tx: AdamW, *, ema_decay: float = 0.9999,
         p, m, v, e = state.params, state.mu, state.nu, state.ema
         with torch.no_grad():
             g = [t.float() for t in grads]
-            gnorm = global_grad_norm(g, None if state.layout is None else state.layout.groups)
+            gnorm = global_grad_norm(g, state.norm_groups if state.layout is None
+                                     else state.layout.groups)
             # m = b1 m + (1 - b1) g ; v = b2 v + (1 - b2) g^2
             torch._foreach_mul_(m, tx.b1)
             torch._foreach_add_(m, g, alpha=1.0 - tx.b1)

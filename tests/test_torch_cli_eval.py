@@ -237,11 +237,25 @@ def test_per_sample_generators_run(generator, capsys):
 @pytest.mark.parametrize("flags", [["--sp", "2"], ["--pp", "2"], ["--pp_chunks", "2"],
                                    ["--num_procs", "2"], ["--generator", "dummy"]])
 def test_unported_flags_raise(flags):
-    """Ring sequence and pipeline parallelism (Queue 1 item 8) and the
-    stateful dummy generator (item 9) raise rather than being ignored;
-    more than one process exits with JAX's message where the subcommand
-    has no multi-process story, and ``fid`` without a coordinator raises."""
-    item = {"--generator": "item 9"}.get(flags[0], "item 8")
+    """The mesh flags are JAX's: one process asked for ``sample --sp 2`` or
+    ``--pp 2`` raises the mesh's rank-count error, and ``--pp_chunks`` and
+    every subcommand's mesh flags parse as JAX's parser parses them (fid,
+    nfe and time ignore them, as JAX's do). The stateful dummy generator
+    (item 9) raises rather than being ignored; more than one process exits
+    with JAX's message where the subcommand has no multi-process story,
+    and ``fid`` without a coordinator raises."""
+    if flags[0] in ("--sp", "--pp", "--pp_chunks"):
+        for cmd in ("sample", "fid", "nfe", "time"):
+            argv = [cmd, "--preset", "celeb256_dit", *flags]
+            if cmd == "sample" and flags[0] != "--pp_chunks":
+                with pytest.raises(ValueError, match="1 ranks are not divisible"):
+                    cli.main([*argv, "--device", "cpu"])
+            mesh = cli._resolve_config(cli._build_parser().parse_args(argv)).mesh
+            assert dataclasses.asdict(mesh) == dataclasses.asdict(
+                _jax_sample_config(argv, part="mesh"))
+            assert getattr(mesh, flags[0][2:]) == 2
+        return
+    item = {"--generator": "item 9"}.get(flags[0])
     for cmd in ("sample", "fid", "nfe", "time"):
         if flags[0] == "--num_procs":
             error, item = ((ValueError, "coordinator") if cmd == "fid"
@@ -252,11 +266,12 @@ def test_unported_flags_raise(flags):
             cli.main([cmd, "--preset", "celeb256_dit", "--device", "cpu", *flags])
 
 
-def _jax_sample_config(argv):
-    """The SampleConfig that lfm_tpu's CLI parser gives the same command."""
+def _jax_sample_config(argv, part="sample"):
+    """The SampleConfig (or the config's ``part``) that lfm_tpu's CLI parser
+    gives the same command."""
     from lfm_tpu.cli import main as jcli
 
-    return jcli._resolve_config(jcli._build_parser().parse_args(argv)).sample
+    return getattr(jcli._resolve_config(jcli._build_parser().parse_args(argv)), part)
 
 
 def test_karras_sample_writes_the_jax_file(tmp_path, monkeypatch, capsys):
@@ -311,12 +326,13 @@ def test_eval_noise_flag_reaches_make_sampler_as_jax_parses_it(monkeypatch, valu
 
 def test_fid_needs_statistics_and_one_device():
     """fid needs the statistics; its batch splits over the data axis alone,
-    and a mesh with sequence parallelism is not ported (item 8)."""
+    and one process cannot lay out a mesh with sequence parallelism (the
+    mesh's rank-count error, as JAX's with too few devices)."""
     from lfm_tpu_torch.core.sharding import AXES, Mesh, make_mesh
 
     with pytest.raises(SystemExit, match="real_img_dir"):
         cli.main(["fid", "--preset", "celeb256_dit", "--device", "cpu", *DIT_FLAGS])
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="1 ranks are not divisible by fsdp\\*pp\\*tp\\*sp=2"):
         make_mesh(sp=2)
     tp_mesh = Mesh(dict(zip(AXES, (1, 1, 1, 2, 1))), {a: 0 for a in AXES})
     with pytest.raises(ValueError, match="data axis"):

@@ -6,9 +6,11 @@ One process: the rank-0 gates, the collective OR and the barrier without
 a job, ``initialize``'s idempotence, its single-process mode and its
 errors (``torch.distributed.init_process_group`` mocked). Two gloo ranks
 (tests/torch_dist_worker.py ``helpers``): the barrier, the collective OR
-and the mesh's rows. Exact comparisons throughout.
+and the mesh's rows. Exact comparisons throughout. The CLI's mesh flags
+are held against JAX's parser.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -96,9 +98,13 @@ def test_mesh_arithmetic_and_batch_rows():
     assert mesh_shape(4) == (4, 1, 1, 1, 1)
     with pytest.raises(ValueError):
         mesh_shape(8, dp=3)
+    # JAX's arithmetic and axis order (data, fsdp, pipe, tensor, seq)
+    assert mesh_shape(8, sp=2) == (4, 1, 1, 1, 2)
+    assert mesh_shape(8, pp=2) == (4, 1, 2, 1, 1)
+    assert mesh_shape(8, dp=2, pp=2, sp=2) == (2, 1, 2, 1, 2)
     for axes in ({"sp": 2}, {"pp": 2}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            mesh_shape(8, **axes)
+        with pytest.raises(ValueError, match="1 ranks are not divisible"):
+            make_mesh(**axes)  # one process: the rank-count error
     mesh = make_mesh()
     assert mesh.size == 1 and mesh.device_mesh is None and mesh.group("data") is None
     assert local_batch_size(mesh, 6) == 6 and batch_rows(mesh, 6) == (0, 6)
@@ -184,6 +190,18 @@ def test_train_and_fid_join_the_job(monkeypatch):
 
 @pytest.mark.parametrize("flag", ["--sp", "--pp", "--pp_chunks"])
 def test_sequence_and_pipeline_flags_raise(flag):
+    """``--sp 2`` and ``--pp 2`` lay a mesh over the ranks: one process
+    raises the mesh's rank-count error before anything is built, in
+    ``train`` and ``sample``. Every flag parses into JAX's MeshConfig for
+    both (``--pp_chunks`` alone needs no second rank, as in JAX)."""
+    from lfm_tpu.cli import main as jcli
+
     for cmd in ("train", "sample"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            cli.main([cmd, "--preset", "celeb256_dit", "--device", "cpu", flag, "2"])
+        argv = [cmd, "--preset", "celeb256_dit", flag, "2"]
+        if flag != "--pp_chunks":
+            with pytest.raises(ValueError, match="1 ranks are not divisible"):
+                cli.main([*argv, "--device", "cpu"])
+        args = cli._build_parser().parse_args(argv)
+        resolve = cli._resolve_train_config if cmd == "train" else cli._resolve_config
+        want = jcli._resolve_config(jcli._build_parser().parse_args(argv)).mesh
+        assert dataclasses.asdict(resolve(args).mesh) == dataclasses.asdict(want)

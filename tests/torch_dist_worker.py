@@ -341,6 +341,233 @@ def run_train(rank, world, out):
     out["resumed"] = state_arrays(res)
 
 
+# --------------------------------------------- sequence / pipeline parallel
+# (tests/test_torch_ring.py, test_torch_pp.py, test_torch_sp_unet.py: the
+# test writes the inputs and the JAX-converted state dicts to INPUTS, and
+# holds what the ranks return against JAX)
+
+# the CLI's sample at test scale (tests/test_torch_cli_eval.py's DiT flags)
+CLI_SAMPLE_FLAGS = ["--preset", "celeb256_dit", "--model_type", "DiT-T/2", "--image_size", "32",
+                    "--method", "euler", "--steps", "2", "--batch_size", "4", "--device", "cpu"]
+CLI_MESH_FLAGS = {"cli_sp": ["--sp", "2"], "cli_pp": ["--pp", "2", "--pp_chunks", "1"]}
+
+
+# the pp train step's seed: its t and z1 come from seeded_generator(seed, 0)
+PP_STEP_SEED = 7
+
+
+def tiny_pp_dit(depth=4, **kw):
+    """tests/test_pp.py's tiny_dit as the port's module."""
+    from lfm_tpu_torch.nn.dit import DiT
+
+    kw = {**dict(img_resolution=8, patch_size=2, in_channels=4, hidden_size=64, num_heads=4,
+                 num_classes=1), **kw}
+    with torch.device("cpu"):
+        return DiT(depth=depth, **kw).eval()
+
+
+def run_ring(rank, world, out, inputs):
+    from lfm_tpu_torch.core.config import Config, ModelConfig, SampleConfig
+    from lfm_tpu_torch.core.ring import ring_attention
+    from lfm_tpu_torch.core.sharding import SEQ_AXIS, make_mesh
+    from lfm_tpu_torch.nn.dit import create_dit
+    from lfm_tpu_torch.sample.sample import make_sampler
+    from lfm_tpu_torch.sample.sp import make_sp_apply, sp_block, sp_gather
+
+    inp = torch.load(inputs, weights_only=False)
+    for dp, sp in ((1, 4), (2, 2)):
+        mesh = make_mesh(dp=dp, sp=sp)
+        q, k, v = (sp_block(mesh, inp["qkv"][i]) for i in range(3))
+        out[f"ring_{dp}x{sp}"] = sp_gather(mesh, ring_attention(q, k, v, mesh.group(SEQ_AXIS)))
+    mesh = make_mesh(dp=1, sp=4)
+    q, k, v = (sp_block(mesh, inp["grad_qkv"][i]).requires_grad_() for i in range(3))
+    co = sp_block(mesh, inp["grad_co"])
+    (ring_attention(q, k, v, mesh.group(SEQ_AXIS)) * co).sum().backward()
+    out["ring_grads"] = [sp_gather(mesh, a.grad) for a in (q, k, v)]
+
+    mesh = make_mesh(dp=2, sp=2)
+    model = create_dit("DiT-T/2", img_resolution=16, num_classes=10, device="cpu").eval()
+    model.load_state_dict(inp["dit"])
+    start, stop = mesh.coords["data"] * 4, (mesh.coords["data"] + 1) * 4
+    with torch.no_grad():
+        got = make_sp_apply(model, mesh)(inp["t"][start:stop], sp_block(mesh, inp["x"]),
+                                         inp["y"][start:stop])
+    out["sp_dit"] = sp_gather(mesh, got)
+    from lfm_tpu_torch.nn.layers import row_shard
+
+    out["row_shard_after"] = row_shard()
+
+    model = create_dit("DiT-T/2", img_resolution=16, num_classes=10, label_dropout=0.1,
+                       device="cpu")
+    config = Config(model=ModelConfig(model_type="DiT-T/2", image_size=128, num_classes=10),
+                    sample=SampleConfig(method="euler", num_steps=4, cfg_scale=1.5,
+                                        use_fused_dit=False))
+    sampler = make_sampler(config, model, inp["dit_cfg"], device="cpu", sp_mesh=mesh)
+    out["sp_sampler"] = sampler(inp["noise"], inp["labels"]).latents
+
+    # the CLI's sample over the ranks: --sp 2 (dp 2) and --pp 2 (dp 2), rank 0 writes
+    from lfm_tpu_torch.cli import main as cli
+
+    for name, flags in CLI_MESH_FLAGS.items():
+        path = os.path.join(out["dir"], f"{name}.npy")
+        got = cli.main(["sample", *CLI_SAMPLE_FLAGS, *flags, "--out", path,
+                        "--coordinator", "file:///unused", "--num_procs", str(world),
+                        "--process_id", str(rank)])
+        out[name] = (got, os.path.isfile(path) if rank == 0 else None)
+
+
+def run_pp(rank, world, out, inputs):
+    import dataclasses
+
+    from lfm_tpu_torch.core import checkpoint as ckpt
+    from lfm_tpu_torch.core.config import (Config, MeshConfig, ModelConfig, SampleConfig,
+                                           TrainConfig)
+    from lfm_tpu_torch.core.sharding import make_mesh
+    from lfm_tpu_torch.sample import pp as tpp
+    from lfm_tpu_torch.sample.sample import make_sampler
+    from lfm_tpu_torch.train import loop as loop_mod
+    from lfm_tpu_torch.train.state import create_train_state, make_optimizer
+    from lfm_tpu_torch.train.train import make_train_step
+
+    inp = torch.load(inputs, weights_only=False)
+    # GPipe forward (S = 4) and with labels and two microbatches (dp 2 x S 2)
+    for name, (dp, pp), kw, mb in (("gpipe", (1, 4), {}, None),
+                                   ("labels_mb", (2, 2), dict(num_classes=10), 2)):
+        mesh = make_mesh(dp=dp, pp=pp)
+        model = tiny_pp_dit(**kw)
+        model.load_state_dict(inp[f"{name}_sd"])
+        tpp.place_stage_blocks_(model, mesh)
+        rows = slice(mesh.coords["data"] * 8 // dp, (mesh.coords["data"] + 1) * 8 // dp)
+        y = None if "num_classes" not in kw else inp[f"{name}_y"][rows]
+        with torch.no_grad():
+            out[name] = tpp.make_pp_apply(model, mesh, num_microbatches=mb)(
+                inp[f"{name}_t"][rows], inp[f"{name}_x"][rows], y)
+        out[f"{name}_rows"] = (rows.start, rows.stop)
+        out[f"{name}_blocks"] = model.pp_blocks[0]
+
+    # gradients: GPipe at S = 4, and interleaved at S = 2 x 2 chunks (dp 2)
+    for name, (dp, pp), chunks, depth in (("grads", (1, 4), 1, 4),
+                                          ("il", (2, 2), 2, 8)):
+        mesh = make_mesh(dp=dp, pp=pp)
+        model = tiny_pp_dit(depth=depth, hidden_size=32, num_heads=2)
+        model.load_state_dict(inp[f"{name}_sd"])
+        tpp.place_stage_blocks_(model, mesh, chunks)
+        n = inp[f"{name}_x"].shape[0] // dp
+        rows = slice(mesh.coords["data"] * n, (mesh.coords["data"] + 1) * n)
+        apply = tpp.make_pp_apply(model, mesh, has_labels=False, num_chunks=chunks)
+        v = apply(inp[f"{name}_t"][rows], inp[f"{name}_x"][rows])
+        (v * inp[f"{name}_co"][rows]).sum().backward()
+        names = [nm for nm, _ in model.named_parameters()]
+        grads = [p.grad for _, p in model.named_parameters()]
+        out[name] = {"out": v.detach(), "rows": (rows.start, rows.stop),
+                     "grads": tpp.gather_canonical(model, mesh, names, grads)}
+
+    # one train step through the pipeline (dp 2 x S 2) against one process
+    mesh = make_mesh(dp=2, pp=2)
+    tc = TrainConfig(lr=1e-3, no_lr_decay=True, use_ema=True)
+    steps = {}
+    for name in ("plain", "pp"):
+        model = tiny_pp_dit(hidden_size=32, num_heads=2, remat=True)
+        model.load_state_dict(inp["step_sd"])
+        model.train()
+        batch = {"x": inp["step_x"]}
+        kw = {}
+        if name == "pp":
+            tpp.place_stage_blocks_(model, mesh)
+            kw = dict(model_apply=tpp.make_pp_apply(model, mesh, train=True), mesh=mesh)
+            batch = {"x": inp["step_x"][mesh.coords["data"] * 4:(mesh.coords["data"] + 1) * 4]}
+        state = create_train_state(model)
+        if name == "pp":
+            state.norm_groups = tpp.pipe_norm_groups(state.names, mesh)
+        step = make_train_step(model, make_optimizer(tc, 10), use_ema=True, scale_factor=1.0,
+                               is_latent_data=True, seed=PP_STEP_SEED, **kw)
+        loss, gnorm = step(state, batch)
+        params = (tpp.gather_canonical(model, mesh, state.names, state.params) if name == "pp"
+                  else dict(zip(state.names, state.params)))
+        steps[name] = {"loss": float(loss), "gnorm": float(gnorm),
+                       "params": {k: v.detach().clone() for k, v in params.items()}}
+    out["step"] = steps
+
+    # the sampler: GPipe with CFG (dp 2 x S 2), interleaved at 2 chunks
+    config = Config(model=ModelConfig(model_type="DiT-T/2", image_size=64, num_classes=10),
+                    sample=SampleConfig(method="euler", num_steps=4, cfg_scale=1.5,
+                                        use_fused_dit=False))
+    model = tiny_pp_dit(hidden_size=32, num_heads=2, num_classes=10, label_dropout=0.1)
+    out["sampler"] = make_sampler(config, model, inp["sampler_sd"], device="cpu",
+                                  pp_mesh=mesh)(inp["sampler_x"], inp["sampler_y"]).latents
+    il_config = dataclasses.replace(config, mesh=MeshConfig(pp=2, pp_chunks=2),
+                                    model=dataclasses.replace(config.model, num_classes=1))
+    model = tiny_pp_dit(depth=8, hidden_size=32, num_heads=2)
+    out["sampler_il"] = make_sampler(il_config, model, inp["sampler_il_sd"], device="cpu",
+                                     pp_mesh=mesh)(inp["sampler_il_x"]).latents
+
+    # the loop: pp=2 x 2 chunks (dp 2) for an epoch, a resume for the next,
+    # against the data-parallel run over the four ranks
+    work = out["dir"]
+
+    def cfg(exp, mesh_cfg, num_epoch=1, resume=False):
+        return Config(exp=exp, dataset="synthetic_latent", output_dir=work,
+                      model=ModelConfig(model_type="DiT-T4/2", image_size=64, num_classes=1),
+                      mesh=mesh_cfg,
+                      train=TrainConfig(batch_size=8, num_epoch=num_epoch, lr=1e-3,
+                                        no_lr_decay=True, use_ema=True, save_content=True,
+                                        save_content_every=1, save_ckpt_every=1,
+                                        plot_every=100, precision="f32", resume=resume))
+
+    from lfm_tpu_torch.data import SyntheticLatentDataset
+
+    quiet = lambda *a, **k: None  # noqa: E731
+    data = SyntheticLatentDataset(n=16, latent_size=8, seed=100)
+    plain = loop_mod.train(cfg("pp_plain", MeshConfig()), dataset=data, device="cpu",
+                           log_fn=quiet)
+    pp_cfg = MeshConfig(pp=2, pp_chunks=2)
+    pp1 = loop_mod.train(cfg("pp_il", pp_cfg, num_epoch=0), dataset=data, device="cpu",
+                         log_fn=quiet)
+    content_1 = (ckpt.load_content(cfg("pp_il", pp_cfg).exp_path)["model_dict"]
+                 if rank == 0 else None)
+    pp2 = loop_mod.train(cfg("pp_il", pp_cfg, num_epoch=1, resume=True), dataset=data,
+                         device="cpu", log_fn=quiet)
+    out["loop"] = {"plain": state_arrays(plain), "pp1_step": pp1.step, "pp2": state_arrays(pp2),
+                   "names": (plain.names, pp2.names), "content_1": content_1,
+                   "exp": cfg("pp_il", pp_cfg).exp_path}
+
+
+def run_sp_unet(rank, world, out, inputs):
+    from lfm_tpu_torch.core.config import Config, ModelConfig, SampleConfig
+    from lfm_tpu_torch.core.sharding import make_mesh
+    from lfm_tpu_torch.nn.adm_unet import UNetModel
+    from lfm_tpu_torch.nn.edm_unet import DhariwalUNet
+    from lfm_tpu_torch.sample.sample import make_sampler
+    from lfm_tpu_torch.sample.sp import make_spatial_sp_apply, sp_block, sp_gather
+
+    inp = torch.load(inputs, weights_only=False)
+    for name, build, (dp, sp) in inp["cases"]:
+        mesh = make_mesh(dp=dp, sp=sp)
+        with torch.device("cpu"):
+            model = (UNetModel if build[0] == "adm" else DhariwalUNet)(**build[1]).eval()
+        model.load_state_dict(inp[f"{name}_sd"])
+        n = inp["x"].shape[0] // dp
+        rows = slice(mesh.coords["data"] * n, (mesh.coords["data"] + 1) * n)
+        y = None if inp.get(f"{name}_y") is None else inp[f"{name}_y"][rows]
+        with torch.no_grad():
+            got = make_spatial_sp_apply(model, mesh)(inp["t"][rows], sp_block(mesh, inp["x"]),
+                                                     y)
+        out[name] = sp_gather(mesh, got)
+    mesh = make_mesh(dp=2, sp=2)
+    with torch.device("cpu"):
+        model = UNetModel(**inp["sampler_kw"]).eval()
+    config = Config(model=ModelConfig(model_type="adm", image_size=128, num_classes=1, nf=32),
+                    sample=SampleConfig(method="euler", num_steps=4))
+    out["sampler"] = make_sampler(config, model, inp["sampler_sd"], device="cpu",
+                                  sp_mesh=mesh)(inp["x"]).latents
+    # a level whose rows do not split: 12 rows over sp=4 are 3 a rank
+    mesh = make_mesh(dp=1, sp=4)
+    try:
+        make_spatial_sp_apply(model, mesh)(inp["t"][:1], sp_block(mesh, inp["x"][:1, :12]))
+    except ValueError as e:
+        out["odd_rows"] = str(e)
+
+
 def main():
     mode, store, world, rank, out_dir = sys.argv[1:6]
     world, rank = int(world), int(rank)
@@ -362,6 +589,12 @@ def main():
         run_partition(rank, world, out)
     elif mode == "train":
         run_train(rank, world, out)
+    elif mode == "ring":
+        run_ring(rank, world, out, sys.argv[6])
+    elif mode == "pp":
+        run_pp(rank, world, out, sys.argv[6])
+    elif mode == "sp_unet":
+        run_sp_unet(rank, world, out, sys.argv[6])
     else:
         raise ValueError(mode)
     multihost.sync_hosts()
